@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--log2-vertices 25] [--supersteps 20]
-                          [--sssp-log2-vertices 22] [--phases all]
+                          [--sssp-log2-vertices 22]
 
 Phases, each of which exits nonzero on failure:
 
@@ -12,20 +12,24 @@ Phases, each of which exits nonzero on failure:
    version on the card: sum/max/min x f32/bf16 x F in {1, 2, 8}, with and
    without ``edge_active``, on ragged shapes with padding ids at both ends,
    empty segments and one hub segment of 2^20 rows.  max/min must be
-   bit-equal and sums within the tolerance below; two launches on the same
-   input must be bit-identical.
+   bit-equal; sums must be within the error bounds of ``_sum_check`` of a
+   float64 sum and of the plain version, and the hub's integer-valued sum
+   exact; two launches on the same input must be bit-identical.
 3. ``pagerank`` (the main path): PageRank through ``compile_pregel`` with
    the planner's own plan (``dense_psum`` on one device) on a power-law
-   graph of 2^25 vertices and the Yahoo webmap's mean out-degree (5.7),
-   made from ``--seed`` with numpy, checked against a scipy.sparse float64
-   oracle; the kernel's launch count must rise by at least 2 a superstep.
+   graph of 2^25 vertices with the Yahoo webmap's mean out-degree (5.7)
+   and web-graph degree exponents (see ``power_law_graph``), made from
+   ``--seed`` with numpy, checked against a scipy.sparse float64 oracle;
+   the kernel's launch count must rise by at least 2 a superstep.
 4. ``sssp``: semi-naive SSSP with the merging connector on 2^22 vertices;
    it must converge, equal scipy's BFS distances exactly and run at least
    one sparse superstep.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 line with the kernel's launches, times and bound at the main path's
-shapes, and as its last line ``{"ok": true, "device": {...}}``.
+shapes, and as its last line ``{"ok": true, "device": {...}}``.  Smaller
+sizes than the defaults make a rehearsal: every phase runs and is checked,
+but neither of those two lines is printed.
 """
 
 from __future__ import annotations
@@ -42,9 +46,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 WEBMAP_MEAN_OUT_DEGREE = 8.05e9 / 1.41e9
-F32_UNIT = 2.0 ** -24          # unit roundoff of f32 sums
+# Degree exponents of the web graph (Broder et al., "Graph structure in the
+# Web", Computer Networks 33, 2000): P(in-degree = k) ~ k^-2.1,
+# P(out-degree = k) ~ k^-2.72.
+IN_DEGREE_EXPONENT = 2.1
+OUT_DEGREE_EXPONENT = 2.72
+F32_UNIT = 2.0 ** -24          # unit roundoff of f32
+BF16_UNIT = 2.0 ** -8          # unit roundoff of bf16
+F64_UNIT = 2.0 ** -53
+# The kernel's summation depth within one 256-row chunk: a 5-level warp
+# scan, then up to 7 folds of earlier warps' tails; each further chunk a
+# segment touches adds one addition into the tile's accumulator.
+CHUNK_ROWS = 256
+CHUNK_DEPTH = 5 + 7
 PAGERANK_L1_TOL = 1e-5         # ||r - r*||_1 / ||r*||_1 against float64
 HUB_ROWS = 1 << 20
+DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22}
 
 
 def _card_line() -> str:
@@ -78,53 +95,93 @@ def _time_ms(fn, reps: int) -> float:
 
 def _kernel_case(gen, dtype, F, with_active, device):
     """Ragged E and n, padding (-1) ids at both ends, ids drawn from a
-    subset so many segments stay empty, one hub segment of HUB_ROWS rows."""
+    subset so many segments stay empty, one hub segment of HUB_ROWS rows.
+    The hub's values are integers in [1, 8]: every partial sum of them is
+    an integer below 2^24, exact in f32 in any order, so the hub's sum must
+    come out exact and a chunk dropped or counted twice shows."""
 
     import torch
 
     n = 70_001
     rows = 300_017
+    hub_id = n // 2 + 1
     ids = torch.randint(0, n, (rows,), generator=gen, device=device,
                         dtype=torch.int32)
-    ids = ids[ids % 3 != 1]                      # a third of segments empty
-    hub = torch.full((HUB_ROWS,), n // 2 + 1, dtype=torch.int32,
-                     device=device)
+    ids = ids[(ids % 3 != 1) & (ids != hub_id)]  # a third of segments empty
+    hub = torch.full((HUB_ROWS,), hub_id, dtype=torch.int32, device=device)
     ids = torch.sort(torch.cat([ids, hub])).values
     pad_front = torch.full((1000,), -1, dtype=torch.int32, device=device)
     pad_back = torch.full((777,), -1, dtype=torch.int32, device=device)
     ids = torch.cat([pad_front, ids, pad_back]).contiguous()
     E = ids.shape[0]
-    vals = torch.randn((E, F), generator=gen, device=device).to(dtype)
+    vals = torch.randn((E, F), generator=gen, device=device)
+    at_hub = ids == hub_id
+    vals[at_hub] = torch.randint(1, 9, (HUB_ROWS, F), generator=gen,
+                                 device=device).float()
+    vals = vals.to(dtype)
     act = None
     if with_active:
         # clustered activity: whole stretches of rows go quiet
         act = torch.rand(E, generator=gen, device=device) < 0.5
         act[E // 4: E // 2] = False
         act = act.contiguous()
-    return vals.contiguous(), ids, n, act
+    return vals.contiguous(), ids, n, act, hub_id
 
 
-def _sum_tolerance(vals, ids, n, act, ref):
-    """Per-element bound for sums.  Any f32 summation order of m terms is
-    within (m - 1) u sum|v| of the exact sum (u = 2^-24), so the kernel and
-    the plain version differ by at most 2 m u sum|v|; bf16 adds one bf16
-    ulp at the plain value for the final rounding."""
+def _gamma(d):
+    return d * F32_UNIT / (1.0 - d * F32_UNIT)
+
+
+def _sum_check(vals, ids, n, act, ker, ref, tag):
+    """Holds kernel sums against a float64 sum and the plain version.
+
+    A summation in which no term passes through more than d f32 additions
+    is within gamma_d = d u / (1 - d u) of sum|v| of the exact sum
+    (u = 2^-24).  In the kernel d = CHUNK_DEPTH + c for a segment whose
+    valid rows lie in c chunks; the plain version adds in any order
+    (float atomics), d = m for m rows.  The float64 sum itself is within
+    m 2^-53 sum|v|.  bf16 output adds its own rounding, 2^-8 of the value.
+    Raises on a bound broken; returns (max |kernel - plain|, max of
+    |kernel - float64| / sum|v| over the segments)."""
 
     import torch
 
-    from repro_torch.kernels.segment_combine.ref import (
-        segment_combine_reference,
-    )
-
-    mag = segment_combine_reference(vals.float().abs(), ids, n, "sum",
-                                    edge_active=act)
-    rows = segment_combine_reference(
-        torch.ones((ids.shape[0], 1), device=ids.device), ids, n, "sum",
-        edge_active=act)
-    tol = 2.0 * rows * F32_UNIT * mag + 1e-30
+    ids64 = ids.long()
+    valid = (ids64 >= 0) & (ids64 < n)
+    if act is not None:
+        valid &= act
+    rows = torch.nonzero(valid).squeeze(1)
+    seg = ids64[rows]
+    v = vals[rows].double()
+    F = vals.shape[1]
+    exact = torch.zeros((n, F), dtype=torch.float64, device=vals.device)
+    exact.index_add_(0, seg, v)
+    mag = torch.zeros_like(exact).index_add_(0, seg, v.abs())
+    m = torch.bincount(seg, minlength=n).double()[:, None]
+    chunk = rows // CHUNK_ROWS
+    first = torch.ones_like(seg, dtype=torch.bool)
+    first[1:] = (seg[1:] != seg[:-1]) | (chunk[1:] != chunk[:-1])
+    c = torch.bincount(seg[first], minlength=n).double()[:, None]
+    del rows, seg, v, chunk, first
+    f64_err = m * F64_UNIT * mag
+    tol_k = _gamma(CHUNK_DEPTH + c) * mag + f64_err
+    tol_p = _gamma(m) * mag + f64_err
     if vals.dtype == torch.bfloat16:
-        tol = tol + ref.float().abs() * 2.0 ** -7
-    return tol
+        tol_k = tol_k + BF16_UNIT * (exact.abs() + tol_k)
+        tol_p = tol_p + BF16_UNIT * (exact.abs() + tol_p)
+    err64 = (ker.double() - exact).abs()
+    bad = int((err64 > tol_k).sum())
+    if bad:
+        raise AssertionError(f"kernel sum off the float64 sum by more than "
+                             f"its bound on {bad} elements (max abs err "
+                             f"{float(err64.max())}): {tag}")
+    err = (ker.double() - ref.double()).abs()
+    bad = int((err > tol_k + tol_p).sum())
+    if bad:
+        raise AssertionError(f"kernel sum != plain on {bad} elements (max abs "
+                             f"err {float(err.max())}): {tag}")
+    rel = float((err64 / mag)[mag > 0].max())
+    return float(err.max()), rel
 
 
 def phase_kernels(device) -> None:
@@ -141,11 +198,12 @@ def phase_kernels(device) -> None:
     gen.manual_seed(1234)
     n_cases = 0
     worst = 0.0
+    worst_rel = 0.0
     for op in ("sum", "max", "min"):
         for dtype in (torch.float32, torch.bfloat16):
             for F in (1, 2, 8):
                 for with_active in (False, True):
-                    vals, ids, n, act = _kernel_case(
+                    vals, ids, n, act, hub_id = _kernel_case(
                         gen, dtype, F, with_active, device)
                     ker = segment_combine_cuda(vals, ids, n, op,
                                                edge_active=act)
@@ -161,27 +219,35 @@ def phase_kernels(device) -> None:
                                              f"{tuple(ker.shape)}: {tag}")
                     if not torch.equal(ker, again):
                         raise AssertionError(f"two launches differ: {tag}")
-                    err = (ker.float() - ref.float()).abs()
                     if op == "sum":
-                        tol = _sum_tolerance(vals, ids, n, act, ref)
-                        bad = int((err > tol).sum())
+                        err, rel = _sum_check(vals, ids, n, act, ker, ref,
+                                              tag)
+                        worst_rel = max(worst_rel, rel)
+                        hub = vals.float()[(ids == hub_id) if act is None
+                                           else (ids == hub_id) & act]
+                        want = hub.sum(0).to(dtype)  # exact: integers < 2^24
+                        if not torch.equal(ker[hub_id], want):
+                            raise AssertionError(
+                                f"hub sum {ker[hub_id].tolist()} != exact "
+                                f"{want.tolist()}: {tag}")
                     else:
-                        bad = int((ker.view(torch.int16 if dtype ==
-                                            torch.bfloat16 else torch.int32)
-                                   != ref.view(torch.int16 if dtype ==
-                                               torch.bfloat16
-                                               else torch.int32)).sum())
-                    worst = max(worst, float(err.max()))
-                    if bad:
-                        raise AssertionError(
-                            f"kernel != plain on {bad} elements "
-                            f"(max abs err {float(err.max())}): {tag}")
+                        bits = torch.int16 if dtype == torch.bfloat16 \
+                            else torch.int32
+                        err = float((ker.float() - ref.float()).abs().max())
+                        bad = int((ker.view(bits) != ref.view(bits)).sum())
+                        if bad:
+                            raise AssertionError(
+                                f"kernel != plain on {bad} elements "
+                                f"(max abs err {err}): {tag}")
+                    worst = max(worst, err)
                     n_cases += 1
     print(f"kernels: segment_combine == plain on {n_cases} cases "
-          f"(max/min bit-equal, sum |err| <= 2 m 2^-24 sum|v| over a "
-          f"segment's m rows [+ 2^-7 |plain| for bf16], hub segment "
-          f"{HUB_ROWS} rows, "
-          f"two launches bit-identical); max abs err {worst}")
+          f"(max/min bit-equal; sums within gamma_(12+c) sum|v| of float64 "
+          f"over a segment's c chunks and within that plus gamma_m sum|v| "
+          f"of plain, bf16 + 2^-8 |sum|; hub segment {HUB_ROWS} integer "
+          f"rows summed exactly; two launches bit-identical); max abs err "
+          f"vs plain {worst}, max |kernel - float64| / sum|v| "
+          f"{worst_rel:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -190,23 +256,38 @@ def phase_kernels(device) -> None:
 
 
 def power_law_graph(n: int, mean_degree: float, seed: int):
-    """A directed graph whose in- and out-degrees follow power laws: edge
-    endpoints are drawn with density ~ rank^-1/2 over a random vertex
-    order (different orders for sources and destinations)."""
+    """A directed multigraph with web-graph degree tails (Chung-Lu style).
+
+    Each edge draws its source and its destination independently; the
+    vertex of rank r, over a random order of the vertices (one order for
+    sources, another for destinations), is drawn with probability about
+    proportional to (r + 1)^-a.  Its expected degree is then proportional
+    to (r + 1)^-a, so degrees follow P(k) ~ k^-(1 + 1/a): a = 1/1.1 gives
+    the in-degree exponent 2.1 and a = 1/1.72 the out-degree exponent 2.72
+    of IN_DEGREE_EXPONENT / OUT_DEGREE_EXPONENT.  Self-loops and repeated
+    edges are kept."""
 
     import numpy as np
 
     rng = np.random.default_rng(seed)
     e = int(round(n * mean_degree))
 
-    def endpoints(order):
-        u = rng.random(e, dtype=np.float32)
-        rank = (np.square(u, out=u) * n).astype(np.int64)
-        np.minimum(rank, n - 1, out=rank)
-        return order[rank].astype(np.int32)
+    def endpoints(order, exponent):
+        # Inverse transform of the density ~ x^-a on [1, n + 1); the rank
+        # is floor(x) - 1.
+        b = 1.0 - 1.0 / (exponent - 1.0)
+        span = (n + 1.0) ** b - 1.0
+        out = np.empty(e, np.int32)
+        step = 1 << 24
+        for lo in range(0, e, step):
+            u = rng.random(min(step, e - lo))
+            x = np.power(1.0 + u * span, 1.0 / b)
+            rank = np.minimum(x.astype(np.int64) - 1, n - 1)
+            out[lo:lo + u.shape[0]] = order[rank]
+        return out
 
-    src = endpoints(rng.permutation(n).astype(np.int32))
-    dst = endpoints(rng.permutation(n).astype(np.int32))
+    src = endpoints(rng.permutation(n).astype(np.int32), OUT_DEGREE_EXPONENT)
+    dst = endpoints(rng.permutation(n).astype(np.int32), IN_DEGREE_EXPONENT)
     return src, dst
 
 
@@ -317,8 +398,9 @@ def phase_pagerank(args, device, report) -> None:
     t0 = time.perf_counter()
     src, dst = power_law_graph(n, WEBMAP_MEAN_OUT_DEGREE, args.seed)
     outdeg = np.bincount(src, minlength=n).astype(np.float32)
-    print(f"pagerank: graph n={n} e={src.shape[0]} max in-degree "
-          f"{int(np.bincount(dst, minlength=n).max())} made in "
+    max_in = int(np.bincount(dst, minlength=n).max())
+    print(f"pagerank: graph n={n} e={src.shape[0]} max in-degree {max_in} "
+          f"max out-degree {int(outdeg.max())} made in "
           f"{time.perf_counter() - t0:.1f}s")
     g = graph_from_numpy(n, src, dst, outdeg, device=device)
     ex = compile_pregel(pagerank_program(n), g, device=device)
@@ -361,18 +443,12 @@ def phase_pagerank(args, device, report) -> None:
     if not torch.equal(ker, segment_combine_cuda(vals, ids, n, "sum")):
         raise AssertionError("two launches differ at the main path's shapes")
     ref = segment_combine_reference(vals, ids, n, "sum")
-    err = (ker - ref).abs()
-    bad = int((err > _sum_tolerance(vals, ids, n, None, ref)).sum())
-    if bad:
-        raise AssertionError(f"kernel != plain at the main path's shapes "
-                             f"on {bad} segments")
-    exact = torch.zeros(n, dtype=torch.float64, device=device)
-    exact.index_add_(0, ids.long(), vals[:, 0].double())
-    rel64 = lambda x: float(((x[:, 0].double() - exact).abs()
-                             / exact.abs().clamp(min=1e-300)).max())
-    print(f"pagerank: at the main path's shapes, max relative error vs "
-          f"float64: kernel {rel64(ker):.3e}, plain {rel64(ref):.3e}")
-    del exact
+    max_abs_err, rel = _sum_check(vals, ids, n, None, ker, ref,
+                                  "main path's shapes")
+    print(f"pagerank: at the main path's shapes, kernel within its bound of "
+          f"float64 and of plain; max |kernel - float64| / sum|v| {rel:.3e} "
+          f"(= relative error: the messages are positive), "
+          f"max abs err vs plain {max_abs_err}")
     lengths = torch.bincount(ids.long(), minlength=n)
     ms = _time_ms(lambda: segment_combine_cuda(vals, ids, n, "sum"), 10)
     plain_ms = _time_ms(
@@ -390,8 +466,9 @@ def phase_pagerank(args, device, report) -> None:
                       "segment_combine_pallas",
         "launches": launches,
         "launches_per_superstep": launches / args.supersteps,
-        "shape": {"E": E, "F": F, "n": n, "edge_active": False},
-        "max_abs_err": float(err.max()),
+        "shape": {"E": E, "F": F, "n": n, "edge_active": False,
+                  "max_segment_rows": max_in},
+        "max_abs_err": max_abs_err,
         "ms": ms,
         "kernel_ms": ms,
         "plain_ms": plain_ms,
@@ -403,7 +480,7 @@ def phase_pagerank(args, device, report) -> None:
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.segment_reduce "
           f"{library_ms:.3f} ms, bound {bytes_moved / HBM_BYTES_PER_S * 1e3:.3f}"
           f" ms")
-    del g, ex, vals, ids, ker, ref, err, lengths
+    del g, ex, vals, ids, ker, ref, lengths
     torch.cuda.empty_cache()
 
 
@@ -460,14 +537,14 @@ def phase_sssp(args, device) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--log2-vertices", type=int, default=25)
-    ap.add_argument("--supersteps", type=int, default=20)
-    ap.add_argument("--sssp-log2-vertices", type=int, default=22)
-    ap.add_argument("--phases", default="all",
-                    help="comma list of build,kernels,pagerank,sssp")
+    ap.add_argument("--log2-vertices", type=int,
+                    default=DEFAULTS["log2_vertices"])
+    ap.add_argument("--supersteps", type=int,
+                    default=DEFAULTS["supersteps"])
+    ap.add_argument("--sssp-log2-vertices", type=int,
+                    default=DEFAULTS["sssp_log2_vertices"])
     args = ap.parse_args(argv)
-    phases = ({"build", "kernels", "pagerank", "sssp"}
-              if args.phases == "all" else set(args.phases.split(",")))
+    full = all(getattr(args, k) == v for k, v in DEFAULTS.items())
 
     import torch
 
@@ -489,14 +566,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
     report = []
-    if "kernels" in phases:
-        phase_kernels(device)
-    if "pagerank" in phases:
-        phase_pagerank(args, device, report)
-    if "sssp" in phases:
-        phase_sssp(args, device)
-    if report:
-        print(json.dumps({"kernels": report}))
+    phase_kernels(device)
+    phase_pagerank(args, device, report)
+    phase_sssp(args, device)
+    if not full:
+        print(f"rehearsal at reduced size {vars(args)}, no result: "
+              f"{json.dumps(report)}")
+        return 0
+    print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

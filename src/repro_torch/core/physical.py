@@ -26,10 +26,8 @@ from repro_torch.core.monoid import (
     generic_segment_combine,
     get_monoid,
 )
-from repro_torch.kernels.segment_combine.ops import (
-    kernel_eligible,
-    segment_combine as _segment_combine_kernel,
-)
+from repro_torch.kernels.segment_combine.kernel import segment_combine_cuda
+from repro_torch.kernels.segment_combine.ops import kernel_eligible
 
 __all__ = [
     "segment_combine_sorted",
@@ -158,7 +156,7 @@ def segment_combine_sorted(
     op = monoid.kernel_op
     if kernel_eligible(values, op):
         flat = values.reshape(values.shape[0], -1).contiguous()
-        out = _segment_combine_kernel(
+        out = segment_combine_cuda(
             flat, segment_ids.to(torch.int32).contiguous(), num_segments,
             op,
             edge_active=None if edge_active is None
