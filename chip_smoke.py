@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--log2-vertices 25] [--supersteps 20]
-                          [--sssp-log2-vertices 22]
+                          [--sssp-log2-vertices 22] [--lm-layers 32]
+                          [--lm-prompt 4000]
 
 Phases, each of which exits nonzero on failure:
 
@@ -24,12 +25,34 @@ Phases, each of which exits nonzero on failure:
 4. ``sssp``: semi-naive SSSP with the merging connector on 2^22 vertices;
    it must converge, equal scipy's BFS distances exactly and run at least
    one sparse superstep.
+5. ``lm``: the flash-attention forward kernel against its plain version
+   (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
+   ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
+   held per element to the kernel's own error bound; then the dense
+   LM's serving path, ``launch/serve.py``, on phi4-mini-3.8b at full width
+   and depth with seeded random weights (bf16 compute): 4 requests of
+   4,000 prompt tokens, then 32 greedy decode steps.  The kernel must
+   launch exactly once per layer in prefill and never in decode; the
+   logits must agree with the same model run on the attention's plain
+   version and with a teacher-forced forward within ``LM_NOISE_FACTOR``
+   times the model's bf16 compute bound, measured in the run (the plain
+   path against the same weights computed in f32), and greedy tokens
+   wherever the plain path's top-1 margin exceeds twice the logit gap.
+   Negative controls, each of which must break its bar: the same prefill
+   with the attention cut to a window (as a kernel that drops keys would
+   cut it), against the whole-path bar; and at the main path's attention
+   shape, a kernel output with one KV tile skipped in the long rows,
+   against the kernel's bar.  Profiles one
+   prefill and four decode steps, and times the kernel, its plain version
+   and PyTorch's SDPA at the main path's attention shape.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
-line with the kernel's launches, times and bound at the main path's
+line with each kernel's launches, times and bound at the main path's
 shapes, and as its last line ``{"ok": true, "device": {...}}``.  Smaller
-sizes than the defaults make a rehearsal: every phase runs and is checked,
-but neither of those two lines is printed.
+sizes than the defaults make a rehearsal (``--lm-layers 2 --lm-prompt 1000
+--log2-vertices 20 --sssp-log2-vertices 18`` for a short first call after
+a kernel edit): every phase runs and is checked, but neither of those two
+lines is printed.
 """
 
 from __future__ import annotations
@@ -61,7 +84,32 @@ CHUNK_ROWS = 256
 CHUNK_DEPTH = 5 + 7
 PAGERANK_L1_TOL = 1e-5         # ||r - r*||_1 / ||r*||_1 against float64
 HUB_ROWS = 1 << 20
-DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22}
+BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
+# Flash kernel against its plain version (in f32) on unit-normal inputs:
+# the bars tests/test_kernels.py sets for the Pallas kernel (2e-6 f32
+# loosened to 1e-5 for another summation order; 3e-2 bf16), and in bf16
+# also the kernel's own error bound per element (kernel.bf16_error_bound),
+# which shrinks with the row's output where the flat bar cannot; m and l
+# relative to max(|x|, 1).
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_TOL = 3e-2
+FLASH_STATS_RTOL = 1e-5
+# Logits of the served model in bf16 (relative L2 over the real vocab)
+# against the same model on the attention's plain version, and decode
+# against teacher forcing, are held to LM_NOISE_FACTOR times the bf16
+# compute bound of this model, measured in the run: the plain path's own
+# distance from the same weights and tokens computed in f32.  Two bf16
+# computations whose roundings are independent land about sqrt(2) times
+# that bound apart.  A plain path more than LM_BF16_BOUND_CAP off f32 fails
+# by itself.
+LM_NOISE_FACTOR = 2.0
+LM_BF16_BOUND_CAP = 0.1
+TF_STEPS = 4
+LM_ARCH = "phi4_mini_3_8b"
+LM_REQUESTS = 4
+LM_DECODE_STEPS = 32
+DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22,
+            "lm_layers": 32, "lm_prompt": 4000}
 
 
 def _card_line() -> str:
@@ -534,6 +582,471 @@ def phase_sssp(args, device) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the dense LM's serving path (phi4-mini-3.8b)
+# ---------------------------------------------------------------------------
+
+
+def _flash_cases():
+    """(B, H, KH, Sq, Skv, D, causal, window) of the kernel-vs-plain sweep:
+    tests/test_kernels.py's FLASH_SWEEP shapes, ragged tails, D = 160."""
+
+    return [
+        (1, 2, 2, 128, 128, 64, True, None),
+        (2, 4, 2, 128, 128, 64, True, None),
+        (1, 4, 1, 64, 64, 32, False, None),
+        (1, 2, 2, 128, 128, 64, True, 64),
+        (1, 2, 2, 256, 256, 64, True, 32),
+        (1, 2, 1, 64, 256, 64, True, None),
+        (1, 2, 2, 128, 128, 128, True, None),
+        (1, 8, 2, 64, 64, 32, True, None),
+        (1, 4, 2, 1000, 1000, 128, True, None),
+        (1, 4, 2, 100, 1000, 128, True, None),
+        (1, 4, 2, 1000, 1000, 128, True, 64),
+        (1, 4, 2, 1000, 1000, 160, True, None),
+        (1, 4, 2, 333, 777, 160, False, 100),
+    ]
+
+
+def _out_bar(q, k, v, ref, causal, window, scale):
+    """Per-element bar on |kernel out - plain| (all [B, H, S, D]): in f32
+    FLASH_F32_TOL; in bf16 the kernel's own error bound
+    (``bf16_error_bound``, which scales with the row's output and its
+    sum_j p_j |v_j| / l), capped at FLASH_BF16_TOL."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import bf16_error_bound
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    if q.dtype == torch.float32:
+        return torch.full_like(ref, FLASH_F32_TOL)
+    ref_abs_v = attention_reference(q.float(), k.float(), v.float().abs(),
+                                    causal=causal, window=window,
+                                    sm_scale=scale)
+    bar = bf16_error_bound(ref, ref_abs_v, k.shape[2], q.shape[3])
+    return bar.clamp_(max=FLASH_BF16_TOL)
+
+
+def _out_off(out, ref, bar):
+    """(max abs err, elements over their bar, max err / bar)."""
+
+    err = (out.float() - ref).abs()
+    return (float(err.max()), int((err > bar).sum()),
+            float((err / bar).max()))
+
+
+def _flash_check(q, k, v, causal, window, layout, tag):
+    """Kernel against plain on one input; returns (max abs err of out, max
+    err / bar of out, max relative err of m and l, and the plain version's
+    (out f32, m, l) in [B, H, S, D]).  Raises on a bar broken."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        NEG_INF,
+        attention_reference,
+    )
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out, m, l = flash_fwd(q, k, v, causal=causal, window=window,
+                          sm_scale=scale, layout=layout)
+    bhsd = (lambda t: t) if layout == "bhsd" else (lambda t: t.transpose(1, 2))
+    q, k, v, out = bhsd(q), bhsd(k), bhsd(v), bhsd(out)
+    # The plain version on the same values in f32 (the casts are exact).
+    ref, m_ref, l_ref = attention_reference(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        sm_scale=scale, return_stats=True)
+    bar = _out_bar(q, k, v, ref, causal, window, scale)
+    torch.cuda.synchronize()
+    err, bad, ratio = _out_off(out, ref, bar)
+    if not (out.dtype == q.dtype and bad == 0):
+        raise AssertionError(f"flash out off plain by more than its bar on "
+                             f"{bad} elements (max abs err {err}, max err / "
+                             f"bar {ratio}): {tag}")
+    seen = m_ref > NEG_INF
+    if not (torch.equal(m[~seen], m_ref[~seen])
+            and torch.equal(l[~seen], l_ref[~seen])):
+        raise AssertionError(f"flash stats of rows with no key differ: {tag}")
+    rel = 0.0
+    for got, want in ((m, m_ref), (l, l_ref)):
+        r = ((got - want).abs() / want.abs().clamp(min=1.0))[seen]
+        rel = max(rel, float(r.max()) if r.numel() else 0.0)
+    if rel > FLASH_STATS_RTOL:
+        raise AssertionError(f"flash m/l off plain by {rel} relative: {tag}")
+    return err, ratio, rel, (ref, m_ref, l_ref, bar)
+
+
+def _skip_first_tile(q, k, v, ref, m, l, scale, from_row):
+    """A planted fault: what a causal kernel (Sq == Skv, [B, H, S, D])
+    that skips KV tile 0 (keys 0-63) in rows ``from_row`` on (>= 64) would
+    output, rounded to q's dtype: the plain output with those keys' share
+    taken out of its numerator and of l."""
+
+    import torch
+
+    G = q.shape[1] // k.shape[1]
+    k0 = k[:, :, :64].float().repeat_interleave(G, dim=1)
+    v0 = v[:, :, :64].float().repeat_interleave(G, dim=1)
+    p = torch.exp(q.float() @ k0.transpose(-1, -2) * scale - m[..., None])
+    num = ref * l[..., None] - p @ v0
+    den = (l - p.sum(-1))[..., None]
+    past = (torch.arange(q.shape[2], device=q.device) >= from_row)[:, None]
+    return torch.where(past, num / den, ref).to(q.dtype)
+
+
+def _rel_l2(a, b, vocab):
+    a = a[..., :vocab].double()
+    b = b[..., :vocab].double()
+    return float((a - b).norm() / b.norm())
+
+
+def _profile(fn, label, steps) -> None:
+    """Device time by kernel over ``fn()`` (kernel events only) and the
+    device's idle share of that window."""
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in rows)
+    print(f"profile: {label}: wall {wall_us / steps / 1e3:.3f} ms/{label}, "
+          f"device busy {busy / steps / 1e3:.3f} ms/{label}, idle share "
+          f"{max(0.0, 1 - busy / wall_us):.3f}")
+    for key, t, n in rows[:10]:
+        print(f"profile:   {t / steps / 1e3:9.3f} ms/{label} {t / busy:6.1%} "
+              f"x{n // steps:<4d} {key[:80]}")
+
+
+def phase_lm(args, device, report) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.launch.serve import (
+        build_decode_step,
+        build_prefill_step,
+        greedy_sample,
+    )
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # Kernel against plain: the sweep, then the main path's shape.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_ratio = 0.0
+    worst_rel = 0.0
+    cases = _flash_cases()
+    for case in cases:
+        B, H, KH, Sq, Skv, D, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("bhsd", "bshd"):
+                q, k, v = (torch.randn(s, generator=gen, device=device)
+                           .to(dtype)
+                           for s in ((B, H, Sq, D), (B, KH, Skv, D),
+                                     (B, KH, Skv, D)))
+                if layout == "bshd":
+                    q, k, v = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v))
+                err, ratio, rel, _ = _flash_check(
+                    q, k, v, causal, window, layout,
+                    f"{case} {dtype} {layout}")
+                worst[dtype] = max(worst[dtype], err)
+                worst_ratio = max(worst_ratio, ratio)
+                worst_rel = max(worst_rel, rel)
+    print(f"lm: flash_attention_fwd == plain on {len(cases) * 4} cases "
+          f"(out within {FLASH_F32_TOL} f32 max abs; in bf16 within the "
+          f"kernel's error bound per element, capped at {FLASH_BF16_TOL}; "
+          f"m and l within {FLASH_STATS_RTOL} relative): max abs err f32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}, "
+          f"max err / bar {worst_ratio:.3f}, max m/l rel err "
+          f"{worst_rel:.3e}")
+
+    cfg = get_config(LM_ARCH)
+    if args.lm_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.lm_layers)
+    plan = plan_lm(cfg, "prefill_32k", MeshSpec((("data", 1),)), hw=H100_SXM)
+    print("lm: " + plan.explain().replace("\n", "\nlm: "))
+    cfg = plan.cfg
+    B, S, steps = LM_REQUESTS, args.lm_prompt, LM_DECODE_STEPS
+    cache_len = S + steps
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    master = lm.init_params(cfg, gen, device=device)
+    # The bf16 copy of every matmul weight, made once: the bits of the
+    # per-call cast (lm.serving_params).  The f32 master is not needed to
+    # serve and is dropped.
+    params = lm.serving_params(cfg, master)
+    del master
+    torch.cuda.synchronize()
+    n_params = lm.param_count(cfg)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"lm: {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {H}/{KH} heads x {D}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}), served in {cfg.compute_dtype}: "
+          f"{n_bytes / 1e9:.2f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.1f}s")
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    prompts = torch.from_numpy(prompts).to(device)
+
+    prefill_fn, _ = build_prefill_step(plan, None, cache_len, device)
+    decode_fn, _, _ = build_decode_step(plan, None, device)
+    ref_prefill_fn, _ = build_prefill_step(plan, None, cache_len, device,
+                                           attention="ref")
+
+    def serve(fn, weights=params, decode=decode_fn, n=steps, feed=None):
+        """Prefill, then ``n`` decode steps fed the greedy tokens (or
+        ``feed``'s).  Returns (logits per step [n+1, B, V] f32, tokens
+        [B, n+1], prefill s, decode s, launches in prefill, launches in
+        decode)."""
+
+        fa_kernel.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = fn(weights, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        n_prefill = fa_kernel.launch_count
+        out = [logits[:, -1].float()]
+        token = greedy_sample(logits)
+        toks = [token]
+        t0 = time.perf_counter()
+        for i in range(n):
+            if feed is not None:
+                token = feed[:, i:i + 1]
+            logits, cache = decode(weights, cache, token, pos + i)
+            out.append(logits[:, -1].float())
+            token = greedy_sample(logits)
+            toks.append(token)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        return (torch.stack(out), torch.cat(toks, dim=1), t_prefill,
+                t_decode, n_prefill, fa_kernel.launch_count - n_prefill)
+
+    # Warm-up on a short prompt (first cuBLAS calls, the kernel's load).
+    with torch.inference_mode():
+        lm.prefill(params, prompts[:1, :128], cfg, 160)
+    torch.cuda.synchronize()
+
+    logits, toks, t_prefill, t_decode, n_prefill, n_decode = serve(prefill_fn)
+    print(f"lm: served {B} requests x {S} prompt tokens + {steps} greedy "
+          f"decode steps (cache {cache_len}): prefill {t_prefill:.4f}s = "
+          f"{B * S / t_prefill:.1f} tokens/s, decode "
+          f"{t_decode / steps * 1e3:.3f} ms/step = "
+          f"{B * steps / t_decode:.1f} tokens/s; flash kernel launches: "
+          f"{n_prefill} in prefill, {n_decode} in decode")
+    if n_prefill != cfg.n_layers or n_decode != 0:
+        raise AssertionError(f"flash kernel launched {n_prefill} times in "
+                             f"prefill (want {cfg.n_layers}) and {n_decode} "
+                             f"in decode (want 0)")
+    if not (bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+            and toks.shape == (B, steps + 1)
+            and int(toks.max()) < cfg.vocab):
+        raise AssertionError("served logits not finite or tokens out of "
+                             "the vocab")
+
+    # Where the time goes: one prefill, and decode steps.
+    def prefill_once():
+        prefill_fn(params, {"tokens": prompts})
+
+    _profile(prefill_once, "prefill", 1)
+    with torch.inference_mode():
+        _, cache, pos = lm.prefill(params, prompts, cfg, cache_len)
+
+    def decode_few(n=4):
+        for i in range(n):
+            decode_fn(params, cache, toks[:, i:i + 1], pos + i)
+
+    _profile(decode_few, "decode step", 4)
+    del cache
+
+    # The whole path against its plain version: the same weights and
+    # prompts with the attention's plain version, decode fed the kernel
+    # path's tokens.
+    r_logits, r_toks, t_ref, _, r_launch, _ = serve(ref_prefill_fn,
+                                                    feed=toks)
+    if r_launch != 0:
+        raise AssertionError("the plain path launched the flash kernel")
+    # The bf16 compute bound of this model, measured: the plain path
+    # against the same weights and tokens computed in f32, prefill and
+    # TF_STEPS decode steps.
+    plan32 = dataclasses.replace(
+        plan, cfg=dataclasses.replace(cfg, compute_dtype="float32"))
+    params32 = tree_map(lambda t: t.float(), params)
+    f32_prefill_fn, _ = build_prefill_step(plan32, None, cache_len, device,
+                                           attention="ref")
+    f32_decode_fn, _, _ = build_decode_step(plan32, None, device)
+    f_logits, _, t_f32, _, _, _ = serve(f32_prefill_fn, params32,
+                                        f32_decode_fn, TF_STEPS, feed=toks)
+    del params32
+    torch.cuda.empty_cache()
+    floor = [_rel_l2(r_logits[i], f_logits[i], cfg.vocab)
+             for i in range(TF_STEPS + 1)]
+    off_f32 = [_rel_l2(logits[i], f_logits[i], cfg.vocab)
+               for i in range(TF_STEPS + 1)]
+    rel = [_rel_l2(logits[i], r_logits[i], cfg.vocab) for i in range(2)]
+    gap = (logits[..., :cfg.vocab] - r_logits[..., :cfg.vocab]).abs() \
+        .amax(dim=-1)                                       # [steps+1, B]
+    top2 = r_logits[..., :cfg.vocab].topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > 2 * gap
+    agree = r_toks.T == toks.T                               # [steps+1, B]
+    print(f"lm: bf16 compute bound: plain path vs the same model in f32 "
+          f"(prefill {t_f32:.3f}s): rel L2 "
+          f"{', '.join(f'{x:.3e}' for x in floor)} (prefill, then decode "
+          f"steps); kernel path vs f32: "
+          f"{', '.join(f'{x:.3e}' for x in off_f32)}")
+    print(f"lm: kernel path vs plain path (attention_reference, prefill "
+          f"{t_ref:.3f}s): last-token logits rel L2 {rel[0]:.3e}, first "
+          f"decode step {rel[1]:.3e} (bar {LM_NOISE_FACTOR} x the bf16 "
+          f"bound: {LM_NOISE_FACTOR * floor[0]:.3e}, "
+          f"{LM_NOISE_FACTOR * floor[1]:.3e}); greedy tokens agree on "
+          f"{int((agree & decided).sum())} of {int(decided.sum())} (step, "
+          f"request) pairs whose plain top-1 margin exceeds twice the logit "
+          f"gap ({int(agree.sum())} of {agree.numel()} in all)")
+    if max(floor) > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"the bf16 plain path is {max(floor)} off f32")
+    if any(rel[i] > LM_NOISE_FACTOR * floor[i] for i in range(2)):
+        raise AssertionError("kernel path's logits off the plain path's")
+    if not bool(agree[decided].all()):
+        raise AssertionError("greedy tokens differ where the margin decides")
+
+    # Negative controls of that bar: the same prefill on the kernel with the
+    # attention narrowed by a sliding window, as a kernel that drops keys
+    # would narrow it, against the plain path's logits; each must break it
+    # (w = S - 64 drops only keys 0-63 of the last 64 rows).
+    faults = []
+    for w in (1, S // 2, S - 64):
+        plan_w = dataclasses.replace(
+            plan, cfg=dataclasses.replace(cfg, window=w))
+        fault_fn, _ = build_prefill_step(plan_w, None, cache_len, device)
+        w_logits = fault_fn(params, {"tokens": prompts})[0][:, -1].float()
+        faults.append((w, _rel_l2(w_logits, r_logits[0], cfg.vocab)))
+    print(f"lm: negative controls, prefill with the kernel's attention cut to "
+          f"a window of w keys: last-token logits rel L2 to the plain path "
+          f"{', '.join(f'w={w}: {d:.3e}' for w, d in faults)} (bar "
+          f"{LM_NOISE_FACTOR * floor[0]:.3e}; the unbroken kernel "
+          f"{rel[0]:.3e})")
+    if any(d <= LM_NOISE_FACTOR * floor[0] for _, d in faults):
+        raise AssertionError("the whole-path bar passes a planted attention "
+                             "fault")
+    del r_logits, r_toks, f_logits
+
+    # Decode against teacher forcing: forward over prompt + TF_STEPS tokens.
+    with torch.inference_mode():
+        full = lm.forward(params, torch.cat([prompts, toks[:, :TF_STEPS]],
+                                            dim=1), cfg)
+    tf = [_rel_l2(logits[i], full[:, S - 1 + i].float(), cfg.vocab)
+          for i in range(TF_STEPS + 1)]
+    del full
+    print(f"lm: prefill + {TF_STEPS} decode steps vs teacher-forced forward: "
+          f"rel L2 {', '.join(f'{x:.3e}' for x in tf)} (bars "
+          f"{', '.join(f'{LM_NOISE_FACTOR * x:.3e}' for x in floor)})")
+    if any(tf[i] > LM_NOISE_FACTOR * floor[i] for i in range(TF_STEPS + 1)):
+        raise AssertionError("decode disagrees with teacher forcing")
+    del logits
+
+    # The kernel at the main path's shape and layout, timed beside the
+    # plain version and PyTorch's SDPA (a yardstick the port never calls).
+    q = torch.randn((B, S, H, D), generator=gen, device=device) \
+        .to(torch.bfloat16)
+    k = torch.randn((B, S, KH, D), generator=gen, device=device) \
+        .to(torch.bfloat16)
+    v = torch.randn((B, S, KH, D), generator=gen, device=device) \
+        .to(torch.bfloat16)
+    max_abs_err, ratio, rel, (ref, m_ref, l_ref, bar) = _flash_check(
+        q, k, v, True, None, "bshd", "main path's shape")
+    scale = 1.0 / D ** 0.5
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # The bar must reject a kernel that is wrong in long rows only.
+    fault = _skip_first_tile(qt, kt, vt, ref, m_ref, l_ref, scale, S // 2)
+    f_err, f_bad, f_ratio = _out_off(fault, ref, bar)
+    f_flat = int(((fault.float() - ref).abs() > FLASH_BF16_TOL).sum())
+    print(f"lm: flash bar at the main path's shape: kernel max err / bar "
+          f"{ratio:.3f}; a planted fault (KV tile 0 skipped in rows "
+          f"{S // 2} on) over its bar on {f_bad} of {fault.numel()} "
+          f"elements, max err / bar {f_ratio:.3f}, max abs err {f_err:.3e} "
+          f"(over the flat {FLASH_BF16_TOL} bar alone: {f_flat})")
+    if f_bad == 0:
+        raise AssertionError("the flash bar passes a kernel that skips a "
+                             "KV tile")
+    del ref, m_ref, l_ref, bar, fault
+    ms = _time_ms(lambda: fa_kernel.flash_fwd(
+        q, k, v, causal=True, window=None, sm_scale=scale, layout="bshd"), 5)
+    plain_ms = _time_ms(lambda: attention_reference(
+        qt, kt, vt, causal=True, sm_scale=scale), 3)
+    library_ms = _time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, is_causal=True, scale=scale,
+                              enable_gqa=True), 10)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms = _time_ms(lambda: fa_kernel.flash_fwd(
+        q32, k32, v32, causal=True, window=None, sm_scale=scale,
+        layout="bshd"), 3)
+    del q32, k32, v32
+    # Causal: row i sees i + 1 keys; QK^T and PV are 2 FLOP a MAC each.
+    flops = 4.0 * D * B * H * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D) + 2 * 4 * B * H * S
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"lm: flash_attention_fwd at B={B} H={H} KH={KH} S={S} D={D} bf16 "
+          f"causal: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+          f"{library_ms:.3f} ms, bound {bound:.3f} ms ({flops:.4e} FLOP, "
+          f"{nbytes} bytes); vs plain max abs err {max_abs_err:.3e}, m/l rel "
+          f"err {rel:.3e}; the same inputs in f32 (CUDA cores) {f32_ms:.3f} "
+          f"ms")
+    report.append({
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:141",
+        "tpu_kernel": "repro.kernels.flash_attention.kernel.flash_fwd",
+        "launches": n_prefill,
+        "launches_per_prefill": n_prefill,
+        "shape": {"B": B, "H": H, "KH": KH, "Sq": S, "Skv": S, "D": D,
+                  "dtype": "bfloat16", "causal": True, "layout": "bshd"},
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations" if flops / BF16_FLOP_PER_S
+        >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "library_ms": library_ms,
+        "f32_ms": f32_ms,
+        "prefill_tokens_per_s": B * S / t_prefill,
+        "decode_ms_per_step": t_decode / steps * 1e3,
+    })
+    del params, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -543,6 +1056,8 @@ def main(argv=None) -> int:
                     default=DEFAULTS["supersteps"])
     ap.add_argument("--sssp-log2-vertices", type=int,
                     default=DEFAULTS["sssp_log2_vertices"])
+    ap.add_argument("--lm-layers", type=int, default=DEFAULTS["lm_layers"])
+    ap.add_argument("--lm-prompt", type=int, default=DEFAULTS["lm_prompt"])
     args = ap.parse_args(argv)
     full = all(getattr(args, k) == v for k, v in DEFAULTS.items())
 
@@ -569,6 +1084,7 @@ def main(argv=None) -> int:
     phase_kernels(device)
     phase_pagerank(args, device, report)
     phase_sssp(args, device)
+    phase_lm(args, device, report)
     if not full:
         print(f"rehearsal at reduced size {vars(args)}, no result: "
               f"{json.dumps(report)}")

@@ -1,9 +1,16 @@
-"""Carry a graph given as numpy arrays (the arrays behind a JAX ``Graph``)
-into the port's :class:`~repro_torch.core.pregel.Graph`.
+"""Carry data given as numpy arrays (the arrays behind the JAX package's
+objects) into the port's.
 
-Ids become int32 and floating data float32 on ``device``; nested tuples,
-lists and dicts of arrays keep their structure.  The differential tests
-build the JAX graph and the port's graph from the same arrays through this.
+* :func:`graph_from_numpy`: a graph into the port's
+  :class:`~repro_torch.core.pregel.Graph`.  Ids become int32 and floating
+  data float32 on ``device``; nested tuples, lists and dicts of arrays keep
+  their structure.
+* :func:`lm_params_from_numpy`: an LM parameter tree
+  (``jax.tree_util.tree_map(np.asarray, params)``) into the port's, with
+  each leaf's dtype kept.
+
+The differential tests build the JAX objects and the port's from the same
+arrays through these.
 """
 
 from __future__ import annotations
@@ -16,8 +23,9 @@ import torch
 from repro_torch.core.pregel import Graph
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
+from repro_torch.models.common import ArchConfig
 
-__all__ = ["graph_from_numpy"]
+__all__ = ["graph_from_numpy", "lm_params_from_numpy"]
 
 
 def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -57,3 +65,54 @@ def graph_from_numpy(
                              vertex_data),
         edge_data=tree_map(lambda a: _tensor_from_numpy(a, device), edge_data),
     )
+
+
+_NUMPY_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                 "bfloat16": torch.bfloat16}
+
+
+def _leaf_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """One parameter array as a tensor of the same dtype.  bf16 arrays
+    (``ml_dtypes.bfloat16``, which ``torch.as_tensor`` refuses) go through
+    float32, which holds every bf16 value exactly."""
+
+    a = np.asarray(a)
+    dtype = _NUMPY_DTYPES.get(a.dtype.name)
+    if dtype is None:
+        raise TypeError(f"unsupported parameter dtype {a.dtype}")
+    return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
+
+
+def lm_params_from_numpy(
+    cfg: ArchConfig,
+    tree: Any,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Any:
+    """The port's parameter tree for ``cfg`` from the JAX package's, given
+    as numpy arrays.  Every leaf's shape is checked against the port's
+    specs (stacked ``[L, ...]`` for the layers)."""
+
+    from repro_torch.models import lm
+
+    device = resolve_device(device)
+    specs = lm.model_specs(cfg)
+
+    def carry(spec_tree, leaf_tree, stacked, path):
+        if isinstance(spec_tree, dict):
+            if not isinstance(leaf_tree, dict) or \
+                    set(leaf_tree) != set(spec_tree):
+                raise ValueError(f"parameter tree at {path or '/'} has keys "
+                                 f"{sorted(leaf_tree)}, the specs "
+                                 f"{sorted(spec_tree)}")
+            return {k: carry(spec_tree[k], leaf_tree[k], stacked,
+                             f"{path}/{k}") for k in spec_tree}
+        t = _leaf_from_numpy(leaf_tree, device)
+        want = ((stacked,) if stacked else ()) + spec_tree.shape
+        if tuple(t.shape) != want:
+            raise ValueError(f"parameter {path} has shape {tuple(t.shape)}, "
+                             f"the specs {want}")
+        return t
+
+    return {k: carry(sub, tree[k], cfg.n_layers if k == "layers" else 0,
+                     k) for k, sub in specs.items()}

@@ -1,0 +1,3 @@
+"""Architecture configs of the families the port runs, one module per
+architecture (copies of the JAX package's ``repro.configs``, data only).
+Each module exposes ``CONFIG``."""

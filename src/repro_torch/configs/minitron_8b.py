@@ -1,0 +1,10 @@
+"""minitron-8b [dense] — pruned nemotron [arXiv:2407.14679; hf]."""
+
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-8b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=16384, vocab=256000, head_dim=128,
+    rope_theta=500000.0,
+)

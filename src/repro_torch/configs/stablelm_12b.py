@@ -1,0 +1,10 @@
+"""stablelm-12b [dense] — [hf:stabilityai/stablelm-2-12b]."""
+
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8,
+    d_ff=13824, vocab=100352, head_dim=160,
+    rope_theta=10000.0,
+)

@@ -1,0 +1,325 @@
+"""Shared model substrate: configs, norms, rope, attention, losses.
+
+Layout conventions (the JAX package's, kept at every public function):
+
+* activations are ``(batch, seq, d_model)``; attention internals use
+  ``(batch, seq, heads, head_dim)``;
+* softmax/statistics in f32, matmuls in the config's compute dtype.
+
+The prefill/train attention entry point, :func:`chunked_attention`, launches
+the Hopper flash-attention forward kernel on a CUDA tensor and runs a plain
+port of the chunked online-softmax on a CPU tensor; ``impl="ref"`` forces
+the kernel's plain version (``attention_reference``) on either device.
+Decode attention over the KV cache is plain PyTorch: no kernel lies behind
+it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+__all__ = [
+    "ArchConfig",
+    "SHAPES",
+    "ATTENTION_IMPLS",
+    "rms_norm",
+    "rope",
+    "apply_rope",
+    "chunked_attention",
+    "decode_attention",
+    "cross_entropy_loss",
+    "dtype_of",
+]
+
+
+# ---------------------------------------------------------------------------
+# Architecture config (one instance per assigned architecture)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                     # dense | mla | moe | ssm | hybrid | encdec
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0               # 0 -> d_model // n_heads
+    # attention
+    window: Optional[int] = None    # sliding-window attention
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    # MLA (MiniCPM3 / DeepSeek-style latent attention)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    rope_head_dim: int = 0
+    nope_head_dim: int = 0
+    v_head_dim: int = 0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    dense_residual: bool = False    # arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 1.25
+    # SSM (Mamba2 SSD)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 0                # precomputed frame embeddings (stub)
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    mlp_type: str = "swiglu"        # swiglu | gelu (whisper)
+    notes: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a 256 multiple (Megatron-style); padded columns
+        are masked to -1e30 in the head."""
+
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or (self.ssm_expand * self.d_model
+                                  // self.ssm_head_dim)
+
+    def param_count(self) -> int:
+        """Parameter count (embeddings + layers), from the param specs."""
+
+        from repro_torch.models.lm import param_count
+
+        return param_count(self)
+
+
+# The four input-shape cells shared by all LM archs.
+SHAPES: Dict[str, Dict[str, int]] = {
+    "train_4k": {"seq": 4096, "batch": 256, "kind": "train"},
+    "prefill_32k": {"seq": 32768, "batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq": 32768, "batch": 128, "kind": "decode"},
+    "long_500k": {"seq": 524288, "batch": 1, "kind": "decode"},
+}
+
+# ``impl`` values of :func:`chunked_attention`: "auto" launches the flash
+# kernel on a CUDA tensor and runs the chunked online-softmax on a CPU one;
+# "ref" runs the kernel's plain version on either device.
+ATTENTION_IMPLS = ("auto", "ref")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.to(torch.float32)).to(dt)
+
+
+def rope(positions: torch.Tensor, dim: int,
+         theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotary embedding tables: returns (sin, cos) of shape [..., dim/2]."""
+
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; sin/cos: [B, S, D/2] (or broadcastable)."""
+
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    return torch.cat(
+        [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1
+    ).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (train/prefill)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_mask(rows, cols, Skv, causal, window):
+    mask = (cols[None, :] < Skv).expand(rows.shape[0], cols.shape[0])
+    if causal:
+        mask = mask & (cols[None, :] <= rows[:, None])
+    if window is not None:
+        mask = mask & (cols[None, :] > rows[:, None] - window)
+    return mask
+
+
+def _chunked_fwd(q, k, v, causal, window, chunk, scale):
+    """Online-softmax forward over KV chunks (the JAX package's
+    ``_chunked_fwd``); returns the f32 output in the grouped
+    (B, KH, G, Sq, D) layout."""
+
+    B, Sq, H, D = q.shape
+    _, Skv, KH, _ = k.shape
+    group = H // KH
+    q_off = Skv - Sq
+
+    qf = (q.to(torch.float32) * scale).permute(0, 2, 1, 3)
+    kf = k.to(torch.float32).permute(0, 2, 1, 3)
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)
+    pad_kv = (-Skv) % chunk
+    if pad_kv:
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, pad_kv))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, pad_kv))
+    nk = (Skv + pad_kv) // chunk
+    kf = kf.reshape(B, KH, nk, chunk, D)
+    vf = vf.reshape(B, KH, nk, chunk, D)
+    qg = qf.reshape(B, KH, group, Sq, D)
+    dev = q.device
+    rows = torch.arange(Sq, device=dev) + q_off
+
+    m = torch.full((B, KH, group, Sq, 1), -torch.inf, device=dev)
+    l = torch.zeros((B, KH, group, Sq, 1), device=dev)
+    acc = torch.zeros((B, KH, group, Sq, D), device=dev)
+    for ci in range(nk):
+        kc, vc = kf[:, :, ci], vf[:, :, ci]
+        cols = ci * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc)
+        mask = _chunk_mask(rows, cols, Skv, causal, window)
+        s = torch.where(mask, s, -torch.inf)
+        m_cur = torch.amax(s, dim=-1, keepdim=True)
+        m_new = torch.maximum(m, m_cur)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = corr * l + torch.sum(p, -1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
+        m = m_new
+    return acc / torch.where(l > 0, l, 1.0)
+
+
+def chunked_attention(
+    q: torch.Tensor,   # (B, Sq, H, D)
+    k: torch.Tensor,   # (B, Skv, KH, D)
+    v: torch.Tensor,   # (B, Skv, KH, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: int = 512,
+    sm_scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Blockwise attention in the ``(B, S, H, D)`` layout, forward only.
+
+    A CUDA tensor launches the flash-attention forward kernel, which reads
+    this layout through strides (no transpose); a CPU tensor runs the
+    chunked online-softmax with O(Sq * chunk) live memory, the math of the
+    JAX package's ``chunked_attention``.  ``impl="ref"`` runs the kernel's
+    plain version (``attention_reference``) on either device instead."""
+
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"impl must be one of {ATTENTION_IMPLS}, got "
+                         f"{impl!r}")
+    B, Sq, H, D = q.shape
+    _, Skv, _, _ = k.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    if impl == "ref":
+        from repro_torch.kernels.flash_attention.ref import (
+            attention_reference,
+        )
+
+        out = attention_reference(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, sm_scale=scale,
+        )
+        return out.transpose(1, 2)
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention.kernel import flash_fwd
+
+        out, _, _ = flash_fwd(q, k, v, causal=causal, window=window,
+                              sm_scale=scale, layout="bshd")
+        return out
+    chunk = min(chunk, Skv)
+    out = _chunked_fwd(q, k, v, causal, window, chunk, scale)
+    return out.reshape(B, H, Sq, D).transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KH, D)
+    v_cache: torch.Tensor,  # (B, S, KH, D)
+    valid: torch.Tensor,    # (B, S) bool — which cache slots are live
+    *,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token attention over the KV cache (plain PyTorch)."""
+
+    B, _, H, D = q.shape
+    _, S, KH, _ = k_cache.shape
+    group = H // KH
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+
+    qg = (q.to(torch.float32) * scale).reshape(B, KH, group, D)
+    kf = k_cache.to(torch.float32)
+    vf = v_cache.to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kf)
+    live = valid[:, None, None, :]
+    s = torch.where(live, s, -torch.inf)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30), vf)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,   # (B, S, V)
+    labels: torch.Tensor,   # (B, S) int
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Next-token cross entropy, label picked by a select over the vocab
+    (no one-hot)."""
+
+    logits = logits.to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    vocab_ids = torch.arange(logits.shape[-1], device=logits.device)
+    picked = torch.sum(
+        torch.where(vocab_ids == labels[..., None], logits, 0.0), dim=-1
+    )
+    nll = lse - picked
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,0 +1,88 @@
+"""Model registry: config lookup, reduced configs, the model bundle.
+
+Every architecture id of the JAX package is listed; :func:`get_config`
+returns the config of the families the port runs (dense) and raises, naming
+the ROADMAP item, for the others.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict
+
+from repro_torch.models import lm
+from repro_torch.models.common import ArchConfig
+
+__all__ = [
+    "ARCH_IDS",
+    "PORTED_ARCH_IDS",
+    "get_config",
+    "reduced_config",
+    "build_model",
+]
+
+ARCH_IDS = (
+    "minitron_8b",
+    "phi4_mini_3_8b",
+    "minicpm3_4b",
+    "stablelm_12b",
+    "whisper_medium",
+    "chameleon_34b",
+    "mixtral_8x22b",
+    "arctic_480b",
+    "mamba2_130m",
+    "hymba_1_5b",
+)
+
+# The dense family, whose configs live in ``repro_torch.configs``.
+PORTED_ARCH_IDS = ("minitron_8b", "phi4_mini_3_8b", "stablelm_12b",
+                   "chameleon_34b")
+
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+
+
+def get_config(name: str) -> ArchConfig:
+    key = _ALIASES.get(name, name).replace("-", "_")
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {name!r}")
+    if key not in PORTED_ARCH_IDS:
+        raise NotImplementedError(
+            f"{name}: only the dense family is ported so far "
+            f"({', '.join(PORTED_ARCH_IDS)}); the mla, moe, ssm, hybrid and "
+            f"encdec families are ROADMAP A14(c)")
+    mod = importlib.import_module(f"repro_torch.configs.{key}")
+    return mod.CONFIG
+
+
+def reduced_config(cfg: ArchConfig) -> ArchConfig:
+    """Tiny dense config for CPU tests: the JAX package's ``reduced_config``
+    for the dense family (the other families' reductions come with their
+    slice, ROADMAP A14(c))."""
+
+    changes: Dict[str, Any] = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) or 2,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab=128,
+        head_dim=16,
+    )
+    if cfg.window is not None:
+        changes.update(window=16)
+    changes["param_dtype"] = "float32"
+    changes["compute_dtype"] = "float32"
+    return dataclasses.replace(cfg, **changes)
+
+
+def build_model(cfg: ArchConfig):
+    """Bundle of the model functions for this config."""
+
+    return {
+        "init_params": lambda gen, **kw: lm.init_params(cfg, gen, **kw),
+        "forward": lambda p, t, **kw: lm.forward(p, t, cfg, **kw),
+        "prefill": lambda p, t, L, **kw: lm.prefill(p, t, cfg, L, **kw),
+        "decode_step": lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),
+        "init_cache": lambda b, s, **kw: lm.init_cache(cfg, b, s, **kw),
+    }
