@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--log2-vertices 25] [--supersteps 20]
                           [--sssp-log2-vertices 22] [--lm-layers 32]
-                          [--lm-prompt 4000]
+                          [--lm-prompt 4000] [--train-layers 32]
+                          [--train-seq 4096]
 
 Phases, each of which exits nonzero on failure:
 
@@ -45,20 +46,51 @@ Phases, each of which exits nonzero on failure:
    against the kernel's bar.  Profiles one
    prefill and four decode steps, and times the kernel, its plain version
    and PyTorch's SDPA at the main path's attention shape.
+6. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
+   their plain version (``attention_backward`` in f32 on the same inputs
+   and statistics) on the forward's sweep shapes with a head dim up to
+   160 and rows that see no key, f32 and bf16, both layouts: f32 within
+   1e-5 x max(1, max |grad|), bf16 per element within
+   ``kernel.bf16_bwd_error_bound``; two launches bit-identical.  Then the
+   whole training path at full width, 2 layers, 1 x 4096 tokens: loss and
+   gradients of the kernel path against the plain-attention path within
+   ``LM_NOISE_FACTOR`` times the plain path's own distance from the same
+   model in f32, over all gradient leaves and leaf by leaf; the same
+   backward with delta dropped and with KV tile 0's dK/dV skipped must
+   break that bar.  The main run (the main path): ``launch/train.py`` on
+   phi4-mini-3.8b at full width and depth, the planner's train plan (bf16
+   params, bf16 AdamW m, f32 v, full remat) with 8 x 4096 tokens a step in
+   2 microbatches, 5 AdamW steps on the ``zipf`` stream: per-step seconds,
+   tokens/s, loss, grad_norm, peak memory, and exactly 128 forward, 64 dQ
+   and 64 dK/dV launches a step.  Profiles one step.  Witnesses for the
+   loss curve, on the same batches: the first 2 steps again, then step 2's
+   loss and gradients through the kernels and through the plain attention
+   on one sequence; the 5 steps
+   with the learning rate warmed up; and the 5 steps at 2 layers through
+   the kernels and through the plain attention.  At the main path's
+   attention shape (one microbatch, 4 x 4096), on the inputs that are
+   then timed: the forward kernel within its bound of the plain
+   attention, the backward kernels within theirs of the plain backward
+   (the timed plain call's own result), both planted faults breaking
+   that bound, and the timed launches bit-equal to the checked ones;
+   times beside PyTorch's SDPA backward.
 
-Prints the card's name and power limit first, one ``{"kernels": [...]}``
-line with each kernel's launches, times and bound at the main path's
-shapes, and as its last line ``{"ok": true, "device": {...}}``.  Smaller
-sizes than the defaults make a rehearsal (``--lm-layers 2 --lm-prompt 1000
---log2-vertices 20 --sssp-log2-vertices 18`` for a short first call after
-a kernel edit): every phase runs and is checked, but neither of those two
-lines is printed.
+Prints the card's name and power limit first and again after the phases'
+seconds, one
+``{"kernels": [...]}`` line with each kernel's launches, times and bound
+at the main path's shapes, and as its last line ``{"ok": true, "device":
+{...}}``.  Smaller sizes than the defaults make a rehearsal
+(``--lm-layers 2 --lm-prompt 1000 --log2-vertices 20
+--sssp-log2-vertices 18 --train-layers 2 --train-seq 1024`` for a short
+first call after a kernel edit): every phase runs and is checked, but
+neither of those two lines is printed.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -109,7 +141,8 @@ LM_ARCH = "phi4_mini_3_8b"
 LM_REQUESTS = 4
 LM_DECODE_STEPS = 32
 DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22,
-            "lm_layers": 32, "lm_prompt": 4000}
+            "lm_layers": 32, "lm_prompt": 4000, "train_layers": 32,
+            "train_seq": 4096}
 
 
 def _card_line() -> str:
@@ -134,6 +167,17 @@ def _time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _timed(fn, reps: int):
+    """(``_time_ms`` of ``fn``, the result of its last call)."""
+
+    last = [None]
+
+    def call():
+        last[0] = fn()
+
+    return _time_ms(call, reps), last[0]
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +746,16 @@ def _rel_l2(a, b, vocab):
     return float((a - b).norm() / b.norm())
 
 
+# Kernel-name groups of the profile summaries, first match wins.
+PROFILE_GROUPS = (
+    ("flash_fwd", ("flash_fwd",)),
+    ("flash_bwd", ("flash_bwd",)),
+    ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
+    ("copy/cast", ("copy", "Memcpy", "Memset")),
+    ("reduce", ("reduce_kernel",)),
+)
+
+
 def _profile(fn, label, steps) -> None:
     """Device time by kernel over ``fn()`` (kernel events only) and the
     device's idle share of that window."""
@@ -727,6 +781,14 @@ def _profile(fn, label, steps) -> None:
     print(f"profile: {label}: wall {wall_us / steps / 1e3:.3f} ms/{label}, "
           f"device busy {busy / steps / 1e3:.3f} ms/{label}, idle share "
           f"{max(0.0, 1 - busy / wall_us):.3f}")
+    groups = {}
+    for key, t, _ in rows:
+        group = next((g for g, words in PROFILE_GROUPS
+                      if any(w in key for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) + t
+    print(f"profile: {label} by group: " + ", ".join(
+        f"{g} {t / steps / 1e3:.3f} ms ({t / busy:.1%})"
+        for g, t in sorted(groups.items(), key=lambda x: -x[1])))
     for key, t, n in rows[:10]:
         print(f"profile:   {t / steps / 1e3:9.3f} ms/{label} {t / busy:6.1%} "
               f"x{n // steps:<4d} {key[:80]}")
@@ -1047,6 +1109,533 @@ def phase_lm(args, device, report) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: LM training (phi4-mini-3.8b), the backward kernels
+# ---------------------------------------------------------------------------
+
+# Backward kernels against their plain version (in f32, same inputs, same
+# m, l and delta): in f32 within BWD_F32_TOL times max(1, max |gradient|)
+# of each output (another summation order); in bf16 within
+# kernel.bf16_bwd_error_bound per element (P and dS rounded to bf16 before
+# their products, f32 sums, bf16 outputs).
+BWD_F32_TOL = 1e-5
+TRAIN_ARCH = LM_ARCH
+TRAIN_BATCH = 8                # sequences per step (train_4k has 256)
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-4                # make_optimizer's default, constant
+SPIKE_STEP = 2                 # the main run's loss spike (PERF.md)
+TRAIN_CHECK_LAYERS = 2         # depth of the whole-path gradient check
+BWD_FLOP_PER_PAIR = {"dq": 6, "dkv": 8}   # x D per visible (q, k) pair
+
+
+def _bwd_cases():
+    """The forward sweep's shapes with a head dim the backward takes, and
+    rows that see no key (Sq > Skv causal; window 0)."""
+
+    from repro_torch.kernels.flash_attention.kernel import MAX_BWD_HEAD_DIM
+
+    return [c for c in _flash_cases() if c[5] <= MAX_BWD_HEAD_DIM] + [
+        (1, 2, 1, 93, 37, 16, True, None),
+        (1, 2, 2, 50, 50, 16, False, 0),
+    ]
+
+
+def _bwd_run(q, k, v, do, causal, window, layout):
+    """The forward kernel's (out, m, l), delta, and both backward kernels'
+    outputs (launched twice: the second must give the same bits)."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out, m, l = K.flash_fwd(q, k, v, causal=causal, window=window,
+                            sm_scale=scale, layout=layout)
+    delta = (do.float() * out.float()).sum(-1)
+    delta = (delta if layout == "bhsd" else delta.transpose(1, 2)) \
+        .contiguous()
+    kw = dict(causal=causal, window=window, sm_scale=scale, layout=layout)
+    dq = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+    same = torch.equal(dq, K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw))
+    dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+    same = same and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    return (m, l, delta, scale), (dq, dk, dv), same
+
+
+def _bwd_off(got, ref, bars):
+    """([max abs err of dq, dk, dv], elements over their bar, max err /
+    bar)."""
+
+    errs, bad, ratio = [], 0, 0.0
+    for g, r, b in zip(got, ref, bars):
+        e = (g.float() - r).abs()
+        errs.append(float(e.max()))
+        bad += int((e > b).sum())
+        ratio = max(ratio, float((e / b).max()))
+    return errs, bad, ratio
+
+
+def _bwd_check(q, k, v, do, causal, window, layout, tag, plain_reps=0):
+    """Both backward kernels against the plain backward on one input;
+    returns ([max abs err of dq, dk, dv], max err / bar, bhsd inputs,
+    stats, the kernels' and the plain grads (bhsd), bars, and the plain
+    backward's ms when ``plain_reps`` asks for it timed: the timed call's
+    result is the one checked).  Raises on a bar broken or two launches
+    that differ."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        bf16_bwd_error_bound,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_backward
+
+    (m, l, delta, scale), got, same = _bwd_run(q, k, v, do, causal, window,
+                                               layout)
+    bhsd = (lambda t: t) if layout == "bhsd" else (lambda t: t.transpose(1, 2))
+    q, k, v, do = (bhsd(t) for t in (q, k, v, do))
+    got = [bhsd(t) for t in got]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+
+    def plain():
+        return attention_backward(qf, kf, vf, dof, m, l, delta, causal=causal,
+                                  window=window, sm_scale=scale)
+
+    plain_ms, ref = _timed(plain, plain_reps) if plain_reps else (None,
+                                                                  plain())
+    del qf, kf, vf, dof
+    if q.dtype == torch.float32:
+        bars = [torch.full_like(r, BWD_F32_TOL * max(1.0, float(
+            r.abs().max()))) for r in ref]
+    else:
+        bars = bf16_bwd_error_bound(q, k, v, do, m, l, delta, ref,
+                                    causal=causal, window=window,
+                                    sm_scale=scale)
+    torch.cuda.synchronize()
+    err, bad, ratio = _bwd_off(got, ref, bars)
+    if not same:
+        raise AssertionError(f"two backward launches differ: {tag}")
+    if bad or any(g.dtype != q.dtype for g in got):
+        raise AssertionError(f"backward off plain by more than its bar on "
+                             f"{bad} elements (max abs err {max(err)}, max "
+                             f"err / bar {ratio}): {tag}")
+    return (err, ratio, (q, k, v, do), (m, l, delta, scale), got, ref, bars,
+            plain_ms)
+
+
+def _grads_of(params, cfg, tokens, attention):
+    """(loss, [f32 gradient of every leaf]) of lm.loss_fn with full
+    remat."""
+
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import lm
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = lm.loss_fn(leaves, {"tokens": tokens}, cfg,
+                         remat_policy="full", attention=attention)
+    loss.backward()
+    grads = [t.grad.float() for t in tree_leaves(leaves)]
+    del leaves
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def _tree_rel_l2(a, b):
+    num = sum(float((x.double() - y.double()).square().sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def _leaf_rel_l2(a, b):
+    return [float((x.double() - y.double()).norm() / y.double().norm())
+            for x, y in zip(a, b)]
+
+
+def phase_train(args, device, report) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import attention_backward
+    from repro_torch.launch.train import build_train_step, make_optimizer
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim import warmup_cosine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5678)
+
+    # 1. The backward kernels against plain: the sweep.
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_ratio = 0.0
+    cases = _bwd_cases()
+    for case in cases:
+        B, H, KH, Sq, Skv, D, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("bhsd", "bshd"):
+                q, k, v, do = (torch.randn(s, generator=gen, device=device)
+                               .to(dtype)
+                               for s in ((B, H, Sq, D), (B, KH, Skv, D),
+                                         (B, KH, Skv, D), (B, H, Sq, D)))
+                if layout == "bshd":
+                    q, k, v, do = (t.transpose(1, 2).contiguous()
+                                   for t in (q, k, v, do))
+                err, ratio, *_ = _bwd_check(q, k, v, do, causal, window,
+                                            layout,
+                                            f"{case} {dtype} {layout}")
+                worst[dtype] = max(worst[dtype], *err)
+                if dtype == torch.bfloat16:
+                    worst_ratio = max(worst_ratio, ratio)
+    print(f"train: flash_bwd_dq / flash_bwd_dkv == plain on "
+          f"{len(cases) * 4} cases (f32 within {BWD_F32_TOL} x max(1, "
+          f"max|grad|); bf16 within bf16_bwd_error_bound per element; two "
+          f"launches bit-identical): max abs err f32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}, "
+          f"bf16 max err / bound {worst_ratio:.3f}", flush=True)
+
+    cfg = get_config(TRAIN_ARCH)
+    plan = plan_lm(cfg, "train_4k", MeshSpec((("data", 1),)), hw=H100_SXM)
+    print("train: " + plan.explain().replace("\n", "\ntrain: "))
+    S = args.train_seq
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    # 2. The whole path against its plain version: loss and gradients of
+    # the kernel path and of the plain-attention path at full width, at
+    # TRAIN_CHECK_LAYERS layers, one sequence; the bar is LM_NOISE_FACTOR
+    # times the plain path's own distance from the same model in f32.
+    # Negative controls: the same backward with delta dropped, and with KV
+    # tile 0's dK/dV skipped, must break it.
+    ccfg = dataclasses.replace(plan.cfg, n_layers=TRAIN_CHECK_LAYERS)
+    gen.manual_seed(args.seed)
+    params = lm.init_params(ccfg, gen, device=device)
+    tokens = torch.randint(0, ccfg.vocab, (1, S), generator=gen,
+                           device=device, dtype=torch.int32)
+    K.reset_launch_count()
+    t0 = time.perf_counter()
+    loss_k, g_k = _grads_of(params, ccfg, tokens, "auto")
+    t_k = time.perf_counter() - t0
+    launches = (K.launch_count, K.dq_launch_count, K.dkv_launch_count)
+    if launches != (2 * ccfg.n_layers, ccfg.n_layers, ccfg.n_layers):
+        raise AssertionError(f"kernel path launched (fwd, dq, dkv) "
+                             f"{launches} times")
+    K.reset_launch_count()
+    loss_r, g_r = _grads_of(params, ccfg, tokens, "ref")
+    if (K.launch_count, K.dq_launch_count, K.dkv_launch_count) != (0, 0, 0):
+        raise AssertionError("the plain path launched a flash kernel")
+    cfg32 = dataclasses.replace(ccfg, compute_dtype="float32",
+                                param_dtype="float32")
+    loss_f, g_f = _grads_of(tree_map(lambda t: t.float(), params), cfg32,
+                            tokens, "ref")
+    floor = _tree_rel_l2(g_r, g_f)
+    rel = _tree_rel_l2(g_k, g_r)
+    leaf_floor = _leaf_rel_l2(g_r, g_f)
+    leaf_ratio = max(r / f for r, f in zip(_leaf_rel_l2(g_k, g_r),
+                                           leaf_floor))
+    loss_floor = abs(loss_r - loss_f) / abs(loss_f)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    del g_f
+    faults = {}
+    real_dq, real_dkv = K.flash_bwd_dq, K.flash_bwd_dkv
+
+    def dq_no_delta(q, k, v, do, m, l, delta, **kw):
+        return real_dq(q, k, v, do, m, l, torch.zeros_like(delta), **kw)
+
+    def dkv_no_delta(q, k, v, do, m, l, delta, **kw):
+        return real_dkv(q, k, v, do, m, l, torch.zeros_like(delta), **kw)
+
+    def dkv_skip_tile(*a, **kw):
+        dk, dv = real_dkv(*a, **kw)
+        dk[:, :64] = 0     # the LM's bshd layout: keys 0-63
+        dv[:, :64] = 0
+        return dk, dv
+
+    try:
+        for name, dq_fn, dkv_fn in (
+                ("delta dropped", dq_no_delta, dkv_no_delta),
+                ("KV tile 0 skipped", real_dq, dkv_skip_tile)):
+            K.flash_bwd_dq, K.flash_bwd_dkv = dq_fn, dkv_fn
+            _, g_bad = _grads_of(params, ccfg, tokens, "auto")
+            faults[name] = (_tree_rel_l2(g_bad, g_r), max(
+                r / f for r, f in zip(_leaf_rel_l2(g_bad, g_r),
+                                      leaf_floor)))
+            del g_bad
+    finally:
+        K.flash_bwd_dq, K.flash_bwd_dkv = real_dq, real_dkv
+    print(f"train: whole path at full width, {ccfg.n_layers} layers, 1 x {S} "
+          f"tokens ({t_k:.2f}s): loss kernel {loss_k:.6f}, plain {loss_r:.6f}"
+          f", f32 {loss_f:.6f}; gradients rel L2 kernel vs plain {rel:.3e} "
+          f"(bar {LM_NOISE_FACTOR} x the bf16 bound {floor:.3e} = "
+          f"{LM_NOISE_FACTOR * floor:.3e}); loss rel {loss_rel:.3e} (bar "
+          f"{LM_NOISE_FACTOR * max(loss_floor, floor):.3e}); largest "
+          f"per-leaf ratio to the leaf's own bound {leaf_ratio:.3f} (bar "
+          f"{LM_NOISE_FACTOR}); negative controls (rel L2, largest per-leaf "
+          f"ratio): " + ", ".join(f"{n} {d:.3e}, {r:.3f}" for n, (d, r) in
+                                  faults.items()), flush=True)
+    if floor > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"the bf16 plain path is {floor} off f32")
+    if rel > LM_NOISE_FACTOR * floor or leaf_ratio > LM_NOISE_FACTOR or \
+            loss_rel > LM_NOISE_FACTOR * max(loss_floor, floor):
+        raise AssertionError("kernel path's gradients off the plain path's")
+    if any(d <= LM_NOISE_FACTOR * floor and r <= LM_NOISE_FACTOR
+           for d, r in faults.values()):
+        raise AssertionError("the whole-path bar passes a planted backward "
+                             "fault")
+    del params, g_k, g_r
+    torch.cuda.empty_cache()
+
+    # 3. The main run: the planner's train plan at full width and depth,
+    # TRAIN_BATCH x S tokens a step in TRAIN_MICROBATCHES microbatches,
+    # TRAIN_STEPS steps of AdamW on the zipf stream.
+    cfg = dataclasses.replace(plan.cfg, n_layers=args.train_layers)
+    plan = dataclasses.replace(plan, cfg=cfg,
+                               microbatches=TRAIN_MICROBATCHES)
+    gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, device=device)
+    opt = make_optimizer(plan, lr=TRAIN_LR)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    del params
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state["params"])
+                      + tree_leaves(tuple(state["opt"])))
+    print(f"train: {cfg.name}: {lm.param_count(cfg)} parameters "
+          f"({cfg.n_layers} layers) in {cfg.param_dtype}, AdamW m "
+          f"{plan.m_dtype}, v {plan.v_dtype}: {state_bytes / 1e9:.2f} GB of "
+          f"state, made in {time.perf_counter() - t0:.1f}s", flush=True)
+    step_fn, _, _ = build_train_step(plan, None, device=device)
+    stream = SyntheticLMStream(DataConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=TRAIN_BATCH,
+        seed=args.seed, task="zipf"), device=device)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_count()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        before = (K.launch_count, K.dq_launch_count, K.dkv_launch_count)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(
+            (K.launch_count, K.dq_launch_count, K.dkv_launch_count), before))
+        rows.append((dt, loss, gnorm, n))
+        print(f"train: step {i}: {dt:.3f}s = {TRAIN_BATCH * S / dt:.1f} "
+              f"tokens/s, loss {loss:.6f}, grad_norm {gnorm:.6f}, launches "
+              f"(fwd, dq, dkv) {n}", flush=True)
+    launches = (K.launch_count, K.dq_launch_count, K.dkv_launch_count)
+    peak = torch.cuda.max_memory_allocated()
+    # full remat: each layer's forward runs again in its backward
+    want = (2 * cfg.n_layers * TRAIN_MICROBATCHES,
+            cfg.n_layers * TRAIN_MICROBATCHES,
+            cfg.n_layers * TRAIN_MICROBATCHES)
+    steady = [r[0] for r in rows[1:]] or [rows[0][0]]
+    print(f"train: {TRAIN_STEPS} steps, steady {sum(steady) / len(steady):.3f}"
+          f" s/step = {TRAIN_BATCH * S * len(steady) / sum(steady):.1f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); launches (fwd, dq, dkv) "
+          f"{launches}, per step {want} wanted", flush=True)
+    if any(r[3] != want for r in rows):
+        raise AssertionError(f"flash kernels launched {[r[3] for r in rows]}"
+                             f" times per step, want {want}")
+    if not all(torch.isfinite(torch.tensor([r[1], r[2]])).all()
+               for r in rows):
+        raise AssertionError("loss or grad_norm not finite")
+    if int(state["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"state step {int(state['step'])}")
+
+    def one_step():
+        step_fn(state, batches[TRAIN_STEPS])
+
+    _profile(one_step, "train step", 1)
+    del state, opt, step_fn
+    torch.cuda.empty_cache()
+
+    # 3b. Witnesses for the main run's loss curve, each from the same seed
+    # on the same batches: the main run's recipe again for its first
+    # SPIKE_STEP steps, then the loss and gradients of step SPIKE_STEP's
+    # first sequence through the kernels and through the attention's plain
+    # version (is the spike in the parameters or in the kernels?);
+    # the main run with the learning rate warmed up over its steps; and at
+    # TRAIN_CHECK_LAYERS layers, the main run through the kernels and
+    # through the plain attention.
+    wcfg = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+
+    def run(run_cfg, lr, attention, n_steps):
+        gen.manual_seed(args.seed)
+        params = lm.init_params(run_cfg, gen, device=device)
+        run_plan = dataclasses.replace(plan, cfg=run_cfg)
+        opt = make_optimizer(run_plan, lr=lr)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        del params
+        step_fn, _, _ = build_train_step(run_plan, None, optimizer=opt,
+                                         device=device, attention=attention)
+        curve = []
+        for batch in batches[:n_steps]:
+            state, metrics = step_fn(state, batch)
+            curve.append((float(metrics["loss"]),
+                          float(metrics["grad_norm"])))
+        return state, curve
+
+    curves = {}
+    state, curves[f"{cfg.n_layers} layers, kernels, first {SPIKE_STEP} "
+                  f"steps"] = run(cfg, TRAIN_LR, "auto", SPIKE_STEP)
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    first = batches[SPIKE_STEP]["tokens"][:1]
+    spike = {a: _grads_of(params, cfg, first, a) for a in ("auto", "ref")}
+    spike_rel = _tree_rel_l2(spike["auto"][1], spike["ref"][1])
+    spike_norm = {a: sum(float(g.double().square().sum()) for g in gs) ** 0.5
+                  for a, (_, gs) in spike.items()}
+    spike = {a: loss for a, (loss, _) in spike.items()}
+    del params
+    torch.cuda.empty_cache()
+    for name, run_cfg, lr, attention in (
+            (f"{cfg.n_layers} layers, kernels, warmup", cfg,
+             warmup_cosine(TRAIN_LR, TRAIN_STEPS, TRAIN_STEPS), "auto"),
+            (f"{TRAIN_CHECK_LAYERS} layers, kernels", wcfg, TRAIN_LR, "auto"),
+            (f"{TRAIN_CHECK_LAYERS} layers, plain", wcfg, TRAIN_LR, "ref")):
+        curves[name] = run(run_cfg, lr, attention, TRAIN_STEPS)[1]
+        torch.cuda.empty_cache()
+    for name, curve in curves.items():
+        print(f"train: witness, {name}: loss, grad_norm by step " + "; ".join(
+            f"{a:.6f}, {b:.6f}" for a, b in curve), flush=True)
+    print(f"train: witness, step {SPIKE_STEP}'s first sequence at the "
+          f"parameters after {SPIKE_STEP} steps: loss through the kernels "
+          f"{spike['auto']:.6f}, through the plain attention "
+          f"{spike['ref']:.6f}; gradient norm {spike_norm['auto']:.6f} and "
+          f"{spike_norm['ref']:.6f}, gradients rel L2 kernels vs plain "
+          f"{spike_rel:.3e}", flush=True)
+    if not all(math.isfinite(x) for c in curves.values() for r in c
+               for x in r) or not all(map(math.isfinite, spike.values())):
+        raise AssertionError("witness loss or grad_norm not finite")
+    del batches
+
+    # 4. The three attention kernels at the main path's shape (one
+    # microbatch, bf16, causal, the LM's layout), on the inputs they are
+    # timed on: the forward against the plain attention within its bound;
+    # both backward kernels against the plain backward (the timed call's
+    # own result) within theirs, with both planted faults breaking that
+    # bound; the timed launches bit-equal to the checked ones.  Timed
+    # beside PyTorch's SDPA backward (a yardstick the port never calls).
+    B = TRAIN_BATCH // TRAIN_MICROBATCHES
+    q, k, v, do = (torch.randn(s, generator=gen, device=device)
+                   .to(torch.bfloat16)
+                   for s in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D),
+                             (B, S, H, D)))
+    f_err, f_ratio, f_rel, _ = _flash_check(q, k, v, True, None, "bshd",
+                                            "train microbatch")
+    torch.cuda.empty_cache()
+    err, ratio, bq, (m, l, delta, scale), got, ref, bars, plain_ms = \
+        _bwd_check(q, k, v, do, True, None, "bshd", "main path's shape",
+                   plain_reps=2)
+    qt, kt, vt, dot = bq
+    no_delta = attention_backward(qt.float(), kt.float(), vt.float(),
+                                  dot.float(), m, l, torch.zeros_like(delta),
+                                  sm_scale=scale)
+    skipped = [t.clone() for t in ref]
+    skipped[1][:, :, :64] = 0
+    skipped[2][:, :, :64] = 0
+    f_delta = _bwd_off(no_delta, ref, bars)
+    f_skip = _bwd_off(skipped, ref, bars)
+    del no_delta, skipped, ref, bars
+    torch.cuda.empty_cache()
+    print(f"train: attention kernels at the main path's shape (B={B} x {S}):"
+          f" forward max abs err {f_err:.3e} (max err / bound {f_ratio:.3f},"
+          f" m and l rel {f_rel:.3e}); backward max err / bound "
+          f"{ratio:.3f}, max abs err (dq, dk, dv) "
+          f"{', '.join(f'{e:.3e}' for e in err)}; planted faults over their "
+          f"bound: delta dropped on {f_delta[1]} elements (max err / bound "
+          f"{f_delta[2]:.3f}), KV tile 0 skipped on {f_skip[1]} (max err / "
+          f"bound {f_skip[2]:.3f})", flush=True)
+    if f_delta[1] == 0 or f_skip[1] == 0:
+        raise AssertionError("the backward bar passes a planted fault")
+
+    kw = dict(causal=True, window=None, sm_scale=scale, layout="bshd")
+    dq_ms, dq = _timed(lambda: K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw),
+                       5)
+    dkv_ms, (dk, dv) = _timed(lambda: K.flash_bwd_dkv(q, k, v, do, m, l,
+                                                      delta, **kw), 5)
+    if not all(torch.equal(a.transpose(1, 2), b)
+               for a, b in zip((dq, dk, dv), got)):
+        raise AssertionError("timed backward launches differ from the "
+                             "checked ones")
+    del dq, dk, dv, got
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale, enable_gqa=True)
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, dot, retain_graph=True), 10)
+    del sdpa_out, leaves
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = {
+        "dq": 2 * (2 * B * S * H * D + 2 * B * S * KH * D)
+        + 3 * 4 * B * H * S,
+        "dkv": 2 * (2 * B * S * H * D + 4 * B * S * KH * D)
+        + 3 * 4 * B * H * S,
+    }
+    print(f"train: backward kernels at B={B} H={H} KH={KH} S={S} D={D} bf16 "
+          f"causal (bshd): dq {dq_ms:.3f} ms, dkv {dkv_ms:.3f} ms, plain "
+          f"(both, f32) {plain_ms:.3f} ms, SDPA backward (dq, dk, dv) "
+          f"{library_ms:.3f} ms", flush=True)
+    for name, ms, n, src_line, max_abs_err in (
+            ("flash_bwd_dq", dq_ms, launches[1], 245, err[0]),
+            ("flash_bwd_dkv", dkv_ms, launches[2], 345, max(err[1:]))):
+        key = name[10:]
+        flops = BWD_FLOP_PER_PAIR[key] * D * pairs
+        t_ops = flops / BF16_FLOP_PER_S
+        t_bytes = nbytes[key] / HBM_BYTES_PER_S
+        print(f"train: {name}: {flops:.4e} FLOP, {nbytes[key]} bytes, bound "
+              f"{max(t_ops, t_bytes) * 1e3:.3f} ms; kernel {ms:.3f} ms")
+        report.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention/kernel.py:"
+                        f"{src_line}",
+            "tpu_kernel": f"repro.kernels.flash_attention.kernel.{name}",
+            "launches": n,
+            "launches_per_step": n / TRAIN_STEPS,
+            "shape": {"B": B, "H": H, "KH": KH, "Sq": S, "Skv": S, "D": D,
+                      "dtype": "bfloat16", "causal": True, "layout": "bshd"},
+            "max_abs_err": max_abs_err,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "plain_computes": "dq, dk and dv together, in f32",
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms,
+            "library": "SDPA backward (dq, dk and dv together)",
+            "train_s_per_step": sum(steady) / len(steady),
+            "train_tokens_per_s": TRAIN_BATCH * S * len(steady) / sum(steady),
+            "train_peak_gb": peak / 1e9,
+        })
+    for entry in report:
+        if entry["name"] == "flash_attention_fwd":
+            entry["train_launches"] = launches[0]
+            entry["train_max_abs_err"] = f_err
+    del q, k, v, do, m, l, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1058,6 +1647,9 @@ def main(argv=None) -> int:
                     default=DEFAULTS["sssp_log2_vertices"])
     ap.add_argument("--lm-layers", type=int, default=DEFAULTS["lm_layers"])
     ap.add_argument("--lm-prompt", type=int, default=DEFAULTS["lm_prompt"])
+    ap.add_argument("--train-layers", type=int,
+                    default=DEFAULTS["train_layers"])
+    ap.add_argument("--train-seq", type=int, default=DEFAULTS["train_seq"])
     args = ap.parse_args(argv)
     full = all(getattr(args, k) == v for k, v in DEFAULTS.items())
 
@@ -1081,10 +1673,20 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
     report = []
-    phase_kernels(device)
-    phase_pagerank(args, device, report)
-    phase_sssp(args, device)
-    phase_lm(args, device, report)
+    seconds = {}
+    for name, run in (
+            ("kernels", lambda: phase_kernels(device)),
+            ("pagerank", lambda: phase_pagerank(args, device, report)),
+            ("sssp", lambda: phase_sssp(args, device)),
+            ("lm", lambda: phase_lm(args, device, report)),
+            ("train", lambda: phase_train(args, device, report))):
+        t0 = time.perf_counter()
+        run()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {seconds[name]}s", flush=True)
+    print(f"phases: {json.dumps(seconds)}")
+    # again at the end, where a cut log's tail keeps it beside the numbers
+    print(_card_line(), flush=True)
     if not full:
         print(f"rehearsal at reduced size {vars(args)}, no result: "
               f"{json.dumps(report)}")

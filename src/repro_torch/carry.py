@@ -8,6 +8,10 @@ objects) into the port's.
 * :func:`lm_params_from_numpy`: an LM parameter tree
   (``jax.tree_util.tree_map(np.asarray, params)``) into the port's, with
   each leaf's dtype kept.
+* :func:`train_state_from_numpy`: a training state ``{"params", "opt",
+  "step"}`` likewise: the params as above, the optimizer state (AdamW's m
+  and v, SGD's momentum, or none) leaf for leaf with dtypes kept, the step
+  as an int32 scalar tensor.
 
 The differential tests build the JAX objects and the port's from the same
 arrays through these.
@@ -25,7 +29,8 @@ from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ArchConfig
 
-__all__ = ["graph_from_numpy", "lm_params_from_numpy"]
+__all__ = ["graph_from_numpy", "lm_params_from_numpy",
+           "train_state_from_numpy"]
 
 
 def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -116,3 +121,34 @@ def lm_params_from_numpy(
 
     return {k: carry(sub, tree[k], cfg.n_layers if k == "layers" else 0,
                      k) for k, sub in specs.items()}
+
+
+def train_state_from_numpy(
+    cfg: ArchConfig,
+    state: Any,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Any:
+    """The port's training state from the JAX package's, given as numpy
+    arrays: ``{"params": tree, "opt": AdamState(m, v) | momentum tree | (),
+    "step": int}``.  Each moment tree is carried like the params (shapes
+    checked, bf16 kept via float32)."""
+
+    from repro_torch.optim import AdamState
+
+    device = resolve_device(device)
+    opt = state["opt"]
+    if isinstance(opt, tuple) and len(opt) == 0:
+        new_opt: Any = ()
+    elif hasattr(opt, "m") and hasattr(opt, "v"):
+        new_opt = AdamState(
+            m=lm_params_from_numpy(cfg, opt.m, device=device),
+            v=lm_params_from_numpy(cfg, opt.v, device=device))
+    else:
+        new_opt = lm_params_from_numpy(cfg, opt, device=device)
+    return {
+        "params": lm_params_from_numpy(cfg, state["params"], device=device),
+        "opt": new_opt,
+        "step": torch.tensor(int(np.asarray(state["step"])),
+                             dtype=torch.int32, device=device),
+    }

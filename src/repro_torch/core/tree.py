@@ -1,5 +1,5 @@
 """Nested containers of tensors (the JAX package's pytrees): ``None``,
-tuples, lists and dicts of leaves."""
+tuples (named ones included), lists and dicts of leaves."""
 
 from __future__ import annotations
 
@@ -15,9 +15,11 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if tree is None:
         return None
     if isinstance(tree, (tuple, list)):
-        return type(tree)(
-            tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)
-        )
+        items = [tree_map(fn, t, *(r[i] for r in rest))
+                 for i, t in enumerate(tree)]
+        if hasattr(tree, "_fields"):       # a NamedTuple
+            return type(tree)(*items)
+        return type(tree)(items)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}

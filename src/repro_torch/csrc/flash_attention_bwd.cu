@@ -1,0 +1,664 @@
+// Flash-attention backward for Hopper (sm_90a): the dQ and the dK/dV
+// kernels.
+//
+// Replace the Pallas TPU kernels
+//   src/repro/kernels/flash_attention/kernel.py::flash_bwd_dq
+//     (body _bwd_dq_kernel) and
+//   src/repro/kernels/flash_attention/kernel.py::flash_bwd_dkv
+//     (body _bwd_dkv_kernel), with the GQA group sum of ops.py folded in.
+// They compute what those kernels compute from the forward's row
+// statistics m (largest scaled score) and l (sum of exp(s - m)) and
+// delta = rowsum(dO * O), which the caller computes:
+//   P  = exp(S * scale - m) / l, 0 where masked or where l = 0,
+//   dP = dO V^T,  dS = P * (dP - delta),
+//   dQ = scale * dS K,  dK = scale * sum over the group dS^T Q,
+//   dV = sum over the group P^T dO.
+// Masks are the forward's (causal and window aligned on suffixes); unlike
+// the TPU kernels, ragged tails are masked, so Sq and Skv need not be
+// multiples of the tile.
+//
+// What bounds them: at the LM's microbatch shape (B 4, H 24, KH 8,
+// S 4096, D 128, bf16, causal) dQ does three half-triangle products
+// (S, dP, dS K: 6.2e11 FLOP) and dK/dV four (8.2e11) against under 0.5 GB
+// of inputs and outputs, so both are bound by operations (0.63 and
+// 0.83 ms at the 989 TFLOP/s of an H100 SXM's bf16 tensor cores, data
+// sheet, 700 W), not bytes.
+//
+// What the design does about it: this is the simple first version, built
+// from the forward's tools.  The TPU kernels' sequential grid dimension
+// becomes a loop inside the block:
+//  * dQ: one block per (b, h, 64-row q tile) walks the KV tiles of its
+//    band; Q and dO stay in shared memory, dQ accumulates in f32 registers
+//    and is written once.
+//  * dK/dV: one block per (b, KV head, 64-key tile) walks the G query
+//    heads of its group and the q tiles of their band; K and V stay in
+//    shared memory, dK and dV accumulate in f32 registers over the whole
+//    group and are written once in k's layout.  No per-head [B, H, Skv, D]
+//    buffer, no atomics: every output element is written by one thread, so
+//    two launches give the same bits.
+// Two routes by dtype, as in the forward: bf16 on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation, ldmatrix, cp.async tiles; P and dS
+// enter their products rounded to bf16), f32 on CUDA-core FMAs.  TMA,
+// pipelining and wgmma are later work.
+//
+// Built by nvcc into a shared library with a plain C interface
+// (src/repro_torch/kernels/_build.py) and called through ctypes by
+// src/repro_torch/kernels/flash_attention/kernel.py.
+
+#include "flash_attention_common.cuh"
+
+namespace {
+
+// Element strides, (batch, seq, head) for each tensor in turn, passed by
+// value: q, k, v, dO, then dq (15 used) or dk and dv (18).
+struct Strides {
+  long long s[18];
+};
+
+// The q tiles [qt_lo, qt_end) that meet the band of the KV tile starting at
+// key k0: the rows that see at least one of its keys.
+__device__ __forceinline__ void q_band(int k0, int Sq, int Skv, int causal,
+                                       int window, int& qt_lo, int& qt_end) {
+  const int q_off = Skv - Sq;
+  const int key_hi = min(k0 + BK, Skv) - 1;
+  int r_lo = 0;
+  int r_hi = Sq - 1;
+  if (causal) r_lo = max(r_lo, k0 - q_off);
+  if (window >= 0) r_hi = min(r_hi, key_hi + window - 1 - q_off);
+  qt_lo = r_lo / BQ;
+  qt_end = r_hi >= r_lo ? r_hi / BQ + 1 : qt_lo;
+}
+
+// Row statistics of query row r: m, 1 / l (0 where l = 0 or past Sq) and
+// delta.
+__device__ __forceinline__ void row_stats(const float* m, const float* l,
+                                          const float* delta, long long base,
+                                          int r, int Sq, float& mr,
+                                          float& il, float& dl) {
+  mr = 0.f;
+  il = 0.f;
+  dl = 0.f;
+  if (r < Sq) {
+    const float lv = l[base + r];
+    mr = m[base + r];
+    il = lv > 0.f ? 1.f / lv : 0.f;
+    dl = delta[base + r];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+
+// dQ.  NG = number of 64-column groups of the head dim (ceil(D / 64)).
+template <int NG>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dO,
+                        const float* __restrict__ m,
+                        const float* __restrict__ l,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int KH, int Sq,
+                        int Skv, int D, const Strides st,
+                        int causal, int window, float scale) {
+  extern __shared__ float4 smem4[];
+  const int ld = D + 4;
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + BQ * ld;
+  float* Ks = dOs + BQ * ld;
+  float* Vs = Ks + BK * ld;
+  float* dSs = Vs + BK * ld;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int q0 = qt * BQ;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const float* qb = q + b * st.s[0] + h * st.s[2];
+  const float* kb = k + b * st.s[3] + kh * st.s[5];
+  const float* vb = v + b * st.s[6] + kh * st.s[8];
+  const float* dob = dO + b * st.s[9] + h * st.s[11];
+  const long long base = ((long long)b * H + h) * Sq;
+
+  int kt_lo, kt_end;
+  kv_band(q0, Sq, Skv, causal, window, kt_lo, kt_end);
+
+  load_tile(Qs, qb, st.s[1], q0, Sq, D, ld);
+  load_tile(dOs, dob, st.s[10], q0, Sq, D, ld);
+
+  float mr[4], il[4], dl[4];
+  float acc[4][NG][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row_stats(m, l, delta, base, q0 + ty + 16 * i, Sq, mr[i], il[i], dl[i]);
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][g][c] = 0.f;
+  }
+
+  for (int kt = kt_lo; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the previous tile's readers are done
+    load_tile(Ks, kb, st.s[4], k0, Skv, D, ld);
+    load_tile(Vs, vb, st.s[7], k0, Skv, D, ld);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    tile_dots(s, Qs, Ks, D, ld, tx, ty);
+    tile_dots(dp, dOs, Vs, D, ld, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = visible(r, k0 + tx + 16 * j, Sq, Skv, causal, window);
+        const float p = ok ? expf(s[i][j] * scale - mr[i]) * il[i] : 0.f;
+        dSs[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
+      }
+    }
+    __syncthreads();
+    tile_pv<NG>(acc, dSs, Ks, D, ld, tx, ty);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    float* row = dq + b * st.s[12] + (long long)r * st.s[13] + h * st.s[14];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = g * 64 + tx * 4;
+      if (col < D)
+        store4(row + col, make_float4(acc[i][g][0] * scale,
+                                      acc[i][g][1] * scale,
+                                      acc[i][g][2] * scale,
+                                      acc[i][g][3] * scale));
+    }
+  }
+}
+
+// dK/dV: ty picks keys (rows of K^T-side tiles), tx picks query columns.
+template <int NG>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dO,
+                         const float* __restrict__ m,
+                         const float* __restrict__ l,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int KH, int Sq, int Skv, int D,
+                         const Strides st, int causal,
+                         int window, float scale) {
+  extern __shared__ float4 smem4[];
+  const int ld = D + 4;
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + BK * ld;
+  float* Qs = Vs + BK * ld;
+  float* dOs = Qs + BQ * ld;
+  float* Pt = dOs + BQ * ld;
+  float* dSt = Pt + BK * LDP;
+  float* sm_m = dSt + BK * LDP;
+  float* sm_il = sm_m + BQ;
+  float* sm_d = sm_il + BQ;
+
+  const int kt = blockIdx.x;                 // heaviest tiles first (causal)
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KH;
+  const int k0 = kt * BK;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const float* kb = k + b * st.s[3] + kh * st.s[5];
+  const float* vb = v + b * st.s[6] + kh * st.s[8];
+
+  int qt_lo, qt_end;
+  q_band(k0, Sq, Skv, causal, window, qt_lo, qt_end);
+
+  load_tile(Ks, kb, st.s[4], k0, Skv, D, ld);
+  load_tile(Vs, vb, st.s[7], k0, Skv, D, ld);
+
+  float dK[4][NG][4], dV[4][NG][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dK[i][g][c] = 0.f;
+        dV[i][g][c] = 0.f;
+      }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = kh * G + gi;
+    const float* qb = q + b * st.s[0] + h * st.s[2];
+    const float* dob = dO + b * st.s[9] + h * st.s[11];
+    const long long base = ((long long)b * H + h) * Sq;
+    for (int qt = qt_lo; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();   // the previous tile's readers are done
+      load_tile(Qs, qb, st.s[1], q0, Sq, D, ld);
+      load_tile(dOs, dob, st.s[10], q0, Sq, D, ld);
+      if (threadIdx.x < BQ)
+        row_stats(m, l, delta, base, q0 + threadIdx.x, Sq,
+                  sm_m[threadIdx.x], sm_il[threadIdx.x], sm_d[threadIdx.x]);
+      __syncthreads();
+
+      // S^T and dP^T for keys ty + 16 i and queries tx + 16 j.
+      float s[4][4], dp[4][4];
+      tile_dots(s, Ks, Qs, D, ld, tx, ty);
+      tile_dots(dp, Vs, dOs, D, ld, tx, ty);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = tx + 16 * j;
+          const bool ok = visible(q0 + qi, c, Sq, Skv, causal, window);
+          const float p =
+              ok ? expf(s[i][j] * scale - sm_m[qi]) * sm_il[qi] : 0.f;
+          Pt[(ty + 16 * i) * LDP + qi] = p;
+          dSt[(ty + 16 * i) * LDP + qi] = p * (dp[i][j] - sm_d[qi]);
+        }
+      }
+      __syncthreads();
+      tile_pv<NG>(dV, Pt, dOs, D, ld, tx, ty);
+      tile_pv<NG>(dK, dSt, Qs, D, ld, tx, ty);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = k0 + ty + 16 * i;
+    if (c >= Skv) continue;
+    float* krow = dk + b * st.s[12] + (long long)c * st.s[13] + kh * st.s[14];
+    float* vrow = dv + b * st.s[15] + (long long)c * st.s[16] + kh * st.s[17];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = g * 64 + tx * 4;
+      if (col < D) {
+        store4(krow + col, make_float4(dK[i][g][0] * scale,
+                                       dK[i][g][1] * scale,
+                                       dK[i][g][2] * scale,
+                                       dK[i][g][3] * scale));
+        store4(vrow + col, make_float4(dV[i][g][0], dV[i][g][1],
+                                       dV[i][g][2], dV[i][g][3]));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulation)
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dO,
+                        const float* __restrict__ m,
+                        const float* __restrict__ l,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int H, int KH,
+                        int Sq, int Skv, const Strides st,
+                        int causal, int window, float scale) {
+  constexpr int LD = D + 8;
+  constexpr int NT = D / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* dOs = Qs + 64 * LD;
+  __nv_bfloat16* Ks = dOs + 64 * LD;
+  __nv_bfloat16* Vs = Ks + 64 * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int li = lane & 7;
+  const int lj = lane >> 3;
+  const int wrow = warp * 16;
+
+  const __nv_bfloat16* qb = q + b * st.s[0] + h * st.s[2];
+  const __nv_bfloat16* kb = k + b * st.s[3] + kh * st.s[5];
+  const __nv_bfloat16* vb = v + b * st.s[6] + kh * st.s[8];
+  const __nv_bfloat16* dob = dO + b * st.s[9] + h * st.s[11];
+  const long long base = ((long long)b * H + h) * Sq;
+
+  int kt_lo, kt_end;
+  kv_band(q0, Sq, Skv, causal, window, kt_lo, kt_end);
+
+  cp_tile<D>(Qs, qb, st.s[1], q0, Sq);     // waited for with the first K/V
+  cp_tile<D>(dOs, dob, st.s[10], q0, Sq);
+
+  float mr[2], il[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+    row_stats(m, l, delta, base, q0 + wrow + g + 8 * hr, Sq, mr[hr], il[hr],
+              dl[hr]);
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the previous tile's readers are done
+    cp_tile<D>(Ks, kb, st.s[4], k0, Skv);
+    cp_tile<D>(Vs, vb, st.s[7], k0, Skv);
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = 0.f;
+        dp[n][c] = 0.f;
+      }
+    mma_rows_dot<D>(s, Qs, Ks, wrow, li, lj);    // S  = Q K^T
+    mma_rows_dot<D>(dp, dOs, Vs, wrow, li, lj);  // dP = dO V^T
+
+    // dS = P (dP - delta) for rows g (c < 2) and g + 8, in f32; it enters
+    // dS K rounded to bf16.
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hr = c >> 1;
+        const bool ok = visible(q0 + wrow + g + 8 * hr,
+                                k0 + n * 8 + 2 * t4 + (c & 1), Sq, Skv,
+                                causal, window);
+        const float p = ok ? expf(s[n][c] * scale - mr[hr]) * il[hr] : 0.f;
+        s[n][c] = p * (dp[n][c] - dl[hr]);
+      }
+    mma_acc_pv<D>(acc, s, Ks, li, lj);           // dQ += dS K
+  }
+  cp_async_wait_all();   // an empty band never waited for Q and dO
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = q0 + wrow + g + 8 * hr;
+    if (r >= Sq) continue;
+    __nv_bfloat16* row = dq + b * st.s[12] + (long long)r * st.s[13] +
+                         h * st.s[14];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t4) = pack_bf16(
+          acc[n][2 * hr] * scale, acc[n][2 * hr + 1] * scale);
+  }
+}
+
+// dK/dV: each warp owns 16 keys of the 64-key tile; the accumulators hold
+// them as rows (g, g + 8) and the queries as columns.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dO,
+                         const float* __restrict__ m,
+                         const float* __restrict__ l,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int KH,
+                         int Sq, int Skv, const Strides st,
+                         int causal, int window, float scale) {
+  constexpr int LD = D + 8;
+  constexpr int NT = D / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Vs = Ks + 64 * LD;
+  __nv_bfloat16* Qs = Vs + 64 * LD;
+  __nv_bfloat16* dOs = Qs + 64 * LD;
+  float* sm_m = reinterpret_cast<float*>(dOs + 64 * LD);
+  float* sm_il = sm_m + BQ;
+  float* sm_d = sm_il + BQ;
+
+  const int kt = blockIdx.x;                 // heaviest tiles first (causal)
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KH;
+  const int k0 = kt * BK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int li = lane & 7;
+  const int lj = lane >> 3;
+  const int wrow = warp * 16;
+
+  const __nv_bfloat16* kb = k + b * st.s[3] + kh * st.s[5];
+  const __nv_bfloat16* vb = v + b * st.s[6] + kh * st.s[8];
+
+  int qt_lo, qt_end;
+  q_band(k0, Sq, Skv, causal, window, qt_lo, qt_end);
+
+  cp_tile<D>(Ks, kb, st.s[4], k0, Skv);    // waited for with the first Q tile
+  cp_tile<D>(Vs, vb, st.s[7], k0, Skv);
+
+  float dK[NT][4], dV[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dK[n][c] = 0.f;
+      dV[n][c] = 0.f;
+    }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = kh * G + gi;
+    const __nv_bfloat16* qb = q + b * st.s[0] + h * st.s[2];
+    const __nv_bfloat16* dob = dO + b * st.s[9] + h * st.s[11];
+    const long long base = ((long long)b * H + h) * Sq;
+    for (int qt = qt_lo; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();   // the previous tile's readers are done
+      cp_tile<D>(Qs, qb, st.s[1], q0, Sq);
+      cp_tile<D>(dOs, dob, st.s[10], q0, Sq);
+      if (threadIdx.x < BQ)
+        row_stats(m, l, delta, base, q0 + threadIdx.x, Sq,
+                  sm_m[threadIdx.x], sm_il[threadIdx.x], sm_d[threadIdx.x]);
+      cp_async_wait_all();
+      __syncthreads();
+
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[n][c] = 0.f;
+          dp[n][c] = 0.f;
+        }
+      mma_rows_dot<D>(s, Ks, Qs, wrow, li, lj);    // S^T  = K Q^T
+      mma_rows_dot<D>(dp, Vs, dOs, wrow, li, lj);  // dP^T = V dO^T
+
+      // P^T and dS^T for keys g (c < 2) and g + 8 and queries
+      // n * 8 + 2 t4 + (c & 1) of the tile, in f32; each enters its
+      // product rounded to bf16.
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = n * 8 + 2 * t4 + (c & 1);
+          const bool ok = visible(q0 + qi, k0 + wrow + g + 8 * (c >> 1), Sq,
+                                  Skv, causal, window);
+          const float p =
+              ok ? expf(s[n][c] * scale - sm_m[qi]) * sm_il[qi] : 0.f;
+          s[n][c] = p;
+          dp[n][c] = p * (dp[n][c] - sm_d[qi]);
+        }
+      mma_acc_pv<D>(dV, s, dOs, li, lj);    // dV += P^T dO
+      mma_acc_pv<D>(dK, dp, Qs, li, lj);    // dK += dS^T Q
+    }
+  }
+  cp_async_wait_all();   // an empty band never waited for K and V
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int c = k0 + wrow + g + 8 * hr;
+    if (c >= Skv) continue;
+    __nv_bfloat16* krow = dk + b * st.s[12] + (long long)c * st.s[13] +
+                          kh * st.s[14];
+    __nv_bfloat16* vrow = dv + b * st.s[15] + (long long)c * st.s[16] +
+                          kh * st.s[17];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<uint32_t*>(krow + n * 8 + 2 * t4) = pack_bf16(
+          dK[n][2 * hr] * scale, dK[n][2 * hr + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vrow + n * 8 + 2 * t4) =
+          pack_bf16(dV[n][2 * hr], dV[n][2 * hr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *dO;
+  const float *m, *l, *delta;
+  void *d0, *d1;            // dq, or dk and dv
+  int B, H, KH, Sq, Skv, D;
+  Strides st;
+  int causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+int configure(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D>
+int launch_mma(const Args& a, bool dkv) {
+  using bf = __nv_bfloat16;
+  const size_t tiles = (size_t)4 * 64 * (D + 8) * sizeof(bf);
+  if (!dkv) {
+    int err = configure(flash_bwd_dq_mma_kernel<D>, tiles);
+    if (err) return err;
+    const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+    flash_bwd_dq_mma_kernel<D><<<grid, MMA_THREADS, tiles, a.stream>>>(
+        (const bf*)a.q, (const bf*)a.k, (const bf*)a.v, (const bf*)a.dO,
+        a.m, a.l, a.delta, (bf*)a.d0, a.H, a.KH, a.Sq, a.Skv, a.st,
+        a.causal, a.window, a.scale);
+  } else {
+    const size_t smem = tiles + 3 * BQ * sizeof(float);
+    int err = configure(flash_bwd_dkv_mma_kernel<D>, smem);
+    if (err) return err;
+    const dim3 grid((a.Skv + BK - 1) / BK, a.KH, a.B);
+    flash_bwd_dkv_mma_kernel<D><<<grid, MMA_THREADS, smem, a.stream>>>(
+        (const bf*)a.q, (const bf*)a.k, (const bf*)a.v, (const bf*)a.dO,
+        a.m, a.l, a.delta, (bf*)a.d0, (bf*)a.d1, a.H, a.KH, a.Sq, a.Skv,
+        a.st, a.causal, a.window, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The mma kernels instantiated for every head dim that is a multiple of 16
+// up to MAX_D.
+constexpr int MAX_D = 160;
+
+template <int D>
+int launch_mma_d(const Args& a, bool dkv) {
+  if (a.D == D) return launch_mma<D>(a, dkv);
+  if constexpr (D < MAX_D) return launch_mma_d<D + 16>(a, dkv);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int NG>
+int launch_f32(const Args& a, bool dkv) {
+  const size_t tiles = (size_t)4 * 64 * (a.D + 4) * sizeof(float);
+  if (!dkv) {
+    const size_t smem = tiles + (size_t)BK * LDP * sizeof(float);
+    int err = configure(flash_bwd_dq_f32_kernel<NG>, smem);
+    if (err) return err;
+    const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+    flash_bwd_dq_f32_kernel<NG><<<grid, THREADS, smem, a.stream>>>(
+        (const float*)a.q, (const float*)a.k, (const float*)a.v,
+        (const float*)a.dO, a.m, a.l, a.delta, (float*)a.d0, a.H, a.KH,
+        a.Sq, a.Skv, a.D, a.st, a.causal, a.window, a.scale);
+  } else {
+    const size_t smem =
+        tiles + (size_t)(2 * BK * LDP + 3 * BQ) * sizeof(float);
+    int err = configure(flash_bwd_dkv_f32_kernel<NG>, smem);
+    if (err) return err;
+    const dim3 grid((a.Skv + BK - 1) / BK, a.KH, a.B);
+    flash_bwd_dkv_f32_kernel<NG><<<grid, THREADS, smem, a.stream>>>(
+        (const float*)a.q, (const float*)a.k, (const float*)a.v,
+        (const float*)a.dO, a.m, a.l, a.delta, (float*)a.d0, (float*)a.d1,
+        a.H, a.KH, a.Sq, a.Skv, a.D, a.st, a.causal, a.window, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch(const Args& a, int dtype, bool dkv) {
+  if (a.D % 16 != 0 || a.D < 16 || a.D > MAX_D || a.KH <= 0 ||
+      a.H % a.KH != 0 || a.H > 65535 || a.KH > 65535 || a.B > 65535 ||
+      a.Sq <= 0 || a.Skv <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return launch_mma_d<16>(a, dkv);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch ((a.D + 63) / 64) {
+    case 1: return launch_f32<1>(a, dkv);
+    case 2: return launch_f32<2>(a, dkv);
+    case 3: return launch_f32<3>(a, dkv);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = f32, 1 = bf16.  `strides` points to host memory holding the
+// (batch, seq, head) element strides of q, k, v, dO and dq in turn (15
+// values); the head dim is contiguous.  m, l and delta are f32 [B, H, Sq].
+// window < 0 means no window.  Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int flash_attention_bwd_dq_launch(
+    const void* q, const void* k, const void* v, const void* dO,
+    const void* m, const void* l, const void* delta, void* dq, int dtype,
+    int B, int H, int KH, int Sq, int Skv, int D, const long long* strides,
+    int causal, int window, float scale, void* stream) {
+  Strides st{};
+  for (int i = 0; i < 15; ++i) st.s[i] = strides[i];
+  const Args a{q, k, v, dO, (const float*)m, (const float*)l,
+               (const float*)delta, dq, nullptr, B, H, KH, Sq, Skv, D,
+               st, causal, window, scale, (cudaStream_t)stream};
+  return launch(a, dtype, false);
+}
+
+// As above, with the strides of q, k, v, dO, dk and dv (18 values); dk and
+// dv are [B, KH, Skv, D]-shaped in k's layout, summed over the query-head
+// group.
+extern "C" int flash_attention_bwd_dkv_launch(
+    const void* q, const void* k, const void* v, const void* dO,
+    const void* m, const void* l, const void* delta, void* dk, void* dv,
+    int dtype, int B, int H, int KH, int Sq, int Skv, int D,
+    const long long* strides, int causal, int window, float scale,
+    void* stream) {
+  Strides st{};
+  for (int i = 0; i < 18; ++i) st.s[i] = strides[i];
+  const Args a{q, k, v, dO, (const float*)m, (const float*)l,
+               (const float*)delta, dk, dv, B, H, KH, Sq, Skv, D,
+               st, causal, window, scale, (cudaStream_t)stream};
+  return launch(a, dtype, true);
+}

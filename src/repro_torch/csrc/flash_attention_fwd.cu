@@ -32,88 +32,16 @@
 // later work.  q tiles are issued heaviest first (the causal band grows
 // with the tile index) so the last wave is short.
 //
+// The masks, tiles and mma/ldmatrix/cp.async helpers live in
+// flash_attention_common.cuh, shared with the backward kernels.
+//
 // Built by nvcc into a shared library with a plain C interface
 // (src/repro_torch/kernels/_build.py) and called through ctypes by
 // src/repro_torch/kernels/flash_attention/kernel.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per KV tile
-constexpr float NEG_INF = -1e30f;
-
-// The KV tiles [kt_lo, kt_end) that meet the band of the q tile starting at
-// row q0 (_band of the TPU kernel); empty when no row of it sees a key.
-__device__ __forceinline__ void kv_band(int q0, int Sq, int Skv, int causal,
-                                        int window, int& kt_lo,
-                                        int& kt_end) {
-  const int q_off = Skv - Sq;
-  int key_lo = 0;
-  int key_hi = Skv - 1;
-  if (window >= 0) key_lo = max(key_lo, q0 + q_off - window + 1);
-  if (causal) key_hi = min(key_hi, min(q0 + BQ, Sq) - 1 + q_off);
-  kt_lo = key_lo / BK;
-  kt_end = key_hi >= key_lo ? key_hi / BK + 1 : kt_lo;
-}
-
-// Whether query row r (of Sq) sees key c (of Skv): suffix-aligned causal
-// and window masks, and the ragged tails.
-__device__ __forceinline__ bool visible(int r, int c, int Sq, int Skv,
-                                        int causal, int window) {
-  const int ra = r + Skv - Sq;
-  return r < Sq && c < Skv && (!causal || c <= ra) &&
-         (window < 0 || c > ra - window);
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int THREADS = 256;     // 16 x 16: tx picks columns, ty rows
-constexpr int LDP = BK + 4;      // row stride of the P tile (floats)
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// Rows [row0, row0 + 64) of a [rows, D] matrix with row stride `ss`
-// (elements) into shared memory with row stride `ld`; rows at or past
-// `nrows` read as zeros, so a ragged tail contributes nothing (and never
-// NaN: P is 0 there, and 0 * garbage could be NaN).
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ss, int row0, int nrows,
-                                          int D, int ld) {
-  const int vecs = D / 4;
-  for (int idx = threadIdx.x; idx < 64 * vecs; idx += THREADS) {
-    const int r = idx / vecs;
-    const int c = (idx - r * vecs) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) val = load4(src + (long long)(row0 + r) * ss + c);
-    store4(dst + r * ld + c, val);
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // NG = number of 64-column groups of the head dim (ceil(D / 64)).
 template <int NG>
@@ -173,28 +101,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
 
     // Scores for rows ty + 16 i and keys tx + 16 j of the tile.
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = load4(Qs + (ty + 16 * i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = load4(Ks + (tx + 16 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
-    }
+    tile_dots(s, Qs, Ks, D, ld, tx, ty);
 
     // Mask, online softmax, P into shared memory.  The 16 threads of a
     // half-warp share rows, so row reductions are half-warp shuffles.
@@ -231,41 +138,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
     __syncthreads();
 
     // acc += P V for rows ty + 16 i, columns g * 64 + tx * 4 + (0..3).
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = load4(Ps + (ty + 16 * i) * LDP + c);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int col = g * 64 + tx * 4;
-        if (col < D) {
-          const float4 v0 = load4(Vs + (c + 0) * ld + col);
-          const float4 v1 = load4(Vs + (c + 1) * ld + col);
-          const float4 v2 = load4(Vs + (c + 2) * ld + col);
-          const float4 v3 = load4(Vs + (c + 3) * ld + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* a = acc[i][g];
-            a[0] = fmaf(pv[i].x, v0.x, a[0]);
-            a[1] = fmaf(pv[i].x, v0.y, a[1]);
-            a[2] = fmaf(pv[i].x, v0.z, a[2]);
-            a[3] = fmaf(pv[i].x, v0.w, a[3]);
-            a[0] = fmaf(pv[i].y, v1.x, a[0]);
-            a[1] = fmaf(pv[i].y, v1.y, a[1]);
-            a[2] = fmaf(pv[i].y, v1.z, a[2]);
-            a[3] = fmaf(pv[i].y, v1.w, a[3]);
-            a[0] = fmaf(pv[i].z, v2.x, a[0]);
-            a[1] = fmaf(pv[i].z, v2.y, a[1]);
-            a[2] = fmaf(pv[i].z, v2.z, a[2]);
-            a[3] = fmaf(pv[i].z, v2.w, a[3]);
-            a[0] = fmaf(pv[i].w, v3.x, a[0]);
-            a[1] = fmaf(pv[i].w, v3.y, a[1]);
-            a[2] = fmaf(pv[i].w, v3.z, a[2]);
-            a[3] = fmaf(pv[i].w, v3.w, a[3]);
-          }
-        }
-      }
-    }
+    tile_pv<NG>(acc, Ps, Vs, D, ld, tx, ty);
   }
 
   // out = acc / l (rows that saw no key read 0), m and l beside it.
@@ -294,70 +167,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulation)
 // ---------------------------------------------------------------------------
-
-constexpr int MMA_THREADS = 128;   // 4 warps x 16 query rows = one q tile
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j.
-// Lane t receives row t/4, columns 2(t%4) and 2(t%4)+1 of each matrix
-// (of its transpose with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B (column
-// fragment) and a 16x8 f32 C: lane t holds C rows t/4 and t/4 + 8, columns
-// 2(t%4) and 2(t%4)+1.
-__device__ __forceinline__ void mma16816(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a [rows, D] bf16 matrix with row stride `ss`
-// (elements) into shared memory with row stride D + 8 (so the eight rows an
-// ldmatrix phase reads fall in distinct banks), 16 bytes per cp.async;
-// rows at or past `nrows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst,
-                                        const __nv_bfloat16* src,
-                                        long long ss, int row0, int nrows) {
-  constexpr int VECS = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * VECS; idx += MMA_THREADS) {
-    const int r = idx / VECS;
-    const int c = (idx - r * VECS) * 8;
-    const bool ok = row0 + r < nrows;
-    const __nv_bfloat16* g = ok ? src + (long long)(row0 + r) * ss + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst + r * (D + 8) + c)),
-                 "l"(g), "r"(ok ? 16 : 0));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -417,27 +226,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys: 8 tiles of
-    // 16 x 8, K's B fragments two tiles per ldmatrix.
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, Qs + (wrow + li + 8 * (lj & 1)) * LD + kk * 16 +
-                     8 * (lj >> 1));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4];
-        ldsm_x4(kf, Ks + (np * 16 + li + 8 * (lj >> 1)) * LD + kk * 16 +
-                        8 * (lj & 1));
-        mma16816(s[2 * np], a, kf[0], kf[1]);
-        mma16816(s[2 * np + 1], a, kf[2], kf[3]);
-      }
-    }
+    mma_rows_dot<D>(s, Qs, Ks, wrow, li, lj);
 
     // Mask and online softmax for rows g (hr = 0) and g + 8 (hr = 1); the
     // four lanes of a quad share a row.  l sums p in f32; P enters the
@@ -483,24 +278,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // acc += P V: the score accumulators of key tiles 2kk and 2kk + 1 are
-    // the A fragment of keys [16 kk, 16 kk + 16); V's B fragments come
-    // transposed by ldmatrix, two output tiles per load.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, Vs + (kk * 16 + li + 8 * (lj & 1)) * LD +
-                              dp * 16 + 8 * (lj >> 1));
-        mma16816(acc[2 * dp], a, vf[0], vf[1]);
-        mma16816(acc[2 * dp + 1], a, vf[2], vf[3]);
-      }
-    }
+    // the A fragment of keys [16 kk, 16 kk + 16), rounded to bf16; V's B
+    // fragments come transposed by ldmatrix.
+    mma_acc_pv<D>(acc, s, Vs, li, lj);
   }
 
 #pragma unroll

@@ -3,8 +3,10 @@
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``build/kernels/`` at the root of the checkout.  The library's file
-name carries a hash of its source, so an edited source builds anew and an
-unchanged one is loaded as it is.  Libraries are loaded with ``ctypes``.
+name carries a hash of its source and of every header in ``csrc/``
+(``*.cuh``, which a source includes by name), so an edited source or
+header builds anew and an unchanged one is loaded as it is.  Libraries are
+loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,11 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

@@ -6,12 +6,15 @@ Layout conventions (the JAX package's, kept at every public function):
   ``(batch, seq, heads, head_dim)``;
 * softmax/statistics in f32, matmuls in the config's compute dtype.
 
-The prefill/train attention entry point, :func:`chunked_attention`, launches
-the Hopper flash-attention forward kernel on a CUDA tensor and runs a plain
-port of the chunked online-softmax on a CPU tensor; ``impl="ref"`` forces
-the kernel's plain version (``attention_reference``) on either device.
-Decode attention over the KV cache is plain PyTorch: no kernel lies behind
-it.
+The prefill/train attention entry point, :func:`chunked_attention`, is
+differentiable.  On a CUDA tensor it goes through the Hopper
+flash-attention kernels (``ops.flash_attention``: the forward kernel, and
+the dQ and dK/dV kernels in the backward); on a CPU tensor through a port
+of the JAX package's chunked online-softmax and its custom VJP (the
+two-pass flash backward over KV chunks, O(Sq * chunk) live memory);
+``impl="ref"`` runs the kernels' plain version (``attention_reference``,
+plain autograd) on either device.  Decode attention over the KV cache is
+plain PyTorch: no kernel lies behind it.
 """
 
 from __future__ import annotations
@@ -179,15 +182,13 @@ def _chunk_mask(rows, cols, Skv, causal, window):
     return mask
 
 
-def _chunked_fwd(q, k, v, causal, window, chunk, scale):
-    """Online-softmax forward over KV chunks (the JAX package's
-    ``_chunked_fwd``); returns the f32 output in the grouped
-    (B, KH, G, Sq, D) layout."""
+def _relayouts(q, k, v, chunk, scale):
+    """f32 K and V in (B, KH, chunks, chunk, D) (zero-padded to a chunk
+    multiple), scaled q in (B, KH, G, Sq, D), and the absolute query rows."""
 
     B, Sq, H, D = q.shape
     _, Skv, KH, _ = k.shape
     group = H // KH
-    q_off = Skv - Sq
 
     qf = (q.to(torch.float32) * scale).permute(0, 2, 1, 3)
     kf = k.to(torch.float32).permute(0, 2, 1, 3)
@@ -200,8 +201,21 @@ def _chunked_fwd(q, k, v, causal, window, chunk, scale):
     kf = kf.reshape(B, KH, nk, chunk, D)
     vf = vf.reshape(B, KH, nk, chunk, D)
     qg = qf.reshape(B, KH, group, Sq, D)
+    rows = torch.arange(Sq, device=q.device) + (Skv - Sq)
+    return kf, vf, qg, rows
+
+
+def _chunked_fwd(q, k, v, causal, window, chunk, scale):
+    """Online-softmax forward over KV chunks (the JAX package's
+    ``_chunked_fwd``); returns (out_f32, m, l) in the grouped
+    (B, KH, G, Sq, *) layout."""
+
+    B, Sq, H, D = q.shape
+    _, Skv, KH, _ = k.shape
+    group = H // KH
+    kf, vf, qg, rows = _relayouts(q, k, v, chunk, scale)
+    nk = kf.shape[2]
     dev = q.device
-    rows = torch.arange(Sq, device=dev) + q_off
 
     m = torch.full((B, KH, group, Sq, 1), -torch.inf, device=dev)
     l = torch.zeros((B, KH, group, Sq, 1), device=dev)
@@ -220,7 +234,57 @@ def _chunked_fwd(q, k, v, causal, window, chunk, scale):
         l = corr * l + torch.sum(p, -1, keepdim=True)
         acc = acc * corr + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
         m = m_new
-    return acc / torch.where(l > 0, l, 1.0)
+    out = acc / torch.where(l > 0, l, 1.0)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    return out, m, l
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The JAX package's ``_chunked_attention`` custom VJP: the forward keeps
+    (q, k, v, out_f32, m, l); the backward recomputes p per (q, KV chunk)
+    from the saved statistics, the math of the flash backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, scale):
+        out, m, l = _chunked_fwd(q, k, v, causal, window, chunk, scale)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, window, chunk, scale)
+        B, Sq, H, D = q.shape
+        return out.reshape(B, H, Sq, D).transpose(1, 2).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, window, chunk, scale = ctx.args
+        B, Sq, H, D = q.shape
+        _, Skv, KH, _ = k.shape
+        group = H // KH
+        kf, vf, qg, rows = _relayouts(q, k, v, chunk, scale)
+        dof = do.to(torch.float32).permute(0, 2, 1, 3).reshape(
+            B, KH, group, Sq, D)
+        l_safe = torch.where(l > 0, l, 1.0)
+        delta = torch.sum(dof * out, dim=-1, keepdim=True)
+        nk = kf.shape[2]
+        dq_acc = torch.zeros_like(qg)
+        dk_chunks, dv_chunks = [], []
+        for ci in range(nk):
+            kc, vc = kf[:, :, ci], vf[:, :, ci]
+            cols = ci * chunk + torch.arange(chunk, device=q.device)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc)
+            mask = _chunk_mask(rows, cols, Skv, causal, window)
+            p = torch.where(mask, torch.exp(s - m), 0.0) / l_safe
+            dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, vc)
+            ds = p * (dp - delta)
+            dq_acc = dq_acc + torch.einsum("bkgqc,bkcd->bkgqd", ds, kc)
+            dv_chunks.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dof))
+            dk_chunks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg))
+        # s = (q * scale) . k, so ds/dq needs the extra scale while ds/dk is
+        # exactly ds^T qg (qg already carries the scale).
+        dq = (dq_acc * scale).reshape(B, H, Sq, D).transpose(1, 2)
+        dk = torch.cat(dk_chunks, dim=2)[:, :, :Skv].transpose(1, 2)
+        dv = torch.cat(dv_chunks, dim=2)[:, :, :Skv].transpose(1, 2)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
 
 
 def chunked_attention(
@@ -234,13 +298,15 @@ def chunked_attention(
     sm_scale: Optional[float] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Blockwise attention in the ``(B, S, H, D)`` layout, forward only.
+    """Blockwise attention in the ``(B, S, H, D)`` layout, forward and
+    backward.
 
-    A CUDA tensor launches the flash-attention forward kernel, which reads
-    this layout through strides (no transpose); a CPU tensor runs the
-    chunked online-softmax with O(Sq * chunk) live memory, the math of the
-    JAX package's ``chunked_attention``.  ``impl="ref"`` runs the kernel's
-    plain version (``attention_reference``) on either device instead."""
+    A CUDA tensor goes through the flash-attention kernels, which read this
+    layout through strides (no transpose); a CPU tensor runs the chunked
+    online-softmax and its two-pass backward with O(Sq * chunk) live
+    memory, the math of the JAX package's ``chunked_attention``.
+    ``impl="ref"`` runs the kernels' plain version
+    (``attention_reference``) under plain autograd on either device."""
 
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"impl must be one of {ATTENTION_IMPLS}, got "
@@ -259,14 +325,12 @@ def chunked_attention(
         )
         return out.transpose(1, 2)
     if q.is_cuda:
-        from repro_torch.kernels.flash_attention.kernel import flash_fwd
+        from repro_torch.kernels.flash_attention.ops import flash_attention
 
-        out, _, _ = flash_fwd(q, k, v, causal=causal, window=window,
-                              sm_scale=scale, layout="bshd")
-        return out
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               sm_scale=scale, layout="bshd")
     chunk = min(chunk, Skv)
-    out = _chunked_fwd(q, k, v, causal, window, chunk, scale)
-    return out.reshape(B, H, Sq, D).transpose(1, 2).to(q.dtype)
+    return _ChunkedAttention.apply(q, k, v, causal, window, chunk, scale)
 
 
 def decode_attention(

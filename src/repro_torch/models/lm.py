@@ -8,20 +8,33 @@ The JAX package's ``models/lm.py`` for the dense family, on one device:
 * the decode cache is a tree stacked on the same axis; ``decode_step``
   updates it in place, where the JAX package donates it to the jitted step
   (``launch/serve.py``) and so updates it in place too;
-* ``attention="ref"`` on ``prefill`` runs the attention's plain version
-  (``attention_reference``) instead of the flash kernel: the whole path
-  against its plain version on the card.
+* ``attention="ref"`` on ``prefill`` and on the training functions runs the
+  attention's plain version (``attention_reference``) instead of the flash
+  kernels: the whole path against its plain version on the card;
+* training (``hidden_forward``, ``chunked_xent``, ``loss_fn``) runs under
+  autograd with the JAX package's remat policies (``_remat``,
+  ``_scan_layers``) over ``torch.utils.checkpoint``, and ``chunked_xent``
+  recomputes each sequence chunk's logits in the backward, so no
+  ``(B, S, V)`` slab stays alive;
+* ``params["layers"]`` is either the stacked tree or a list of per-layer
+  trees (``launch/train.py`` hands the model per-layer views of the stacked
+  leaves, so each layer's gradient is a tensor of its own).
 
-Remat policies are a training concern; serving passes none.  The other
-families (encoder-decoder included) raise (ROADMAP A14(c)).
+The other families (encoder-decoder included) raise (ROADMAP A14(c)).
 """
 
 from __future__ import annotations
 
+import functools
 from math import prod
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
@@ -35,6 +48,10 @@ __all__ = [
     "init_params",
     "serving_params",
     "forward",
+    "hidden_forward",
+    "chunked_xent",
+    "loss_fn",
+    "REMAT_POLICIES",
     "prefill",
     "decode_step",
     "cache_specs",
@@ -153,7 +170,10 @@ def _rope_tables(cfg: ArchConfig, positions: torch.Tensor):
 
 
 def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:
-    return tree_map(lambda a: a[i], params["layers"])
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return tree_map(lambda a: a[i], layers)
 
 
 def _embed_tokens(params, tokens, cfg):
@@ -172,7 +192,8 @@ def _lm_head(params, x, cfg):
     logits = x.to(dt) @ head.to(dt)
     if cfg.padded_vocab != cfg.vocab:
         # padded columns never win an argmax or enter a softmax
-        logits[..., cfg.vocab:] = -1e30
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(col >= cfg.vocab, -1e30)
     return logits
 
 
@@ -196,6 +217,149 @@ def forward(
     for i in range(cfg.n_layers):
         x, _ = blocks.layer_apply(_layer(params, i), x, ctx)
     return _lm_head(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training: remat, hidden states, chunked cross entropy, loss
+# ---------------------------------------------------------------------------
+
+# Remat policies of the JAX package (``lm._remat`` / ``_scan_layers``):
+# "none" keeps every activation, "full" recomputes each layer in the
+# backward, "dots" keeps the matmul outputs (``checkpoint_dots``) and
+# recomputes the rest, "group:G" keeps only every G-th layer boundary.
+REMAT_POLICIES = ("none", "full", "dots", "group:G")
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the remat ``policy`` ("none", "full" or "dots")."""
+
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    if policy == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, got "
+                     f"{policy!r}")
+
+
+def _scan_layers(body, x, params, n_layers: int, policy: str):
+    """The depth loop ``x = body(x, layer i)`` under the remat ``policy``.
+
+    ``group:G`` is sqrt-style checkpointing: only every G-th layer boundary
+    is saved for the backward, and a group's G layers are recomputed
+    together (their internals kept while its backward runs); when G does
+    not divide the depth, or G <= 1, it is "full", as in the JAX
+    package."""
+
+    if policy.startswith("group:"):
+        G = int(policy.split(":")[1])
+        if n_layers % G == 0 and G > 1:
+            def group_body(h, start):
+                for i in range(start, start + G):
+                    h = body(h, _layer(params, i))
+                return h
+
+            for start in range(0, n_layers, G):
+                x = checkpoint(group_body, x, start, use_reentrant=False)
+            return x
+        policy = "full"
+    step = _remat(lambda h, i: body(h, _layer(params, i)), policy)
+    for i in range(n_layers):
+        x = step(x, i)
+    return x
+
+
+def hidden_forward(
+    params, tokens: torch.Tensor, cfg: ArchConfig, *,
+    remat_policy: str = "full", attention: str = "auto",
+) -> torch.Tensor:
+    """Forward up to (but excluding) the LM head: final hidden states."""
+
+    _check_family(cfg)
+    B, S = tokens.shape
+    x = _embed_tokens(params, tokens, cfg)
+    sin, cos = _rope_tables(cfg, torch.arange(S, device=x.device)[None, :])
+    ctx = LayerCtx(cfg=cfg, mode="train", sin=sin, cos=cos,
+                   attention=attention)
+
+    def body(h, layer_params):
+        return blocks.layer_apply(layer_params, h, ctx)[0]
+
+    return _scan_layers(body, x, params, cfg.n_layers, remat_policy)
+
+
+def chunked_xent(params, hidden: torch.Tensor, labels: torch.Tensor,
+                 cfg: ArchConfig, chunk: int = 512) -> torch.Tensor:
+    """Cross entropy with sequence-chunked logits: each chunk's logits are
+    computed, reduced to (lse, picked) and recomputed in the backward (a
+    checkpointed body), so the (B, S, V) logits slab never materialises.
+    Labels < 0 are ignored."""
+
+    dt = dtype_of(cfg.compute_dtype)
+    B, S, E = hidden.shape
+    head = (
+        params["embed"]["tok"].T if cfg.tie_embeddings
+        else params["embed"]["head"]
+    ).to(dt)
+    out_norm = params["embed"]["out_norm"]
+    chunk = min(chunk, S)
+    col = torch.arange(cfg.padded_vocab, device=hidden.device)
+    padded = col >= cfg.vocab
+
+    def body(xc, lc):
+        logits = (rms_norm(xc, out_norm).to(dt) @ head).to(torch.float32)
+        logits = logits.masked_fill(padded, -1e30)
+        m = torch.amax(logits, dim=-1)
+        lse = torch.log(torch.sum(torch.exp(logits - m[..., None]),
+                                  dim=-1)) + m
+        valid = lc >= 0
+        # the label's logit (a select, as the JAX package's sum over
+        # where(col == label)); ignored labels read column 0, masked below
+        picked = torch.gather(logits, -1,
+                              torch.clamp(lc, min=0)[..., None].long())[..., 0]
+        nll = torch.where(valid, lse - picked, 0.0)
+        return torch.sum(nll), torch.sum(valid.to(torch.float32))
+
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        xc, lc = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            part, n = checkpoint(body, xc, lc, use_reentrant=False)
+        else:
+            part, n = body(xc, lc)
+        loss_sum = loss_sum + part
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def loss_fn(
+    params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+    remat_policy: str = "full", *, attention: str = "auto",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss of ``batch["tokens"]`` (positions where
+    ``batch["mask"]`` is 0 are ignored); returns ``(loss, {"loss": loss})``."""
+
+    tokens = batch["tokens"]
+    hidden = hidden_forward(params, tokens, cfg, remat_policy=remat_policy,
+                            attention=attention)
+    labels = tokens[:, 1:]
+    if "mask" in batch:
+        labels = torch.where(batch["mask"][:, 1:] > 0, labels, -1)
+    loss = chunked_xent(params, hidden[:, :-1], labels, cfg)
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------

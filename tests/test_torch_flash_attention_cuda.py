@@ -1,4 +1,4 @@
-"""The Hopper flash-attention forward kernel against its plain version.
+"""The Hopper flash-attention kernels against their plain versions.
 
 These tests need the card (the CUDA kernel has no CPU mode) and skip
 without one; they import nothing of JAX, so they run on the machine with
@@ -13,6 +13,12 @@ order), and in bf16 also within ``kernel.bf16_error_bound`` per element,
 which scales with the row; ``m`` and ``l`` within 1e-5 relative (of
 max(|x|, 1)) of the plain version's row max and row sum on rows that see a
 key; rows that see no key read out 0, m -1e30 and l 0.
+
+The backward kernels (dQ, dK/dV) are held against ``attention_backward``
+computed in f32 from the same inputs and the same m, l and delta: in f32
+within 1e-5 times max(1, max |gradient|) (another summation order), in
+bf16 within ``kernel.bf16_bwd_error_bound`` per element (P and dS enter
+their products rounded to bf16).  Two launches give the same bits.
 """
 
 import pytest
@@ -22,6 +28,7 @@ from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF,
+    attention_backward,
     attention_reference,
 )
 
@@ -136,8 +143,9 @@ def test_ops_routes_cuda_tensors_to_the_kernel():
 def test_kernel_raises_on_what_it_does_not_take():
     device = _card()
     q, k, v = _inputs(CASES[1], torch.float32, "bhsd", device)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(NotImplementedError, match="ops.flash_attention"):
+        K.flash_fwd(q.clone().requires_grad_(), k, v, causal=True,
+                    window=None, sm_scale=0.2)
     with pytest.raises(ValueError, match="head dim"):
         K.flash_fwd(q[..., :24], k[..., :24], v[..., :24], causal=True,
                     window=None, sm_scale=0.2)
@@ -148,3 +156,112 @@ def test_kernel_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="aligned"):  # 8 bytes off
         K.flash_fwd(wide[..., 2:66], k, v, causal=True, window=None,
                     sm_scale=0.2)
+
+
+BWD_CASES = [c for c in CASES if c[5] <= K.MAX_BWD_HEAD_DIM] + [
+    (1, 2, 2, 50, 50, 16, False, 0),     # no row sees a key
+]
+BWD_F32_TOL = 1e-5
+
+
+def _bwd_check(case, dtype, layout):
+    device = _card()
+    causal, window = case[6], case[7]
+    q, k, v = _inputs(case, dtype, layout, device)
+    do = _inputs(case, dtype, layout, device, seed=1)[0]
+    scale = 1.0 / case[5] ** 0.5
+    out, m, l = K.flash_fwd(q, k, v, causal=causal, window=window,
+                            sm_scale=scale, layout=layout)
+    delta = (do.float() * out.float()).sum(-1)
+    delta = (delta if layout == "bhsd" else delta.transpose(1, 2)) \
+        .contiguous()
+    kw = dict(causal=causal, window=window, sm_scale=scale, layout=layout)
+    before = (K.dq_launch_count, K.dkv_launch_count)
+    dq = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+    dq2 = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
+    dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+    torch.cuda.synchronize()
+    assert (K.dq_launch_count, K.dkv_launch_count) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+    assert dq.shape == q.shape and dk.shape == k.shape and \
+        dv.shape == v.shape and dq.dtype == dk.dtype == dtype
+    bq, bk, bv, bdo = (_to_bhsd(t, layout) for t in (q, k, v, do))
+    ref = attention_backward(bq.float(), bk.float(), bv.float(),
+                             bdo.float(), m, l, delta, causal=causal,
+                             window=window, sm_scale=scale)
+    got = [_to_bhsd(t, layout).float() for t in (dq, dk, dv)]
+    if dtype == torch.float32:
+        for name, g, r in zip("qkv", got, ref):
+            tol = BWD_F32_TOL * max(1.0, float(r.abs().max()))
+            err = float((g - r).abs().max())
+            assert err <= tol, (name, err, tol)
+    else:
+        bounds = K.bf16_bwd_error_bound(bq, bk, bv, bdo, m, l, delta, ref,
+                                        causal=causal, window=window,
+                                        sm_scale=scale)
+        for name, g, r, b in zip("qkv", got, ref, bounds):
+            err = (g - r).abs()
+            assert bool((err <= b).all()), (name, float((err / b).max()))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_bhsd(case, dtype):
+    _bwd_check(case, dtype, "bhsd")
+
+
+@pytest.mark.parametrize("case", BWD_CASES[::2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_bshd(case, dtype):
+    _bwd_check(case, dtype, "bshd")
+
+
+def test_backward_kernels_at_the_lm_train_shape():
+    """phi4-mini's training attention (one sequence of 4096), bf16, causal,
+    in the LM's layout."""
+
+    _bwd_check((1, 24, 8, 4096, 4096, 128, True, None), torch.bfloat16,
+               "bshd")
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_gradients_through_ops_use_the_kernels(layout):
+    """``ops.flash_attention`` is differentiable on the card: autograd
+    launches the forward once and each backward kernel once, and the
+    gradients match plain autograd through ``attention_reference``."""
+
+    device = _card()
+    case = (2, 4, 2, 100, 130, 64, True, None)
+    q, k, v = _inputs(case, torch.float32, layout, device)
+    w = torch.cos(torch.arange(64, device=device, dtype=torch.float32))
+    K.reset_launch_count()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, layout=layout)
+    (out * w).sum().backward()
+    assert (K.launch_count, K.dq_launch_count, K.dkv_launch_count) == \
+        (1, 1, 1)
+    plain = [_to_bhsd(t, layout).clone().requires_grad_() for t in (q, k, v)]
+    (attention_reference(*plain, causal=True) * w).sum().backward()
+    for a, b in zip(leaves, plain):
+        err = float((_to_bhsd(a.grad, layout) - b.grad).abs().max())
+        assert err <= BWD_F32_TOL * max(1.0, float(b.grad.abs().max())), err
+
+
+def test_backward_kernels_raise_on_what_they_do_not_take():
+    device = _card()
+    q, k, v = _inputs(CASES[1], torch.float32, "bhsd", device)
+    B, H, Sq = q.shape[:3]
+    stats = [torch.zeros((B, H, Sq), device=device) for _ in range(3)]
+    kw = dict(causal=True, window=None, sm_scale=0.125)
+    with pytest.raises(ValueError, match="delta"):
+        K.flash_bwd_dq(q, k, v, q, stats[0], stats[1], stats[2][:, :, :-1],
+                       **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros((1, 2, 8, 176), device=device)
+        K.flash_bwd_dkv(wide, wide, wide, wide, *[
+            torch.zeros((1, 2, 8), device=device)] * 3, **kw)
+    with pytest.raises(TypeError):
+        K.flash_bwd_dq(q, k, v, q.bfloat16(), *stats, **kw)
