@@ -22,34 +22,41 @@ Phases, each of which exits nonzero on failure:
    graph of 2^25 vertices with the Yahoo webmap's mean out-degree (5.7)
    and web-graph degree exponents (see ``power_law_graph``), made from
    ``--seed`` with numpy, checked against a scipy.sparse float64 oracle;
-   the kernel's launch count must rise by at least 2 a superstep.
+   the kernel's launch count must rise by at least 2 a superstep.  At the
+   main path's shapes the kernel is timed beside ``torch.segment_reduce``
+   and ``index_add_`` (float atomics, not bit-reproducible), yardsticks
+   the port never calls.
 4. ``sssp``: semi-naive SSSP with the merging connector on 2^22 vertices;
    it must converge, equal scipy's BFS distances exactly and run at least
    one sparse superstep.
 5. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
-   held per element to the kernel's own error bound; then the dense
-   LM's serving path, ``launch/serve.py``, on phi4-mini-3.8b at full width
-   and depth with seeded random weights (bf16 compute): 4 requests of
-   4,000 prompt tokens, then 32 greedy decode steps.  The kernel must
-   launch exactly once per layer in prefill and never in decode; the
-   logits must agree with the same model run on the attention's plain
-   version and with a teacher-forced forward within ``LM_NOISE_FACTOR``
-   times the model's bf16 compute bound, measured in the run (the plain
-   path against the same weights computed in f32), and greedy tokens
-   wherever the plain path's top-1 margin exceeds twice the logit gap.
-   Negative controls, each of which must break its bar: the same prefill
-   with the attention cut to a window (as a kernel that drops keys would
-   cut it), against the whole-path bar; and at the main path's attention
-   shape, a kernel output with one KV tile skipped in the long rows,
-   against the kernel's bar.  Profiles one
-   prefill and four decode steps, and times the kernel, its plain version
-   and PyTorch's SDPA at the main path's attention shape.
+   held per element to the kernel's own error bound, reaching every route
+   (``f32``, ``mma``, ``wgmma``); then the dense LM's serving path,
+   ``launch/serve.py``, on phi4-mini-3.8b at full width and depth with
+   seeded random weights (bf16 compute): 4 requests of 4,000 prompt tokens,
+   then 32 greedy decode steps.  The kernel must launch exactly once per
+   layer in prefill, all on the wgmma route (which must be the route at D =
+   128), and never in decode; the logits must agree with the same model run
+   on the attention's plain version and with a teacher-forced forward
+   within ``LM_NOISE_FACTOR`` times the model's bf16 compute bound,
+   measured in the run (the plain path against the same weights computed in
+   f32), and greedy tokens wherever the plain path's top-1 margin exceeds
+   twice the logit gap. Negative controls, each of which must break its
+   bar: the same prefill with the attention cut to a window (as a kernel
+   that drops keys would cut it), against the whole-path bar; and at the
+   main path's attention shape, a kernel output with one KV tile skipped in
+   the long rows, against the kernel's bar.  Profiles one prefill and four
+   decode steps, and times the kernel, the parent's design (the
+   ``mma.sync`` kernel, launched outside the wrapper, in turns with the
+   kernel), its plain version and PyTorch's SDPA at the main path's
+   attention shape.
 6. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
    their plain version (``attention_backward`` in f32 on the same inputs
    and statistics) on the forward's sweep shapes with a head dim up to
-   160 and rows that see no key, f32 and bf16, both layouts: f32 within
+   160 and rows that see no key, f32 and bf16, both layouts, reaching
+   every route of each kernel: f32 within
    1e-5 x max(1, max |grad|), bf16 per element within
    ``kernel.bf16_bwd_error_bound``; two launches bit-identical.  Then the
    whole training path at full width, 2 layers, 1 x 4096 tokens: loss and
@@ -62,7 +69,8 @@ Phases, each of which exits nonzero on failure:
    params, bf16 AdamW m, f32 v, full remat) with 8 x 4096 tokens a step in
    2 microbatches, 5 AdamW steps on the ``zipf`` stream: per-step seconds,
    tokens/s, loss, grad_norm, peak memory, and exactly 128 forward, 64 dQ
-   and 64 dK/dV launches a step.  Profiles one step.  Witnesses for the
+   and 64 dK/dV launches a step, all 128 forward and 64 dK/dV launches
+   on the wgmma route.  Profiles one step.  Witnesses for the
    loss curve, on the same batches: the first 2 steps again, then step 2's
    loss and gradients through the kernels and through the plain attention
    on one sequence; the 5 steps
@@ -73,6 +81,8 @@ Phases, each of which exits nonzero on failure:
    attention, the backward kernels within theirs of the plain backward
    (the timed plain call's own result), both planted faults breaking
    that bound, and the timed launches bit-equal to the checked ones;
+   dK/dV timed in turns with the parent's design (the ``mma.sync``
+   kernel, launched outside the wrapper);
    times beside PyTorch's SDPA backward.
 
 Prints the card's name and power limit first and again after the phases'
@@ -178,6 +188,70 @@ def _timed(fn, reps: int):
         last[0] = fn()
 
     return _time_ms(call, reps), last[0]
+
+
+# The parent's design of the flash forward (B2) and dK/dV (B4) kernels,
+# timed beside the kernels that replaced it: the mma.sync kernels, whose
+# source the port keeps unchanged for the head dims the wgmma kernels do
+# not cover, launched through the libraries' C entry points with the mma
+# route's id at the main path's head dim.  No wrapper and no launch count
+# sees these launches.  Causal, no window, the LM's layout.
+
+
+def _same_function(name, parent, new, tol=1e-2):
+    """The largest relative L2 distance between the parent's outputs and
+    the new kernel's, which must stay under ``tol`` (both round to bf16 in
+    different orders): a check that the timed parent computes the same
+    function."""
+
+    rel = max(float((a.double() - b.double()).norm() / b.double().norm())
+              for a, b in zip(parent, new))
+    if not rel < tol:
+        raise AssertionError(f"the parent's {name} is {rel:.3e} (relative "
+                             f"L2) from the new kernel's, over {tol}")
+    return rel
+
+
+def _parent_fwd(q, k, v, scale):
+    """The parent's forward: (out, m, l), as ``kernel.flash_fwd``'s."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    m, l = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+            for _ in range(2))
+    strides = [x for t in (q, k, v, out) for x in K._bhsd_strides(t, "bshd")]
+    err = K._library().flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), K.ROUTES["mma"], B, H, k.shape[2], S,
+        k.shape[1], D, *strides, 1, -1, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's forward failed: CUDA error {err}")
+    return out, m, l
+
+
+def _parent_dkv(q, k, v, do, m, l, delta, scale):
+    """The parent's dK/dV: (dk, dv), as ``kernel.flash_bwd_dkv``'s."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    B, S, H, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = K._bwd_library().flash_attention_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), K.ROUTES["mma"], B, H, k.shape[2], S, k.shape[1], D,
+        K._strides(q, k, v, do, dk, dv, layout="bshd"), 1, -1, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's dK/dV failed: CUDA error {err}")
+    return dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +622,12 @@ def phase_pagerank(args, device, report) -> None:
     library_ms = _time_ms(
         lambda: torch.segment_reduce(vals, "sum", lengths=lengths), 3)
     E, F = vals.shape
+    # The call a PyTorch user would write for this sum: float atomics, so
+    # not bit-reproducible from run to run (the port never calls it).
+    ids64 = ids.long()
+    index_add_ms = _time_ms(lambda: torch.zeros(
+        (n, F), device=device).index_add_(0, ids64, vals), 10)
+    del ids64
     bytes_moved = E * (4 * F + 4) + n * 4 * F
     report.append({
         "name": "segment_combine",
@@ -567,11 +647,16 @@ def phase_pagerank(args, device, report) -> None:
         "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": library_ms,
+        "library": "torch.segment_reduce",
+        "index_add_ms": index_add_ms,
+        "index_add": "torch.zeros(n, F).index_add_(0, ids, vals): float "
+                     "atomics, not bit-reproducible",
     })
     print(f"pagerank: segment_combine at E={E} F={F} n={n}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.segment_reduce "
-          f"{library_ms:.3f} ms, bound {bytes_moved / HBM_BYTES_PER_S * 1e3:.3f}"
-          f" ms")
+          f"{library_ms:.3f} ms, index_add_ (float atomics, not "
+          f"bit-reproducible) {index_add_ms:.3f} ms, bound "
+          f"{bytes_moved / HBM_BYTES_PER_S * 1e3:.3f} ms")
     del g, ex, vals, ids, ker, ref, lengths
     torch.cuda.empty_cache()
 
@@ -822,10 +907,13 @@ def phase_lm(args, device, report) -> None:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_ratio = 0.0
     worst_rel = 0.0
+    routes = {}
     cases = _flash_cases()
     for case in cases:
         B, H, KH, Sq, Skv, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
+            name = fa_kernel.route("fwd", dtype, D)
+            routes[name] = routes.get(name, 0) + 2
             for layout in ("bhsd", "bshd"):
                 q, k, v = (torch.randn(s, generator=gen, device=device)
                            .to(dtype)
@@ -846,7 +934,9 @@ def phase_lm(args, device, report) -> None:
           f"m and l within {FLASH_STATS_RTOL} relative): max abs err f32 "
           f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}, "
           f"max err / bar {worst_ratio:.3f}, max m/l rel err "
-          f"{worst_rel:.3e}")
+          f"{worst_rel:.3e}; cases by route {json.dumps(routes)}")
+    if set(routes) != set(fa_kernel.ROUTES):
+        raise AssertionError(f"the forward sweep missed a route: {routes}")
 
     cfg = get_config(LM_ARCH)
     if args.lm_layers != cfg.n_layers:
@@ -883,6 +973,8 @@ def phase_lm(args, device, report) -> None:
     ref_prefill_fn, _ = build_prefill_step(plan, None, cache_len, device,
                                            attention="ref")
 
+    wgmma_launches = [0]   # the last serve()'s prefill, on that route
+
     def serve(fn, weights=params, decode=decode_fn, n=steps, feed=None):
         """Prefill, then ``n`` decode steps fed the greedy tokens (or
         ``feed``'s).  Returns (logits per step [n+1, B, V] f32, tokens
@@ -896,6 +988,7 @@ def phase_lm(args, device, report) -> None:
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         n_prefill = fa_kernel.launch_count
+        wgmma_launches[0] = fa_kernel.fwd_wgmma_launch_count
         out = [logits[:, -1].float()]
         token = greedy_sample(logits)
         toks = [token]
@@ -918,16 +1011,25 @@ def phase_lm(args, device, report) -> None:
     torch.cuda.synchronize()
 
     logits, toks, t_prefill, t_decode, n_prefill, n_decode = serve(prefill_fn)
+    n_wgmma = wgmma_launches[0]
+    fwd_route = fa_kernel.route("fwd", torch.bfloat16, D)
+    if fwd_route != "wgmma":
+        raise AssertionError(f"the forward takes the {fwd_route} route at "
+                             f"the main path's D = {D}, not wgmma")
     print(f"lm: served {B} requests x {S} prompt tokens + {steps} greedy "
           f"decode steps (cache {cache_len}): prefill {t_prefill:.4f}s = "
           f"{B * S / t_prefill:.1f} tokens/s, decode "
           f"{t_decode / steps * 1e3:.3f} ms/step = "
           f"{B * steps / t_decode:.1f} tokens/s; flash kernel launches: "
-          f"{n_prefill} in prefill, {n_decode} in decode")
+          f"{n_prefill} in prefill ({n_wgmma} on the wgmma route), "
+          f"{n_decode} in decode")
     if n_prefill != cfg.n_layers or n_decode != 0:
         raise AssertionError(f"flash kernel launched {n_prefill} times in "
                              f"prefill (want {cfg.n_layers}) and {n_decode} "
                              f"in decode (want 0)")
+    if n_wgmma != n_prefill:
+        raise AssertionError(f"{n_wgmma} of {n_prefill} prefill launches on "
+                             f"the wgmma route at D = {D}")
     if not (bool(torch.isfinite(logits[..., :cfg.vocab]).all())
             and toks.shape == (B, steps + 1)
             and int(toks.max()) < cfg.vocab):
@@ -1060,8 +1162,17 @@ def phase_lm(args, device, report) -> None:
         raise AssertionError("the flash bar passes a kernel that skips a "
                              "KV tile")
     del ref, m_ref, l_ref, bar, fault
-    ms = _time_ms(lambda: fa_kernel.flash_fwd(
-        q, k, v, causal=True, window=None, sm_scale=scale, layout="bshd"), 5)
+    # The kernel and the parent's design in turns: new, parent, parent,
+    # new.
+    calls = {"new": lambda: fa_kernel.flash_fwd(
+        q, k, v, causal=True, window=None, sm_scale=scale, layout="bshd"),
+        "parent": lambda: _parent_fwd(q, k, v, scale)}
+    turns = [_time_ms(calls[name], 5)
+             for name in ("new", "parent", "parent", "new")]
+    ms = (turns[0] + turns[3]) / 2
+    parent_ms = (turns[1] + turns[2]) / 2
+    parent_rel = _same_function("forward", calls["parent"](),
+                                calls["new"]())
     plain_ms = _time_ms(lambda: attention_reference(
         qt, kt, vt, causal=True, sm_scale=scale), 3)
     library_ms = _time_ms(lambda: torch.nn.functional
@@ -1078,7 +1189,11 @@ def phase_lm(args, device, report) -> None:
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D) + 2 * 4 * B * H * S
     bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     print(f"lm: flash_attention_fwd at B={B} H={H} KH={KH} S={S} D={D} bf16 "
-          f"causal: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+          f"causal: kernel ({fwd_route} route) {ms:.3f} ms, the parent's "
+          f"design (mma.sync) {parent_ms:.3f} ms (in turns: "
+          f"{', '.join(f'{t:.3f}' for t in turns)}; rel L2 from the "
+          f"kernel's {parent_rel:.3e}), plain "
+          f"{plain_ms:.3f} ms, SDPA "
           f"{library_ms:.3f} ms, bound {bound:.3f} ms ({flops:.4e} FLOP, "
           f"{nbytes} bytes); vs plain max abs err {max_abs_err:.3e}, m/l rel "
           f"err {rel:.3e}; the same inputs in f32 (CUDA cores) {f32_ms:.3f} "
@@ -1091,6 +1206,10 @@ def phase_lm(args, device, report) -> None:
         "tpu_kernel": "repro.kernels.flash_attention.kernel.flash_fwd",
         "launches": n_prefill,
         "launches_per_prefill": n_prefill,
+        "kernel_route": fwd_route,
+        "route_launches_per_prefill": n_wgmma,
+        "parent_ms": parent_ms,
+        "parent_design": "mma.sync",
         "shape": {"B": B, "H": H, "KH": KH, "Sq": S, "Skv": S, "D": D,
                   "dtype": "bfloat16", "causal": True, "layout": "bshd"},
         "max_abs_err": max_abs_err,
@@ -1256,6 +1375,31 @@ def _leaf_rel_l2(a, b):
             for x, y in zip(a, b)]
 
 
+def _train_counts(K):
+    """(forward, dQ, dK/dV launches, forward and dK/dV launches on the
+    wgmma route) since the last reset."""
+
+    return (K.launch_count, K.dq_launch_count, K.dkv_launch_count,
+            K.fwd_wgmma_launch_count, K.dkv_wgmma_launch_count)
+
+
+def _train_want(K, cfg, microbatches):
+    """``_train_counts`` of one train step of ``cfg`` in bf16 with full
+    remat (each layer's forward runs again in its backward), every forward
+    and dK/dV launch on the wgmma route; raises if that route does not take
+    cfg's head dim."""
+
+    import torch
+
+    routes = (K.route("fwd", torch.bfloat16, cfg.hd),
+              K.route("dkv", torch.bfloat16, cfg.hd))
+    if routes != ("wgmma", "wgmma"):
+        raise AssertionError(f"the forward and dK/dV take the {routes} "
+                             f"routes at D = {cfg.hd}, not wgmma")
+    n = cfg.n_layers * microbatches
+    return (2 * n, n, n, 2 * n, n)
+
+
 def phase_train(args, device, report) -> None:
     import dataclasses
 
@@ -1280,10 +1424,14 @@ def phase_train(args, device, report) -> None:
     # 1. The backward kernels against plain: the sweep.
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_ratio = 0.0
+    routes = {}
     cases = _bwd_cases()
     for case in cases:
         B, H, KH, Sq, Skv, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
+            for kernel in ("dq", "dkv"):
+                name = f"{kernel}/{K.route(kernel, dtype, D)}"
+                routes[name] = routes.get(name, 0) + 2
             for layout in ("bhsd", "bshd"):
                 q, k, v, do = (torch.randn(s, generator=gen, device=device)
                                .to(dtype)
@@ -1303,7 +1451,12 @@ def phase_train(args, device, report) -> None:
           f"max|grad|); bf16 within bf16_bwd_error_bound per element; two "
           f"launches bit-identical): max abs err f32 "
           f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}, "
-          f"bf16 max err / bound {worst_ratio:.3f}", flush=True)
+          f"bf16 max err / bound {worst_ratio:.3f}; cases by route "
+          f"{json.dumps(routes)}", flush=True)
+    want_routes = {f"{kernel}/{name}" for kernel in ("dq", "dkv")
+                   for name in K.ROUTES} - {"dq/wgmma"}
+    if set(routes) != want_routes:
+        raise AssertionError(f"the backward sweep missed a route: {routes}")
 
     cfg = get_config(TRAIN_ARCH)
     plan = plan_lm(cfg, "train_4k", MeshSpec((("data", 1),)), hw=H100_SXM)
@@ -1326,10 +1479,10 @@ def phase_train(args, device, report) -> None:
     t0 = time.perf_counter()
     loss_k, g_k = _grads_of(params, ccfg, tokens, "auto")
     t_k = time.perf_counter() - t0
-    launches = (K.launch_count, K.dq_launch_count, K.dkv_launch_count)
-    if launches != (2 * ccfg.n_layers, ccfg.n_layers, ccfg.n_layers):
-        raise AssertionError(f"kernel path launched (fwd, dq, dkv) "
-                             f"{launches} times")
+    launches = _train_counts(K)
+    if launches != _train_want(K, ccfg, 1):
+        raise AssertionError(f"kernel path launched (fwd, dq, dkv, fwd "
+                             f"wgmma, dkv wgmma) {launches} times")
     K.reset_launch_count()
     loss_r, g_r = _grads_of(params, ccfg, tokens, "ref")
     if (K.launch_count, K.dq_launch_count, K.dkv_launch_count) != (0, 0, 0):
@@ -1426,30 +1579,27 @@ def phase_train(args, device, report) -> None:
     K.reset_launch_count()
     rows = []
     for i in range(TRAIN_STEPS):
-        before = (K.launch_count, K.dq_launch_count, K.dkv_launch_count)
+        before = _train_counts(K)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batches[i])
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n = tuple(a - b for a, b in zip(
-            (K.launch_count, K.dq_launch_count, K.dkv_launch_count), before))
+        n = tuple(a - b for a, b in zip(_train_counts(K), before))
         rows.append((dt, loss, gnorm, n))
         print(f"train: step {i}: {dt:.3f}s = {TRAIN_BATCH * S / dt:.1f} "
               f"tokens/s, loss {loss:.6f}, grad_norm {gnorm:.6f}, launches "
-              f"(fwd, dq, dkv) {n}", flush=True)
-    launches = (K.launch_count, K.dq_launch_count, K.dkv_launch_count)
+              f"(fwd, dq, dkv, fwd wgmma, dkv wgmma) {n}", flush=True)
+    launches = _train_counts(K)
     peak = torch.cuda.max_memory_allocated()
-    # full remat: each layer's forward runs again in its backward
-    want = (2 * cfg.n_layers * TRAIN_MICROBATCHES,
-            cfg.n_layers * TRAIN_MICROBATCHES,
-            cfg.n_layers * TRAIN_MICROBATCHES)
+    want = _train_want(K, cfg, TRAIN_MICROBATCHES)
     steady = [r[0] for r in rows[1:]] or [rows[0][0]]
     print(f"train: {TRAIN_STEPS} steps, steady {sum(steady) / len(steady):.3f}"
           f" s/step = {TRAIN_BATCH * S * len(steady) / sum(steady):.1f} "
           f"tokens/s; peak memory {peak / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated); launches (fwd, dq, dkv) "
-          f"{launches}, per step {want} wanted", flush=True)
+          f"(torch.cuda.max_memory_allocated); launches (fwd, dq, dkv, fwd "
+          f"wgmma, dkv wgmma) {launches}, per step {want} wanted",
+          flush=True)
     if any(r[3] != want for r in rows):
         raise AssertionError(f"flash kernels launched {[r[3] for r in rows]}"
                              f" times per step, want {want}")
@@ -1571,8 +1721,20 @@ def phase_train(args, device, report) -> None:
     kw = dict(causal=True, window=None, sm_scale=scale, layout="bshd")
     dq_ms, dq = _timed(lambda: K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw),
                        5)
-    dkv_ms, (dk, dv) = _timed(lambda: K.flash_bwd_dkv(q, k, v, do, m, l,
-                                                      delta, **kw), 5)
+    # dK/dV and the parent's design in turns: new, parent, parent, new.
+    dkv_route = K.route("dkv", torch.bfloat16, D)
+    calls = {"new": lambda: K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw),
+             "parent": lambda: _parent_dkv(q, k, v, do, m, l, delta, scale)}
+    dkv_turns = []
+    for name in ("new", "parent", "parent", "new"):
+        t, out = _timed(calls[name], 5)
+        dkv_turns.append(t)
+        if name == "new":
+            dk, dv = out
+        del out
+    dkv_ms = (dkv_turns[0] + dkv_turns[3]) / 2
+    dkv_parent_ms = (dkv_turns[1] + dkv_turns[2]) / 2
+    parent_rel = _same_function("dK/dV", calls["parent"](), (dk, dv))
     if not all(torch.equal(a.transpose(1, 2), b)
                for a, b in zip((dq, dk, dv), got)):
         raise AssertionError("timed backward launches differ from the "
@@ -1592,12 +1754,20 @@ def phase_train(args, device, report) -> None:
         + 3 * 4 * B * H * S,
     }
     print(f"train: backward kernels at B={B} H={H} KH={KH} S={S} D={D} bf16 "
-          f"causal (bshd): dq {dq_ms:.3f} ms, dkv {dkv_ms:.3f} ms, plain "
+          f"causal (bshd): dq {dq_ms:.3f} ms, dkv ({dkv_route} route) "
+          f"{dkv_ms:.3f} ms, the parent's dkv design (mma.sync) "
+          f"{dkv_parent_ms:.3f} ms (in turns: "
+          f"{', '.join(f'{t:.3f}' for t in dkv_turns)}; rel L2 from the "
+          f"kernel's {parent_rel:.3e}), plain "
           f"(both, f32) {plain_ms:.3f} ms, SDPA backward (dq, dk, dv) "
           f"{library_ms:.3f} ms", flush=True)
-    for name, ms, n, src_line, max_abs_err in (
-            ("flash_bwd_dq", dq_ms, launches[1], 245, err[0]),
-            ("flash_bwd_dkv", dkv_ms, launches[2], 345, max(err[1:]))):
+    for name, ms, n, src_line, max_abs_err, extra in (
+            ("flash_bwd_dq", dq_ms, launches[1], 245, err[0],
+             {"kernel_route": K.route("dq", torch.bfloat16, D)}),
+            ("flash_bwd_dkv", dkv_ms, launches[2], 345, max(err[1:]),
+             {"kernel_route": dkv_route,
+              "route_launches_per_step": launches[4] / TRAIN_STEPS,
+              "parent_ms": dkv_parent_ms, "parent_design": "mma.sync"})):
         key = name[10:]
         flops = BWD_FLOP_PER_PAIR[key] * D * pairs
         t_ops = flops / BF16_FLOP_PER_S
@@ -1627,10 +1797,12 @@ def phase_train(args, device, report) -> None:
             "train_s_per_step": sum(steady) / len(steady),
             "train_tokens_per_s": TRAIN_BATCH * S * len(steady) / sum(steady),
             "train_peak_gb": peak / 1e9,
+            **extra,
         })
     for entry in report:
         if entry["name"] == "flash_attention_fwd":
             entry["train_launches"] = launches[0]
+            entry["train_route_launches"] = launches[3]
             entry["train_max_abs_err"] = f_err
     del q, k, v, do, m, l, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()

@@ -20,32 +20,44 @@
 // What bounds them: at the LM's microbatch shape (B 4, H 24, KH 8,
 // S 4096, D 128, bf16, causal) dQ does three half-triangle products
 // (S, dP, dS K: 6.2e11 FLOP) and dK/dV four (8.2e11) against under 0.5 GB
-// of inputs and outputs, so both are bound by operations (0.63 and
-// 0.83 ms at the 989 TFLOP/s of an H100 SXM's bf16 tensor cores, data
+// of inputs and outputs, so both are bound by operations (0.626 and
+// 0.834 ms at the 989 TFLOP/s of an H100 SXM's bf16 tensor cores, data
 // sheet, 700 W), not bytes.
 //
-// What the design does about it: this is the simple first version, built
-// from the forward's tools.  The TPU kernels' sequential grid dimension
-// becomes a loop inside the block:
-//  * dQ: one block per (b, h, 64-row q tile) walks the KV tiles of its
-//    band; Q and dO stay in shared memory, dQ accumulates in f32 registers
-//    and is written once.
-//  * dK/dV: one block per (b, KV head, 64-key tile) walks the G query
-//    heads of its group and the q tiles of their band; K and V stay in
-//    shared memory, dK and dV accumulate in f32 registers over the whole
-//    group and are written once in k's layout.  No per-head [B, H, Skv, D]
-//    buffer, no atomics: every output element is written by one thread, so
-//    two launches give the same bits.
-// Two routes by dtype, as in the forward: bf16 on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation, ldmatrix, cp.async tiles; P and dS
-// enter their products rounded to bf16), f32 on CUDA-core FMAs.  TMA,
-// pipelining and wgmma are later work.
+// What the design does about it.  The TPU kernels' sequential grid
+// dimension becomes a loop inside the block:
+//  * dQ (mma route, the first version): one block per (b, h, 64-row q
+//    tile) walks the KV tiles of its band; Q and dO stay in shared memory,
+//    dQ accumulates in f32 registers and is written once.
+//  * dK/dV, wgmma route (bf16, D 64 and 128; the main path): one block
+//    per (KV head, b, 128-key tile), lowest key tiles (the heaviest under
+//    a causal mask) first, three warpgroups.  K and V are loaded once by
+//    TMA and stay in shared memory.  The producer warpgroup gives up its
+//    registers (setmaxnreg); its first warp streams the (Q, dO) tiles of
+//    64 queries of every query head of the group and q tile of the band,
+//    with their m log2 e, 1 / l and delta, through a two-slot ring of
+//    128-byte-swizzled shared memory (full and empty mbarriers) that
+//    runs on from one head to the next.  Each of the two consumer
+//    warpgroups owns 64 keys: S^T = K Q^T and dP^T = V dO^T by wgmma from
+//    shared memory; P^T = exp2(S^T scale log2 e - m log2 e) / l and dS^T =
+//    P^T (dP^T - delta) in f32 registers, masked only on tiles that the
+//    causal diagonal, the window edge or a ragged tail crosses; dV +=
+//    P^T dO and dK += dS^T Q by wgmma with P^T and dS^T as bf16 register
+//    A operands and dO, Q read MN-major from shared memory.  dK and dV
+//    stay in f32 registers over the whole group and are written once in
+//    k's layout: no per-head [B, H, Skv, D] buffer, no atomics, so two
+//    launches give the same bits.
+//  * dK/dV, mma route (bf16, other D): the first version, one block per
+//    (b, KV head, 64-key tile) with one cp.async stage, mma.sync.
+//  * f32 on CUDA-core FMAs for both.
+// P and dS enter their products rounded to bf16 on both bf16 routes.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (src/repro_torch/kernels/_build.py) and called through ctypes by
 // src/repro_torch/kernels/flash_attention/kernel.py.
 
 #include "flash_attention_common.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -543,12 +555,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Kernel>
-int configure(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int D>
 int launch_mma(const Args& a, bool dkv) {
   using bf = __nv_bfloat16;
@@ -585,6 +591,287 @@ int launch_mma_d(const Args& a, bool dkv) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV, D in {64, 128}: TMA ring, wgmma, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int WS_BK = 128;         // keys per block, 64 per consumer
+constexpr int WS_BQ = 64;          // queries per ring slot
+
+// Shared memory of dK/dV: K and V of the block's keys (resident), then
+// STAGES slots of (Q, dO) tiles, each tile as D / 64 swizzled chunks; the
+// slots' row statistics (m log2 e, 1 / l, delta, 0 as a float4 a query);
+// the mbarriers.
+template <int D, int STAGES>
+struct DkvLayout {
+  static constexpr int NC = D / 64;
+  static constexpr int KV_CHUNK = WS_BK * 128;
+  static constexpr int KV_BYTES = NC * KV_CHUNK;     // one of K or V
+  static constexpr int Q_CHUNK = WS_BQ * 128;
+  static constexpr int Q_BYTES = NC * Q_CHUNK;       // one of Q or dO
+  static constexpr int RING = 2 * KV_BYTES;
+  static constexpr int STATS = RING + STAGES * 2 * Q_BYTES;
+  static constexpr int BAR = STATS + STAGES * WS_BQ * 16;
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8 + SMEM_ALIGN;
+};
+
+// The first query of ring iteration `it` (head it / nq, q tile qt_lo +
+// it % nq).
+__device__ __forceinline__ int q_start(int it, int nq, int qt_lo) {
+  return (qt_lo + it % nq) * WS_BQ;
+}
+
+// Whether some (key, query) pair of the 64 keys from kw and the 64
+// queries from q0 is visible, and whether all are.
+__device__ __forceinline__ bool sees_any(int kw, int q0, int Skv, int q_off,
+                                         int causal, int window) {
+  return kw < Skv && (!causal || q0 + WS_BQ - 1 + q_off >= kw) &&
+         (window < 0 || kw + 63 > q0 + q_off - window);
+}
+
+__device__ __forceinline__ bool sees_all(int kw, int q0, int Skv, int q_off,
+                                         int causal, int window) {
+  return kw + 64 <= Skv && (!causal || kw + 63 <= q0 + q_off) &&
+         (window < 0 || kw > q0 + WS_BQ - 1 + q_off - window);
+}
+
+// S^T = K Q^T and dP^T = V dO^T for warpgroup wg's 64 keys and the (Q,
+// dO) slot at `slot`, issued as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32],
+                                          const uint8_t* Ks,
+                                          const uint8_t* Vs,
+                                          const uint8_t* slot, int kv_chunk,
+                                          int q_chunk, int q_bytes, int wg) {
+  wgmma_fence();
+  wgmma_ss_n64_zero<0>(s, desc_k(Ks, kv_chunk, 64 * wg, 0),
+                       desc_k(slot, q_chunk, 0, 0));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk)
+    wgmma_ss<64, 0>(s, desc_k(Ks, kv_chunk, 64 * wg, kk),
+                    desc_k(slot, q_chunk, 0, kk), 1);
+  wgmma_ss_n64_zero<0>(dp, desc_k(Vs, kv_chunk, 64 * wg, 0),
+                       desc_k(slot + q_bytes, q_chunk, 0, 0));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk)
+    wgmma_ss<64, 0>(dp, desc_k(Vs, kv_chunk, 64 * wg, kk),
+                    desc_k(slot + q_bytes, q_chunk, 0, kk), 1);
+  wgmma_commit();
+}
+
+// One block per (KV head, b, 128-key tile), heaviest (lowest) key tiles
+// first.  Warpgroups 0 and 1 own keys 64 wg .. 64 wg + 63 of the tile and
+// keep their dK and dV in registers over the whole query-head group;
+// warpgroup 2's first warp streams the (Q, dO) tiles of 64 queries of
+// every head of the group and q tile of the band through a ring of STAGES
+// slots, lane 0 by TMA and all 32 lanes writing the slot's row
+// statistics (full: lane 0's arrival, after the warp's writes, and the
+// bytes; empty: every consumer warp done).  The ring runs on from one
+// head to the next.
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ m,
+                           const float* __restrict__ l,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int H, int KH,
+                           int Sq, int Skv, const Strides st, int causal,
+                           int window, float scale, float scale_log2) {
+  using L = DkvLayout<D, STAGES>;
+  uint8_t* smem = aligned_smem();
+  uint8_t* Ks = smem;
+  uint8_t* Vs = smem + L::KV_BYTES;
+  float* stats = reinterpret_cast<float*>(smem + L::STATS);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * WS_BK;
+  const int G = H / KH;
+  const int q_off = Skv - Sq;
+  // The q tiles whose rows see a key of this block.
+  int r_lo = 0, r_hi = Sq - 1;
+  if (causal) r_lo = max(r_lo, k0 - q_off);
+  if (window >= 0)
+    r_hi = min(r_hi, min(k0 + WS_BK, Skv) - 1 + window - 1 - q_off);
+  const int qt_lo = r_lo / WS_BQ;
+  const int nq = r_hi >= r_lo ? r_hi / WS_BQ + 1 - qt_lo : 0;
+  const int n_it = G * nq;
+
+  if (threadIdx.x == 0) ring_init<STAGES>(bars);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x / 32 == 8) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0 && n_it > 0) {
+        mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+        for (int c = 0; c < L::NC; ++c) {
+          tma_load(Ks + c * L::KV_CHUNK, &tk, kv_full, 64 * c, k0, kh, b);
+          tma_load(Vs + c * L::KV_CHUNK, &tv, kv_full, 64 * c, k0, kh, b);
+        }
+      }
+      RingPos<STAGES> pos;
+      for (int it = 0; it < n_it; ++it, pos.next()) {
+        const int gi = it / nq;
+        const int h = kh * G + gi;
+        const int q0 = (qt_lo + it - gi * nq) * WS_BQ;
+        const long long base = ((long long)b * H + h) * Sq;
+        // The slot's statistics, read before the slot is free.
+        float mv[2], il[2], dl[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = q0 + lane + 32 * i;
+          mv[i] = il[i] = dl[i] = 0.f;
+          if (r < Sq) {
+            const float lv = l[base + r];
+            if (lv > 0.f) {
+              mv[i] = m[base + r] * LOG2E;
+              il[i] = 1.f / lv;
+            }
+            dl[i] = delta[base + r];
+          }
+        }
+        mbar_wait(&empty[pos.stage], pos.phase ^ 1);
+        float4* sm = reinterpret_cast<float4*>(stats) + pos.stage * WS_BQ;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          sm[lane + 32 * i] = make_float4(mv[i], il[i], dl[i], 0.f);
+        __syncwarp();
+        if (lane == 0) {
+          uint8_t* Qs = smem + L::RING + pos.stage * 2 * L::Q_BYTES;
+          uint8_t* dOs = Qs + L::Q_BYTES;
+          uint64_t* bar = &full[pos.stage];
+          mbar_expect_tx(bar, 2 * L::Q_BYTES);
+          for (int c = 0; c < L::NC; ++c) {
+            tma_load(Qs + c * L::Q_CHUNK, &tq, bar, 64 * c, q0, h, b);
+            tma_load(dOs + c * L::Q_CHUNK, &tdo, bar, 64 * c, q0, h, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: keys c0 and c0 + 8 of this thread's accumulator rows.
+  reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int kw = k0 + 64 * wg;               // this warpgroup's first key
+  const int c0 = kw + warp * 16 + lane / 4;
+  const int t2 = 2 * (lane % 4);
+
+  float dK[D / 2], dV[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dK[i] = 0.f;
+    dV[i] = 0.f;
+  }
+  if (n_it > 0) mbar_wait(kv_full, 0);
+  RingPos<STAGES> pos;
+  for (int it = 0; it < n_it; ++it, pos.next()) {
+    const int q0 = q_start(it, nq, qt_lo);
+    mbar_wait(&full[pos.stage], pos.phase);
+    const uint8_t* Qs = smem + L::RING + pos.stage * 2 * L::Q_BYTES;
+    const uint8_t* dOs = Qs + L::Q_BYTES;
+    const float4* sm =
+        reinterpret_cast<const float4*>(stats) + pos.stage * WS_BQ;
+    if (sees_any(kw, q0, Skv, q_off, causal, window)) {
+      float s[32], dp[32];
+      issue_sdp<D>(s, dp, Ks, Vs, Qs, L::KV_CHUNK, L::Q_CHUNK, L::Q_BYTES,
+                   wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // 16 queries at a time: P^T = exp2(S^T scale log2 e - m log2 e) / l
+      // and dS^T = P^T (dP^T - delta) in f32, masked on edge tiles
+      // (queries past Sq have 1 / l = 0 and need no mask), rounded to bf16
+      // as A operands straight from the accumulators (never written
+      // outside wgmma, so the products are not serialised), and at once
+      // dV += P^T dO and dK += dS^T Q, dO and Q MN-major, all one group:
+      // the SFU and the tensor cores overlap.
+      const bool interior = sees_all(kw, q0, Skv, q_off, causal, window);
+      uint32_t pa[WS_BQ / 16][4], dsa[WS_BQ / 16][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WS_BQ / 16; ++kk) {
+        float pv[8], dv[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int j = 8 * kk + e;
+          const int qi = 8 * (j >> 2) + t2 + (j & 1);
+          const float4 q = sm[qi];   // (m log2 e, 1 / l, delta, 0)
+          float p = fast_exp2(s[j] * scale_log2 - q.x) * q.y;
+          if (!interior && !visible(q0 + qi, c0 + 8 * ((j >> 1) & 1), Sq,
+                                    Skv, causal, window))
+            p = 0.f;
+          pv[e] = p;
+          dv[e] = p * (dp[j] - q.z);
+        }
+        a_pack(pa[kk], pv);
+        a_pack(dsa[kk], dv);
+        wgmma_rs<D, 1>(dV, pa[kk], desc_mn(dOs, L::Q_CHUNK, kk), 1);
+        wgmma_rs<D, 1>(dK, dsa[kk], desc_mn(Qs, L::Q_CHUNK, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dK);
+      fence_regs(dV);
+    }
+    if (lane == 0) mbar_arrive(&empty[pos.stage]);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int c = c0 + 8 * hr;
+    if (c >= Skv) continue;
+    __nv_bfloat16* krow =
+        dk + b * st.s[12] + (long long)c * st.s[13] + kh * st.s[14];
+    __nv_bfloat16* vrow =
+        dv + b * st.s[15] + (long long)c * st.s[16] + kh * st.s[17];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(krow + 8 * n + t2) = bf16x2(
+          dK[4 * n + 2 * hr] * scale, dK[4 * n + 2 * hr + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vrow + 8 * n + t2) =
+          bf16x2(dV[4 * n + 2 * hr], dV[4 * n + 2 * hr + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  constexpr int STAGES = 2;
+  using L = DkvLayout<D, STAGES>;
+  const long long* s = a.st.s;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((a.Skv + WS_BK - 1) / WS_BK > 65535 ||
+      !make_map(&tq, a.q, D, a.Sq, a.H, a.B, s[0], s[1], s[2], WS_BQ) ||
+      !make_map(&tk, a.k, D, a.Skv, a.KH, a.B, s[3], s[4], s[5], WS_BK) ||
+      !make_map(&tv, a.v, D, a.Skv, a.KH, a.B, s[6], s[7], s[8], WS_BK) ||
+      !make_map(&tdo, a.dO, D, a.Sq, a.H, a.B, s[9], s[10], s[11], WS_BQ))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, STAGES>;
+  int err = configure(kernel, L::BYTES);
+  if (err) return err;
+  const dim3 grid(a.KH, a.B, (a.Skv + WS_BK - 1) / WS_BK);
+  kernel<<<grid, WS_THREADS, L::BYTES, a.stream>>>(
+      tq, tk, tv, tdo, a.m, a.l, a.delta, (__nv_bfloat16*)a.d0,
+      (__nv_bfloat16*)a.d1, a.H, a.KH, a.Sq, a.Skv, a.st, a.causal, a.window,
+      a.scale, a.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <int NG>
 int launch_f32(const Args& a, bool dkv) {
   const size_t tiles = (size_t)4 * 64 * (a.D + 4) * sizeof(float);
@@ -611,13 +898,17 @@ int launch_f32(const Args& a, bool dkv) {
   return (int)cudaGetLastError();
 }
 
-int launch(const Args& a, int dtype, bool dkv) {
+// route: 0 = f32 on CUDA cores, 1 = bf16 mma.sync (any D), 2 = bf16
+// wgmma (dK/dV, D 64 or 128).
+int launch(const Args& a, int route, bool dkv) {
   if (a.D % 16 != 0 || a.D < 16 || a.D > MAX_D || a.KH <= 0 ||
       a.H % a.KH != 0 || a.H > 65535 || a.KH > 65535 || a.B > 65535 ||
       a.Sq <= 0 || a.Skv <= 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return launch_mma_d<16>(a, dkv);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (route == 1) return launch_mma_d<16>(a, dkv);
+  if (route == 2 && dkv && a.D == 64) return launch_dkv_wgmma<64>(a);
+  if (route == 2 && dkv && a.D == 128) return launch_dkv_wgmma<128>(a);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   switch ((a.D + 63) / 64) {
     case 1: return launch_f32<1>(a, dkv);
     case 2: return launch_f32<2>(a, dkv);
@@ -628,14 +919,14 @@ int launch(const Args& a, int dtype, bool dkv) {
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  `strides` points to host memory holding the
+// route: as launch() above.  `strides` points to host memory holding the
 // (batch, seq, head) element strides of q, k, v, dO and dq in turn (15
 // values); the head dim is contiguous.  m, l and delta are f32 [B, H, Sq].
 // window < 0 means no window.  Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dO,
-    const void* m, const void* l, const void* delta, void* dq, int dtype,
+    const void* m, const void* l, const void* delta, void* dq, int route,
     int B, int H, int KH, int Sq, int Skv, int D, const long long* strides,
     int causal, int window, float scale, void* stream) {
   Strides st{};
@@ -643,7 +934,7 @@ extern "C" int flash_attention_bwd_dq_launch(
   const Args a{q, k, v, dO, (const float*)m, (const float*)l,
                (const float*)delta, dq, nullptr, B, H, KH, Sq, Skv, D,
                st, causal, window, scale, (cudaStream_t)stream};
-  return launch(a, dtype, false);
+  return launch(a, route, false);
 }
 
 // As above, with the strides of q, k, v, dO, dk and dv (18 values); dk and
@@ -652,7 +943,7 @@ extern "C" int flash_attention_bwd_dq_launch(
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dO,
     const void* m, const void* l, const void* delta, void* dk, void* dv,
-    int dtype, int B, int H, int KH, int Sq, int Skv, int D,
+    int route, int B, int H, int KH, int Sq, int Skv, int D,
     const long long* strides, int causal, int window, float scale,
     void* stream) {
   Strides st{};
@@ -660,5 +951,5 @@ extern "C" int flash_attention_bwd_dkv_launch(
   const Args a{q, k, v, dO, (const float*)m, (const float*)l,
                (const float*)delta, dk, dv, B, H, KH, Sq, Skv, D,
                st, causal, window, scale, (cudaStream_t)stream};
-  return launch(a, dtype, true);
+  return launch(a, route, true);
 }

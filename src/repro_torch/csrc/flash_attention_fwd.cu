@@ -12,34 +12,43 @@
 //
 // What bounds it: causal attention at the LM's prefill shape (B 4, H 24,
 // KH 8, S 4000, D 128, bf16) does 4*B*H*D*S^2/2 = 3.9e11 FLOP against
-// 0.26 GB of q/k/v/o, so it is bound by operations (0.40 ms at the tensor
-// cores' 989 TFLOP/s bf16), not bytes (0.08 ms).
+// 0.26 GB of q/k/v/o, so it is bound by operations (0.398 ms at the tensor
+// cores' 989 TFLOP/s bf16, H100 SXM data sheet), not bytes (0.08 ms).
 //
-// What the design does about it: this is the simple first version.  The
-// TPU kernel's sequential kv grid dimension becomes a loop inside the block;
-// each block owns one (b, h, 64-row q tile) and walks the KV tiles of its
-// band, with q, k and v tiles staged in shared memory and the scores, the
-// running m / l and the output accumulator in f32 registers, so nothing but
-// q, k, v and the outputs touches device memory.  Two routes by dtype:
-//  * bf16 runs on the tensor cores: mma.sync m16n8k16 with f32
-//    accumulation, 4 warps x 16 query rows, fragments through ldmatrix
-//    (V transposed by it), tiles through cp.async.  The score accumulators
-//    become P V's A fragment in registers; P enters that product rounded
-//    to bf16, while l sums P in f32.
-//  * f32 runs on CUDA-core FMAs (a 4 x 4 register tile per thread for
-//    Q K^T, 4 x 4 columns per 64-column group for P V), exact to f32.
-// TMA, a pipelined multi-stage ring, wgmma and warp specialisation are
-// later work.  q tiles are issued heaviest first (the causal band grows
-// with the tile index) so the last wave is short.
-//
-// The masks, tiles and mma/ldmatrix/cp.async helpers live in
-// flash_attention_common.cuh, shared with the backward kernels.
+// What the design does about it.  The TPU kernel's sequential kv grid
+// dimension becomes a loop inside the block, and nothing but q, k, v and
+// the outputs touches device memory.  Three routes, picked by
+// kernel.route() from the dtype and head dim:
+//  * wgmma (bf16, D 64 and 128; the main path): one block per (h, b,
+//    128-row q tile), heaviest q tiles first, three warpgroups.  The
+//    producer warpgroup gives up its registers (setmaxnreg) and one thread
+//    issues TMA loads: Q once, then K and V tiles of 128 keys through a
+//    two-slot ring of 128-byte-swizzled shared memory guarded by full and
+//    empty mbarriers, so the next tile lands while this one is computed.
+//    Each of the two consumer warpgroups owns 64 rows: S = Q K^T by wgmma
+//    from shared memory, the online softmax in base 2 (scores times
+//    scale log2 e, exp2) in the accumulator's registers, masks only on
+//    tiles that the causal diagonal, the window edge or a ragged tail
+//    crosses, then O += P V by wgmma with P as the register A operand
+//    (rounded to bf16; l sums P in f32) and V read MN-major from shared
+//    memory.  m leaves in natural-log units, -1e30 (and l = 0) for a row
+//    that sees no key.  TMA zero-fills the ragged tails.
+//  * mma (bf16, every other D): the first version, one block per (b, h,
+//    64-row q tile), mma.sync m16n8k16 fed by ldmatrix from tiles copied
+//    by one cp.async stage.
+//  * f32 on CUDA-core FMAs (a 4 x 4 register tile per thread for Q K^T,
+//    4 x 4 columns per 64-column group for P V), exact to f32.
+// Tiles of the mma and f32 routes, the masks and the mma/ldmatrix/cp.async
+// helpers live in flash_attention_common.cuh, shared with the backward
+// kernels; the TMA, mbarrier, wgmma and setmaxnreg helpers in
+// hopper_wgmma.cuh.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (src/repro_torch/kernels/_build.py) and called through ctypes by
 // src/repro_torch/kernels/flash_attention/kernel.py.
 
 #include "flash_attention_common.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -165,7 +174,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulation)
+// bf16, any D: tensor cores through mma.sync.m16n8k16 (f32 accumulation)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -307,10 +316,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                const long long* st, int causal, int window, float scale,
                cudaStream_t stream) {
   const size_t smem = (size_t)3 * 64 * (D + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int err = configure(flash_fwd_mma_kernel<D>, smem);
+  if (err) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -338,6 +345,246 @@ int launch_mma_d(int d, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D in {64, 128}: TMA ring, wgmma, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int WS_BM = 128;         // query rows per block, 64 per consumer
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared memory of the forward: the q tile, then STAGES (K, V) tiles of BN
+// keys, each as D / 64 swizzled chunks; then the mbarriers.
+template <int D, int BN, int STAGES>
+struct FwdLayout {
+  static constexpr int NC = D / 64;
+  static constexpr int Q_CHUNK = WS_BM * 128;
+  static constexpr int KV_CHUNK = BN * 128;
+  static constexpr int Q_BYTES = NC * Q_CHUNK;
+  static constexpr int KV_BYTES = NC * KV_CHUNK;     // one of K or V
+  static constexpr int BAR = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8 + SMEM_ALIGN;
+};
+
+// The keys [lo, hi] that rows [r0, r1] see (suffix-aligned masks); empty
+// when hi < lo.
+__device__ __forceinline__ void band_keys(int r0, int r1, int Sq, int Skv,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  const int q_off = Skv - Sq;
+  lo = 0;
+  hi = Skv - 1;
+  if (window >= 0) lo = max(lo, r0 + q_off - window + 1);
+  if (causal) hi = min(hi, r1 + q_off);
+}
+
+// One block per (h, b, 128-row q tile), heaviest tiles first.  Warpgroups
+// 0 and 1 own rows 64 wg .. 64 wg + 63 of the tile; warpgroup 2's first
+// thread issues the TMA loads: Q once, then K and V of each tile of the
+// band through a ring of STAGES slots (full: the bytes landed; empty:
+// every consumer warp is done reading).
+template <int D, int BN, int STAGES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       int H, int KH, int Sq, int Skv, long long o_sb,
+                       long long o_ss, long long o_sh, int causal,
+                       int window, float scale_log2) {
+  using L = FwdLayout<D, BN, STAGES>;
+  uint8_t* smem = aligned_smem();
+  uint8_t* Qs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WS_BM;
+  const int kh = h / (H / KH);
+  int key_lo, key_hi;
+  band_keys(q0, min(q0 + WS_BM, Sq) - 1, Sq, Skv, causal, window, key_lo,
+            key_hi);
+  const int kt_lo = key_lo / BN;
+  const int kt_end = key_hi >= key_lo ? key_hi / BN + 1 : kt_lo;
+
+  if (threadIdx.x == 0) ring_init<STAGES>(bars);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread issues every load.
+    reg_dealloc<24>();
+    if (threadIdx.x == 256 && kt_end > kt_lo) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      for (int c = 0; c < L::NC; ++c)
+        tma_load(Qs + c * L::Q_CHUNK, &tq, q_full, 64 * c, q0, h, b);
+      RingPos<STAGES> pos;
+      for (int kt = kt_lo; kt < kt_end; ++kt, pos.next()) {
+        mbar_wait(&empty[pos.stage], pos.phase ^ 1);
+        uint8_t* Ks = smem + L::Q_BYTES + pos.stage * 2 * L::KV_BYTES;
+        uint8_t* Vs = Ks + L::KV_BYTES;
+        uint64_t* bar = &full[pos.stage];
+        mbar_expect_tx(bar, 2 * L::KV_BYTES);
+        for (int c = 0; c < L::NC; ++c) {
+          tma_load(Ks + c * L::KV_CHUNK, &tk, bar, 64 * c, kt * BN, kh, b);
+          tma_load(Vs + c * L::KV_CHUNK, &tv, bar, 64 * c, kt * BN, kh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers.
+  reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qw = q0 + 64 * wg;               // this warpgroup's first row
+  const int r0 = qw + warp * 16 + lane / 4;  // rows r0 and r0 + 8
+  const int t2 = 2 * (lane % 4);
+  const int q_off = Skv - Sq;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // Running max of the scaled scores in base-2 units, and this thread's
+  // share of the row sums (the quad's four shares are summed at the end).
+  float mx[2] = {-INFINITY, -INFINITY};
+  float ls[2] = {0.f, 0.f};
+
+  if (kt_end > kt_lo) mbar_wait(q_full, 0);
+  RingPos<STAGES> pos;
+  int prev = 0;
+  for (int kt = kt_lo; kt < kt_end; ++kt, pos.next()) {
+    const int k0 = kt * BN;
+    mbar_wait(&full[pos.stage], pos.phase);
+    const uint8_t* Ks = smem + L::Q_BYTES + pos.stage * 2 * L::KV_BYTES;
+    const uint8_t* Vs = Ks + L::KV_BYTES;
+    // Whether every (row, key) of this warpgroup's rows and the tile is
+    // visible (rows past Sq are never stored, so they need no mask).
+    const bool interior =
+        k0 + BN <= Skv && (!causal || k0 + BN - 1 <= qw + q_off) &&
+        (window < 0 || k0 > qw + 63 + q_off - window);
+
+    float s[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN, 0>(s, desc_k(Qs, L::Q_CHUNK, 64 * wg, kk),
+                      desc_k(Ks, L::KV_CHUNK, 0, kk), kk > 0);
+    wgmma_commit();
+    // The previous tile's P V ran behind this S: once it is done, its
+    // slot goes back to the producer.
+    if (kt > kt_lo) {
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Scores in base-2 units; masks on edge tiles only.
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) s[j] *= scale_log2;
+    if (!interior) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        const int r = r0 + 8 * ((j >> 1) & 1);
+        const int c = k0 + 8 * (j >> 2) + t2 + (j & 1);
+        if (!visible(r, c, Sq, Skv, causal, window)) s[j] = -INFINITY;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float m = mx[hr];
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+        m = fmaxf(m, fmaxf(s[4 * n + 2 * hr], s[4 * n + 2 * hr + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      // A row that has seen no key yet keeps -inf and reads p = 0.
+      const float base = m == -INFINITY ? 0.f : m;
+      corr[hr] = fast_exp2(mx[hr] - base);
+      mx[hr] = m;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * hr + e];
+          x = fast_exp2(x - base);
+          sum += x;
+        }
+      ls[hr] = ls[hr] * corr[hr] + sum;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+
+    // O += P V: P from registers, rounded to bf16; V MN-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      a_frag(a, s, kk);
+      wgmma_rs<D, 1>(acc, a, desc_mn(Vs, L::KV_CHUNK, kk), 1);
+    }
+    wgmma_commit();
+    prev = pos.stage;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // out = acc / l (rows that saw no key read 0); m back in natural-log
+  // units (-1e30 and l = 0 for a row that saw no key, as the plain
+  // version leaves them).
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = ls[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = r0 + 8 * hr;
+    if (r >= Sq) continue;
+    const float inv = l > 0.f ? 1.f / l : 1.f;
+    __nv_bfloat16* orow = o + b * o_sb + (long long)r * o_ss + h * o_sh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + t2) = bf16x2(
+          acc[4 * n + 2 * hr] * inv, acc[4 * n + 2 * hr + 1] * inv);
+    if (lane % 4 == 0) {
+      const long long row = ((long long)b * H + h) * Sq + r;
+      m_out[row] = mx[hr] == -INFINITY ? NEG_INF : mx[hr] * LN2;
+      l_out[row] = l;
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* m, void* l, int B, int H, int KH, int Sq, int Skv,
+                 const long long* st, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  constexpr int BN = 128, STAGES = 2;
+  using L = FwdLayout<D, BN, STAGES>;
+  CUtensorMap tq, tk, tv;
+  if ((Sq + WS_BM - 1) / WS_BM > 65535 || !make_map(&tq, q, D, Sq, H, B, st[0], st[1], st[2], WS_BM) ||
+      !make_map(&tk, k, D, Skv, KH, B, st[3], st[4], st[5], BN) ||
+      !make_map(&tv, v, D, Skv, KH, B, st[6], st[7], st[8], BN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma_kernel<D, BN, STAGES>;
+  const int err = configure(kernel, L::BYTES);
+  if (err) return err;
+  const dim3 grid(H, B, (Sq + WS_BM - 1) / WS_BM);
+  kernel<<<grid, WS_THREADS, L::BYTES, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(m),
+      static_cast<float*>(l), H, KH, Sq, Skv, st[9], st[10], st[11], causal,
+      window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <int NG>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* m,
                void* l, int B, int H, int KH, int Sq, int Skv, int D,
@@ -345,10 +592,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* m,
                cudaStream_t stream) {
   const size_t smem =
       (size_t)(3 * 64 * (D + 4) + BQ * LDP) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int err = configure(flash_fwd_f32_kernel<NG>, smem);
+  if (err) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_f32_kernel<NG><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -382,12 +627,13 @@ int launch_f32_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  Strides are in elements, (batch, seq, head)
-// for q, k, v and o in turn; the head dim is contiguous.  window < 0 means
-// no window.  Returns the CUDA error of the launch (0 on success).
+// route: 0 = f32 on CUDA cores, 1 = bf16 mma.sync (any D), 2 = bf16
+// wgmma (D 64 or 128).  Strides are in elements, (batch, seq, head) for q,
+// k, v and o in turn; the head dim is contiguous.  window < 0 means no
+// window.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
-    int dtype, int B, int H, int KH, int Sq, int Skv, int D,
+    int route, int B, int H, int KH, int Sq, int Skv, int D,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
@@ -398,11 +644,17 @@ extern "C" int flash_attention_fwd_launch(
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (route == 0)
     return launch_f32_d(D, q, k, v, o, m, l, B, H, KH, Sq, Skv, st, causal,
                         window, scale, s);
-  if (dtype == 1)
+  if (route == 1)
     return launch_mma_d<16>(D, q, k, v, o, m, l, B, H, KH, Sq, Skv, st,
                             causal, window, scale, s);
+  if (route == 2 && D == 64)
+    return launch_wgmma<64>(q, k, v, o, m, l, B, H, KH, Sq, Skv, st, causal,
+                            window, scale, s);
+  if (route == 2 && D == 128)
+    return launch_wgmma<128>(q, k, v, o, m, l, B, H, KH, Sq, Skv, st,
+                             causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,11 @@ kernels take, allocate the outputs, launch on PyTorch's current stream and
 count the launches.  They never fall back: a tensor a kernel does not take
 raises.  Gradients go through ``ops.flash_attention``, whose
 ``torch.autograd.Function`` calls the three in turn.
+
+Each kernel has routes by dtype and head dim, picked by :func:`route`:
+``"f32"`` (CUDA-core FMAs), ``"wgmma"`` (bf16, the forward and dK/dV at
+head dims 64 and 128: a TMA ring, ``wgmma`` and warp specialisation) and
+``"mma"`` (bf16 ``mma.sync``, every other head dim the wrapper takes).
 """
 
 from __future__ import annotations
@@ -25,26 +30,58 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+__all__ = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "route",
            "bf16_error_bound", "bf16_bwd_error_bound", "launch_count",
-           "dq_launch_count", "dkv_launch_count", "reset_launch_count",
-           "LAYOUTS"]
+           "dq_launch_count", "dkv_launch_count", "fwd_wgmma_launch_count",
+           "dkv_wgmma_launch_count", "reset_launch_count", "LAYOUTS",
+           "ROUTES", "WGMMA_HEAD_DIMS"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 LAYOUTS = ("bhsd", "bshd")
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 160
+# The launchers' route ids (csrc/flash_attention_{fwd,bwd}.cu).
+ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
+WGMMA_HEAD_DIMS = (64, 128)
 
 # Launches of each kernel since the last reset (one per wrapper call that
-# reaches the card): the forward, the dQ and the dK/dV kernel.
+# reaches the card): the forward, the dQ and the dK/dV kernel, all routes;
+# and of the forward's and dK/dV's wgmma routes alone.
 launch_count = 0
 dq_launch_count = 0
 dkv_launch_count = 0
+fwd_wgmma_launch_count = 0
+dkv_wgmma_launch_count = 0
 
 
 def reset_launch_count() -> None:
     global launch_count, dq_launch_count, dkv_launch_count
+    global fwd_wgmma_launch_count, dkv_wgmma_launch_count
     launch_count = dq_launch_count = dkv_launch_count = 0
+    fwd_wgmma_launch_count = dkv_wgmma_launch_count = 0
+
+
+def route(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The route a wrapper takes for ``kernel`` (``"fwd"``, ``"dq"`` or
+    ``"dkv"``) on inputs of ``dtype`` at head dim ``d``: ``"f32"`` for
+    f32; for bf16 ``"wgmma"`` where it covers d (the forward and dK/dV at
+    d in ``WGMMA_HEAD_DIMS``), else ``"mma"``.  Raises TypeError on another
+    dtype and ValueError on a head dim no route takes."""
+
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"kernel must be 'fwd', 'dq' or 'dkv', got "
+                         f"{kernel!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"the flash kernels take f32 or bf16, got {dtype}")
+    max_d = MAX_HEAD_DIM if kernel == "fwd" else MAX_BWD_HEAD_DIM
+    if d % 16 or not 16 <= d <= max_d:
+        raise ValueError(f"flash {kernel} takes a head dim that is a "
+                         f"multiple of 16 up to {max_d}, got {d}")
+    if dtype == torch.float32:
+        return "f32"
+    if kernel != "dq" and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
 
 
 def _library() -> ctypes.CDLL:
@@ -135,7 +172,7 @@ def flash_fwd(
     """Returns ``(out, m, l)``: ``out`` in q's layout and dtype, ``m`` and
     ``l`` f32 ``[B, H, Sq]`` (see :mod:`.ref` for the contract)."""
 
-    global launch_count
+    global launch_count, fwd_wgmma_launch_count
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
@@ -145,6 +182,7 @@ def flash_fwd(
                                   MAX_HEAD_DIM)
     if window is not None and window < 0:
         raise ValueError(f"flash_fwd: window must be >= 0, got {window}")
+    chosen = route("fwd", q.dtype, D)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -155,16 +193,18 @@ def flash_fwd(
     err = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(),
-        _DTYPES[q.dtype], B, H, KH, Sq, Skv, D,
+        ROUTES[chosen], B, H, KH, Sq, Skv, D,
         *_bhsd_strides(q, layout), *_bhsd_strides(k, layout),
         *_bhsd_strides(v, layout), *_bhsd_strides(out, layout),
         int(bool(causal)), -1 if window is None else int(window),
         float(sm_scale), stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention_fwd kernel launch ({chosen} "
+                           f"route) failed: CUDA error {err}")
     launch_count += 1
+    if chosen == "wgmma":
+        fwd_wgmma_launch_count += 1
     return out, m, l
 
 
@@ -205,6 +245,7 @@ def flash_bwd_dq(
     global dq_launch_count
     B, H, KH, Sq, Skv, D = _bwd_inputs("flash_bwd_dq", q, k, v, do, m, l,
                                        delta, window, layout)
+    chosen = route("dq", q.dtype, D)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if B == 0 or H == 0 or Sq == 0:
         return dq
@@ -214,14 +255,14 @@ def flash_bwd_dq(
     err = _bwd_library().flash_attention_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _DTYPES[q.dtype], B, H, KH, Sq, Skv, D,
+        ROUTES[chosen], B, H, KH, Sq, Skv, D,
         _strides(q, k, v, do, dq, layout=layout),
         int(bool(causal)), -1 if window is None else int(window),
         float(sm_scale), stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd_dq kernel launch ({chosen}"
+                           f" route) failed: CUDA error {err}")
     dq_launch_count += 1
     return dq
 
@@ -235,9 +276,10 @@ def flash_bwd_dkv(
     """``(dk, dv)`` in k's layout and dtype, each already summed over the
     query heads of its KV head's group; inputs as :func:`flash_bwd_dq`."""
 
-    global dkv_launch_count
+    global dkv_launch_count, dkv_wgmma_launch_count
     B, H, KH, Sq, Skv, D = _bwd_inputs("flash_bwd_dkv", q, k, v, do, m, l,
                                        delta, window, layout)
+    chosen = route("dkv", q.dtype, D)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if B == 0 or KH == 0 or Skv == 0:
@@ -248,15 +290,17 @@ def flash_bwd_dkv(
     err = _bwd_library().flash_attention_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _DTYPES[q.dtype], B, H, KH, Sq, Skv, D,
+        dv.data_ptr(), ROUTES[chosen], B, H, KH, Sq, Skv, D,
         _strides(q, k, v, do, dk, dv, layout=layout),
         int(bool(causal)), -1 if window is None else int(window),
         float(sm_scale), stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd_dkv kernel launch "
+                           f"({chosen} route) failed: CUDA error {err}")
     dkv_launch_count += 1
+    if chosen == "wgmma":
+        dkv_wgmma_launch_count += 1
     return dk, dv
 
 
@@ -270,13 +314,19 @@ def bf16_error_bound(ref: torch.Tensor, ref_abs_v: torch.Tensor,
     route, where ``ref = attention_reference(q, k, v)`` and ``ref_abs_v =
     attention_reference(q, k, |v|)`` (same masks and scale; f32).
 
-    The route rounds each probability p_j to bf16 before P V and divides
-    by l summed from the unrounded p_j, so P's rounding moves a row's
-    output by at most 2^-8 sum_j p_j |v_j| / l = 2^-8 ``ref_abs_v``; the
-    output's own rounding to bf16 adds 2^-8 |out|.  The f32 sums of the
-    kernel and of the reference (over ``skv`` keys and ``d`` lanes, at
-    2^-23 for a truncating accumulator) add (skv + d) 2^-23 each, relative
-    to the same two magnitudes.  To first order in these units."""
+    Both bf16 routes (``mma`` and ``wgmma``) round each probability p_j
+    to bf16 before P V and divide by l summed from the unrounded p_j, so
+    P's rounding moves a row's output by at most 2^-8 sum_j p_j |v_j| / l
+    = 2^-8 ``ref_abs_v``; the output's own rounding to bf16 adds 2^-8
+    |out|.  The f32 sums of the kernel and of the reference (over ``skv``
+    keys and ``d`` lanes, at 2^-23 for a truncating accumulator) add
+    (skv + d) 2^-23 each, relative to the same two magnitudes.  The
+    ``wgmma`` route takes p_j = 2^x, x = s_j scale log2 e - m log2 e, by
+    the SFU (``ex2.approx``, relative error about 2^-22): the rounding of
+    x moves p_j by at most about |x| 2^-23 ln 2 relative, and a p_j that
+    matters at 2^-24 has |x| <= 24, so the two stay under 19 x 2^-23,
+    inside the sums' 2 (skv + d) 2^-23 for any d >= 16.  To first order
+    in these units."""
 
     eps = 2 * (skv + d) * ACC_UNIT
     return (BF16_UNIT + eps) * (ref_abs_v + ref.abs())
@@ -289,8 +339,11 @@ def bf16_bwd_error_bound(q, k, v, do, m, l, delta, ref, *, causal, window,
     :func:`.ref.attention_backward` of the same bf16 inputs computed in f32
     (all ``[B, H|KH, S, D]``; m, l, delta as given to both).
 
-    The route forms S and dP as f32 sums over the D lanes of exact bf16
-    products, P = exp(S scale - m) / l and dS = P (dP - delta) in f32, and
+    Both bf16 routes form S and dP as f32 sums over the D lanes of exact
+    bf16 products, P = exp(S scale - m) / l (the ``wgmma`` route as
+    2^(S scale log2 e - m log2 e) / l by the SFU, whose errors of about
+    2^-22 relative are 2^14 times smaller than P's 2^-8 rounding below)
+    and dS = P (dP - delta) in f32, and
     rounds P and dS to bf16 before their products, which it sums in f32
     over n terms (n = Skv for dQ, G Sq for dK and dV); the outputs are
     rounded to bf16.  So, to first order in u = 2^-8 and w = 2^-23 (an f32

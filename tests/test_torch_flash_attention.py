@@ -234,6 +234,70 @@ def test_bf16_error_bound_holds_for_the_bf16_route(case):
     assert bool((err <= bound).all()), float((err / bound).max())
 
 
+def _wgmma_route(q, k, v, causal, window, scale):
+    """The forward's bf16 ``wgmma`` route step by step on the CPU ([B, H,
+    S, D]): scores scaled by scale log2 e in f32, an online softmax in base
+    2 over 128-key tiles, each tile's P rounded to bf16 before P V, l summed
+    from the unrounded P, the output rounded to bf16; m returned in
+    natural-log units (-1e30 for a row that sees no key).  Returns (out,
+    m, l)."""
+
+    B, H, Sq, D = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
+    G = H // KH
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    row = torch.arange(Sq)[:, None] + (Skv - Sq)
+    m2 = torch.full((B, H, Sq, 1), -torch.inf)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, D))
+    c = torch.tensor(scale, dtype=torch.float32) * 1.4426950408889634
+    for c0 in range(0, Skv, 128):
+        col = torch.arange(c0, min(c0 + 128, Skv))[None, :]
+        vis = torch.ones((Sq, col.shape[1]), dtype=torch.bool)
+        if causal:
+            vis &= col <= row
+        if window is not None:
+            vis &= col > row - window
+        s = (q.float() @ kf[:, :, c0:c0 + 128].transpose(-1, -2)) * c
+        s = s.masked_fill(~vis, -torch.inf)
+        m_new = torch.maximum(m2, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+        p = torch.exp2(s - base)
+        corr = torch.exp2(m2 - base)
+        l = corr * l + p.sum(-1, keepdim=True)
+        acc = corr * acc + p.bfloat16().float() @ vf[:, :, c0:c0 + 128]
+        m2 = m_new
+    out = (acc / torch.where(l > 0, l, 1.0)).bfloat16()
+    m = torch.where(m2 == -torch.inf, NEG_INF, m2 * 0.6931471805599453)
+    return out, m[..., 0], l[..., 0]
+
+
+@pytest.mark.parametrize("case", BOUND_CASES + [
+    (1, 3, 1, 300, 130, 128, True, None)])
+def test_bf16_error_bound_holds_for_the_wgmma_route(case):
+    """The base-2 route stays inside the same bound, and its m (back in
+    natural-log units) and l agree with the plain statistics within 1e-5
+    relative; rows that see no key keep -1e30 and 0 exactly."""
+
+    causal, window = case[6:]
+    _, (q, k, v) = _inputs(case, "bfloat16", seed=7)
+    scale = 1.0 / case[5] ** 0.5
+    ref, bound = _bound(q, k, v, causal, window, scale)
+    out, m, l = _wgmma_route(q, k, v, causal, window, scale)
+    err = (out.float() - ref).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+    _, m_ref, l_ref = attention_reference(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        sm_scale=scale, return_stats=True)
+    seen = m_ref > NEG_INF
+    assert torch.equal(m[~seen], m_ref[~seen])
+    assert torch.equal(l[~seen], l_ref[~seen])
+    for got, want in ((m, m_ref), (l, l_ref)):
+        rel = (got - want).abs() / want.abs().clamp(min=1.0)
+        assert float(rel[seen].max()) <= STATS_RTOL
+
+
 def test_bf16_error_bound_rejects_a_skipped_tile():
     """A fault whose error shrinks as rows grow breaks the bound on far
     more of the long rows than the flat 3e-2 bar does (on the CPU,

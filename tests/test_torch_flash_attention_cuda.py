@@ -19,6 +19,11 @@ computed in f32 from the same inputs and the same m, l and delta: in f32
 within 1e-5 times max(1, max |gradient|) (another summation order), in
 bf16 within ``kernel.bf16_bwd_error_bound`` per element (P and dS enter
 their products rounded to bf16).  Two launches give the same bits.
+
+Every route is held to these bars: ``f32``, ``mma`` and the warp-specialised
+``wgmma`` kernels (the forward and dK/dV at head dims 64 and 128), each
+test checking that its launch went through the route ``kernel.route``
+picks, at query-head groups of 1, 3 and 4.
 """
 
 import pytest
@@ -85,11 +90,13 @@ def _check(case, dtype, layout):
     causal, window = case[6], case[7]
     q, k, v = _inputs(case, dtype, layout, device)
     scale = 1.0 / case[5] ** 0.5
-    before = K.launch_count
+    before = (K.launch_count, K.fwd_wgmma_launch_count)
     out, m, l = K.flash_fwd(q, k, v, causal=causal, window=window,
                             sm_scale=scale, layout=layout)
     torch.cuda.synchronize()
-    assert K.launch_count == before + 1
+    wgmma = K.route("fwd", dtype, case[5]) == "wgmma"
+    assert (K.launch_count, K.fwd_wgmma_launch_count) == \
+        (before[0] + 1, before[1] + wgmma)
     assert out.dtype == dtype and out.shape == q.shape
     q, k, v = (_to_bhsd(t, layout).float() for t in (q, k, v))
     ref, m_ref, l_ref = attention_reference(
@@ -176,14 +183,17 @@ def _bwd_check(case, dtype, layout):
     delta = (delta if layout == "bhsd" else delta.transpose(1, 2)) \
         .contiguous()
     kw = dict(causal=causal, window=window, sm_scale=scale, layout=layout)
-    before = (K.dq_launch_count, K.dkv_launch_count)
+    before = (K.dq_launch_count, K.dkv_launch_count,
+              K.dkv_wgmma_launch_count)
     dq = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
     dk, dv = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
     dq2 = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
     dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
     torch.cuda.synchronize()
-    assert (K.dq_launch_count, K.dkv_launch_count) == \
-        (before[0] + 2, before[1] + 2)
+    wgmma = K.route("dkv", dtype, case[5]) == "wgmma"
+    assert (K.dq_launch_count, K.dkv_launch_count,
+            K.dkv_wgmma_launch_count) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2 * wgmma)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
         and torch.equal(dv, dv2)
     assert dq.shape == q.shape and dk.shape == k.shape and \
@@ -265,3 +275,50 @@ def test_backward_kernels_raise_on_what_they_do_not_take():
             torch.zeros((1, 2, 8), device=device)] * 3, **kw)
     with pytest.raises(TypeError):
         K.flash_bwd_dq(q, k, v, q.bfloat16(), *stats, **kw)
+
+
+# The warp-specialised wgmma routes (forward and dK/dV at head dims 64 and
+# 128) and the mma.sync route that keeps head dim 160: query-head groups
+# of 1, 3 and 4; causal and windowed masks, Sq != Skv, ragged tails at 1000
+# and 4000, rows that see no key; both layouts.
+ROUTE_DIMS = [64, 128, 160]
+ROUTE_GROUPS = [1, 3, 4]
+ROUTE_MASKS = {
+    # name: (B, KH, Sq, Skv, causal, window)
+    "causal_1000": (1, 2, 1000, 1000, True, None),
+    "window_1000": (1, 1, 1000, 1000, True, 100),
+    "short_q": (2, 1, 100, 1000, True, None),
+    "no_key_rows": (1, 1, 300, 130, True, None),
+    "window_only": (1, 1, 333, 777, False, 64),
+}
+
+
+def _route_case(d, g, mask):
+    B, KH, Sq, Skv, causal, window = ROUTE_MASKS[mask]
+    return (B, g * KH, KH, Sq, Skv, d, causal, window)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("mask", sorted(ROUTE_MASKS))
+@pytest.mark.parametrize("g", ROUTE_GROUPS)
+@pytest.mark.parametrize("d", ROUTE_DIMS)
+def test_bf16_forward_routes_match_plain(d, g, mask, layout):
+    _check(_route_case(d, g, mask), torch.bfloat16, layout)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("mask", sorted(ROUTE_MASKS))
+@pytest.mark.parametrize("g", ROUTE_GROUPS)
+@pytest.mark.parametrize("d", ROUTE_DIMS)
+def test_bf16_dkv_routes_match_plain(d, g, mask, layout):
+    _bwd_check(_route_case(d, g, mask), torch.bfloat16, layout)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_routes_at_the_4000_tail(d):
+    """A ragged tail of 4000 rows (not a multiple of the 128-row tiles) at
+    phi4-mini's group of 3, forward and dK/dV."""
+
+    case = (1, 6, 2, 4000, 4000, d, True, None)
+    _check(case, torch.bfloat16, "bshd")
+    _bwd_check(case, torch.bfloat16, "bshd")
