@@ -11,21 +11,26 @@ Phases, each of which exits nonzero on failure:
 1. ``build``: compile every ``src/repro_torch/csrc/*.cu`` with nvcc
    (sm_90a), one process per source, all started together.
 2. ``kernels``: the segment-combine kernel against its plain PyTorch
-   version on the card: sum/max/min x f32/bf16 x F in {1, 2, 8}, with and
-   without ``edge_active``, on ragged shapes with padding ids at both ends,
-   empty segments and one hub segment of 2^20 rows.  max/min must be
-   bit-equal; sums must be within the error bounds of ``_sum_check`` of a
-   float64 sum and of the plain version, and the hub's integer-valued sum
-   exact; two launches on the same input must be bit-identical.
+   version on the card: sum/max/min x f32/bf16, with and without
+   ``edge_active``, at F in {1, 2, 8} on ragged shapes with padding ids at
+   both ends, empty segments and one hub segment of 2^20 rows, and on the
+   hub-split cases of ``SPLIT_CASES`` (a tile of exactly K chunks and one
+   of K + 1, a hub that starts and ends mid-chunk, two long segments in
+   one tile, a split tile with a wholly inactive piece, a split at F =
+   1024).  max/min must be bit-equal; sums must be within the error
+   bounds of ``_sum_check`` (the depth from ``kernel.sum_depth``) of a
+   float64 sum and of the plain version, and the hubs' integer-valued
+   sums exact; two launches on the same input must be bit-identical.
 3. ``pagerank`` (the main path): PageRank through ``compile_pregel`` with
    the planner's own plan (``dense_psum`` on one device) on a power-law
    graph of 2^25 vertices with the Yahoo webmap's mean out-degree (5.7)
    and web-graph degree exponents (see ``power_law_graph``), made from
    ``--seed`` with numpy, checked against a scipy.sparse float64 oracle;
    the kernel's launch count must rise by at least 2 a superstep.  At the
-   main path's shapes the kernel is timed beside ``torch.segment_reduce``
-   and ``index_add_`` (float atomics, not bit-reproducible), yardsticks
-   the port never calls.
+   main path's shapes the kernel is timed in turns with the parent's
+   decomposition (one block per tile, the C entry point with no split),
+   and beside ``torch.segment_reduce`` and ``index_add_`` (float atomics,
+   not bit-reproducible), yardsticks the port never calls.
 4. ``sssp``: semi-naive SSSP with the merging connector on 2^22 vertices;
    it must converge, equal scipy's BFS distances exactly and run at least
    one sparse superstep.
@@ -69,8 +74,7 @@ Phases, each of which exits nonzero on failure:
    params, bf16 AdamW m, f32 v, full remat) with 8 x 4096 tokens a step in
    2 microbatches, 5 AdamW steps on the ``zipf`` stream: per-step seconds,
    tokens/s, loss, grad_norm, peak memory, and exactly 128 forward, 64 dQ
-   and 64 dK/dV launches a step, all 128 forward and 64 dK/dV launches
-   on the wgmma route.  Profiles one step.  Witnesses for the
+   and 64 dK/dV launches a step, all of them on the wgmma route.  Profiles one step.  Witnesses for the
    loss curve, on the same batches: the first 2 steps again, then step 2's
    loss and gradients through the kernels and through the plain attention
    on one sequence; the 5 steps
@@ -81,8 +85,8 @@ Phases, each of which exits nonzero on failure:
    attention, the backward kernels within theirs of the plain backward
    (the timed plain call's own result), both planted faults breaking
    that bound, and the timed launches bit-equal to the checked ones;
-   dK/dV timed in turns with the parent's design (the ``mma.sync``
-   kernel, launched outside the wrapper);
+   dQ and dK/dV each timed in turns with the parent's design (the
+   ``mma.sync`` kernel, launched outside the wrapper);
    times beside PyTorch's SDPA backward.
 
 Prints the card's name and power limit first and again after the phases'
@@ -119,11 +123,6 @@ OUT_DEGREE_EXPONENT = 2.72
 F32_UNIT = 2.0 ** -24          # unit roundoff of f32
 BF16_UNIT = 2.0 ** -8          # unit roundoff of bf16
 F64_UNIT = 2.0 ** -53
-# The kernel's summation depth within one 256-row chunk: a 5-level warp
-# scan, then up to 7 folds of earlier warps' tails; each further chunk a
-# segment touches adds one addition into the tile's accumulator.
-CHUNK_ROWS = 256
-CHUNK_DEPTH = 5 + 7
 PAGERANK_L1_TOL = 1e-5         # ||r - r*||_1 / ||r*||_1 against float64
 HUB_ROWS = 1 << 20
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
@@ -190,11 +189,11 @@ def _timed(fn, reps: int):
     return _time_ms(call, reps), last[0]
 
 
-# The parent's design of the flash forward (B2) and dK/dV (B4) kernels,
-# timed beside the kernels that replaced it: the mma.sync kernels, whose
-# source the port keeps unchanged for the head dims the wgmma kernels do
-# not cover, launched through the libraries' C entry points with the mma
-# route's id at the main path's head dim.  No wrapper and no launch count
+# The parent's design of the flash forward (B2), dQ (B3) and dK/dV (B4)
+# kernels, timed beside the kernels that replaced it: the mma.sync kernels,
+# whose source the port keeps unchanged for the head dims the wgmma kernels
+# do not cover, launched through the libraries' C entry points with the
+# mma route's id at the main path's head dim.  No wrapper and no launch count
 # sees these launches.  Causal, no window, the LM's layout.
 
 
@@ -232,6 +231,26 @@ def _parent_fwd(q, k, v, scale):
     if err:
         raise RuntimeError(f"the parent's forward failed: CUDA error {err}")
     return out, m, l
+
+
+def _parent_dq(q, k, v, do, m, l, delta, scale):
+    """The parent's dQ: dq, as ``kernel.flash_bwd_dq``'s."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    B, S, H, D = q.shape
+    dq = torch.empty_like(q)
+    err = K._bwd_library().flash_attention_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        K.ROUTES["mma"], B, H, k.shape[2], S, k.shape[1], D,
+        K._strides(q, k, v, do, dq, layout="bshd"), 1, -1, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's dQ failed: CUDA error {err}")
+    return dq
 
 
 def _parent_dkv(q, k, v, do, m, l, delta, scale):
@@ -291,7 +310,7 @@ def _kernel_case(gen, dtype, F, with_active, device):
         act = torch.rand(E, generator=gen, device=device) < 0.5
         act[E // 4: E // 2] = False
         act = act.contiguous()
-    return vals.contiguous(), ids, n, act, hub_id
+    return vals.contiguous(), ids, n, act, (hub_id,)
 
 
 def _gamma(d):
@@ -303,14 +322,17 @@ def _sum_check(vals, ids, n, act, ker, ref, tag):
 
     A summation in which no term passes through more than d f32 additions
     is within gamma_d = d u / (1 - d u) of sum|v| of the exact sum
-    (u = 2^-24).  In the kernel d = CHUNK_DEPTH + c for a segment whose
-    valid rows lie in c chunks; the plain version adds in any order
-    (float atomics), d = m for m rows.  The float64 sum itself is within
-    m 2^-53 sum|v|.  bf16 output adds its own rounding, 2^-8 of the value.
-    Raises on a bound broken; returns (max |kernel - plain|, max of
-    |kernel - float64| / sum|v| over the segments)."""
+    (u = 2^-24).  In the kernel d is ``kernel.sum_depth`` of the chunks and
+    pieces that hold the segment's valid rows (``summation_depths``); the
+    plain version adds in any order (float atomics), d = m for m rows.  The
+    float64 sum itself is within m 2^-53 sum|v|.  bf16 output adds its own
+    rounding, 2^-8 of the value.  Raises on a bound broken; returns (max
+    |kernel - plain|, max of |kernel - float64| / sum|v| over the
+    segments)."""
 
     import torch
+
+    from repro_torch.kernels.segment_combine.kernel import summation_depths
 
     ids64 = ids.long()
     valid = (ids64 >= 0) & (ids64 < n)
@@ -324,13 +346,10 @@ def _sum_check(vals, ids, n, act, ker, ref, tag):
     exact.index_add_(0, seg, v)
     mag = torch.zeros_like(exact).index_add_(0, seg, v.abs())
     m = torch.bincount(seg, minlength=n).double()[:, None]
-    chunk = rows // CHUNK_ROWS
-    first = torch.ones_like(seg, dtype=torch.bool)
-    first[1:] = (seg[1:] != seg[:-1]) | (chunk[1:] != chunk[:-1])
-    c = torch.bincount(seg[first], minlength=n).double()[:, None]
-    del rows, seg, v, chunk, first
+    del rows, seg, v, ids64, valid
+    d = summation_depths(ids, n, F, act).double()[:, None]
     f64_err = m * F64_UNIT * mag
-    tol_k = _gamma(CHUNK_DEPTH + c) * mag + f64_err
+    tol_k = _gamma(d) * mag + f64_err
     tol_p = _gamma(m) * mag + f64_err
     if vals.dtype == torch.bfloat16:
         tol_k = tol_k + BF16_UNIT * (exact.abs() + tol_k)
@@ -350,7 +369,92 @@ def _sum_check(vals, ids, n, act, ker, ref, tag):
     return float(err.max()), rel
 
 
-def phase_kernels(device) -> None:
+# Hub-split cases of the segment combine: tiles whose rows span more than
+# kernel.PIECE_CHUNKS chunks are cut into pieces (csrc/segment_combine.cu).
+# Each is a list of (id, rows) runs at payload width F over n segments, and
+# its hubs: integer-valued segments whose sums must come out exact.
+SPLIT_CASES = ("tile_of_K_chunks", "tile_of_K_plus_1_chunks",
+               "hub_mid_chunk", "two_long_segments", "inactive_piece",
+               "wide_payload")
+
+
+def _split_runs(name):
+    """(runs, n, F, hubs, rows of a wholly inactive piece or None)."""
+
+    from repro_torch.kernels.segment_combine.kernel import (
+        CHUNK_ROWS as C,
+        PIECE_CHUNKS as K,
+    )
+
+    small = [(s, 37) for s in range(5)]
+    if name == "tile_of_K_chunks":          # exactly K chunks: one piece
+        return small + [(7, K * C - 185)], 768, 1, (7,), None
+    if name == "tile_of_K_plus_1_chunks":   # K + 1 chunks: two pieces
+        return small + [(7, K * C - 85)], 768, 1, (7,), None
+    if name == "hub_mid_chunk":
+        return ([(-1, 1000)] + [(s, 13) for s in range(10)]
+                + [(20, 3 * K * C + 77)] + [(s, 5) for s in range(21, 200)]
+                + [(s, 7) for s in range(300, 400)] + [(-1, 333)],
+                1024, 1, (20,), None)
+    if name == "two_long_segments":         # a boundary inside a piece
+        return ([(-1, 50)] + [(s, 9) for s in range(10)]
+                + [(10, 3 * K * C // 2 + 33), (11, 2 * K * C + 99)]
+                + [(s, 3) for s in range(12, 250)] + [(-1, 10)],
+                512, 1, (10, 11), None)
+    if name == "inactive_piece":            # piece 1 of 4 has no valid row
+        return ([(3, 4 * K * C)] + [(s, 21) for s in range(4, 100)],
+                256, 1, (3,), (K * C, 2 * K * C))
+    if name == "wide_payload":              # F = 1024: 8 segments a tile
+        return ([(0, 3), (1, 5), (2, 7), (5, (K + 5) * C), (9, 11),
+                 (20, 13)], 64, 1024, (5,), None)
+    raise ValueError(name)
+
+
+def _split_case(gen, name, dtype, with_active, device):
+    """A case of SPLIT_CASES: ids from its runs, unit-normal values with
+    the hubs' rows integers in [1, 8] (every partial sum exact in f32),
+    half the rows active when ``with_active``; the inactive piece's rows
+    are inactive, or carry id -1 when there is no mask.  Checks that the
+    kernel's decomposition (``kernel.summation_shape``) cuts the case as
+    its name says.  Returns (vals, ids, n, act, hubs)."""
+
+    import torch
+
+    from repro_torch.kernels.segment_combine.kernel import summation_shape
+
+    runs, n, F, hubs, quiet = _split_runs(name)
+    ids = torch.repeat_interleave(
+        torch.tensor([i for i, _ in runs], dtype=torch.int32),
+        torch.tensor([r for _, r in runs])).to(device)
+    E = ids.shape[0]
+    act = None
+    if with_active:
+        act = torch.rand(E, generator=gen, device=device) < 0.5
+    if quiet is not None:
+        if act is None:
+            ids[quiet[0]:quiet[1]] = -1
+        else:
+            act[quiet[0]:quiet[1]] = False
+    vals = torch.randn((E, F), generator=gen, device=device)
+    for h in hubs:
+        at = ids == h
+        vals[at] = torch.randint(1, 9, (int(at.sum()), F), generator=gen,
+                                 device=device).float()
+    _, pieces = summation_shape(ids, n, F, act)
+    got = [int(pieces[h]) for h in hubs]
+    want_split = name != "tile_of_K_chunks"
+    if any((p > 1) != want_split for p in got):
+        raise AssertionError(f"split case {name}: the hubs lie in {got} "
+                             f"pieces")
+    return vals.to(dtype).contiguous(), ids.contiguous(), n, act, hubs
+
+
+def _check_combine(vals, ids, n, act, hubs, op, tag):
+    """The kernel against plain on one case: max/min bit-equal, sums
+    within ``_sum_check``'s bars and the hubs' integer sums exact, two
+    launches bit-identical.  Returns (max abs err vs plain, max |kernel -
+    float64| / sum|v|, 0 for max/min)."""
+
     import torch
 
     from repro_torch.kernels.segment_combine.kernel import (
@@ -360,59 +464,91 @@ def phase_kernels(device) -> None:
         segment_combine_reference,
     )
 
+    dtype, F = vals.dtype, vals.shape[1]
+    ker = segment_combine_cuda(vals, ids, n, op, edge_active=act)
+    again = segment_combine_cuda(vals, ids, n, op, edge_active=act)
+    ref = segment_combine_reference(vals, ids, n, op, edge_active=act)
+    torch.cuda.synchronize()
+    if ker.dtype != dtype or ker.shape != (n, F):
+        raise AssertionError(f"kernel output {ker.dtype} {tuple(ker.shape)}: "
+                             f"{tag}")
+    if not torch.equal(ker, again):
+        raise AssertionError(f"two launches differ: {tag}")
+    if op == "sum":
+        err, rel = _sum_check(vals, ids, n, act, ker, ref, tag)
+        for h in hubs:
+            at = (ids == h) if act is None else (ids == h) & act
+            want = vals.float()[at].sum(0).to(dtype)  # integers < 2^24
+            if not torch.equal(ker[h], want):
+                raise AssertionError(f"hub {h} sum {ker[h].tolist()[:4]} != "
+                                     f"exact {want.tolist()[:4]}: {tag}")
+        return err, rel
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    err = float((ker.float() - ref.float()).abs().max())
+    bad = int((ker.view(bits) != ref.view(bits)).sum())
+    if bad:
+        raise AssertionError(f"kernel != plain on {bad} elements (max abs "
+                             f"err {err}): {tag}")
+    return err, 0.0
+
+
+def _parent_segment_combine(vals, ids, n, op):
+    """The parent's decomposition of the segment combine (B1): one block
+    walks each tile's whole edge range, however long (the library's C entry
+    point with split length 0), launched outside the wrapper and its
+    count."""
+
+    import torch
+
+    from repro_torch.kernels.segment_combine import kernel as SC
+
+    out = torch.empty((n, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    err = SC._launch(SC._library(), vals, ids, n, op, None, 0, out)
+    if err:
+        raise RuntimeError(f"the parent's segment combine failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def phase_kernels(device) -> None:
+    import torch
+
+    from repro_torch.kernels.segment_combine.kernel import PIECE_CHUNKS
+
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    n_cases = 0
+    n_cases = n_split = 0
     worst = 0.0
     worst_rel = 0.0
     for op in ("sum", "max", "min"):
         for dtype in (torch.float32, torch.bfloat16):
-            for F in (1, 2, 8):
-                for with_active in (False, True):
-                    vals, ids, n, act, hub_id = _kernel_case(
-                        gen, dtype, F, with_active, device)
-                    ker = segment_combine_cuda(vals, ids, n, op,
-                                               edge_active=act)
-                    again = segment_combine_cuda(vals, ids, n, op,
-                                                 edge_active=act)
-                    ref = segment_combine_reference(vals, ids, n, op,
-                                                    edge_active=act)
-                    torch.cuda.synchronize()
-                    tag = (f"op={op} dtype={str(dtype)[6:]} F={F} "
-                           f"active={with_active} E={ids.shape[0]} n={n}")
-                    if ker.dtype != dtype or ker.shape != (n, F):
-                        raise AssertionError(f"kernel output {ker.dtype} "
-                                             f"{tuple(ker.shape)}: {tag}")
-                    if not torch.equal(ker, again):
-                        raise AssertionError(f"two launches differ: {tag}")
-                    if op == "sum":
-                        err, rel = _sum_check(vals, ids, n, act, ker, ref,
+            for with_active in (False, True):
+                cases = [(f"F={F}", _kernel_case(gen, dtype, F, with_active,
+                                                 device))
+                         for F in (1, 2, 8)]
+                cases += [(name, _split_case(gen, name, dtype, with_active,
+                                             device))
+                          for name in SPLIT_CASES]
+                for name, (vals, ids, n, act, hubs) in cases:
+                    tag = (f"{name} op={op} dtype={str(dtype)[6:]} "
+                           f"F={vals.shape[1]} active={with_active} "
+                           f"E={ids.shape[0]} n={n}")
+                    err, rel = _check_combine(vals, ids, n, act, hubs, op,
                                               tag)
-                        worst_rel = max(worst_rel, rel)
-                        hub = vals.float()[(ids == hub_id) if act is None
-                                           else (ids == hub_id) & act]
-                        want = hub.sum(0).to(dtype)  # exact: integers < 2^24
-                        if not torch.equal(ker[hub_id], want):
-                            raise AssertionError(
-                                f"hub sum {ker[hub_id].tolist()} != exact "
-                                f"{want.tolist()}: {tag}")
-                    else:
-                        bits = torch.int16 if dtype == torch.bfloat16 \
-                            else torch.int32
-                        err = float((ker.float() - ref.float()).abs().max())
-                        bad = int((ker.view(bits) != ref.view(bits)).sum())
-                        if bad:
-                            raise AssertionError(
-                                f"kernel != plain on {bad} elements "
-                                f"(max abs err {err}): {tag}")
                     worst = max(worst, err)
+                    worst_rel = max(worst_rel, rel)
                     n_cases += 1
-    print(f"kernels: segment_combine == plain on {n_cases} cases "
-          f"(max/min bit-equal; sums within gamma_(12+c) sum|v| of float64 "
-          f"over a segment's c chunks and within that plus gamma_m sum|v| "
-          f"of plain, bf16 + 2^-8 |sum|; hub segment {HUB_ROWS} integer "
-          f"rows summed exactly; two launches bit-identical); max abs err "
-          f"vs plain {worst}, max |kernel - float64| / sum|v| "
+                    n_split += name in SPLIT_CASES
+                del cases
+    print(f"kernels: segment_combine == plain on {n_cases} cases, "
+          f"{n_split} of them hub-split cases {list(SPLIT_CASES)} (K = "
+          f"{PIECE_CHUNKS} chunks a piece) (max/min bit-equal; sums within "
+          f"gamma_d sum|v| of float64, d = kernel.sum_depth of the "
+          f"segment's chunks and pieces, and within that plus gamma_m "
+          f"sum|v| of plain, bf16 + 2^-8 |sum|; integer-valued hubs, one of "
+          f"{HUB_ROWS} rows, summed exactly; two launches bit-identical); "
+          f"max abs err vs plain {worst}, max |kernel - float64| / sum|v| "
           f"{worst_rel:.3e}")
 
 
@@ -554,6 +690,7 @@ def phase_pagerank(args, device, report) -> None:
     from repro_torch.core.pregel import compile_pregel
     from repro_torch.kernels.segment_combine import kernel as sc_kernel
     from repro_torch.kernels.segment_combine.kernel import (
+        PIECE_CHUNKS,
         segment_combine_cuda,
     )
     from repro_torch.kernels.segment_combine.ref import (
@@ -616,7 +753,21 @@ def phase_pagerank(args, device, report) -> None:
           f"(= relative error: the messages are positive), "
           f"max abs err vs plain {max_abs_err}")
     lengths = torch.bincount(ids.long(), minlength=n)
-    ms = _time_ms(lambda: segment_combine_cuda(vals, ids, n, "sum"), 10)
+    # The kernel and the parent's decomposition (one block walks each tile,
+    # the hub's too) in turns: new, parent, parent, new.
+    calls = {"new": lambda: segment_combine_cuda(vals, ids, n, "sum"),
+             "parent": lambda: _parent_segment_combine(vals, ids, n, "sum")}
+    turns = []
+    for name in ("new", "parent", "parent", "new"):
+        t, out = _timed(calls[name], 10)
+        turns.append(t)
+        if name == "parent":
+            parent_out = out
+        del out
+    ms = (turns[0] + turns[3]) / 2
+    parent_ms = (turns[1] + turns[2]) / 2
+    parent_rel = _same_function("segment combine", [parent_out], [ker])
+    del parent_out
     plain_ms = _time_ms(
         lambda: segment_combine_reference(vals, ids, n, "sum"), 3)
     library_ms = _time_ms(
@@ -651,9 +802,16 @@ def phase_pagerank(args, device, report) -> None:
         "index_add_ms": index_add_ms,
         "index_add": "torch.zeros(n, F).index_add_(0, ids, vals): float "
                      "atomics, not bit-reproducible",
+        "piece_chunks": PIECE_CHUNKS,
+        "parent_ms": parent_ms,
+        "parent_design": "one block per tile of segments (split 0)",
     })
     print(f"pagerank: segment_combine at E={E} F={F} n={n}: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.segment_reduce "
+          f"{ms:.3f} ms (pieces of at most {PIECE_CHUNKS} chunks), the "
+          f"parent's decomposition (one block per tile) {parent_ms:.3f} ms "
+          f"(in turns: {', '.join(f'{t:.3f}' for t in turns)}; rel L2 from "
+          f"the kernel's {parent_rel:.3e}), plain {plain_ms:.3f} ms, "
+          f"torch.segment_reduce "
           f"{library_ms:.3f} ms, index_add_ (float atomics, not "
           f"bit-reproducible) {index_add_ms:.3f} ms, bound "
           f"{bytes_moved / HBM_BYTES_PER_S * 1e3:.3f} ms")
@@ -1376,28 +1534,32 @@ def _leaf_rel_l2(a, b):
 
 
 def _train_counts(K):
-    """(forward, dQ, dK/dV launches, forward and dK/dV launches on the
+    """(forward, dQ, dK/dV launches, forward, dQ and dK/dV launches on the
     wgmma route) since the last reset."""
 
     return (K.launch_count, K.dq_launch_count, K.dkv_launch_count,
-            K.fwd_wgmma_launch_count, K.dkv_wgmma_launch_count)
+            K.fwd_wgmma_launch_count, K.dq_wgmma_launch_count,
+            K.dkv_wgmma_launch_count)
+
+
+TRAIN_COUNTS = "(fwd, dq, dkv, fwd wgmma, dq wgmma, dkv wgmma)"
 
 
 def _train_want(K, cfg, microbatches):
     """``_train_counts`` of one train step of ``cfg`` in bf16 with full
-    remat (each layer's forward runs again in its backward), every forward
-    and dK/dV launch on the wgmma route; raises if that route does not take
-    cfg's head dim."""
+    remat (each layer's forward runs again in its backward), every forward,
+    dQ and dK/dV launch on the wgmma route; raises if that route does not
+    take cfg's head dim."""
 
     import torch
 
-    routes = (K.route("fwd", torch.bfloat16, cfg.hd),
-              K.route("dkv", torch.bfloat16, cfg.hd))
-    if routes != ("wgmma", "wgmma"):
-        raise AssertionError(f"the forward and dK/dV take the {routes} "
+    routes = tuple(K.route(kernel, torch.bfloat16, cfg.hd)
+                   for kernel in ("fwd", "dq", "dkv"))
+    if routes != ("wgmma",) * 3:
+        raise AssertionError(f"the forward, dQ and dK/dV take the {routes} "
                              f"routes at D = {cfg.hd}, not wgmma")
     n = cfg.n_layers * microbatches
-    return (2 * n, n, n, 2 * n, n)
+    return (2 * n, n, n, 2 * n, n, n)
 
 
 def phase_train(args, device, report) -> None:
@@ -1454,7 +1616,7 @@ def phase_train(args, device, report) -> None:
           f"bf16 max err / bound {worst_ratio:.3f}; cases by route "
           f"{json.dumps(routes)}", flush=True)
     want_routes = {f"{kernel}/{name}" for kernel in ("dq", "dkv")
-                   for name in K.ROUTES} - {"dq/wgmma"}
+                   for name in K.ROUTES}
     if set(routes) != want_routes:
         raise AssertionError(f"the backward sweep missed a route: {routes}")
 
@@ -1481,8 +1643,8 @@ def phase_train(args, device, report) -> None:
     t_k = time.perf_counter() - t0
     launches = _train_counts(K)
     if launches != _train_want(K, ccfg, 1):
-        raise AssertionError(f"kernel path launched (fwd, dq, dkv, fwd "
-                             f"wgmma, dkv wgmma) {launches} times")
+        raise AssertionError(f"kernel path launched {TRAIN_COUNTS} "
+                             f"{launches} times")
     K.reset_launch_count()
     loss_r, g_r = _grads_of(params, ccfg, tokens, "ref")
     if (K.launch_count, K.dq_launch_count, K.dkv_launch_count) != (0, 0, 0):
@@ -1589,7 +1751,7 @@ def phase_train(args, device, report) -> None:
         rows.append((dt, loss, gnorm, n))
         print(f"train: step {i}: {dt:.3f}s = {TRAIN_BATCH * S / dt:.1f} "
               f"tokens/s, loss {loss:.6f}, grad_norm {gnorm:.6f}, launches "
-              f"(fwd, dq, dkv, fwd wgmma, dkv wgmma) {n}", flush=True)
+              f"{TRAIN_COUNTS} {n}", flush=True)
     launches = _train_counts(K)
     peak = torch.cuda.max_memory_allocated()
     want = _train_want(K, cfg, TRAIN_MICROBATCHES)
@@ -1597,8 +1759,8 @@ def phase_train(args, device, report) -> None:
     print(f"train: {TRAIN_STEPS} steps, steady {sum(steady) / len(steady):.3f}"
           f" s/step = {TRAIN_BATCH * S * len(steady) / sum(steady):.1f} "
           f"tokens/s; peak memory {peak / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated); launches (fwd, dq, dkv, fwd "
-          f"wgmma, dkv wgmma) {launches}, per step {want} wanted",
+          f"(torch.cuda.max_memory_allocated); launches {TRAIN_COUNTS} "
+          f"{launches}, per step {want} wanted",
           flush=True)
     if any(r[3] != want for r in rows):
         raise AssertionError(f"flash kernels launched {[r[3] for r in rows]}"
@@ -1719,22 +1881,36 @@ def phase_train(args, device, report) -> None:
         raise AssertionError("the backward bar passes a planted fault")
 
     kw = dict(causal=True, window=None, sm_scale=scale, layout="bshd")
-    dq_ms, dq = _timed(lambda: K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw),
-                       5)
-    # dK/dV and the parent's design in turns: new, parent, parent, new.
+    # Each backward kernel and the parent's design in turns: new, parent,
+    # parent, new.
+    dq_route = K.route("dq", torch.bfloat16, D)
     dkv_route = K.route("dkv", torch.bfloat16, D)
-    calls = {"new": lambda: K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw),
-             "parent": lambda: _parent_dkv(q, k, v, do, m, l, delta, scale)}
-    dkv_turns = []
-    for name in ("new", "parent", "parent", "new"):
-        t, out = _timed(calls[name], 5)
-        dkv_turns.append(t)
-        if name == "new":
-            dk, dv = out
-        del out
-    dkv_ms = (dkv_turns[0] + dkv_turns[3]) / 2
-    dkv_parent_ms = (dkv_turns[1] + dkv_turns[2]) / 2
-    parent_rel = _same_function("dK/dV", calls["parent"](), (dk, dv))
+    calls = {
+        "dq": {"new": lambda: (K.flash_bwd_dq(q, k, v, do, m, l, delta,
+                                              **kw),),
+               "parent": lambda: (_parent_dq(q, k, v, do, m, l, delta,
+                                             scale),)},
+        "dkv": {"new": lambda: K.flash_bwd_dkv(q, k, v, do, m, l, delta,
+                                               **kw),
+                "parent": lambda: _parent_dkv(q, k, v, do, m, l, delta,
+                                              scale)},
+    }
+    turns, new_out = {}, {}
+    for key, fns in calls.items():
+        turns[key] = []
+        for name in ("new", "parent", "parent", "new"):
+            t, out = _timed(fns[name], 5)
+            turns[key].append(t)
+            if name == "new":
+                new_out[key] = out
+            del out
+    dq_ms, dkv_ms = ((turns[x][0] + turns[x][3]) / 2 for x in ("dq", "dkv"))
+    dq_parent_ms, dkv_parent_ms = ((turns[x][1] + turns[x][2]) / 2
+                                   for x in ("dq", "dkv"))
+    parent_rel = {x: _same_function(x, calls[x]["parent"](), new_out[x])
+                  for x in ("dq", "dkv")}
+    (dq,), (dk, dv) = new_out["dq"], new_out["dkv"]
+    del new_out
     if not all(torch.equal(a.transpose(1, 2), b)
                for a, b in zip((dq, dk, dv), got)):
         raise AssertionError("timed backward launches differ from the "
@@ -1754,19 +1930,24 @@ def phase_train(args, device, report) -> None:
         + 3 * 4 * B * H * S,
     }
     print(f"train: backward kernels at B={B} H={H} KH={KH} S={S} D={D} bf16 "
-          f"causal (bshd): dq {dq_ms:.3f} ms, dkv ({dkv_route} route) "
+          f"causal (bshd): dq ({dq_route} route) {dq_ms:.3f} ms, the "
+          f"parent's dq design (mma.sync) {dq_parent_ms:.3f} ms (in turns: "
+          f"{', '.join(f'{t:.3f}' for t in turns['dq'])}; rel L2 from the "
+          f"kernel's {parent_rel['dq']:.3e}), dkv ({dkv_route} route) "
           f"{dkv_ms:.3f} ms, the parent's dkv design (mma.sync) "
           f"{dkv_parent_ms:.3f} ms (in turns: "
-          f"{', '.join(f'{t:.3f}' for t in dkv_turns)}; rel L2 from the "
-          f"kernel's {parent_rel:.3e}), plain "
+          f"{', '.join(f'{t:.3f}' for t in turns['dkv'])}; rel L2 from the "
+          f"kernel's {parent_rel['dkv']:.3e}), plain "
           f"(both, f32) {plain_ms:.3f} ms, SDPA backward (dq, dk, dv) "
           f"{library_ms:.3f} ms", flush=True)
     for name, ms, n, src_line, max_abs_err, extra in (
             ("flash_bwd_dq", dq_ms, launches[1], 245, err[0],
-             {"kernel_route": K.route("dq", torch.bfloat16, D)}),
+             {"kernel_route": dq_route,
+              "route_launches_per_step": launches[4] / TRAIN_STEPS,
+              "parent_ms": dq_parent_ms, "parent_design": "mma.sync"}),
             ("flash_bwd_dkv", dkv_ms, launches[2], 345, max(err[1:]),
              {"kernel_route": dkv_route,
-              "route_launches_per_step": launches[4] / TRAIN_STEPS,
+              "route_launches_per_step": launches[5] / TRAIN_STEPS,
               "parent_ms": dkv_parent_ms, "parent_design": "mma.sync"})):
         key = name[10:]
         flops = BWD_FLOP_PER_PAIR[key] * D * pairs

@@ -26,9 +26,26 @@
 //
 // What the design does about it.  The TPU kernels' sequential grid
 // dimension becomes a loop inside the block:
-//  * dQ (mma route, the first version): one block per (b, h, 64-row q
-//    tile) walks the KV tiles of its band; Q and dO stay in shared memory,
-//    dQ accumulates in f32 registers and is written once.
+//  * dQ, wgmma route (bf16, D 64 and 128; the main path): dK/dV's design
+//    below with the roles of queries and keys swapped.  One block per (h,
+//    b, 128-row q tile), highest q tiles (the heaviest under a causal
+//    mask) first, three warpgroups.  Q and dO are loaded once by TMA and
+//    stay in shared memory; the consumers hold their rows' m log2 e, 1 / l
+//    and delta in registers.  The producer warpgroup gives up its
+//    registers (setmaxnreg); one thread streams the K and V tiles of 64
+//    keys of the band through a two-slot ring of 128-byte-swizzled shared
+//    memory (full and empty mbarriers).  Each of the two consumer
+//    warpgroups owns 64 rows: S = Q K^T and dP = dO V^T by wgmma from
+//    shared memory; P and dS in f32 registers, masked only on edge tiles,
+//    by each row's key bounds; dQ += dS K by wgmma with dS as the bf16
+//    register A operand, packed straight from the accumulators 16 keys
+//    at a time, and K read MN-major.  Both warpgroups take every tile of
+//    the band (a branch around the tiles one of them does not see, or a
+//    per-element visible(), made ptxas serialise the products, C7520).
+//    dQ stays in f32 registers and is written once, no atomics.
+//  * dQ, mma route (bf16, other D; the first version): one block per (b,
+//    h, 64-row q tile) walks the KV tiles of its band; Q and dO stay in
+//    shared memory, dQ accumulates in f32 registers and is written once.
 //  * dK/dV, wgmma route (bf16, D 64 and 128; the main path): one block
 //    per (KV head, b, 128-key tile), lowest key tiles (the heaviest under
 //    a causal mask) first, three warpgroups.  K and V are loaded once by
@@ -635,27 +652,29 @@ __device__ __forceinline__ bool sees_all(int kw, int q0, int Skv, int q_off,
          (window < 0 || kw > q0 + WS_BQ - 1 + q_off - window);
 }
 
-// S^T = K Q^T and dP^T = V dO^T for warpgroup wg's 64 keys and the (Q,
-// dO) slot at `slot`, issued as one wgmma group.
+// S = A0 B0^T and dP = A1 B1^T for the 64 rows of A0 and A1 from `a_row0`
+// and the 64 rows of B0 and B1, all K-major (the head dim contiguous),
+// issued as one wgmma group: S^T = K Q^T and dP^T = V dO^T in dK/dV, S =
+// Q K^T and dP = dO V^T in dQ.
 template <int D>
 __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32],
-                                          const uint8_t* Ks,
-                                          const uint8_t* Vs,
-                                          const uint8_t* slot, int kv_chunk,
-                                          int q_chunk, int q_bytes, int wg) {
+                                          const uint8_t* A0,
+                                          const uint8_t* A1, int a_chunk,
+                                          int a_row0, const uint8_t* B0,
+                                          const uint8_t* B1, int b_chunk) {
   wgmma_fence();
-  wgmma_ss_n64_zero<0>(s, desc_k(Ks, kv_chunk, 64 * wg, 0),
-                       desc_k(slot, q_chunk, 0, 0));
+  wgmma_ss_n64_zero<0>(s, desc_k(A0, a_chunk, a_row0, 0),
+                       desc_k(B0, b_chunk, 0, 0));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss<64, 0>(s, desc_k(Ks, kv_chunk, 64 * wg, kk),
-                    desc_k(slot, q_chunk, 0, kk), 1);
-  wgmma_ss_n64_zero<0>(dp, desc_k(Vs, kv_chunk, 64 * wg, 0),
-                       desc_k(slot + q_bytes, q_chunk, 0, 0));
+    wgmma_ss<64, 0>(s, desc_k(A0, a_chunk, a_row0, kk),
+                    desc_k(B0, b_chunk, 0, kk), 1);
+  wgmma_ss_n64_zero<0>(dp, desc_k(A1, a_chunk, a_row0, 0),
+                       desc_k(B1, b_chunk, 0, 0));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss<64, 0>(dp, desc_k(Vs, kv_chunk, 64 * wg, kk),
-                    desc_k(slot + q_bytes, q_chunk, 0, kk), 1);
+    wgmma_ss<64, 0>(dp, desc_k(A1, a_chunk, a_row0, kk),
+                    desc_k(B1, b_chunk, 0, kk), 1);
   wgmma_commit();
 }
 
@@ -788,8 +807,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         reinterpret_cast<const float4*>(stats) + pos.stage * WS_BQ;
     if (sees_any(kw, q0, Skv, q_off, causal, window)) {
       float s[32], dp[32];
-      issue_sdp<D>(s, dp, Ks, Vs, Qs, L::KV_CHUNK, L::Q_CHUNK, L::Q_BYTES,
-                   wg);
+      issue_sdp<D>(s, dp, Ks, Vs, L::KV_CHUNK, 64 * wg, Qs, dOs,
+                   L::Q_CHUNK);
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
@@ -872,6 +891,217 @@ int launch_dkv_wgmma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dQ, D in {64, 128}: TMA ring, wgmma, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int WS_DQ_BM = 128;      // query rows per block, 64 per consumer
+constexpr int WS_DQ_BN = 64;       // keys per ring slot
+
+// Shared memory of dQ: Q and dO of the block's rows (resident), then
+// STAGES slots of (K, V) tiles, each tile as D / 64 swizzled chunks; the
+// mbarriers.
+template <int D, int STAGES>
+struct DqLayout {
+  static constexpr int NC = D / 64;
+  static constexpr int Q_CHUNK = WS_DQ_BM * 128;
+  static constexpr int Q_BYTES = NC * Q_CHUNK;       // one of Q or dO
+  static constexpr int KV_CHUNK = WS_DQ_BN * 128;
+  static constexpr int KV_BYTES = NC * KV_CHUNK;     // one of K or V
+  static constexpr int RING = 2 * Q_BYTES;
+  static constexpr int BAR = RING + STAGES * 2 * KV_BYTES;
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8 + SMEM_ALIGN;
+};
+
+// One block per (h, b, 128-row q tile), heaviest (highest) q tiles first:
+// dK/dV's kernel with the roles of queries and keys swapped.  Warpgroups 0
+// and 1 own rows 64 wg .. 64 wg + 63 of the tile, hold their m log2 e,
+// 1 / l and delta in registers and their dQ in f32 registers; warpgroup
+// 2's first thread loads Q and dO once by TMA, then streams the K and V
+// tiles of 64 keys of the band through a ring of STAGES slots (full: the
+// bytes landed; empty: every consumer warp is done reading).
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int H, int KH,
+                          int Sq, int Skv, const Strides st, int causal,
+                          int window, float scale, float scale_log2) {
+  using L = DqLayout<D, STAGES>;
+  uint8_t* smem = aligned_smem();
+  uint8_t* Qs = smem;
+  uint8_t* dOs = smem + L::Q_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WS_DQ_BM;
+  const int kh = h / (H / KH);
+  const int q_off = Skv - Sq;
+  // The KV tiles whose keys some row of this block sees.
+  int key_lo = 0, key_hi = Skv - 1;
+  if (window >= 0) key_lo = max(key_lo, q0 + q_off - window + 1);
+  if (causal) key_hi = min(key_hi, min(q0 + WS_DQ_BM, Sq) - 1 + q_off);
+  const int kt_lo = key_lo / WS_DQ_BN;
+  const int kt_end = key_hi >= key_lo ? key_hi / WS_DQ_BN + 1 : kt_lo;
+
+  if (threadIdx.x == 0) ring_init<STAGES>(bars);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 256 && kt_end > kt_lo) {
+      mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+      for (int c = 0; c < L::NC; ++c) {
+        tma_load(Qs + c * L::Q_CHUNK, &tq, q_full, 64 * c, q0, h, b);
+        tma_load(dOs + c * L::Q_CHUNK, &tdo, q_full, 64 * c, q0, h, b);
+      }
+      RingPos<STAGES> pos;
+      for (int kt = kt_lo; kt < kt_end; ++kt, pos.next()) {
+        mbar_wait(&empty[pos.stage], pos.phase ^ 1);
+        uint8_t* Ks = smem + L::RING + pos.stage * 2 * L::KV_BYTES;
+        uint8_t* Vs = Ks + L::KV_BYTES;
+        uint64_t* bar = &full[pos.stage];
+        mbar_expect_tx(bar, 2 * L::KV_BYTES);
+        for (int c = 0; c < L::NC; ++c) {
+          tma_load(Ks + c * L::KV_CHUNK, &tk, bar, 64 * c, kt * WS_DQ_BN, kh,
+                   b);
+          tma_load(Vs + c * L::KV_CHUNK, &tv, bar, 64 * c, kt * WS_DQ_BN, kh,
+                   b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: rows r0 and r0 + 8 of this thread's accumulator rows.
+  reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qw = q0 + 64 * wg;               // this warpgroup's first row
+  const int r0 = qw + warp * 16 + lane / 4;
+  const int t2 = 2 * (lane % 4);
+  const long long base = ((long long)b * H + h) * Sq;
+
+  // m log2 e and 1 / l (both 0 where l = 0 or past Sq) and delta.
+  float mr[2], il[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    mr[hr] = il[hr] = dl[hr] = 0.f;
+    if (r < Sq) {
+      const float lv = l[base + r];
+      if (lv > 0.f) {
+        mr[hr] = m[base + r] * LOG2E;
+        il[hr] = 1.f / lv;
+      }
+      dl[hr] = delta[base + r];
+    }
+  }
+  // The keys [klo, khi] each of the thread's rows sees (the forward's
+  // masks as bounds: a per-element visible() here, whose row tests do not
+  // change over the loop, made ptxas branch around the products).
+  int klo[2], khi[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int ra = r0 + 8 * hr + q_off;
+    khi[hr] = causal ? min(ra, Skv - 1) : Skv - 1;
+    klo[hr] = window >= 0 ? ra - window + 1 : 0;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (kt_end > kt_lo) mbar_wait(q_full, 0);
+  RingPos<STAGES> pos;
+  for (int kt = kt_lo; kt < kt_end; ++kt, pos.next()) {
+    const int k0 = kt * WS_DQ_BN;
+    mbar_wait(&full[pos.stage], pos.phase);
+    const uint8_t* Ks = smem + L::RING + pos.stage * 2 * L::KV_BYTES;
+    const uint8_t* Vs = Ks + L::KV_BYTES;
+    // Every tile of the band, also where this warpgroup's rows see none of
+    // its keys (the mask zeroes P there): skipping those made ptxas
+    // serialise the products (C7520).
+    float s[32], dp[32];
+    issue_sdp<D>(s, dp, Qs, dOs, L::Q_CHUNK, 64 * wg, Ks, Vs,
+                 L::KV_CHUNK);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // 16 keys at a time: P = exp2(S scale log2 e - m log2 e) / l and
+    // dS = P (dP - delta) in f32, masked on edge tiles (rows past Sq
+    // have 1 / l = 0 and a zero Q row, so P = 0 there without a mask),
+    // rounded to bf16 as A operands straight from the accumulators, and
+    // at once dQ += dS K with K MN-major, all one group.
+    const bool interior = sees_all(k0, qw, Skv, q_off, causal, window);
+    uint32_t dsa[WS_DQ_BN / 16][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WS_DQ_BN / 16; ++kk) {
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = 8 * kk + e;
+        const int hr = (j >> 1) & 1;
+        const int c = k0 + 8 * (j >> 2) + t2 + (j & 1);
+        float p = fast_exp2(s[j] * scale_log2 - mr[hr]) * il[hr];
+        if (!interior && (c < klo[hr] || c > khi[hr])) p = 0.f;
+        ds[e] = p * (dp[j] - dl[hr]);
+      }
+      a_pack(dsa[kk], ds);
+      wgmma_rs<D, 1>(acc, dsa[kk], desc_mn(Ks, L::KV_CHUNK, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[pos.stage]);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    if (r >= Sq) continue;
+    __nv_bfloat16* row =
+        dq + b * st.s[12] + (long long)r * st.s[13] + h * st.s[14];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + 8 * n + t2) =
+          bf16x2(acc[4 * n + 2 * hr] * scale, acc[4 * n + 2 * hr + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_dq_wgmma(const Args& a) {
+  constexpr int STAGES = 2;
+  using L = DqLayout<D, STAGES>;
+  const long long* s = a.st.s;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((a.Sq + WS_DQ_BM - 1) / WS_DQ_BM > 65535 ||
+      !make_map(&tq, a.q, D, a.Sq, a.H, a.B, s[0], s[1], s[2], WS_DQ_BM) ||
+      !make_map(&tk, a.k, D, a.Skv, a.KH, a.B, s[3], s[4], s[5], WS_DQ_BN) ||
+      !make_map(&tv, a.v, D, a.Skv, a.KH, a.B, s[6], s[7], s[8], WS_DQ_BN) ||
+      !make_map(&tdo, a.dO, D, a.Sq, a.H, a.B, s[9], s[10], s[11], WS_DQ_BM))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, STAGES>;
+  int err = configure(kernel, L::BYTES);
+  if (err) return err;
+  const dim3 grid(a.H, a.B, (a.Sq + WS_DQ_BM - 1) / WS_DQ_BM);
+  kernel<<<grid, WS_THREADS, L::BYTES, a.stream>>>(
+      tq, tk, tv, tdo, a.m, a.l, a.delta, (__nv_bfloat16*)a.d0, a.H, a.KH,
+      a.Sq, a.Skv, a.st, a.causal, a.window, a.scale, a.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <int NG>
 int launch_f32(const Args& a, bool dkv) {
   const size_t tiles = (size_t)4 * 64 * (a.D + 4) * sizeof(float);
@@ -899,15 +1129,17 @@ int launch_f32(const Args& a, bool dkv) {
 }
 
 // route: 0 = f32 on CUDA cores, 1 = bf16 mma.sync (any D), 2 = bf16
-// wgmma (dK/dV, D 64 or 128).
+// wgmma (D 64 or 128).
 int launch(const Args& a, int route, bool dkv) {
   if (a.D % 16 != 0 || a.D < 16 || a.D > MAX_D || a.KH <= 0 ||
       a.H % a.KH != 0 || a.H > 65535 || a.KH > 65535 || a.B > 65535 ||
       a.Sq <= 0 || a.Skv <= 0)
     return (int)cudaErrorInvalidValue;
   if (route == 1) return launch_mma_d<16>(a, dkv);
-  if (route == 2 && dkv && a.D == 64) return launch_dkv_wgmma<64>(a);
-  if (route == 2 && dkv && a.D == 128) return launch_dkv_wgmma<128>(a);
+  if (route == 2 && a.D == 64)
+    return dkv ? launch_dkv_wgmma<64>(a) : launch_dq_wgmma<64>(a);
+  if (route == 2 && a.D == 128)
+    return dkv ? launch_dkv_wgmma<128>(a) : launch_dq_wgmma<128>(a);
   if (route != 0) return (int)cudaErrorInvalidValue;
   switch ((a.D + 63) / 64) {
     case 1: return launch_f32<1>(a, dkv);

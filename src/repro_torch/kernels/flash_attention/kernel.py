@@ -16,8 +16,8 @@ raises.  Gradients go through ``ops.flash_attention``, whose
 ``torch.autograd.Function`` calls the three in turn.
 
 Each kernel has routes by dtype and head dim, picked by :func:`route`:
-``"f32"`` (CUDA-core FMAs), ``"wgmma"`` (bf16, the forward and dK/dV at
-head dims 64 and 128: a TMA ring, ``wgmma`` and warp specialisation) and
+``"f32"`` (CUDA-core FMAs), ``"wgmma"`` (bf16, all three kernels at head
+dims 64 and 128: a TMA ring, ``wgmma`` and warp specialisation) and
 ``"mma"`` (bf16 ``mma.sync``, every other head dim the wrapper takes).
 """
 
@@ -33,7 +33,8 @@ from repro_torch.kernels import _build
 __all__ = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "route",
            "bf16_error_bound", "bf16_bwd_error_bound", "launch_count",
            "dq_launch_count", "dkv_launch_count", "fwd_wgmma_launch_count",
-           "dkv_wgmma_launch_count", "reset_launch_count", "LAYOUTS",
+           "dq_wgmma_launch_count", "dkv_wgmma_launch_count",
+           "reset_launch_count", "LAYOUTS",
            "ROUTES", "WGMMA_HEAD_DIMS"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -46,27 +47,31 @@ WGMMA_HEAD_DIMS = (64, 128)
 
 # Launches of each kernel since the last reset (one per wrapper call that
 # reaches the card): the forward, the dQ and the dK/dV kernel, all routes;
-# and of the forward's and dK/dV's wgmma routes alone.
+# and of each one's wgmma route alone.
 launch_count = 0
 dq_launch_count = 0
 dkv_launch_count = 0
 fwd_wgmma_launch_count = 0
+dq_wgmma_launch_count = 0
 dkv_wgmma_launch_count = 0
 
 
 def reset_launch_count() -> None:
     global launch_count, dq_launch_count, dkv_launch_count
-    global fwd_wgmma_launch_count, dkv_wgmma_launch_count
+    global fwd_wgmma_launch_count, dq_wgmma_launch_count
+    global dkv_wgmma_launch_count
     launch_count = dq_launch_count = dkv_launch_count = 0
-    fwd_wgmma_launch_count = dkv_wgmma_launch_count = 0
+    fwd_wgmma_launch_count = dq_wgmma_launch_count = 0
+    dkv_wgmma_launch_count = 0
 
 
 def route(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The route a wrapper takes for ``kernel`` (``"fwd"``, ``"dq"`` or
     ``"dkv"``) on inputs of ``dtype`` at head dim ``d``: ``"f32"`` for
-    f32; for bf16 ``"wgmma"`` where it covers d (the forward and dK/dV at
-    d in ``WGMMA_HEAD_DIMS``), else ``"mma"``.  Raises TypeError on another
-    dtype and ValueError on a head dim no route takes."""
+    f32; for bf16 ``"wgmma"`` where it covers d (d in
+    ``WGMMA_HEAD_DIMS``, all three kernels), else ``"mma"``.  Raises
+    TypeError on another dtype and ValueError on a head dim no route
+    takes."""
 
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be 'fwd', 'dq' or 'dkv', got "
@@ -79,7 +84,7 @@ def route(kernel: str, dtype: torch.dtype, d: int) -> str:
                          f"multiple of 16 up to {max_d}, got {d}")
     if dtype == torch.float32:
         return "f32"
-    if kernel != "dq" and d in WGMMA_HEAD_DIMS:
+    if d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "mma"
 
@@ -242,7 +247,7 @@ def flash_bwd_dq(
     ``delta = rowsum(do * out)`` (f32 ``[B, H, Sq]``); ``do`` is shaped
     like q (see :func:`.ref.attention_backward` for the contract)."""
 
-    global dq_launch_count
+    global dq_launch_count, dq_wgmma_launch_count
     B, H, KH, Sq, Skv, D = _bwd_inputs("flash_bwd_dq", q, k, v, do, m, l,
                                        delta, window, layout)
     chosen = route("dq", q.dtype, D)
@@ -264,6 +269,8 @@ def flash_bwd_dq(
         raise RuntimeError(f"flash_attention_bwd_dq kernel launch ({chosen}"
                            f" route) failed: CUDA error {err}")
     dq_launch_count += 1
+    if chosen == "wgmma":
+        dq_wgmma_launch_count += 1
     return dq
 
 

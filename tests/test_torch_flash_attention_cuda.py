@@ -21,8 +21,8 @@ bf16 within ``kernel.bf16_bwd_error_bound`` per element (P and dS enter
 their products rounded to bf16).  Two launches give the same bits.
 
 Every route is held to these bars: ``f32``, ``mma`` and the warp-specialised
-``wgmma`` kernels (the forward and dK/dV at head dims 64 and 128), each
-test checking that its launch went through the route ``kernel.route``
+``wgmma`` kernels (the forward, dQ and dK/dV at head dims 64 and 128),
+each test checking that its launch went through the route ``kernel.route``
 picks, at query-head groups of 1, 3 and 4.
 """
 
@@ -184,16 +184,18 @@ def _bwd_check(case, dtype, layout):
         .contiguous()
     kw = dict(causal=causal, window=window, sm_scale=scale, layout=layout)
     before = (K.dq_launch_count, K.dkv_launch_count,
-              K.dkv_wgmma_launch_count)
+              K.dq_wgmma_launch_count, K.dkv_wgmma_launch_count)
     dq = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
     dk, dv = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
     dq2 = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
     dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
     torch.cuda.synchronize()
     wgmma = K.route("dkv", dtype, case[5]) == "wgmma"
+    assert K.route("dq", dtype, case[5]) == K.route("dkv", dtype, case[5])
     assert (K.dq_launch_count, K.dkv_launch_count,
-            K.dkv_wgmma_launch_count) == \
-        (before[0] + 2, before[1] + 2, before[2] + 2 * wgmma)
+            K.dq_wgmma_launch_count, K.dkv_wgmma_launch_count) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2 * wgmma,
+         before[3] + 2 * wgmma)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
         and torch.equal(dv, dv2)
     assert dq.shape == q.shape and dk.shape == k.shape and \
@@ -277,8 +279,8 @@ def test_backward_kernels_raise_on_what_they_do_not_take():
         K.flash_bwd_dq(q, k, v, q.bfloat16(), *stats, **kw)
 
 
-# The warp-specialised wgmma routes (forward and dK/dV at head dims 64 and
-# 128) and the mma.sync route that keeps head dim 160: query-head groups
+# The warp-specialised wgmma routes (forward, dQ and dK/dV at head dims 64
+# and 128) and the mma.sync route that keeps head dim 160: query-head groups
 # of 1, 3 and 4; causal and windowed masks, Sq != Skv, ragged tails at 1000
 # and 4000, rows that see no key; both layouts.
 ROUTE_DIMS = [64, 128, 160]
@@ -317,8 +319,23 @@ def test_bf16_dkv_routes_match_plain(d, g, mask, layout):
 @pytest.mark.parametrize("d", [64, 128])
 def test_routes_at_the_4000_tail(d):
     """A ragged tail of 4000 rows (not a multiple of the 128-row tiles) at
-    phi4-mini's group of 3, forward and dK/dV."""
+    phi4-mini's group of 3, forward, dQ and dK/dV."""
 
     case = (1, 6, 2, 4000, 4000, d, True, None)
     _check(case, torch.bfloat16, "bshd")
+    before = K.dq_wgmma_launch_count
     _bwd_check(case, torch.bfloat16, "bshd")
+    assert K.dq_wgmma_launch_count == before + 2
+
+
+@pytest.mark.parametrize("d", [64, 128, 160])
+def test_dq_route_by_head_dim(d):
+    """bf16 dQ takes the wgmma route at head dims 64 and 128 and keeps
+    mma.sync at 160 (stablelm-12b's), and is held to its bar on each."""
+
+    _card()
+    want = "mma" if d == 160 else "wgmma"
+    assert K.route("dq", torch.bfloat16, d) == want
+    before = K.dq_wgmma_launch_count
+    _bwd_check((1, 4, 2, 333, 333, d, True, None), torch.bfloat16, "bhsd")
+    assert K.dq_wgmma_launch_count == before + 2 * (want == "wgmma")

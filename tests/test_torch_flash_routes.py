@@ -2,8 +2,8 @@
 
 ``kernel.route`` picks a kernel's route from the inputs' dtype and head
 dim alone: f32 goes to the CUDA-core kernels; bf16 to the warp-specialised
-``wgmma`` kernels where they cover the head dim (the forward and dK/dV at
-64 and 128), else to the ``mma.sync`` kernels.  What no route takes
+``wgmma`` kernels where they cover the head dim (all three kernels at 64
+and 128), else to the ``mma.sync`` kernels.  What no route takes
 raises.  The routes themselves run only on the card
 (``tests/test_torch_flash_attention_cuda.py``).
 """
@@ -20,7 +20,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128, 144, 160])
 def test_route_by_dtype_and_head_dim(kernel, d):
     assert K.route(kernel, F32, d) == "f32"
-    wgmma = kernel != "dq" and d in (64, 128)
+    wgmma = d in (64, 128)
     assert K.route(kernel, BF16, d) == ("wgmma" if wgmma else "mma")
 
 
@@ -54,8 +54,9 @@ def test_route_raises_on_an_unknown_kernel():
 
 def test_counters_reset_together():
     K.fwd_wgmma_launch_count = K.dkv_wgmma_launch_count = 3
+    K.dq_wgmma_launch_count = 3
     K.launch_count = K.dq_launch_count = K.dkv_launch_count = 3
     K.reset_launch_count()
     assert (K.launch_count, K.dq_launch_count, K.dkv_launch_count,
-            K.fwd_wgmma_launch_count, K.dkv_wgmma_launch_count) == \
-        (0, 0, 0, 0, 0)
+            K.fwd_wgmma_launch_count, K.dq_wgmma_launch_count,
+            K.dkv_wgmma_launch_count) == (0, 0, 0, 0, 0, 0)

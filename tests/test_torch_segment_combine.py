@@ -5,7 +5,11 @@ The port's plain version (``repro_torch...ref``) is held against the JAX
 mode, on the same numpy inputs.  max/min must match exactly; sums within
 1e-6 of the segment's sum of |v| (f32 sums taken in another order).  bf16
 payloads may differ by one bf16 ulp where the f32 sums round apart.  The
-Hopper kernel itself is held against the plain version on the card only.
+Hopper kernel itself is held against the plain version on the card only,
+in ``tests/test_torch_segment_combine_cuda.py`` (which imports nothing of
+JAX, so it runs on the machine with the card); here, on the CPU, the
+summation depth of its decomposition (``kernel.sum_depth``) that those
+tests' bars read.
 """
 
 import jax.numpy as jnp
@@ -19,6 +23,7 @@ from repro.kernels.segment_combine.ops import (
 from repro.kernels.segment_combine.ref import (
     segment_combine_reference as jax_reference,
 )
+from repro_torch.kernels.segment_combine import kernel as K
 from repro_torch.kernels.segment_combine.kernel import segment_combine_cuda
 from repro_torch.kernels.segment_combine.ops import (
     kernel_eligible,
@@ -157,34 +162,82 @@ def test_cuda_wrapper_raises_on_cpu_tensors():
         segment_combine_cuda(torch.zeros((8, 2)), ids, 4, "sum")
 
 
-@pytest.mark.parametrize("op", ["sum", "max", "min"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_the_card(op, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU mode")
-    dtype = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    E, F, N = 100_003, 4, 7_919
-    ids = torch.sort(torch.randint(0, N, (E - 20,), generator=gen,
-                                   device="cuda", dtype=torch.int32)).values
-    pad = torch.full((10,), -1, dtype=torch.int32, device="cuda")
-    ids = torch.cat([pad, ids, pad]).contiguous()
-    vals = torch.randn((E, F), generator=gen, device="cuda").to(dtype)
-    act = torch.rand(E, generator=gen, device="cuda") < 0.7
-    for edge_active in (None, act):
-        ker = segment_combine_cuda(vals, ids, N, op, edge_active=edge_active)
-        again = segment_combine_cuda(vals, ids, N, op,
-                                     edge_active=edge_active)
-        ref = segment_combine_reference(vals, ids, N, op,
-                                        edge_active=edge_active)
-        assert torch.equal(ker, again)
-        if op == "sum":
-            mag = segment_combine_reference(vals.float().abs(), ids, N,
-                                            "sum", edge_active=edge_active)
-            tol = 1e-5 * mag + 1e-30
-            if dtype == torch.bfloat16:
-                tol = tol + BF16_ULP * ref.float().abs()
-            assert bool(((ker.float() - ref.float()).abs() <= tol).all())
-        else:
-            assert torch.equal(ker, ref)
+@pytest.mark.parametrize("chunks", [1, 2, 7, K.PIECE_CHUNKS])
+def test_sum_depth_of_an_unsplit_segment_is_the_old_bound(chunks):
+    # One piece: CHUNK_DEPTH in the chunk, one addition a chunk.
+    assert K.sum_depth(chunks, 1) == K.CHUNK_DEPTH + chunks
+    t = K.sum_depth(torch.tensor([chunks]), torch.tensor([1]))
+    assert t.tolist() == [K.CHUNK_DEPTH + chunks]
+
+
+@pytest.mark.parametrize("chunks,pieces", [(33, 2), (100, 4), (12_700, 398)])
+def test_sum_depth_of_a_split_segment(chunks, pieces):
+    # At most PIECE_CHUNKS chunk totals a piece, then the pieces' chain.
+    want = K.CHUNK_DEPTH + K.PIECE_CHUNKS + pieces - 1
+    assert K.sum_depth(chunks, pieces) == want <= K.CHUNK_DEPTH + chunks
+
+
+def _ids(runs):
+    return torch.repeat_interleave(
+        torch.tensor([i for i, _ in runs], dtype=torch.int32),
+        torch.tensor([r for _, r in runs]))
+
+
+def test_summation_shape_cuts_tiles_into_pieces_of_k_chunks():
+    C, PK = K.CHUNK_ROWS, K.PIECE_CHUNKS
+    # Tile 0 (the first min(ACC_FLOATS, CHUNK_ROWS) segments at F = 1):
+    # padding fills chunk 0, segment 0 starts chunk 1, the hub (segment 5)
+    # runs through chunk 100; the next tile's first segment shares chunk
+    # 100.  b0 = 1, so the hub's chunks 1-100 are pieces 0 .. 99 // PK.
+    tile_n = min(K.ACC_FLOATS, C)
+    other = tile_n + 3
+    ids = _ids([(-1, C), (0, 10), (5, 100 * C - 10), (other, 50)])
+    chunks, pieces = K.summation_shape(ids, 2 * tile_n, 1)
+    hub_pieces = -(-100 // PK)
+    assert (chunks[0], pieces[0]) == (1, 1)
+    assert (chunks[5], pieces[5]) == (100, hub_pieces)
+    assert (chunks[other], pieces[other]) == (1, 1)
+    assert int(chunks[1:5].sum() + pieces[1:5].sum()) == 0
+    depths = K.summation_depths(ids, 2 * tile_n, 1)
+    assert depths[5] == K.CHUNK_DEPTH + PK + hub_pieces - 1
+    assert depths[0] == depths[other] == K.CHUNK_DEPTH + 1
+
+
+@pytest.mark.parametrize("extra,pieces", [(0, 1), (1, 2)])
+def test_a_tile_of_k_chunks_stays_whole_and_k_plus_1_splits(extra, pieces):
+    C, PK = K.CHUNK_ROWS, K.PIECE_CHUNKS
+    ids = _ids([(2, 100), (7, PK * C - 100 + extra)])
+    chunks, got = K.summation_shape(ids, 256, 1)
+    assert (int(chunks[7]), int(got[7])) == (PK + extra, pieces)
+    assert int(got[2]) == 1
+
+
+def test_summation_shape_follows_the_payload_width_and_the_mask():
+    C, PK = K.CHUNK_ROWS, K.PIECE_CHUNKS
+    # Half a piece of segment 7, then a piece of segment 8, in one tile at
+    # F = 1: segment 8's chunks cross the tile's first piece boundary.  At
+    # F = 1024 a tile holds 8 segments, so segment 8 starts a tile (and a
+    # piece) of its own.
+    ids = _ids([(7, PK // 2 * C), (8, PK * C)])
+    _, pieces = K.summation_shape(ids, 16, 1)
+    assert pieces[7:9].tolist() == [1, 2]
+    _, pieces = K.summation_shape(ids, 16, 1024)
+    assert pieces[7:9].tolist() == [1, 1]
+    # A wholly inactive piece holds none of the segment's rows.
+    ids = _ids([(3, 3 * PK * C)])
+    act = torch.ones(ids.shape[0], dtype=torch.bool)
+    act[PK * C: 2 * PK * C] = False
+    chunks, pieces = K.summation_shape(ids, 8, 1, act)
+    assert (int(chunks[3]), int(pieces[3])) == (2 * PK, 2)
+
+
+def test_summation_depths_never_below_the_old_bound_unsplit():
+    rng = np.random.default_rng(3)
+    E, N = 50_000, 4_000
+    ids = _torch(_sorted_ids(rng, E, N, front=300, back=77))
+    act = _torch(rng.random(E) < 0.6)
+    chunks, pieces = K.summation_shape(ids, N, 2, act)
+    depths = K.summation_depths(ids, N, 2, act)
+    whole = pieces == 1
+    assert bool(whole.any())
+    assert torch.equal(depths[whole], K.CHUNK_DEPTH + chunks[whole])

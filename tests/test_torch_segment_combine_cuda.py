@@ -1,0 +1,168 @@
+"""The Hopper segment-combine kernel against its plain version.
+
+These tests need the card (the CUDA kernel has no CPU mode) and skip
+without one; they import nothing of JAX, so they run on the machine with
+the card as they are:
+
+    python -m pytest -q tests/test_torch_segment_combine_cuda.py
+
+max/min must be bit-equal to the plain version and two launches
+bit-identical.  Sums: within 1e-5 of the segment's sum of |v| of the plain
+version on random segments, and on the hub-split cases (tiles whose rows
+span more than ``kernel.PIECE_CHUNKS`` chunks, cut into pieces) within
+gamma_d sum|v| of a float64 sum, d = ``kernel.sum_depth`` of the chunks
+and pieces that hold the segment (gamma_d = d u / (1 - d u), u = 2^-24;
+bf16 output adds 2^-8 of the value); integer-valued hubs summed exactly.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.segment_combine import kernel as K
+from repro_torch.kernels.segment_combine.kernel import segment_combine_cuda
+from repro_torch.kernels.segment_combine.ref import segment_combine_reference
+
+BF16_ULP = 2.0 ** -7
+F32_UNIT = 2.0 ** -24
+BF16_UNIT = 2.0 ** -8
+F64_UNIT = 2.0 ** -53
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_the_card(op, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU mode")
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    E, F, N = 100_003, 4, 7_919
+    ids = torch.sort(torch.randint(0, N, (E - 20,), generator=gen,
+                                   device="cuda", dtype=torch.int32)).values
+    pad = torch.full((10,), -1, dtype=torch.int32, device="cuda")
+    ids = torch.cat([pad, ids, pad]).contiguous()
+    vals = torch.randn((E, F), generator=gen, device="cuda").to(dtype)
+    act = torch.rand(E, generator=gen, device="cuda") < 0.7
+    for edge_active in (None, act):
+        ker = segment_combine_cuda(vals, ids, N, op, edge_active=edge_active)
+        again = segment_combine_cuda(vals, ids, N, op,
+                                     edge_active=edge_active)
+        ref = segment_combine_reference(vals, ids, N, op,
+                                        edge_active=edge_active)
+        assert torch.equal(ker, again)
+        if op == "sum":
+            mag = segment_combine_reference(vals.float().abs(), ids, N,
+                                            "sum", edge_active=edge_active)
+            tol = 1e-5 * mag + 1e-30
+            if dtype == torch.bfloat16:
+                tol = tol + BF16_ULP * ref.float().abs()
+            assert bool(((ker.float() - ref.float()).abs() <= tol).all())
+        else:
+            assert torch.equal(ker, ref)
+
+
+# Hub-split cases, as chip_smoke.py's SPLIT_CASES at smaller sizes:
+# (id, rows) runs, n, F, the integer-valued hubs, the rows of a wholly
+# inactive piece, and whether the hubs' tile is split.
+C, PK = K.CHUNK_ROWS, K.PIECE_CHUNKS
+SPLIT_CASES = {
+    "tile_of_K_chunks": (
+        [(s, 37) for s in range(5)] + [(7, PK * C - 185)], 768, 1, (7,),
+        None, False),
+    "tile_of_K_plus_1_chunks": (
+        [(s, 37) for s in range(5)] + [(7, PK * C - 85)], 768, 1, (7,),
+        None, True),
+    "hub_mid_chunk": (
+        [(-1, 300)] + [(s, 13) for s in range(10)] + [(20, PK * C + 77)]
+        + [(s, 5) for s in range(21, 200)] + [(s, 7) for s in range(300, 330)]
+        + [(-1, 33)], 512, 1, (20,), None, True),
+    "two_long_segments": (
+        [(-1, 50)] + [(s, 9) for s in range(10)]
+        + [(10, PK * C + 33), (11, PK * C + 99)]
+        + [(s, 3) for s in range(12, 250)] + [(-1, 10)], 512, 1, (10, 11),
+        None, True),
+    "inactive_piece": (
+        [(3, 3 * PK * C)] + [(s, 21) for s in range(4, 100)], 256, 1, (3,),
+        (PK * C, 2 * PK * C), True),
+    "wide_payload": (
+        [(0, 3), (1, 5), (5, (PK + 2) * C), (9, 11)], 32, 1024, (5,), None,
+        True),
+}
+
+
+def _split_case(name, dtype, with_active, device):
+    runs, n, F, hubs, quiet, split = SPLIT_CASES[name]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    ids = torch.repeat_interleave(
+        torch.tensor([i for i, _ in runs], dtype=torch.int32),
+        torch.tensor([r for _, r in runs])).to(device)
+    E = ids.shape[0]
+    act = (torch.rand(E, generator=gen, device=device) < 0.5
+           if with_active else None)
+    if quiet is not None:
+        if act is None:
+            ids[quiet[0]:quiet[1]] = -1
+        else:
+            act[quiet[0]:quiet[1]] = False
+    vals = torch.randn((E, F), generator=gen, device=device)
+    for h in hubs:
+        at = ids == h
+        vals[at] = torch.randint(1, 9, (int(at.sum()), F), generator=gen,
+                                 device=device).float()
+    _, pieces = K.summation_shape(ids, n, F, act)
+    assert all((int(pieces[h]) > 1) == split for h in hubs), pieces[
+        list(hubs)]
+    return vals.to(dtype).contiguous(), ids.contiguous(), n, act, hubs
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hub_split_matches_plain(name, op, dtype):
+    device = _card()
+    for with_active in (False, True):
+        vals, ids, n, act, hubs = _split_case(name, dtype, with_active,
+                                              device)
+        before = K.launch_count
+        ker = segment_combine_cuda(vals, ids, n, op, edge_active=act)
+        again = segment_combine_cuda(vals, ids, n, op, edge_active=act)
+        ref = segment_combine_reference(vals, ids, n, op, edge_active=act)
+        torch.cuda.synchronize()
+        assert K.launch_count == before + 2
+        assert ker.dtype == dtype and ker.shape == (n, vals.shape[1])
+        assert torch.equal(ker, again)
+        if op != "sum":
+            assert torch.equal(ker, ref)
+            continue
+        valid = (ids >= 0) & (ids < n)
+        if act is not None:
+            valid &= act
+        rows = torch.nonzero(valid).squeeze(1)
+        seg = ids.long()[rows]
+        v = vals[rows].double()
+        exact = torch.zeros((n, vals.shape[1]), dtype=torch.float64,
+                            device=device).index_add_(0, seg, v)
+        mag = torch.zeros_like(exact).index_add_(0, seg, v.abs())
+        m = torch.bincount(seg, minlength=n).double()[:, None]
+        d = K.summation_depths(ids, n, vals.shape[1], act).double()[:, None]
+        tol = (d * F32_UNIT / (1 - d * F32_UNIT) + m * F64_UNIT) * mag
+        if dtype == torch.bfloat16:
+            tol = tol + BF16_UNIT * (exact.abs() + tol)
+        err = (ker.double() - exact).abs()
+        assert bool((err <= tol).all()), float((err - tol).max())
+        for h in hubs:
+            want = vals.float()[valid & (ids == h)].sum(0).to(dtype)
+            assert torch.equal(ker[h], want), h
+
+
+def test_the_library_matches_the_wrapper_constants():
+    _card()
+    lib = K._library()  # raises if the built constants differ
+    assert lib.segment_combine_piece_chunks() == K.PIECE_CHUNKS
