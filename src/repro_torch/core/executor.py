@@ -47,7 +47,7 @@ _SPARSE_EXCHANGES = {
 def _rows_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``mask[E]`` shaped to broadcast over ``like[E, ...]``."""
 
-    return mask.reshape((-1,) + (1,) * (like.ndim - 1))
+    return mask.reshape((mask.shape[0],) + (1,) * (like.ndim - 1))
 
 
 def _compact_and_gather(prog, j, state, active, src, dst, cap: int, *,

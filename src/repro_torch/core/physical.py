@@ -17,6 +17,7 @@ scatters that match the JAX reference.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -52,6 +53,15 @@ COMBINE_OPS = {
 }
 
 
+def _rows_2d(values: torch.Tensor) -> torch.Tensor:
+    """``values[E, ...]`` as ``[E, W]``, W the product of the trailing dims
+    (1 for a 1-D slab).  The width is explicit: torch cannot infer a -1
+    dimension of a tensor with no elements, and a combine of 0 rows must
+    still return its identity-filled output."""
+
+    return values.reshape(values.shape[0], math.prod(values.shape[1:]))
+
+
 def _require_single_device(axes: Tuple[str, ...]) -> None:
     if axes:
         raise NotImplementedError(
@@ -85,7 +95,7 @@ def _generic_combine(
             f"monoid {monoid.name!r} needs [rows, width] payloads, got "
             f"shape {tuple(values.shape)}"
         )
-    flat = values.reshape(values.shape[0], -1)
+    flat = _rows_2d(values)
     out = generic_segment_combine(
         flat, segment_ids, num_segments, monoid,
         edge_active=edge_active, presorted=presorted,
@@ -105,7 +115,7 @@ def _plain_scatter(
     index, where XLA's scatter drops it).  Empty segments read the op's
     identity: 0, -inf or +inf (the integer extremes for integer payloads)."""
 
-    flat = values.reshape(values.shape[0], -1)
+    flat = _rows_2d(values)
     idx = torch.where(keep, ids.to(torch.int64), num_segments)
     init = COMBINE_OPS[op][1]
     if not values.dtype.is_floating_point and op != "sum":
@@ -155,7 +165,7 @@ def segment_combine_sorted(
         )
     op = monoid.kernel_op
     if kernel_eligible(values, op):
-        flat = values.reshape(values.shape[0], -1).contiguous()
+        flat = _rows_2d(values).contiguous()
         out = segment_combine_cuda(
             flat, segment_ids.to(torch.int32).contiguous(), num_segments,
             op,
@@ -266,7 +276,7 @@ def fused_got_exchange(
     +inf (plain) or 0 (kernel) where none did, so ``got = flag == 1.0``;
     generic monoids combine the flag under ``max``."""
 
-    flat = payload.reshape(payload.shape[0], -1)
+    flat = _rows_2d(payload)
     flag = torch.where(edge_valid, 1.0, 0.0).to(flat.dtype)
     fused = torch.cat([flat, flag[:, None]], dim=1)
     out = exchange(fused)

@@ -14,6 +14,10 @@ pieces of at most that many, one block each, folded in piece order by a
 second pass.  :func:`sum_depth` is the summation depth that decomposition
 gives a segment, and :func:`summation_depths` computes it for every
 segment of an input, mirroring the kernel's tiles and pieces.
+
+A payload wider than the kernel's ``ACC_FLOATS`` accumulator is combined
+one column slice at a time (:func:`column_slices`): one launch a slice,
+each deterministic, so the result stays bit-identical from call to call.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["segment_combine_cuda", "launch_count", "reset_launch_count",
            "CHUNK_ROWS", "CHUNK_DEPTH", "PIECE_CHUNKS", "ACC_FLOATS",
-           "sum_depth", "summation_shape", "summation_depths"]
+           "column_slices", "sum_depth", "summation_shape",
+           "summation_depths"]
 
 _OPS = {"sum": 0, "max": 1, "min": 2}
 
@@ -42,6 +47,14 @@ ACC_FLOATS = 8192
 # rows, a 5-level warp scan, 1 for the lanes before, then up to 7 folds of
 # earlier warps' tails.
 CHUNK_DEPTH = 3 + 5 + 1 + 7
+
+
+def column_slices(width: int):
+    """The ``(start, stop)`` column ranges that one launch each combines:
+    consecutive slices of ``ACC_FLOATS`` columns, the last one shorter."""
+
+    return [(c, min(c + ACC_FLOATS, width))
+            for c in range(0, width, ACC_FLOATS)]
 
 
 def sum_depth(chunks, pieces):
@@ -70,8 +83,12 @@ def summation_shape(
     rows at payload width ``width`` (0 for an empty segment).  Mirrors the
     kernel: a tile's first edge block b0 is the first whose running maximum
     of valid ids reaches the tile, and a row of chunk b lies in piece
-    (b - b0) // PIECE_CHUNKS."""
+    (b - b0) // PIECE_CHUNKS.  ``width`` is one launch's, at most
+    ``ACC_FLOATS`` (see :func:`column_slices`)."""
 
+    if not 1 <= width <= ACC_FLOATS:
+        raise ValueError(f"summation_shape: one launch's width is in [1, "
+                         f"{ACC_FLOATS}], got {width}")
     ids = segment_ids.long()
     E = ids.shape[0]
     valid = (ids >= 0) & (ids < n_segments)
@@ -106,11 +123,17 @@ def summation_depths(
     width: int,
     edge_active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """:func:`sum_depth` of every segment (int64 ``[n_segments]``)."""
+    """:func:`sum_depth` of every segment (int64 ``[n_segments]``) at
+    payload width ``width``: for a payload cut into column slices, the
+    deepest over the slices' widths."""
 
-    chunks, pieces = summation_shape(segment_ids, n_segments, width,
-                                     edge_active)
-    return sum_depth(chunks, pieces.clamp(min=1))
+    depths = None
+    for w in sorted({stop - start for start, stop in column_slices(width)}):
+        chunks, pieces = summation_shape(segment_ids, n_segments, w,
+                                         edge_active)
+        d = sum_depth(chunks, pieces.clamp(min=1))
+        depths = d if depths is None else torch.maximum(depths, d)
+    return depths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the kernel since the last reset (one per wrapper call that
@@ -157,7 +180,8 @@ def segment_combine_cuda(
     edge_active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``out[s] = op`` over the active rows with id ``s`` (see
-    :mod:`repro_torch.kernels.segment_combine.ref` for the contract)."""
+    :mod:`repro_torch.kernels.segment_combine.ref` for the contract).  One
+    launch for each of :func:`column_slices` of the payload's width."""
 
     global launch_count
     if not values.is_cuda:
@@ -184,19 +208,26 @@ def segment_combine_cuda(
                          "on the values' device")
     if not 0 <= n_segments < 2**31 or E >= 2**31:
         raise ValueError("segment_combine_cuda needs E, n_segments < 2^31")
-    if not 1 <= F <= ACC_FLOATS:
-        raise ValueError(f"segment_combine_cuda: payload width {F} is out of "
-                         f"range [1, {ACC_FLOATS}]")
     out = torch.empty((n_segments, F), dtype=values.dtype,
                       device=values.device)
-    if n_segments == 0:
+    if n_segments == 0 or F == 0:
         return out
-    err = _launch(_library(), values, segment_ids, n_segments, op,
-                  edge_active, PIECE_CHUNKS, out)
-    if err != 0:
-        raise RuntimeError(f"segment_combine kernel launch failed: CUDA "
-                           f"error {err}")
-    launch_count += 1
+    lib = _library()
+    slices = column_slices(F)
+    for start, stop in slices:
+        whole = len(slices) == 1
+        part = values if whole else values[:, start:stop].contiguous()
+        dst = out if whole else torch.empty(
+            (n_segments, stop - start), dtype=values.dtype,
+            device=values.device)
+        err = _launch(lib, part, segment_ids, n_segments, op, edge_active,
+                      PIECE_CHUNKS, dst)
+        if err != 0:
+            raise RuntimeError(f"segment_combine kernel launch failed: CUDA "
+                               f"error {err}")
+        launch_count += 1
+        if not whole:
+            out[:, start:stop] = dst
     return out
 
 

@@ -234,3 +234,32 @@ def test_register_monoid_fails_closed():
     with pytest.raises(MonoidError, match="kernel_op"):
         register_monoid(CombineMonoid("torch-test-op", combine=torch.add,
                                       identity=0.0, kernel_op="prod"))
+
+
+@pytest.mark.parametrize("shape", [(0,), (0, 3), (0, 2, 2)])
+@pytest.mark.parametrize("op", ["sum", "max", "min", "argmin"])
+@pytest.mark.parametrize("fn", ["segment_combine_sorted", "scatter_combine"])
+def test_zero_row_combines_match_jax(fn, op, shape):
+    # ROADMAP C9: 0 rows give the identity-filled [n, ...] output, as in the
+    # reference (exact: no value is combined).
+    if op == "argmin" and shape != (0, 2):
+        shape = (0, 2)  # the structured monoid takes [rows, 2] slabs only
+    vals = np.zeros(shape, np.float32)
+    ids = np.zeros(0, np.int32)
+    want = getattr(jp, fn)(jnp.asarray(vals), jnp.asarray(ids), 5, op)
+    got = getattr(tp, fn)(_t(vals), _t(ids), 5, op)
+    assert tuple(got.shape) == (5,) + shape[1:]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["dense_psum", "merging", "hash_sort"])
+def test_zero_edge_fused_got_exchange_gets_nothing(name):
+    # The reference's reshape(E, -1) refuses 0 rows here, so the port is
+    # held to the result it must have: a zero inbox and no vertex got.
+    ex = getattr(tp, f"{name}_exchange")
+    ids = torch.zeros(0, dtype=torch.int32)
+    inbox, got = tp.fused_got_exchange(
+        lambda f: ex(ids, f, 6, (), "sum", flag_cols=1),
+        torch.zeros((0, 2)), torch.zeros(0, dtype=torch.bool), "sum")
+    assert torch.equal(inbox, torch.zeros((6, 2)))
+    assert not bool(got.any()) and tuple(got.shape) == (6,)

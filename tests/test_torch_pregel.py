@@ -239,3 +239,26 @@ def test_structured_monoid_probe_and_run_match_jax(semi_naive):
     want, got = jax_ex.run(max_iters=60), torch_ex.run(max_iters=60)
     assert got.converged
     _assert_same_run("argmin_sssp", want, got)
+
+
+@pytest.mark.parametrize("semi_naive", [False, True])
+@pytest.mark.parametrize("connector", CONNECTORS)
+def test_zero_edge_graph_matches_jax(connector, semi_naive):
+    # ROADMAP C9: a graph with no edges runs one superstep and converges,
+    # as in the reference; out_degree is all zeros.
+    (jax_prog, torch_prog) = _sssp(weighted=False)
+    empty = np.zeros(0, np.int32)
+    vdata = np.zeros(4, np.float32)
+    jg = JaxGraph(4, jnp.asarray(empty), jnp.asarray(empty),
+                  jnp.asarray(vdata))
+    tg = graph_from_numpy(4, empty, empty, vdata, device="cpu")
+    np.testing.assert_array_equal(tg.out_degree().numpy(),
+                                  np.asarray(jg.out_degree()))
+    jax_ex = jax_compile_pregel(jax_prog, jg, force_connector=connector,
+                                semi_naive=semi_naive)
+    torch_ex = compile_pregel(torch_prog, tg, force_connector=connector,
+                              semi_naive=semi_naive, device="cpu")
+    assert torch_ex.plan.notes == jax_ex.plan.notes
+    want, got = jax_ex.run(max_iters=10), torch_ex.run(max_iters=10)
+    assert want.iterations == 1 and want.converged
+    _assert_same_run("sssp", want, got)

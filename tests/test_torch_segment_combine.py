@@ -241,3 +241,24 @@ def test_summation_depths_never_below_the_old_bound_unsplit():
     whole = pieces == 1
     assert bool(whole.any())
     assert torch.equal(depths[whole], K.CHUNK_DEPTH + chunks[whole])
+
+
+@pytest.mark.parametrize("width,plan", [
+    (1, [(0, 1)]),
+    (K.ACC_FLOATS, [(0, K.ACC_FLOATS)]),
+    (K.ACC_FLOATS + 1, [(0, K.ACC_FLOATS), (K.ACC_FLOATS, K.ACC_FLOATS + 1)]),
+    (2 * K.ACC_FLOATS, [(0, K.ACC_FLOATS), (K.ACC_FLOATS, 2 * K.ACC_FLOATS)]),
+])
+def test_wide_payloads_are_cut_into_column_slices(width, plan):
+    # ROADMAP C10: one launch a slice of at most ACC_FLOATS columns.
+    assert K.column_slices(width) == plan
+
+
+def test_summation_depths_of_a_wide_payload_take_the_deepest_slice():
+    ids = torch.repeat_interleave(torch.arange(40, dtype=torch.int32),
+                                  300)
+    wide = K.summation_depths(ids, 40, K.ACC_FLOATS + 1)
+    per_slice = [K.summation_depths(ids, 40, w) for w in (K.ACC_FLOATS, 1)]
+    assert torch.equal(wide, torch.maximum(*per_slice))
+    with pytest.raises(ValueError, match="one launch's width"):
+        K.summation_shape(ids, 40, K.ACC_FLOATS + 1)

@@ -166,3 +166,84 @@ def test_the_library_matches_the_wrapper_constants():
     _card()
     lib = K._library()  # raises if the built constants differ
     assert lib.segment_combine_piece_chunks() == K.PIECE_CHUNKS
+
+
+def _f64_bar(vals, ids, n, act):
+    """(float64 sum, its bar) as in ``test_hub_split_matches_plain``: gamma_d
+    sum|v| with d = ``kernel.summation_depths`` (at the slice width for a
+    sliced payload) plus the float64 sum's own m 2^-53 sum|v|."""
+
+    valid = (ids >= 0) & (ids < n)
+    if act is not None:
+        valid &= act
+    rows = torch.nonzero(valid).squeeze(1)
+    seg = ids.long()[rows]
+    v = vals[rows].double()
+    F = vals.shape[1]
+    exact = torch.zeros((n, F), dtype=torch.float64,
+                        device=vals.device).index_add_(0, seg, v)
+    mag = torch.zeros_like(exact).index_add_(0, seg, v.abs())
+    m = torch.bincount(seg, minlength=n).double()[:, None]
+    d = K.summation_depths(ids, n, F, act).double()[:, None]
+    tol = (d * F32_UNIT / (1 - d * F32_UNIT) + m * F64_UNIT) * mag
+    if vals.dtype == torch.bfloat16:
+        tol = tol + BF16_UNIT * (exact.abs() + tol)
+    return exact, tol
+
+
+@pytest.mark.parametrize("F", [K.ACC_FLOATS + 1, 2 * K.ACC_FLOATS])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_payload_is_sliced_and_matches_plain(F, op, dtype):
+    # ROADMAP C10: a payload wider than ACC_FLOATS takes one launch a
+    # column slice (kernel.column_slices); max/min bit-equal to plain, sums
+    # within their float64 bar, two calls bit-identical.
+    device = _card()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    E, n = 3001, 257
+    ids = torch.sort(torch.randint(0, n, (E - 8,), generator=gen,
+                                   device=device, dtype=torch.int32)).values
+    pad = torch.full((4,), -1, dtype=torch.int32, device=device)
+    ids = torch.cat([pad, ids, pad]).contiguous()
+    vals = torch.randn((E, F), generator=gen, device=device).to(dtype)
+    act = torch.rand(E, generator=gen, device=device) < 0.6
+    for edge_active in (None, act):
+        before = K.launch_count
+        ker = segment_combine_cuda(vals, ids, n, op, edge_active=edge_active)
+        again = segment_combine_cuda(vals, ids, n, op,
+                                     edge_active=edge_active)
+        torch.cuda.synchronize()
+        assert K.launch_count == before + 2 * len(K.column_slices(F))
+        assert ker.shape == (n, F) and ker.dtype == dtype
+        assert torch.equal(ker, again)
+        ref = segment_combine_reference(vals, ids, n, op,
+                                        edge_active=edge_active)
+        if op != "sum":
+            assert torch.equal(ker, ref)
+            continue
+        exact, tol = _f64_bar(vals, ids, n, edge_active)
+        err = (ker.double() - exact).abs()
+        assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_rows_give_the_empty_value(F, op, dtype):
+    # ROADMAP C9 on the card: E = 0 launches and every segment reads the
+    # kernel's empty value, 0 (ROADMAP C4), as the plain version does.
+    device = _card()
+    vals = torch.zeros((0, F), dtype=dtype, device=device)
+    ids = torch.zeros(0, dtype=torch.int32, device=device)
+    for edge_active in (None, torch.zeros(0, dtype=torch.bool,
+                                          device=device)):
+        before = K.launch_count
+        ker = segment_combine_cuda(vals, ids, 9, op, edge_active=edge_active)
+        torch.cuda.synchronize()
+        assert K.launch_count == before + 1
+        ref = segment_combine_reference(vals, ids, 9, op,
+                                        edge_active=edge_active)
+        assert ker.shape == (9, F)
+        assert torch.equal(ker, ref)
+        assert torch.equal(ker, torch.zeros_like(ker))
