@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--log2-vertices 25] [--supersteps 20]
-                          [--sssp-log2-vertices 22] [--lm-layers 32]
+                          [--sssp-log2-vertices 22] [--imru-log2-records 23]
+                          [--generic-domain 1024] [--lm-layers 32]
                           [--lm-prompt 4000] [--train-layers 32]
                           [--train-seq 4096]
 
@@ -17,7 +18,9 @@ Phases, each of which exits nonzero on failure:
    hub-split cases of ``SPLIT_CASES`` (a tile of exactly K chunks and one
    of K + 1, a hub that starts and ends mid-chunk, two long segments in
    one tile, a split tile with a wholly inactive piece, a split at F =
-   1024).  max/min must be bit-equal; sums must be within the error
+   1024), and at F = 16384, wider than the kernel's accumulator (one
+   launch a column slice).  max/min must be bit-equal; sums must be within
+   the error
    bounds of ``_sum_check`` (the depth from ``kernel.sum_depth``) of a
    float64 sum and of the plain version, and the hubs' integer-valued
    sums exact; two launches on the same input must be bit-identical.
@@ -34,7 +37,25 @@ Phases, each of which exits nonzero on failure:
 4. ``sssp``: semi-naive SSSP with the merging connector on 2^22 vertices;
    it must converge, equal scipy's BFS distances exactly and run at least
    one sparse superstep.
-5. ``lm``: the flash-attention forward kernel against its plain version
+5. ``imru``: batch gradient descent (Listing 2, the paper's §5.1 task)
+   through ``compile_imru`` with the planner's H100 plan: 2^23 records of
+   1280 f32 features and a label made on the card from ``--seed`` (42.98
+   GB, 3 microbatches and a tail of 2 records), 10 iterations on the
+   device driver and on the host driver (equal), held to a float64 oracle
+   within a bar derived from the f32 summation depths (``_imru_oracle``);
+   a skipped microbatch must break the bar, and the tail dropped as the
+   JAX package drops it is reported against it.  ms per iteration,
+   records/s and the share of the bytes bound (the records read once);
+   one iteration profiled.  No TPU kernel on this path.
+6. ``generic``: the dense-grid engine (``compile_program``) at n = 1024,
+   the largest domain the planner keeps dense for a binary predicate:
+   transitive closure of a random digraph (host and device drivers, naive
+   and semi-naive, and the parsed text through the rewrite pass) and
+   semi-naive connected components, each exactly equal to a numpy/scipy
+   oracle; iterations, ms per iteration, peak memory, one iteration
+   profiled.  No TPU kernel on this path.  Phases 5 and 6 must give back
+   all the card memory they took.
+7. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
    held per element to the kernel's own error bound, reaching every route
@@ -57,7 +78,7 @@ Phases, each of which exits nonzero on failure:
    ``mma.sync`` kernel, launched outside the wrapper, in turns with the
    kernel), its plain version and PyTorch's SDPA at the main path's
    attention shape.
-6. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
+8. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
    their plain version (``attention_backward`` in f32 on the same inputs
    and statistics) on the forward's sweep shapes with a head dim up to
    160 and rows that see no key, f32 and bf16, both layouts, reaching
@@ -95,7 +116,8 @@ seconds, one
 at the main path's shapes, and as its last line ``{"ok": true, "device":
 {...}}``.  Smaller sizes than the defaults make a rehearsal
 (``--lm-layers 2 --lm-prompt 1000 --log2-vertices 20
---sssp-log2-vertices 18 --train-layers 2 --train-seq 1024`` for a short
+--sssp-log2-vertices 18 --imru-log2-records 18 --generic-domain 256
+--train-layers 2 --train-seq 1024`` for a short
 first call after a kernel edit): every phase runs and is checked, but
 neither of those two lines is printed.
 """
@@ -150,6 +172,7 @@ LM_ARCH = "phi4_mini_3_8b"
 LM_REQUESTS = 4
 LM_DECODE_STEPS = 32
 DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22,
+            "imru_log2_records": 23, "generic_domain": 1024,
             "lm_layers": 32, "lm_prompt": 4000, "train_layers": 32,
             "train_seq": 4096}
 
@@ -492,6 +515,29 @@ def _check_combine(vals, ids, n, act, hubs, op, tag):
     return err, 0.0
 
 
+WIDE_F = 16384                 # two column slices of kernel.ACC_FLOATS
+
+
+def _wide_case(gen, dtype, with_active, device):
+    """A payload of WIDE_F columns, wider than the kernel's accumulator, so
+    the wrapper launches once a column slice (ROADMAP C10): ragged E and
+    n, padding ids at both ends, half the rows active when
+    ``with_active``.  Returns (vals, ids, n, act, hubs=())."""
+
+    import torch
+
+    n, E = 1_021, 20_011
+    ids = torch.sort(torch.randint(0, n, (E - 30,), generator=gen,
+                                   device=device, dtype=torch.int32)).values
+    pad = torch.full((15,), -1, dtype=torch.int32, device=device)
+    ids = torch.cat([pad, ids, pad]).contiguous()
+    vals = torch.randn((E, WIDE_F), generator=gen, device=device).to(dtype)
+    act = None
+    if with_active:
+        act = (torch.rand(E, generator=gen, device=device) < 0.5).contiguous()
+    return vals.contiguous(), ids, n, act, ()
+
+
 def _parent_segment_combine(vals, ids, n, op):
     """The parent's decomposition of the segment combine (B1): one block
     walks each tile's whole edge range, however long (the library's C entry
@@ -530,6 +576,9 @@ def phase_kernels(device) -> None:
                 cases += [(name, _split_case(gen, name, dtype, with_active,
                                              device))
                           for name in SPLIT_CASES]
+                cases.append((f"F={WIDE_F}", _wide_case(gen, dtype,
+                                                        with_active,
+                                                        device)))
                 for name, (vals, ids, n, act, hubs) in cases:
                     tag = (f"{name} op={op} dtype={str(dtype)[6:]} "
                            f"F={vals.shape[1]} active={with_active} "
@@ -543,7 +592,8 @@ def phase_kernels(device) -> None:
                 del cases
     print(f"kernels: segment_combine == plain on {n_cases} cases, "
           f"{n_split} of them hub-split cases {list(SPLIT_CASES)} (K = "
-          f"{PIECE_CHUNKS} chunks a piece) (max/min bit-equal; sums within "
+          f"{PIECE_CHUNKS} chunks a piece), 12 at F = {WIDE_F} (one launch a "
+          f"column slice) (max/min bit-equal; sums within "
           f"gamma_d sum|v| of float64, d = kernel.sum_depth of the "
           f"segment's chunks and pieces, and within that plus gamma_m "
           f"sum|v| of plain, bf16 + 2^-8 |sum|; integer-valued hubs, one of "
@@ -870,7 +920,346 @@ def phase_sssp(args, device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the dense LM's serving path (phi4-mini-3.8b)
+# Phase 5: IMRU batch gradient descent (Listing 2)
+# ---------------------------------------------------------------------------
+#
+# The paper's §5.1 task: 16,557,921 records of about 5.2 KB (80 GB,
+# configs/bgd.py), sparse vectors of about 4k nonzeros.  Cut to 2^23 records
+# of IMRU_FEATURES dense f32 features and an f32 label (5,124 B a record,
+# 42.98 GB on the card) to fit one card.  BGD with lr = IMRU_LR_SCALE / n:
+# X^T X is about n I for unit-normal features, so each iteration moves the
+# model 5% of the way to w_true and 10 iterations stay far from the fixpoint
+# (a microbatch skipped shows).
+
+IMRU_FEATURES = 1280
+IMRU_ITERATIONS = 10
+IMRU_LR_SCALE = 0.05
+# Higham & Mary's probabilistic bound on a d-term f32 sum, lambda sqrt(d) u
+# sum|t|: it fails with probability below 2 exp(-lambda^2 / 2), 2.5e-14 at
+# lambda = 8, per sum.
+IMRU_LAMBDA = 8.0
+IMRU_ORACLE_ROWS = 1 << 18
+
+
+def _imru_records(n, d, seed, device):
+    """Unit-normal features and labels y = X w_true, made on the card from
+    ``seed`` in slices of 2^20 records; returns (records, w_true)."""
+
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    w_true = torch.randn(d, generator=gen, device=device)
+    X = torch.empty((n, d), device=device)
+    y = torch.empty(n, device=device)
+    for s in range(0, n, 1 << 20):
+        e = min(s + (1 << 20), n)
+        X[s:e].normal_(generator=gen)
+        y[s:e] = X[s:e] @ w_true
+    return {"x": X, "y": y}, w_true
+
+
+def _imru_oracle(X, y, lr, iters, d_g, d_r):
+    """float64 BGD on the card, chunk by chunk, sharing no code with the
+    port's IMRU, and the bar on the f32 run's distance from it:
+    sum_k ||delta_k||_2 with delta_k = lr (lam sqrt(d_g) u |X|^T |r_k| +
+    lam sqrt(d_r) u |X|^T (|X| |w_k| + |y|)) + u |w_{k+1}|: the gradient's
+    sums (d_g terms: a microbatch's GEMV and the adds of the microbatch
+    partials), the residual's (d_r: a row's dot product and the label), and
+    the update's rounding.  With ||I - lr X^T X||_2 <= 1 each iteration's
+    error carries over undamped at most.  Returns (w, bar)."""
+
+    import torch
+
+    d = X.shape[1]
+    w = torch.zeros(d, dtype=torch.float64, device=X.device)
+    lam, u = IMRU_LAMBDA, F32_UNIT
+    bar = 0.0
+    for _ in range(iters):
+        g = torch.zeros_like(w)
+        a_g = torch.zeros_like(w)
+        a_r = torch.zeros_like(w)
+        for s in range(0, X.shape[0], IMRU_ORACLE_ROWS):
+            xc = X[s:s + IMRU_ORACLE_ROWS].double()
+            yc = y[s:s + IMRU_ORACLE_ROWS].double()
+            r = xc @ w - yc
+            g += r @ xc
+            xc.abs_()
+            a_g += r.abs_() @ xc
+            a_r += (xc @ w.abs() + yc.abs_()) @ xc
+            del xc, yc, r
+        w = w - lr * g
+        delta = lr * (lam * math.sqrt(d_g) * u * a_g
+                      + lam * math.sqrt(d_r) * u * a_r) + u * w.abs()
+        bar += float(delta.norm())
+    return w, bar
+
+
+def phase_imru(args, device) -> None:
+    """BGD through ``compile_imru`` (the planner's plan for the H100) and
+    ``ex.run``, on the device driver and the host driver, held against a
+    float64 oracle; two planted faults (one microbatch skipped, the tail
+    dropped as the reference drops it) are held against the same bar.  No
+    TPU kernel is on this path: the map is two f32 GEMVs (cuBLAS) and the
+    reduce is the identity on one device."""
+
+    import torch
+
+    from repro_torch.core.executor import microbatch_slices
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.imru import IMRUTask, compile_imru
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 bar assumes f32")
+    n, d = 1 << args.imru_log2_records, IMRU_FEATURES
+    t0 = time.perf_counter()
+    records, w_true = _imru_records(n, d, args.seed, device)
+    torch.cuda.synchronize()
+    lr = IMRU_LR_SCALE / n
+
+    def bgd(map_fn=None):
+        return IMRUTask(
+            init_model=lambda: torch.zeros(d, device=device),
+            map=map_fn or (lambda rec, m: (rec["x"] @ m - rec["y"])
+                           @ rec["x"]),
+            update=lambda j, m, g: m - lr * g,
+            tol=0.0,
+        )
+
+    ex = compile_imru(bgd(), records, hw=H100_SXM, device=device)
+    if ex.plan.microbatches < 3:
+        # A rehearsal's records fit in one microbatch: force 3, so that the
+        # planted faults have a microbatch to skip and a tail to drop.
+        print(f"imru: rehearsal: the planner chose {ex.plan.microbatches} "
+              f"microbatch(es); 3 forced")
+        ex = compile_imru(bgd(), records, hw=H100_SXM, microbatches=3,
+                          device=device)
+    slices = microbatch_slices(n, ex.plan.microbatches)
+    data_bytes = ex.stats.n_records * ex.stats.record_bytes
+    bound_ms = data_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"imru: {n} records x {d} f32 features + label "
+          f"({ex.stats.record_bytes} B a record, {data_bytes / 1e9:.2f} GB) "
+          f"made in {time.perf_counter() - t0:.1f}s; plan {ex.plan.notes}, "
+          f"{ex.plan.microbatches} microbatches of {slices[0][1]} records "
+          f"and {len(slices) - ex.plan.microbatches} tail slice(s) of "
+          f"{[e - s for s, e in slices[ex.plan.microbatches:]]} records "
+          f"(every record counts, ROADMAP C8); plan_imru's estimate "
+          f"{ex.plan.est_step_seconds * 1e3:.3f} ms")
+    # The device driver, the host driver, then the device driver again
+    # (timed warm: the first run pays cuBLAS's first-call set-up).
+    dev = ex.run(max_iters=IMRU_ITERATIONS)
+    host = ex.run(max_iters=IMRU_ITERATIONS, on_device=False)
+    warm = ex.run(max_iters=IMRU_ITERATIONS)
+    if {dev.iterations, host.iterations, warm.iterations} != \
+            {IMRU_ITERATIONS}:
+        raise AssertionError(f"ran {dev.iterations} / {host.iterations} / "
+                             f"{warm.iterations} iterations")
+    if not (torch.equal(dev.state, host.state)
+            and torch.equal(dev.state, warm.state)):
+        raise AssertionError("the device and host drivers disagree")
+    ms = warm.seconds / warm.iterations * 1e3
+    host_ms = host.seconds / host.iterations * 1e3
+    cold_ms = dev.seconds / dev.iterations * 1e3
+    model = dev.state.clone()
+    step_ms = _time_ms(lambda: ex.step(model, 0), 5)
+
+    t1 = time.perf_counter()
+    mb = max(e - s for s, e in slices)
+    oracle, bar = _imru_oracle(records["x"], records["y"], lr,
+                               IMRU_ITERATIONS, d_g=mb + len(slices),
+                               d_r=d + 1)
+    err = float((dev.state.double() - oracle).norm())
+    moved = float(oracle.norm() / w_true.double().norm())
+    print(f"imru: {IMRU_ITERATIONS} iterations, ||m - m64||_2 {err:.4e} "
+          f"against its bar {bar:.4e} (lambda {IMRU_LAMBDA}, oracle "
+          f"{time.perf_counter() - t1:.1f}s); ||m64|| / ||w_true|| "
+          f"{moved:.4f}; host driver equal to the device driver")
+    if not (torch.isfinite(dev.state).all() and err <= bar):
+        raise AssertionError("IMRU disagrees with the float64 oracle")
+
+    # Planted faults through the same path: the map of one iteration's
+    # second microbatch returns zeros, or the tail's does (the reference's
+    # C8 behaviour).
+    def planted(skip):
+        calls = [0]
+
+        def map_fn(rec, m):
+            k = calls[0] % len(slices)
+            calls[0] += 1
+            g = (rec["x"] @ m - rec["y"]) @ rec["x"]
+            return torch.zeros_like(g) if k == skip else g
+
+        bad = compile_imru(bgd(map_fn), records, hw=H100_SXM,
+                           microbatches=ex.plan.microbatches, device=device)
+        res = bad.run(max_iters=IMRU_ITERATIONS)
+        return float((res.state.double() - oracle).norm())
+
+    skip_err = planted(1)
+    tail_err = planted(len(slices) - 1) if len(slices) > \
+        ex.plan.microbatches else float("nan")
+    print(f"imru: planted faults: one microbatch skipped {skip_err:.4e}, "
+          f"tail dropped {tail_err:.4e} (bar {bar:.4e}; the tail's "
+          f"{'breaks' if tail_err > bar else 'falls inside'} it)")
+    if not skip_err > bar:
+        raise AssertionError("a skipped microbatch falls inside the bar")
+
+    print(f"imru: {ms:.3f} ms/iteration on the device driver (first run "
+          f"{cold_ms:.3f}; {host_ms:.3f} on the host driver; the step alone "
+          f"{step_ms:.3f} ms by CUDA events), {n / ms * 1e3:.4e} records/s, "
+          f"bytes bound "
+          f"{bound_ms:.3f} ms (the records read once): {bound_ms / ms:.1%} "
+          f"of it")
+    _profile(lambda: ex.step(model, 0), "imru iteration", 1)
+    report_imru = {"ms": ms, "cold_ms": cold_ms, "host_ms": host_ms,
+                   "step_ms": step_ms,
+                   "bound_ms": bound_ms, "records": n,
+                   "microbatches": ex.plan.microbatches, "err": err,
+                   "bar": bar}
+    print(f"imru: {json.dumps(report_imru)}")
+    del records, ex, dev, host, warm, model, oracle, w_true
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the generic dense-grid engine (compile_program)
+# ---------------------------------------------------------------------------
+
+
+def _tc_oracle(src, dst, n):
+    """The transitive closure (paths of length >= 1) by repeated f32
+    matrix products of 0/1 matrices (exact: sums below 2^24)."""
+
+    import numpy as np
+
+    adj = np.zeros((n, n), np.float32)
+    adj[src, dst] = 1.0
+    tc = adj > 0
+    while True:
+        new = tc | ((tc.astype(np.float32) @ adj) > 0)
+        if (new == tc).all():
+            return tc
+        tc = new
+
+
+def phase_generic(args, device) -> None:
+    """The generic engine at the largest domain the planner keeps on dense
+    grids for a binary predicate (n^2 cells under its row-table minimum):
+    transitive closure (host and device drivers, naive and semi-naive),
+    connected components (semi-naive) and the parsed transitive-closure
+    text through the rewrite pass, each exactly equal to a numpy/scipy
+    oracle.  No TPU kernel is on this path: joins, projections and
+    GroupBys are dense tensor ops (a sum/max/min GroupBy is a masked
+    reduction, not the segment combine)."""
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    import torch
+
+    from repro_torch.core.executor import Relation, compile_program
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.listings import (
+        TRANSITIVE_CLOSURE_TEXT,
+        connected_components_program,
+        transitive_closure_program,
+    )
+    from repro_torch.core.parser import parse
+
+    n = args.generic_domain
+    rng = np.random.default_rng(args.seed + 2)
+    src = rng.integers(0, n, 2 * n)
+    dst = rng.integers(0, n, 2 * n)
+    t0 = time.perf_counter()
+    want_tc = _tc_oracle(src, dst, n)
+    print(f"generic: n={n}, {2 * n} random edges, closure of "
+          f"{int(want_tc.sum())} pairs (oracle {time.perf_counter() - t0:.1f}"
+          f"s); the T2 join grid is n^3 bool = {n ** 3} B")
+    edge = Relation.from_columns(n, src, dst, device=device)
+
+    def run_twice(ex, **run_kw):
+        """(first run, second run, peak bytes above the start): the second
+        is timed warm, the first pays the kernels' first-call set-up."""
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cold = ex.run(max_iters=4 * n, **run_kw)
+        res = ex.run(max_iters=4 * n, **run_kw)
+        return cold, res, torch.cuda.max_memory_allocated() - base
+
+    def ms_line(cold, res):
+        return (f"{res.iterations} iterations in {res.seconds:.4f}s "
+                f"({res.seconds / res.iterations * 1e3:.3f} ms/iteration; "
+                f"first run {cold.seconds / cold.iterations * 1e3:.3f})")
+
+    def check_tc(ex, tag, **run_kw):
+        cold, res, peak = run_twice(ex, **run_kw)
+        print(f"generic: {tag}: {ms_line(cold, res)}, converged "
+              f"{res.converged}, peak memory above the start {peak} B")
+        for r in (cold, res):
+            got = r.state["tc"].present.cpu().numpy()
+            if not (r.converged and np.array_equal(got, want_tc)):
+                raise AssertionError(f"transitive closure disagrees: {tag}")
+
+    for semi_naive in (False, True):
+        ex = compile_program(transitive_closure_program(), {"edge": edge},
+                             semi_naive=semi_naive, hw=H100_SXM,
+                             device=device)
+        print(f"generic: tc semi_naive={semi_naive} plan {ex.plan.notes}")
+        for on_device in (False, True):
+            check_tc(ex, f"tc semi_naive={semi_naive} "
+                     f"{'device' if on_device else 'host'} driver",
+                     on_device=on_device)
+        if semi_naive:
+            step, state = ex.phase_step_fn()
+            _profile(lambda: step(state, 1), "tc iteration", 1)
+
+    parsed = parse(TRANSITIVE_CLOSURE_TEXT, name="transitive-closure")
+    ex = compile_program(parsed, {"edge": edge}, rewrite=True, hw=H100_SXM,
+                         device=device)
+    print(f"generic: parsed TRANSITIVE_CLOSURE_TEXT, rewrite=True, plan "
+          f"{ex.plan.notes}")
+    check_tc(ex, "parsed tc, rewrite", on_device=True)
+
+    # Connected components of an undirected graph in several pieces: the
+    # vertices split into 8 blocks with edges inside a block only.
+    blocks = rng.integers(0, 8, n)
+    order = np.argsort(blocks, kind="stable")
+    pos = np.searchsorted(blocks[order], np.arange(9))
+    a, b = [], []
+    for k in range(8):
+        members = order[pos[k]:pos[k + 1]]
+        m = len(members)
+        a.append(members[rng.integers(0, m, m)])
+        b.append(members[rng.integers(0, m, m)])
+    a, b = np.concatenate(a), np.concatenate(b)
+    s2, d2 = np.concatenate([a, b]), np.concatenate([b, a])
+    k, labels = connected_components(
+        coo_matrix((np.ones(len(s2)), (s2, d2)), shape=(n, n)),
+        directed=False)
+    want_cc = np.full(k, n, np.int64)
+    np.minimum.at(want_cc, labels, np.arange(n))
+    ex = compile_program(
+        connected_components_program(),
+        {"edge": Relation.from_columns(n, s2, d2, device=device),
+         "node": Relation.from_columns(n, np.arange(n),
+                                       np.arange(n, dtype=np.float32),
+                                       device=device)},
+        semi_naive=True, hw=H100_SXM, device=device)
+    cold, res, peak = run_twice(ex, on_device=True)
+    print(f"generic: cc semi-naive, {k} components: {ms_line(cold, res)}, "
+          f"peak memory above the start {peak} B, plan {ex.plan.notes}")
+    for r in (cold, res):
+        got = r.state["cc"].values[1].cpu().numpy()
+        if not (r.converged and r.state["cc"].present.all()
+                and np.array_equal(got, want_cc[labels].astype(np.float32))):
+            raise AssertionError("connected components disagree with scipy")
+    step, state = ex.phase_step_fn()
+    _profile(lambda: step(state, 1), "cc iteration", 1)
+    del edge, ex, cold, res, step, state
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the dense LM's serving path (phi4-mini-3.8b)
 # ---------------------------------------------------------------------------
 
 
@@ -1387,7 +1776,7 @@ def phase_lm(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: LM training (phi4-mini-3.8b), the backward kernels
+# Phase 8: LM training (phi4-mini-3.8b), the backward kernels
 # ---------------------------------------------------------------------------
 
 # Backward kernels against their plain version (in f32, same inputs, same
@@ -1989,6 +2378,30 @@ def phase_train(args, device, report) -> None:
     torch.cuda.empty_cache()
 
 
+def _freeing(name, run) -> None:
+    """Run a phase and check that it gave back every byte it took on the
+    card (the train phase after it peaks at 65 GB)."""
+
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    run()
+    gc.collect()
+    torch.cuda.synchronize()
+    # cuBLAS keeps its workspaces in the caching allocator from a process's
+    # first matrix product on: not the phase's data.
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"phase {name}: {after - before} B still allocated after it")
+    if after > before:
+        raise AssertionError(f"phase {name} kept {after - before} B on the "
+                             f"card")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1998,6 +2411,10 @@ def main(argv=None) -> int:
                     default=DEFAULTS["supersteps"])
     ap.add_argument("--sssp-log2-vertices", type=int,
                     default=DEFAULTS["sssp_log2_vertices"])
+    ap.add_argument("--imru-log2-records", type=int,
+                    default=DEFAULTS["imru_log2_records"])
+    ap.add_argument("--generic-domain", type=int,
+                    default=DEFAULTS["generic_domain"])
     ap.add_argument("--lm-layers", type=int, default=DEFAULTS["lm_layers"])
     ap.add_argument("--lm-prompt", type=int, default=DEFAULTS["lm_prompt"])
     ap.add_argument("--train-layers", type=int,
@@ -2031,6 +2448,11 @@ def main(argv=None) -> int:
             ("kernels", lambda: phase_kernels(device)),
             ("pagerank", lambda: phase_pagerank(args, device, report)),
             ("sssp", lambda: phase_sssp(args, device)),
+            ("imru", lambda: _freeing("imru",
+                                      lambda: phase_imru(args, device))),
+            ("generic", lambda: _freeing("generic",
+                                         lambda: phase_generic(args,
+                                                               device))),
             ("lm", lambda: phase_lm(args, device, report)),
             ("train", lambda: phase_train(args, device, report))):
         t0 = time.perf_counter()

@@ -12,6 +12,11 @@ objects) into the port's.
   "step"}`` likewise: the params as above, the optimizer state (AdamW's m
   and v, SGD's momentum, or none) leaf for leaf with dtypes kept, the step
   as an int32 scalar tensor.
+* :func:`relation_from_numpy`: a dense-grid relation (the reference
+  ``Relation``'s ``present`` and value grids) into the port's
+  :class:`~repro_torch.core.executor.Relation`.
+* :func:`imru_records_from_numpy`: IMRU training records (nested
+  containers of arrays with a common leading dimension) into tensors.
 
 The differential tests build the JAX objects and the port's from the same
 arrays through these.
@@ -24,13 +29,15 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core.executor import Relation
 from repro_torch.core.pregel import Graph
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ArchConfig
 
 __all__ = ["graph_from_numpy", "lm_params_from_numpy",
-           "train_state_from_numpy"]
+           "train_state_from_numpy", "relation_from_numpy",
+           "imru_records_from_numpy"]
 
 
 def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -152,3 +159,50 @@ def train_state_from_numpy(
         "step": torch.tensor(int(np.asarray(state["step"])),
                              dtype=torch.int32, device=device),
     }
+
+
+def relation_from_numpy(
+    n: int,
+    key_positions,
+    present: Any,
+    values: Optional[dict] = None,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Relation:
+    """The port's dense-grid relation from the reference's parts: the bool
+    ``present`` grid ``[n]^k`` and ``{position: value grid}`` (float32)."""
+
+    device = resolve_device(device)
+    present = np.asarray(present, dtype=bool)
+    if present.shape != (n,) * len(key_positions):
+        raise ValueError(f"present has shape {present.shape}, a relation "
+                         f"with {len(key_positions)} keys over [0, {n}) "
+                         f"needs {(n,) * len(key_positions)}")
+    vals = {}
+    for p, g in (values or {}).items():
+        g = np.asarray(g, dtype=np.float32)
+        if g.shape != present.shape:
+            raise ValueError(f"value column {p} has shape {g.shape}, "
+                             f"present {present.shape}")
+        vals[int(p)] = torch.from_numpy(g.copy()).to(device)
+    return Relation(n=int(n), key_positions=tuple(key_positions),
+                    present=torch.from_numpy(present.copy()).to(device),
+                    values=vals)
+
+
+def imru_records_from_numpy(
+    records: Any,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Any:
+    """IMRU records as tensors on ``device``, structure kept: floating
+    arrays become float32, integer int32, bool stays bool.  Every leaf
+    needs the same leading (record) dimension."""
+
+    device = resolve_device(device)
+    out = tree_map(lambda a: _tensor_from_numpy(a, device), records)
+    lead = {int(t.shape[0]) for t in tree_leaves(out)}
+    if len(lead) != 1:
+        raise ValueError(f"records' leaves disagree on the record count: "
+                         f"{sorted(lead)}")
+    return out

@@ -442,6 +442,18 @@ class Program:
             lines.append(repr(rule))
         return "\n".join(lines)
 
+    def to_text(self) -> str:
+        """Render as parseable rule text (see :func:`repro_torch.core.parser.parse`).
+
+        The inverse of the text frontend: ``parse(p.to_text(), name=p.name,
+        udfs=p.udfs, aggregates=p.aggregates)`` reproduces this program up to
+        fresh-variable renaming (anonymous variables print as ``_``).
+        """
+
+        from repro_torch.core import parser  # local import to avoid cycle
+
+        return parser.to_text(self)
+
 
 # ---------------------------------------------------------------------------
 # Helpers used by the stratifier

@@ -5,7 +5,8 @@
   relations (the graph) are captured by the step as tensors that stay on
   the device across iterations: the paper's loop-invariant caching.
 * :class:`HostFixpointDriver` — the iteration driver of Fig. 1 that can
-  interleave work between supersteps: straggler detection and the adaptive
+  interleave work between supersteps: straggler detection with its
+  ``on_straggler`` hook, an ``on_iteration`` hook and the adaptive
   dense<->sparse ``select_step``.  (Checkpoint, restore and failure
   injection come with the fault-tolerance slice, ROADMAP A11.)
 
@@ -43,6 +44,8 @@ class FixpointResult:
     # Per-iteration execution mode labels when an adaptive step selector ran
     # ("dense" / "sparse@<cap>" / "halt(empty-frontier)"); empty otherwise.
     modes: Tuple[str, ...] = ()
+    # Iterations of each fixpoint phase of a multi-phase generic program.
+    phase_iterations: Tuple[int, ...] = ()
     straggler_events: int = 0
 
 
@@ -81,15 +84,18 @@ def device_fixpoint(
     )
 
 
-# An iteration slower than this many times the trailing mean of the last
-# ten is logged and counted as a straggler.
-STRAGGLER_FACTOR = 3.0
-LOG_EVERY = 10
-
-
 @dataclass
 class DriverConfig:
     max_iters: int = 1000
+    # Checkpointing and restarts are the fault-tolerance slice (ROADMAP
+    # A11): kept as plain fields so configurations carry over, read by no
+    # driver here.
+    checkpoint_every: int = 0
+    max_restarts: int = 3
+    # An iteration slower than ``straggler_factor`` times the trailing mean
+    # of the last ten is logged, counted and handed to ``on_straggler``.
+    straggler_factor: float = 3.0
+    log_every: int = 10
 
 
 class HostFixpointDriver:
@@ -100,6 +106,13 @@ class HostFixpointDriver:
     * optional ``select_step(state, j) -> (step_fn, label)`` — per-iteration
       choice of the executing step (the adaptive dense<->sparse policy);
       labels are recorded in ``mode_history`` and the result's ``modes``.
+    * optional ``on_iteration(j, dt)`` after every iteration (``j`` counts
+      the iterations done) and ``on_straggler(j, dt)`` when iteration ``j``
+      is a straggler.  IMRU's straggler hook swaps a rebuilt step into
+      ``self.step``, which the next iteration runs.
+
+    ``save=``, ``restore=`` and ``injector=`` (checkpoint, restore and
+    failure injection) raise: ROADMAP A11 (fault tolerance).
     """
 
     def __init__(
@@ -107,13 +120,25 @@ class HostFixpointDriver:
         step: Callable[[Any, int], Any],
         converged: Callable[[Any, Any], Any],
         config: Optional[DriverConfig] = None,
+        save: Optional[Callable[[Any, int], None]] = None,
+        restore: Optional[Callable[[], Tuple[Any, int]]] = None,
+        on_iteration: Optional[Callable[[int, float], None]] = None,
         select_step: Optional[
             Callable[[Any, int], Tuple[Callable[[Any, int], Any], str]]
         ] = None,
+        injector: Optional[Any] = None,
+        on_straggler: Optional[Callable[[int, float], None]] = None,
     ) -> None:
+        if save is not None or restore is not None or injector is not None:
+            raise NotImplementedError(
+                "save=, restore= and injector= are not ported yet: ROADMAP "
+                "A11 (fault tolerance)"
+            )
         self.step = step
         self.converged = converged
         self.config = DriverConfig() if config is None else config
+        self.on_iteration = on_iteration
+        self.on_straggler = on_straggler
         self.select_step = select_step
         self.mode_history: list[str] = []
         self.iter_times: list[float] = []
@@ -138,17 +163,21 @@ class HostFixpointDriver:
             if len(self.iter_times) > 3:
                 recent = self.iter_times[-11:-1]
                 trailing = sum(recent) / len(recent)
-                if dt > STRAGGLER_FACTOR * trailing:
+                if dt > cfg.straggler_factor * trailing:
                     self.straggler_events += 1
                     logger.warning(
                         "straggler: iteration %d took %.3fs (%.1fx trailing "
                         "mean %.3fs)", j, dt, dt / trailing, trailing,
                     )
+                    if self.on_straggler is not None:
+                        self.on_straggler(j, dt)
 
             done = bool(self.converged(state, new_state))
             state = new_state
             j += 1
-            if j % LOG_EVERY == 0:
+            if self.on_iteration is not None:
+                self.on_iteration(j, dt)
+            if cfg.log_every and j % cfg.log_every == 0:
                 logger.info("iteration %d done in %.3fs", j, dt)
 
         return FixpointResult(

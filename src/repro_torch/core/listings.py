@@ -39,6 +39,21 @@ __all__ = [
     "pagerank_threshold_program",
     "negated_reach_program",
     "ACTIVATION_MSG",
+    # Text-form equivalents (the Datalog frontend's ground truth)
+    "PREGEL_TEXT",
+    "IMRU_TEXT",
+    "TRANSITIVE_CLOSURE_TEXT",
+    "CONNECTED_COMPONENTS_TEXT",
+    "SAME_GENERATION_TEXT",
+    "NEGATED_REACH_TEXT",
+    "pagerank_threshold_text",
+    "parsed_pregel_program",
+    "parsed_imru_program",
+    "parsed_transitive_closure_program",
+    "parsed_connected_components_program",
+    "parsed_same_generation_program",
+    "parsed_pagerank_threshold_program",
+    "parsed_negated_reach_program",
 ]
 
 ACTIVATION_MSG = "__ACTIVATION__"
@@ -430,4 +445,180 @@ def negated_reach_program() -> Program:
         rules=rules,
         edb={"source": 2, "edge": 2, "node": 2, "blocked": 1},
         name="negated-reach",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Text-form equivalents (the Datalog frontend's ground truth)
+# ---------------------------------------------------------------------------
+#
+# One text constant per shipped listing, plus ``parsed_*`` constructors that
+# run them through :func:`repro_torch.core.parser.parse` with the same UDF/aggregate
+# registries as the hand-built AST constructors above.  The parser/optimizer
+# test battery pins these against the hand-built programs: TC/CC/SG/negated-
+# reach parse to *identical* rule tuples; pregel/imru/pagerank use fresh
+# variables in the hand-built form, so equivalence is pinned on the translated
+# algebra (``translate(parsed).structure() == translate(hand).structure()``)
+# and on byte-identical plan notes.
+
+TRANSITIVE_CLOSURE_TEXT = """\
+% Transitive closure over edge(X, Y).
+T1: tc(0, X, Y)   :- edge(X, Y).
+T2: tc(J+1, X, Y) :- tc(J, X, Z), edge(Z, Y).
+T3: tc(J+1, X, Y) :- tc(J, X, Y).
+"""
+
+CONNECTED_COMPONENTS_TEXT = """\
+% Connected components by min-label propagation.
+C1: cc(0, X, L)        :- node(X, L).
+C2: cc(J+1, X, min<L>) :- cc(J, Y, L), edge(Y, X).
+C3: cc(J+1, X, L)      :- cc(J, X, L).
+"""
+
+SAME_GENERATION_TEXT = """\
+% Same-generation over parent(P, C).
+S1: sg(0, X, Y)   :- parent(P, X), parent(P, Y).
+S2: sg(J+1, X, Y) :- parent(P, X), sg(J, P, Q), parent(Q, Y).
+S3: sg(J+1, X, Y) :- sg(J, X, Y).
+"""
+
+NEGATED_REACH_TEXT = """\
+% Guarded reachability with stratified negation.
+N1: reach(0, X)   :- source(X, S), S > 0.
+N2: reach(J+1, Y) :- reach(J, X), edge(X, Y), node(Y, W), !blocked(Y), W < 3.
+N3: reach(J+1, X) :- reach(J, X).
+"""
+
+PREGEL_TEXT = """\
+% Listing 1 -- the Pregel programming model.
+L1: vertex(0, Id, State) :- data(Id, Datum), init_vertex(Id, Datum -> State).
+L2: send(0, Id, '__ACTIVATION__') :- vertex(0, Id, _).
+L3: collect(J, Id, combine<Msg>) :- send(J, Id, Msg).
+L4: @frontier maxVertexJ(Id, max<J>) :- vertex(J, Id, State).
+L5: @frontier local(Id, State) :- maxVertexJ(Id, J), vertex(J, Id, State).
+L6: superstep(J, Id, OutState, OutMsgs) :-
+        collect(J, Id, InMsgs), local(Id, InState),
+        update(J, Id, InState, InMsgs -> OutState, OutMsgs).
+L7: vertex(J+1, Id, State) :- superstep(J, Id, State, _), State != null.
+L8: send(J+1, Id, M) :- superstep(J, _, _, {(Id, M)}).
+"""
+
+IMRU_TEXT = """\
+% Listing 2 -- Iterative Map-Reduce-Update.
+G1: model(0, M) :- init_model(-> M).
+G2: collect(J, reduce<S>) :- model(J, M), training_data(Id, R), map(R, M -> S).
+G3: model(J+1, NewM) :- collect(J, AggrS), model(J, M),
+        update(J, M, AggrS -> NewM), M != NewM.
+"""
+
+
+def pagerank_threshold_text(tau: float = 0.001) -> str:
+    """Text form of :func:`pagerank_threshold_program` (tau is inlined as a
+    literal; the damping factor lives in the ``scale`` UDF binding)."""
+
+    return f"""\
+% PageRank fixpoint, threshold stratum, hot-vertex reachability.
+P1: rank(0, X, R)        :- node(X, R, _, _).
+P2: rank(J+1, X, sum<C>) :- rank(J, Y, R), node(Y, _, D, _), edge(Y, X),
+        scale(R, D -> C).
+P3: rank(J+1, X, B)      :- rank(J, X, _), node(X, _, _, B).
+P4: @frontier rankF(X, R) :- rank(J, X, R).
+P5: hot(X)               :- rankF(X, R), R > {tau!r}.
+H1: reach(0, X)          :- hot(X).
+H2: reach(J+1, Y)        :- reach(J, X), edge(X, Y), hot(Y).
+H3: reach(J+1, X)        :- reach(J, X).
+"""
+
+
+def _parse(text: str, **kwargs):
+    from repro_torch.core.parser import parse
+
+    return parse(text, **kwargs)
+
+
+def parsed_transitive_closure_program() -> Program:
+    """``TRANSITIVE_CLOSURE_TEXT`` parsed; rules compare equal to
+    :func:`transitive_closure_program`."""
+
+    return _parse(TRANSITIVE_CLOSURE_TEXT, name="transitive-closure")
+
+
+def parsed_connected_components_program() -> Program:
+    return _parse(
+        CONNECTED_COMPONENTS_TEXT,
+        name="connected-components",
+        aggregates={"min": _monoid_aggregate("min")},
+    )
+
+
+def parsed_same_generation_program() -> Program:
+    return _parse(SAME_GENERATION_TEXT, name="same-generation")
+
+
+def parsed_negated_reach_program() -> Program:
+    return _parse(NEGATED_REACH_TEXT, name="negated-reach")
+
+
+def parsed_pagerank_threshold_program(
+    damping: float = 0.85, tau: float = 0.001
+) -> Program:
+    import torch
+
+    scale = UDF(
+        "scale",
+        lambda r, d: (damping * r / torch.clamp(d, min=1.0),),
+        n_in=2, n_out=1,
+    )
+    return _parse(
+        pagerank_threshold_text(tau),
+        name="pagerank-threshold",
+        udfs={"scale": scale},
+        aggregates={"sum": _monoid_aggregate("sum")},
+    )
+
+
+def parsed_pregel_program(
+    udfs: Optional[Mapping[str, Callable]] = None,
+    aggregates: Optional[Mapping[str, Aggregate]] = None,
+) -> Program:
+    """``PREGEL_TEXT`` parsed with the same registries as
+    :func:`pregel_program` — same ValueError contract on a missing
+    'combine' aggregate."""
+
+    impls = dict(udfs or {})
+    registry = {
+        "init_vertex": UDF("init_vertex", impls.get("init_vertex"),
+                           n_in=2, n_out=1),
+        "update": UDF("update", impls.get("update"), n_in=4, n_out=2),
+    }
+    aggs = dict(aggregates or {})
+    aggs.setdefault(
+        "max",
+        Aggregate("max", zero=lambda: float("-inf"), combine=max),
+    )
+    if "combine" not in aggs:
+        raise ValueError("Pregel program requires a 'combine' aggregate")
+    return _parse(
+        PREGEL_TEXT, name="pregel", udfs=registry, aggregates=aggs,
+        edb={"data": 2},
+    )
+
+
+def parsed_imru_program(
+    udfs: Optional[Mapping[str, Callable]] = None,
+    aggregates: Optional[Mapping[str, Aggregate]] = None,
+) -> Program:
+    impls = dict(udfs or {})
+    registry = {
+        "init_model": UDF("init_model", impls.get("init_model"),
+                          n_in=0, n_out=1),
+        "map": UDF("map", impls.get("map"), n_in=2, n_out=1),
+        "update": UDF("update", impls.get("update"), n_in=3, n_out=1),
+    }
+    aggs = dict(aggregates or {})
+    if "reduce" not in aggs:
+        raise ValueError("IMRU program requires a 'reduce' aggregate")
+    return _parse(
+        IMRU_TEXT, name="imru", udfs=registry, aggregates=aggs,
+        edb={"training_data": 2},
     )
