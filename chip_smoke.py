@@ -42,9 +42,9 @@ Phases, each of which exits nonzero on failure:
    1280 f32 features and a label made on the card from ``--seed`` (42.98
    GB, 3 microbatches and a tail of 2 records), 10 iterations on the
    device driver and on the host driver (equal), held to a float64 oracle
-   within a bar derived from the f32 summation depths (``_imru_oracle``);
-   a skipped microbatch must break the bar, and the tail dropped as the
-   JAX package drops it is reported against it.  ms per iteration,
+   within a bar of the f32 rounding (``_imru_oracle``); a skipped
+   microbatch, the tail dropped as the JAX package drops it and the map
+   run in bf16 must each break the bar.  ms per iteration,
    records/s and the share of the bytes bound (the records read once);
    one iteration profiled.  No TPU kernel on this path.
 6. ``generic``: the dense-grid engine (``compile_program``) at n = 1024,
@@ -53,8 +53,10 @@ Phases, each of which exits nonzero on failure:
    and semi-naive, and the parsed text through the rewrite pass) and
    semi-naive connected components, each exactly equal to a numpy/scipy
    oracle; iterations, ms per iteration, peak memory, one iteration
-   profiled.  No TPU kernel on this path.  Phases 5 and 6 must give back
-   all the card memory they took.
+   profiled; then PageRank -> threshold -> reach on 4 vertices, whose
+   16-cell grid the planner gives the segment scan, which must launch the
+   segment-combine kernel (the one TPU kernel the engine can reach).
+   Phases 5 and 6 must give back all the card memory they took.
 7. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -934,10 +936,14 @@ def phase_sssp(args, device) -> None:
 IMRU_FEATURES = 1280
 IMRU_ITERATIONS = 10
 IMRU_LR_SCALE = 0.05
-# Higham & Mary's probabilistic bound on a d-term f32 sum, lambda sqrt(d) u
-# sum|t|: it fails with probability below 2 exp(-lambda^2 / 2), 2.5e-14 at
-# lambda = 8, per sum.
-IMRU_LAMBDA = 8.0
+# The bar on the f32 model's distance from the float64 oracle, lambda
+# sqrt(sum_k V_k) (see _imru_oracle).  With the rounding errors of mean
+# zero, E ||m - m64||^2 <= sum_k V_k, so by Markov's inequality the bar
+# fails with probability below 1 / lambda^2 = 6% even if every error were
+# one and the same; with the 1280 components' errors independent, as the
+# model has them, ||m - m64||^2 is a sum of 1280 terms and the chance is a
+# chi-square tail, far smaller.
+IMRU_LAMBDA = 4.0
 IMRU_ORACLE_ROWS = 1 << 18
 
 
@@ -959,48 +965,64 @@ def _imru_records(n, d, seed, device):
     return {"x": X, "y": y}, w_true
 
 
-def _imru_oracle(X, y, lr, iters, d_g, d_r):
+def _imru_oracle(X, y, lr, iters, bounds):
     """float64 BGD on the card, chunk by chunk, sharing no code with the
-    port's IMRU, and the bar on the f32 run's distance from it:
-    sum_k ||delta_k||_2 with delta_k = lr (lam sqrt(d_g) u |X|^T |r_k| +
-    lam sqrt(d_r) u |X|^T (|X| |w_k| + |y|)) + u |w_{k+1}|: the gradient's
-    sums (d_g terms: a microbatch's GEMV and the adds of the microbatch
-    partials), the residual's (d_r: a row's dot product and the label), and
-    the update's rounding.  With ||I - lr X^T X||_2 <= 1 each iteration's
-    error carries over undamped at most.  Returns (w, bar)."""
+    port's IMRU, and the bar on the f32 run's distance from it.
+
+    Rounding errors are modelled as mean-independent, each within u =
+    2^-24 of its result (Higham & Mary's probabilistic model).  Iteration k
+    then adds to the f32 model an error of mean zero and variance V_k, and
+    with ||I - lr X^T X||_2 <= 1 the errors carry over undamped at most, so
+    E ||m_K - m64_K||^2 <= sum_k V_k.  V_k has two parts:
+
+    * the map's: lr^2 ||g32_k - g64_k||^2, measured.  g32_k is the f32
+      gradient at the oracle's model rounded to f32, mapped over the
+      microbatch ``bounds`` and added in their order (the plain statement
+      of the task's map, with cuBLAS's GEMVs at the run's shapes), g64_k
+      the float64 gradient.  cuBLAS documents no summation order for its
+      split-K GEMV, so the depth of its sums is not known and their
+      rounding is read here, not bounded from a depth: a bound for any
+      order (depth up to the microbatch's 2.8M rows) lies 4e5 times above
+      the run's error.
+    * the update's (``m - lr g``: a product and a subtraction, each
+      rounded with variance at most u^2 / 3 of its square):
+      (u^2 / 3) (||lr g64_k||^2 + ||m64_{k+1}||^2).
+
+    ``lr`` is the f32 step size the run multiplies by.  Returns (w, bar)."""
 
     import torch
 
     d = X.shape[1]
     w = torch.zeros(d, dtype=torch.float64, device=X.device)
-    lam, u = IMRU_LAMBDA, F32_UNIT
-    bar = 0.0
+    var = 0.0
     for _ in range(iters):
         g = torch.zeros_like(w)
-        a_g = torch.zeros_like(w)
-        a_r = torch.zeros_like(w)
-        for s in range(0, X.shape[0], IMRU_ORACLE_ROWS):
-            xc = X[s:s + IMRU_ORACLE_ROWS].double()
-            yc = y[s:s + IMRU_ORACLE_ROWS].double()
-            r = xc @ w - yc
-            g += r @ xc
-            xc.abs_()
-            a_g += r.abs_() @ xc
-            a_r += (xc @ w.abs() + yc.abs_()) @ xc
-            del xc, yc, r
-        w = w - lr * g
-        delta = lr * (lam * math.sqrt(d_g) * u * a_g
-                      + lam * math.sqrt(d_r) * u * a_r) + u * w.abs()
-        bar += float(delta.norm())
-    return w, bar
+        w32 = w.float()
+        g32 = None
+        for s, e in bounds:
+            for c in range(s, e, IMRU_ORACLE_ROWS):
+                xc = X[c:min(c + IMRU_ORACLE_ROWS, e)].double()
+                yc = y[c:min(c + IMRU_ORACLE_ROWS, e)].double()
+                g += (xc @ w - yc) @ xc
+                del xc, yc
+            x = X[s:e]
+            part = (x @ w32 - y[s:e]) @ x
+            g32 = part if g32 is None else g32 + part
+        step = lr * g
+        w = w - step
+        var += (lr * float((g32.double() - g).norm())) ** 2
+        var += F32_UNIT ** 2 / 3 * (float(step.norm()) ** 2
+                                    + float(w.norm()) ** 2)
+    return w, IMRU_LAMBDA * math.sqrt(var)
 
 
 def phase_imru(args, device) -> None:
     """BGD through ``compile_imru`` (the planner's plan for the H100) and
     ``ex.run``, on the device driver and the host driver, held against a
-    float64 oracle; two planted faults (one microbatch skipped, the tail
-    dropped as the reference drops it) are held against the same bar.  No
-    TPU kernel is on this path: the map is two f32 GEMVs (cuBLAS) and the
+    float64 oracle within a bar of the f32 rounding (``_imru_oracle``);
+    three controls (one microbatch skipped, the tail dropped as the
+    reference drops it, the map run in bf16) must each break it.  No TPU
+    kernel is on this path: the map is two f32 GEMVs (cuBLAS) and the
     reduce is the identity on one device."""
 
     import torch
@@ -1063,11 +1085,14 @@ def phase_imru(args, device) -> None:
     model = dev.state.clone()
     step_ms = _time_ms(lambda: ex.step(model, 0), 5)
 
+    # The oracle's own microbatch bounds, as the plan states them: slices
+    # of n // microbatches records, then the rest.
+    size = n // ex.plan.microbatches
+    bounds = [(s, min(s + size, n)) for s in range(0, n, size)]
+    lr32 = float(torch.tensor(lr, dtype=torch.float32))
     t1 = time.perf_counter()
-    mb = max(e - s for s, e in slices)
-    oracle, bar = _imru_oracle(records["x"], records["y"], lr,
-                               IMRU_ITERATIONS, d_g=mb + len(slices),
-                               d_r=d + 1)
+    oracle, bar = _imru_oracle(records["x"], records["y"], lr32,
+                               IMRU_ITERATIONS, bounds)
     err = float((dev.state.double() - oracle).norm())
     moved = float(oracle.norm() / w_true.double().norm())
     print(f"imru: {IMRU_ITERATIONS} iterations, ||m - m64||_2 {err:.4e} "
@@ -1077,10 +1102,10 @@ def phase_imru(args, device) -> None:
     if not (torch.isfinite(dev.state).all() and err <= bar):
         raise AssertionError("IMRU disagrees with the float64 oracle")
 
-    # Planted faults through the same path: the map of one iteration's
-    # second microbatch returns zeros, or the tail's does (the reference's
-    # C8 behaviour).
-    def planted(skip):
+    # Controls through the same path, each of which must break the bar:
+    # the map of one iteration's second microbatch returns zeros; the
+    # tail's does (the reference's C8 behaviour); the map runs in bf16.
+    def skipping(skip):
         calls = [0]
 
         def map_fn(rec, m):
@@ -1089,19 +1114,33 @@ def phase_imru(args, device) -> None:
             g = (rec["x"] @ m - rec["y"]) @ rec["x"]
             return torch.zeros_like(g) if k == skip else g
 
+        return map_fn
+
+    def bf16_map(rec, m):
+        xb = rec["x"].to(torch.bfloat16)
+        r = (xb @ m.to(torch.bfloat16)).float() - rec["y"]
+        return (r.to(torch.bfloat16) @ xb).float()
+
+    if len(slices) == ex.plan.microbatches:
+        raise AssertionError("no tail: choose a record count that "
+                             "microbatches do not divide")
+    controls = {"one microbatch skipped": skipping(1),
+                "tail dropped": skipping(len(slices) - 1),
+                "map in bf16": bf16_map}
+    control_err = {}
+    for name, map_fn in controls.items():
         bad = compile_imru(bgd(map_fn), records, hw=H100_SXM,
                            microbatches=ex.plan.microbatches, device=device)
         res = bad.run(max_iters=IMRU_ITERATIONS)
-        return float((res.state.double() - oracle).norm())
-
-    skip_err = planted(1)
-    tail_err = planted(len(slices) - 1) if len(slices) > \
-        ex.plan.microbatches else float("nan")
-    print(f"imru: planted faults: one microbatch skipped {skip_err:.4e}, "
-          f"tail dropped {tail_err:.4e} (bar {bar:.4e}; the tail's "
-          f"{'breaks' if tail_err > bar else 'falls inside'} it)")
-    if not skip_err > bar:
-        raise AssertionError("a skipped microbatch falls inside the bar")
+        control_err[name] = float((res.state.double() - oracle).norm())
+        del bad, res
+    print("imru: controls: " + ", ".join(
+        f"{k} {v:.4e} ({v / bar:.1f}x the bar)"
+        for k, v in control_err.items()) + f"; the sound run "
+        f"{err / bar:.3f}x the bar")
+    for name, e in control_err.items():
+        if not e > bar:
+            raise AssertionError(f"IMRU control falls inside the bar: {name}")
 
     print(f"imru: {ms:.3f} ms/iteration on the device driver (first run "
           f"{cold_ms:.3f}; {host_ms:.3f} on the host driver; the step alone "
@@ -1114,7 +1153,7 @@ def phase_imru(args, device) -> None:
                    "step_ms": step_ms,
                    "bound_ms": bound_ms, "records": n,
                    "microbatches": ex.plan.microbatches, "err": err,
-                   "bar": bar}
+                   "bar": bar, "controls": control_err}
     print(f"imru: {json.dumps(report_imru)}")
     del records, ex, dev, host, warm, model, oracle, w_true
 
@@ -1146,9 +1185,11 @@ def phase_generic(args, device) -> None:
     transitive closure (host and device drivers, naive and semi-naive),
     connected components (semi-naive) and the parsed transitive-closure
     text through the rewrite pass, each exactly equal to a numpy/scipy
-    oracle.  No TPU kernel is on this path: joins, projections and
-    GroupBys are dense tensor ops (a sum/max/min GroupBy is a masked
-    reduction, not the segment combine)."""
+    oracle.  Joins, projections and GroupBys are dense tensor ops there (a
+    sum/max/min GroupBy is a masked reduction).  The planner takes the
+    segment scan instead only on grids of at most 21 cells: a PageRank ->
+    threshold -> reach pipeline on 4 vertices drives that route, which
+    reaches the segment-combine kernel, and counts its launches."""
 
     import numpy as np
     from scipy.sparse import coo_matrix
@@ -1160,9 +1201,11 @@ def phase_generic(args, device) -> None:
     from repro_torch.core.listings import (
         TRANSITIVE_CLOSURE_TEXT,
         connected_components_program,
+        pagerank_threshold_program,
         transitive_closure_program,
     )
     from repro_torch.core.parser import parse
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
 
     n = args.generic_domain
     rng = np.random.default_rng(args.seed + 2)
@@ -1256,6 +1299,49 @@ def phase_generic(args, device) -> None:
     step, state = ex.phase_step_fn()
     _profile(lambda: step(state, 1), "cc iteration", 1)
     del edge, ex, cold, res, step, state
+
+    # On a grid of at most 21 cells the planner prefers the segment scan to
+    # the masked reduction even for a sum, and the GroupBy reaches the
+    # segment-combine kernel: PageRank -> threshold -> reach on 4 vertices
+    # against numpy (ranks within 1e-6 relative, sets exact).
+    m, iters, tau = 4, 30, 0.25
+    src4 = np.repeat(np.arange(m), 2)
+    dst4 = np.array([1, 2, 2, 3, 1, 2, 0, 2])
+    deg4 = np.bincount(src4, minlength=m).astype(np.float32)
+    ex = compile_program(
+        pagerank_threshold_program(tau=tau),
+        {"edge": Relation.from_columns(m, src4, dst4, device=device),
+         "node": Relation.from_columns(
+             m, np.arange(m), np.full(m, 1.0 / m, np.float32), deg4,
+             np.full(m, 0.15 / m, np.float32), device=device)},
+        hw=H100_SXM, device=device)
+    if ex.plan.connectors.get("P2") != "segment-scan":
+        raise AssertionError(f"tiny grid planned {ex.plan.notes}")
+    adj4 = np.zeros((m, m), np.float32)
+    adj4[src4, dst4] = 1.0
+    r = np.full(m, 1.0 / m, np.float32)
+    for _ in range(iters):
+        r = (0.85 * (adj4.T @ (r / deg4)) + 0.15 / m).astype(np.float32)
+    reach = hot = r > tau
+    while True:
+        new = reach | ((((adj4 > 0).T @ reach) > 0) & hot)
+        if (new == reach).all():
+            break
+        reach = new
+    sc_kernel.reset_launch_count()
+    res = ex.run(max_iters=iters, on_device=True)
+    launches = sc_kernel.launch_count
+    print(f"generic: pagerank -> threshold -> reach on {m} vertices, "
+          f"{ex.plan.notes[-1]}: {launches} segment-combine launches in "
+          f"{res.iterations} iterations")
+    rank = res.state["rank"].values[1].cpu().numpy()
+    if not (launches >= res.phase_iterations[0]
+            and np.allclose(rank, r, rtol=1e-6, atol=0)
+            and (res.state["hot"].present.cpu().numpy() == hot).all()
+            and (res.state["reach"].present.cpu().numpy() == reach).all()):
+        raise AssertionError("the segment-scan GroupBy disagrees with numpy "
+                             "or launched no kernel")
+    del ex, res
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,11 @@ Relations live on a dense vertex-domain grid ``[0, n)``: a predicate with
 ``k`` key columns is a bool presence grid ``[n]^k`` plus one float32 grid
 per value column.  Joins are broadcast ``n^k`` grids, Project an ``any``
 over the eliminated axes, GroupBy a masked ``sum``/``amax``/``amin``
-(``dense-reduce``) or the sorted segment combine (``segment-scan``).  No TPU
-kernel lies on the generic engine's path or on IMRU's.
+(``dense-reduce``) or the sorted segment combine (``segment-scan``).  The
+planner picks the segment scan for a sum/max/min only on grids of at most
+21 cells, and that route reaches the segment-combine kernel on the card;
+every other operator of the generic engine, and IMRU's step, is plain
+tensor code.
 
 Not ported yet, and raising ``NotImplementedError`` with the queue item:
 row-table storage (ROADMAP A9), the sharded layouts (``mesh=``,

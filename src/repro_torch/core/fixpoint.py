@@ -34,6 +34,9 @@ __all__ = [
 
 logger = logging.getLogger(__name__)
 
+# The host driver logs every LOG_EVERY-th iteration at INFO.
+LOG_EVERY = 10
+
 
 @dataclass
 class FixpointResult:
@@ -87,15 +90,11 @@ def device_fixpoint(
 @dataclass
 class DriverConfig:
     max_iters: int = 1000
-    # Checkpointing and restarts are the fault-tolerance slice (ROADMAP
-    # A11): kept as plain fields so configurations carry over, read by no
-    # driver here.
-    checkpoint_every: int = 0
-    max_restarts: int = 3
     # An iteration slower than ``straggler_factor`` times the trailing mean
     # of the last ten is logged, counted and handed to ``on_straggler``.
+    # ``checkpoint_every`` and ``max_restarts`` come with the driver that
+    # reads them (ROADMAP A11, fault tolerance).
     straggler_factor: float = 3.0
-    log_every: int = 10
 
 
 class HostFixpointDriver:
@@ -177,7 +176,7 @@ class HostFixpointDriver:
             j += 1
             if self.on_iteration is not None:
                 self.on_iteration(j, dt)
-            if cfg.log_every and j % cfg.log_every == 0:
+            if j % LOG_EVERY == 0:
                 logger.info("iteration %d done in %.3fs", j, dt)
 
         return FixpointResult(

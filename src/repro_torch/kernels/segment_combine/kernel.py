@@ -134,6 +134,8 @@ def summation_depths(
         d = sum_depth(chunks, pieces.clamp(min=1))
         depths = d if depths is None else torch.maximum(depths, d)
     return depths
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the kernel since the last reset (one per wrapper call that

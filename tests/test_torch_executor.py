@@ -190,6 +190,36 @@ def test_multi_stratum_pipeline_matches_jax_and_oracle(on_device):
     assert (got.state["reach"].present.numpy() == reach).all()
 
 
+@pytest.mark.parametrize("on_device", [False, True])
+def test_segment_scan_groupby_on_a_tiny_grid_matches_jax(on_device):
+    """On a grid of at most 21 cells the planner picks the segment scan
+    even for a sum (the route that reaches the segment-combine kernel on
+    the card): PageRank -> threshold -> reach on 4 vertices.  Notes
+    byte-equal, ranks within 1e-6 relative of the reference's, sets
+    exact."""
+
+    n, iters = 4, 30
+    src = np.repeat(np.arange(n), 2)
+    dst = np.array([1, 2, 2, 3, 1, 2, 0, 2])
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    cols = {"edge": (src, dst),
+            "node": (np.arange(n), np.full(n, 1.0 / n, np.float32), deg,
+                     np.full(n, 0.15 / n, np.float32))}
+    j = JE.compile_program(
+        JL.pagerank_threshold_program(tau=0.25),
+        {p: JE.Relation.from_columns(n, *c) for p, c in cols.items()})
+    t = TE.compile_program(
+        TL.pagerank_threshold_program(tau=0.25),
+        {p: TE.Relation.from_columns(n, *c, device="cpu")
+         for p, c in cols.items()}, device="cpu")
+    assert t.plan.notes == j.plan.notes
+    assert t.plan.connectors["P2"] == "segment-scan"
+    want = j.run(max_iters=iters, on_device=on_device)
+    got = t.run(max_iters=iters, on_device=on_device)
+    _assert_same(want, got, exact=False)
+    assert got.state["hot"].present.any()
+
+
 def test_plan_records_phases_and_groupby_connectors():
     src, dst = _edges()
     deg = np.bincount(src, minlength=N).astype(np.float32)

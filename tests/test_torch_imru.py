@@ -178,6 +178,29 @@ def test_straggler_detection_logs_event():
     assert 8 in stragglers
 
 
+def test_host_driver_logs_every_tenth_iteration(caplog):
+    driver = HostFixpointDriver(
+        step=lambda state, j: state + 1.0,
+        converged=lambda a, b: False,
+        config=DriverConfig(max_iters=25),
+    )
+    with caplog.at_level("INFO", logger="repro_torch.core.fixpoint"):
+        driver.run(torch.zeros(4))
+    done = [int(r.getMessage().split()[1]) for r in caplog.records
+            if r.getMessage().startswith("iteration ")]
+    assert done == [10, 20]
+
+
+@pytest.mark.parametrize("field",
+                         ["checkpoint_every", "max_restarts", "log_every"])
+def test_driver_config_rejects_fields_no_driver_reads(field):
+    # Checkpoint and restart settings come with the driver that reads them
+    # (ROADMAP A11); the log interval is a constant.  Passing one fails
+    # rather than being ignored.
+    with pytest.raises(TypeError, match=field):
+        DriverConfig(**{field: 1})
+
+
 def test_straggler_triggers_the_kary_fallback_like_jax():
     # Every iteration takes at least 20 ms (the reference through its
     # injector, the port through its update UDF), iteration 8 takes 300 ms

@@ -247,3 +247,52 @@ def test_zero_rows_give_the_empty_value(F, op, dtype):
         assert ker.shape == (9, F)
         assert torch.equal(ker, ref)
         assert torch.equal(ker, torch.zeros_like(ker))
+
+
+def test_generic_engine_segment_scan_launches_the_kernel():
+    # On a grid of at most 21 cells the planner prefers the segment scan to
+    # the masked reduction even for a sum (planner.plan_program), so the
+    # generic engine's GroupBy reaches the kernel: PageRank -> threshold ->
+    # reach on 4 vertices (16 rows a GroupBy), held against numpy.  Ranks
+    # within 1e-6 relative (f32 sums in another order), sets exact.
+    import numpy as np
+
+    from repro_torch.core.executor import Relation, compile_program
+    from repro_torch.core.listings import pagerank_threshold_program
+
+    device = _card()
+    n, iters, tau = 4, 30, 0.25
+    src = np.repeat(np.arange(n), 2)
+    dst = np.array([1, 2, 2, 3, 1, 2, 0, 2])
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    rels = {
+        "edge": Relation.from_columns(n, src, dst, device=device),
+        "node": Relation.from_columns(
+            n, np.arange(n), np.full(n, 1.0 / n, np.float32), deg,
+            np.full(n, 0.15 / n, np.float32), device=device),
+    }
+    ex = compile_program(pagerank_threshold_program(tau=tau), rels,
+                         device=device)
+    assert f"groupby(P2: sum via segment-scan, {n * n} rows -> {n})" \
+        in ex.plan.notes
+    adj = np.zeros((n, n), np.float32)
+    adj[src, dst] = 1.0
+    r = np.full(n, 1.0 / n, np.float32)
+    for _ in range(iters):
+        r = (0.85 * (adj.T @ (r / deg)) + 0.15 / n).astype(np.float32)
+    hot = r > tau
+    reach = hot.copy()
+    while True:
+        new = reach | ((((adj > 0).T @ reach) > 0) & hot)
+        if (new == reach).all():
+            break
+        reach = new
+    for on_device in (False, True):
+        K.reset_launch_count()
+        res = ex.run(max_iters=iters, on_device=on_device)
+        # one GroupBy a PageRank iteration
+        assert K.launch_count >= res.phase_iterations[0]
+        rank = res.state["rank"].values[1].cpu().numpy()
+        np.testing.assert_allclose(rank, r, rtol=1e-6, atol=0)
+        assert (res.state["hot"].present.cpu().numpy() == hot).all()
+        assert (res.state["reach"].present.cpu().numpy() == reach).all()
