@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--log2-vertices 25] [--supersteps 20]
                           [--sssp-log2-vertices 22] [--imru-log2-records 23]
-                          [--generic-domain 1024] [--lm-layers 32]
+                          [--generic-domain 1024]
+                          [--rows-log2-vertices 16] [--lm-layers 32]
                           [--lm-prompt 4000] [--train-layers 32]
                           [--train-seq 4096]
 
@@ -56,8 +57,23 @@ Phases, each of which exits nonzero on failure:
    profiled; then PageRank -> threshold -> reach on 4 vertices, whose
    16-cell grid the planner gives the segment scan, which must launch the
    segment-combine kernel (the one TPU kernel the engine can reach).
-   Phases 5 and 6 must give back all the card memory they took.
-7. ``lm``: the flash-attention forward kernel against its plain version
+7. ``rows``: row-table storage at n = 65,536, the largest domain whose
+   binary row codes fit the 2^32 code space (``--rows-log2-vertices``, at
+   most 16): transitive closure of 2,048 disjoint 32-vertex chains on
+   planner-selected row tables (host and device drivers, naive and
+   semi-naive) equal to the chains' closed form; semi-naive connected
+   components of 2^19 random undirected edges (a ``RowRelation``, with a
+   dense ``node``) equal to scipy's; PageRank -> threshold -> reach on
+   forced row tables (out-degree 16, 30 iterations) within 1e-5 relative
+   L1 of a float64 oracle, ``hot`` exact outside a 1e-5 relative margin
+   of tau and ``reach`` exact given ``hot``.  No run may fall back to
+   dense grids.  The segmented GroupBys and the row merge must launch the
+   segment-combine kernel (at least once a CC iteration, twice a PageRank
+   one), which is held against its plain version at those sites' shapes
+   and timed there.  Iterations, ms per iteration, peak memory, planned
+   caps and plan notes; one iteration of each profiled.
+   Phases 5, 6 and 7 must give back all the card memory they took.
+8. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
    held per element to the kernel's own error bound, reaching every route
@@ -80,7 +96,7 @@ Phases, each of which exits nonzero on failure:
    ``mma.sync`` kernel, launched outside the wrapper, in turns with the
    kernel), its plain version and PyTorch's SDPA at the main path's
    attention shape.
-8. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
+9. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
    their plain version (``attention_backward`` in f32 on the same inputs
    and statistics) on the forward's sweep shapes with a head dim up to
    160 and rows that see no key, f32 and bf16, both layouts, reaching
@@ -119,7 +135,7 @@ at the main path's shapes, and as its last line ``{"ok": true, "device":
 {...}}``.  Smaller sizes than the defaults make a rehearsal
 (``--lm-layers 2 --lm-prompt 1000 --log2-vertices 20
 --sssp-log2-vertices 18 --imru-log2-records 18 --generic-domain 256
---train-layers 2 --train-seq 1024`` for a short
+--rows-log2-vertices 12 --train-layers 2 --train-seq 1024`` for a short
 first call after a kernel edit): every phase runs and is checked, but
 neither of those two lines is printed.
 """
@@ -175,8 +191,8 @@ LM_REQUESTS = 4
 LM_DECODE_STEPS = 32
 DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22,
             "imru_log2_records": 23, "generic_domain": 1024,
-            "lm_layers": 32, "lm_prompt": 4000, "train_layers": 32,
-            "train_seq": 4096}
+            "rows_log2_vertices": 16, "lm_layers": 32, "lm_prompt": 4000,
+            "train_layers": 32, "train_seq": 4096}
 
 
 def _card_line() -> str:
@@ -1345,7 +1361,314 @@ def phase_generic(args, device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the dense LM's serving path (phi4-mini-3.8b)
+# Phase 7: row-table storage past the dense wall (n = 65,536)
+# ---------------------------------------------------------------------------
+
+# The largest domain whose binary row codes fit the 2^32 code space.
+ROWS_MAX_LOG2 = 16
+ROWS_CHAIN = 32                # vertices a chain of the TC input
+ROWS_CC_DEGREE = 8             # undirected edges a vertex in the CC input
+ROWS_PR_DEGREE = 16            # out-degree of the PageRank input
+ROWS_PR_ITERS = 30
+ROWS_PR_TAU = 1.5              # threshold, in units of 1/n
+
+
+def _capture_combines(run):
+    """``run()`` with every segment combine the executor calls recorded:
+    its ``(values, segment_ids, num_segments, op, edge_active)``."""
+
+    from repro_torch.core import executor
+
+    real, calls = executor.segment_combine_sorted, []
+
+    def record(values, ids, n, op="sum", *, edge_active=None, **kw):
+        calls.append((values, ids, n, op, edge_active))
+        return real(values, ids, n, op, edge_active=edge_active, **kw)
+
+    executor.segment_combine_sorted = record
+    try:
+        run()
+    finally:
+        executor.segment_combine_sorted = real
+    return calls
+
+
+def _row_site(site, call, launches):
+    """The kernel at one row site's shapes (captured from the path): held
+    against its plain version (``_check_combine``: max/min bit-equal, sums
+    within their bar, two launches bit-identical), timed in turns with
+    it, and beside ``torch.segment_reduce`` on the valid prefix."""
+
+    import torch
+
+    from repro_torch.kernels.segment_combine.kernel import (
+        segment_combine_cuda,
+    )
+    from repro_torch.kernels.segment_combine.ref import (
+        segment_combine_reference,
+    )
+
+    vals, ids, n, op, act = call
+    vals = vals.reshape(vals.shape[0], -1).contiguous()
+    E, F = vals.shape
+    tag = f"rows {site}: op={op} E={E} n={n}"
+    err, _ = _check_combine(vals, ids, n, act, (), op, tag)
+    n_valid = int(act.sum())
+    ker = lambda: segment_combine_cuda(vals, ids, n, op,  # noqa: E731
+                                       edge_active=act)
+    plain = lambda: segment_combine_reference(  # noqa: E731
+        vals, ids, n, op, edge_active=act)
+    turns = [_time_ms(ker if i in (0, 3) else plain, 10) for i in range(4)]
+    lengths = torch.bincount(ids[:n_valid].long(), minlength=n)
+    library_ms = _time_ms(lambda: torch.segment_reduce(
+        vals[:n_valid], op, lengths=lengths), 10)
+    # Each input read once (values, ids, the mask), the output written once.
+    bytes_moved = E * (4 * F + 4 + 1) + n * 4 * F
+    entry = {"site": site, "op": op, "E": E, "F": F, "n": n,
+             "valid_rows": n_valid, "launches": launches,
+             "max_abs_err": err, "ms": (turns[0] + turns[3]) / 2,
+             "plain_ms": (turns[1] + turns[2]) / 2,
+             "library_ms": library_ms, "library": "torch.segment_reduce "
+             "over the valid prefix",
+             "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"}
+    print(f"rows: segment_combine at the {site} site, E={E} ({n_valid} "
+          f"valid) F={F} n={n} op={op}: kernel {entry['ms']:.3f} ms, plain "
+          f"{entry['plain_ms']:.3f} ms (in turns: "
+          f"{', '.join(f'{t:.3f}' for t in turns)}), segment_reduce "
+          f"{library_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms; max abs "
+          f"err vs plain {err}")
+    return entry
+
+
+def phase_rows(args, device, report) -> None:
+    """Row-table storage (``RowRelation`` EDBs, planner-selected and forced
+    row tables) at n = 65,536, the largest domain whose binary row codes
+    fit the 2^32 code space; every input from ``--seed``, every result
+    against an oracle that shares no code with the port:
+
+    * transitive closure of 2,048 disjoint 32-vertex chains (63,488 edges),
+      naive and semi-naive, host and device drivers, on planner-selected
+      row tables: equal to the chains' closed form (1,015,808 pairs);
+    * semi-naive connected components of 2^19 random undirected edges with
+      a dense ``node``: equal to scipy's (min label a component); the
+      segmented min GroupBy launches the segment-combine kernel;
+    * PageRank -> threshold -> reach on forced row tables (out-degree 16,
+      30 iterations): ranks within 1e-5 relative L1 of a float64 oracle,
+      ``hot`` exact outside a 1e-5 relative margin of tau and ``reach``
+      exact given ``hot``; the segmented sum GroupBy and the row merge
+      launch the kernel.
+
+    Prints iterations, warm ms per iteration, peak memory, planned caps and
+    plan notes for each, profiles one iteration of each, and holds the
+    kernel against its plain version at the row sites' shapes."""
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    import torch
+
+    from repro_torch.core.executor import (
+        Relation,
+        RowRelation,
+        compile_program,
+    )
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.listings import (
+        connected_components_program,
+        pagerank_threshold_program,
+        transitive_closure_program,
+    )
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+
+    if not 1 <= args.rows_log2_vertices <= ROWS_MAX_LOG2:
+        raise ValueError(f"--rows-log2-vertices must be in [1, "
+                         f"{ROWS_MAX_LOG2}]: binary row codes over more "
+                         f"vertices leave the 2^32 code space")
+    n = 1 << args.rows_log2_vertices
+    rng = np.random.default_rng(args.seed + 3)
+
+    def run_twice(ex, max_iters, **run_kw):
+        """(cold run, warm run, B1 launches in the cold run, peak bytes
+        above the start)."""
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sc_kernel.reset_launch_count()
+        cold = ex.run(max_iters=max_iters, **run_kw)
+        launches = sc_kernel.launch_count
+        res = ex.run(max_iters=max_iters, **run_kw)
+        peak = torch.cuda.max_memory_allocated() - base
+        for r in (cold, res):
+            if r.storage_fallback:
+                raise AssertionError("a row-table run fell back to dense")
+        return cold, res, launches, peak
+
+    def line(tag, ex, cold, res, launches, peak):
+        print(f"rows: {tag}: {res.iterations} iterations "
+              f"{tuple(res.phase_iterations)}, "
+              f"{res.seconds / res.iterations * 1e3:.3f} ms/iteration warm "
+              f"(first run {cold.seconds / cold.iterations * 1e3:.3f}), "
+              f"{launches} segment-combine launches, peak memory above the "
+              f"start {peak} B")
+
+    def plan_line(tag, ex):
+        print(f"rows: {tag} plan: caps {ex.row_caps}, intermediate "
+              f"{ex.row_cap}; {ex.plan.notes}")
+
+    sites, launch_counts = [], {}
+
+    # Transitive closure of disjoint chains on planner-selected row tables.
+    chains = n // ROWS_CHAIN
+    starts = np.arange(chains)[:, None] * ROWS_CHAIN
+    src = (starts + np.arange(ROWS_CHAIN - 1)).ravel()
+    edge = RowRelation.from_columns(n, src, src + 1, device=device)
+    i, j = np.triu_indices(ROWS_CHAIN, 1)
+    want_tc = np.stack([(starts + i).ravel(), (starts + j).ravel()], 1)
+    want_tc = want_tc[np.lexsort(want_tc.T[::-1])]
+    print(f"rows: n={n}, tc over {chains} chains of {ROWS_CHAIN}: "
+          f"{src.shape[0]} edges, closure of {want_tc.shape[0]} pairs")
+    for semi_naive in (False, True):
+        ex = compile_program(transitive_closure_program(), {"edge": edge},
+                             semi_naive=semi_naive, hw=H100_SXM,
+                             device=device)
+        if ex.storage != {"edge": "row-table", "tc": "row-table"}:
+            raise AssertionError(f"tc planned {ex.storage}")
+        plan_line(f"tc semi_naive={semi_naive}", ex)
+        for on_device in (False, True):
+            tag = (f"tc semi_naive={semi_naive} "
+                   f"{'device' if on_device else 'host'} driver")
+            cold, res, launches, peak = run_twice(ex, 4 * ROWS_CHAIN,
+                                                  on_device=on_device)
+            line(tag, ex, cold, res, launches, peak)
+            for r in (cold, res):
+                if not (r.converged
+                        and np.array_equal(r.state["tc"].tuples(), want_tc)):
+                    raise AssertionError(f"transitive closure disagrees: "
+                                         f"{tag}")
+            launch_counts[tag] = launches
+        if semi_naive:
+            step, state = ex.phase_step_fn()
+            _profile(lambda: step(state, 1), "row tc iteration", 1)
+            del step, state
+    del edge, ex, cold, res
+
+    # Connected components: a RowRelation edge set, a dense node.
+    a = rng.integers(0, n, ROWS_CC_DEGREE * n)
+    b = rng.integers(0, n, ROWS_CC_DEGREE * n)
+    s2, d2 = np.concatenate([a, b]), np.concatenate([b, a])
+    edge = RowRelation.from_columns(n, s2, d2, device=device)
+    k, labels = connected_components(
+        coo_matrix((np.ones(len(s2)), (s2, d2)), shape=(n, n)),
+        directed=False)
+    low = np.full(k, n, np.int64)
+    np.minimum.at(low, labels, np.arange(n))
+    want_cc = low[labels].astype(np.float32)
+    ex = compile_program(
+        connected_components_program(),
+        {"edge": edge,
+         "node": Relation.from_columns(n, np.arange(n),
+                                       np.arange(n, dtype=np.float32),
+                                       device=device)},
+        semi_naive=True, hw=H100_SXM, device=device)
+    plan_line("cc", ex)
+    cold, res, launches, peak = run_twice(ex, 4 * n, on_device=True)
+    line(f"cc semi-naive, {edge.count()} directed edges, {k} components",
+         ex, cold, res, launches, peak)
+    for r in (cold, res):
+        if not (r.converged and r.state["cc"].present.all()
+                and np.array_equal(r.state["cc"].values[1].cpu().numpy(),
+                                   want_cc)):
+            raise AssertionError("row-table connected components disagree "
+                                 "with scipy")
+    if launches < cold.iterations:
+        raise AssertionError(f"cc: {launches} segment-combine launches in "
+                             f"{cold.iterations} iterations")
+    launch_counts["cc"] = launches
+    step, state = ex.phase_step_fn()
+    _profile(lambda: step(state, 1), "row cc iteration", 1)
+    calls = _capture_combines(lambda: step(state, 1))
+    sites.append(_row_site("cc groupby", calls[0], launches))
+    del edge, ex, cold, res, step, state, calls
+
+    # PageRank -> threshold -> reach, every predicate on row tables.
+    src = np.repeat(np.arange(n), ROWS_PR_DEGREE)
+    dst = rng.integers(0, n, ROWS_PR_DEGREE * n)
+    pairs = np.unique(src * n + dst)
+    src, dst = pairs // n, pairs % n
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    tau = ROWS_PR_TAU / n
+    ex = compile_program(
+        pagerank_threshold_program(tau=tau),
+        {"edge": RowRelation.from_columns(n, src, dst, device=device),
+         "node": Relation.from_columns(
+             n, np.arange(n), np.full(n, 1.0 / n, np.float32), deg,
+             np.full(n, 0.15 / n, np.float32), device=device)},
+        storage="row-table", hw=H100_SXM, device=device)
+    plan_line("pagerank", ex)
+    cold, res, launches, peak = run_twice(ex, ROWS_PR_ITERS, on_device=True)
+    line(f"pagerank -> threshold -> reach, {src.shape[0]} edges", ex, cold,
+         res, launches, peak)
+    if launches < 2 * ROWS_PR_ITERS:
+        raise AssertionError(f"pagerank: {launches} segment-combine "
+                             f"launches in {ROWS_PR_ITERS} iterations")
+    launch_counts["pagerank"] = launches
+    adj_t = coo_matrix((np.ones(src.shape[0]), (dst, src)), shape=(n, n))
+    adj_t = adj_t.tocsr()
+    r64 = np.full(n, 1.0 / n)
+    for _ in range(ROWS_PR_ITERS):
+        r64 = 0.85 * (adj_t @ (r64 / deg)) + 0.15 / n
+    margin = np.abs(r64 - tau) <= PAGERANK_L1_TOL * tau
+    for r in (cold, res):
+        rank = r.state["rank"]
+        if not np.array_equal(rank.tuples()[:, 0], np.arange(n)):
+            raise AssertionError("pagerank: rank does not cover every vertex")
+        got = rank.values[1].double().cpu().numpy()
+        rel_l1 = float(np.abs(got - r64).sum() / np.abs(r64).sum())
+        hot = np.zeros(n, bool)
+        hot[r.state["hot"].tuples()[:, 0]] = True
+        # Inside the margin the port's own choice stands; reach follows hot.
+        want_hot = np.where(margin, hot, r64 > tau)
+        reach = want_hot.copy()
+        while True:
+            new = reach | (((adj_t @ reach.astype(np.float64)) > 0)
+                           & want_hot)
+            if (new == reach).all():
+                break
+            reach = new
+        got_reach = np.zeros(n, bool)
+        got_reach[r.state["reach"].tuples()[:, 0]] = True
+        if not (r.phase_iterations[0] == ROWS_PR_ITERS
+                and rel_l1 <= PAGERANK_L1_TOL
+                and np.array_equal(hot, want_hot)
+                and np.array_equal(got_reach, reach)):
+            raise AssertionError(f"row-table pagerank pipeline disagrees "
+                                 f"with float64 (rel L1 {rel_l1:.3e})")
+    print(f"rows: pagerank rel L1 vs float64 {rel_l1:.3e} (tol "
+          f"{PAGERANK_L1_TOL}); {int(hot.sum())} hot, {int(reach.sum())} "
+          f"reached, {int(margin.sum())} vertices inside the {PAGERANK_L1_TOL}"
+          f" relative margin of tau")
+    step, state = ex.phase_step_fn()
+    _profile(lambda: step(state, 1), "row pagerank iteration", 1)
+    calls = _capture_combines(lambda: step(state, 1))
+    if [c[3] for c in calls] != ["sum", "sum"]:
+        raise AssertionError(f"a pagerank iteration ran combines "
+                             f"{[c[3] for c in calls]}")
+    sites.append(_row_site("pagerank groupby", calls[0], launches))
+    sites.append(_row_site("pagerank merge", calls[1], launches))
+    del ex, cold, res, step, state, calls
+
+    print(f"rows: segment-combine launches by workload "
+          f"{json.dumps(launch_counts)}")
+    for entry in report:
+        if entry["name"] == "segment_combine":
+            entry["rows_launches"] = launch_counts
+            entry["rows_sites"] = sites
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the dense LM's serving path (phi4-mini-3.8b)
 # ---------------------------------------------------------------------------
 
 
@@ -1862,7 +2185,7 @@ def phase_lm(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: LM training (phi4-mini-3.8b), the backward kernels
+# Phase 9: LM training (phi4-mini-3.8b), the backward kernels
 # ---------------------------------------------------------------------------
 
 # Backward kernels against their plain version (in f32, same inputs, same
@@ -2501,6 +2824,8 @@ def main(argv=None) -> int:
                     default=DEFAULTS["imru_log2_records"])
     ap.add_argument("--generic-domain", type=int,
                     default=DEFAULTS["generic_domain"])
+    ap.add_argument("--rows-log2-vertices", type=int,
+                    default=DEFAULTS["rows_log2_vertices"])
     ap.add_argument("--lm-layers", type=int, default=DEFAULTS["lm_layers"])
     ap.add_argument("--lm-prompt", type=int, default=DEFAULTS["lm_prompt"])
     ap.add_argument("--train-layers", type=int,
@@ -2539,6 +2864,9 @@ def main(argv=None) -> int:
             ("generic", lambda: _freeing("generic",
                                          lambda: phase_generic(args,
                                                                device))),
+            ("rows", lambda: _freeing("rows",
+                                      lambda: phase_rows(args, device,
+                                                         report))),
             ("lm", lambda: phase_lm(args, device, report)),
             ("train", lambda: phase_train(args, device, report))):
         t0 = time.perf_counter()

@@ -15,6 +15,9 @@ objects) into the port's.
 * :func:`relation_from_numpy`: a dense-grid relation (the reference
   ``Relation``'s ``present`` and value grids) into the port's
   :class:`~repro_torch.core.executor.Relation`.
+* :func:`row_relation_from_numpy`: a row-table relation (the reference
+  ``RowRelation``'s ``rows`` and value arrays) into the port's
+  :class:`~repro_torch.core.executor.RowRelation`.
 * :func:`imru_records_from_numpy`: IMRU training records (nested
   containers of arrays with a common leading dimension) into tensors.
 
@@ -29,7 +32,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core.executor import Relation
+from repro_torch.core.executor import Relation, RowRelation
 from repro_torch.core.pregel import Graph
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
@@ -37,7 +40,7 @@ from repro_torch.models.common import ArchConfig
 
 __all__ = ["graph_from_numpy", "lm_params_from_numpy",
            "train_state_from_numpy", "relation_from_numpy",
-           "imru_records_from_numpy"]
+           "row_relation_from_numpy", "imru_records_from_numpy"]
 
 
 def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -188,6 +191,47 @@ def relation_from_numpy(
     return Relation(n=int(n), key_positions=tuple(key_positions),
                     present=torch.from_numpy(present.copy()).to(device),
                     values=vals)
+
+
+def row_relation_from_numpy(
+    n: int,
+    key_positions,
+    rows: Any,
+    values: Optional[dict] = None,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> RowRelation:
+    """The port's row-table relation from the reference's parts: the
+    distinct key tuples ``rows`` ``[count, k]`` in lexicographic order and
+    ``{position: value array}`` aligned with them.  Ids become int32 and
+    values float32 on ``device``; ids outside ``[0, n)``, a width other
+    than ``len(key_positions)``, unsorted or repeated rows and misaligned
+    values raise."""
+
+    device = resolve_device(device)
+    rows = np.asarray(rows)
+    k = len(key_positions)
+    if rows.ndim != 2 or rows.shape[1] != k:
+        raise ValueError(f"rows has shape {rows.shape}, a relation with {k} "
+                         f"keys needs [count, {k}]")
+    if rows.size and (rows.min() < 0 or rows.max() >= n):
+        raise ValueError(f"rows hold ids outside the domain [0, {n})")
+    if rows.shape[0] > 1:
+        step = np.diff(rows.astype(np.int64), axis=0)
+        first = step[np.arange(step.shape[0]), (step != 0).argmax(axis=1)]
+        if not (first > 0).all():
+            raise ValueError("rows must be distinct and in lexicographic "
+                             "order (as RowRelation.from_columns makes them)")
+    vals = {}
+    for p, v in (values or {}).items():
+        v = np.asarray(v, dtype=np.float32)
+        if v.shape != (rows.shape[0],):
+            raise ValueError(f"value column {p} has shape {v.shape}, rows "
+                             f"{rows.shape}")
+        vals[int(p)] = torch.from_numpy(v.copy()).to(device)
+    return RowRelation(n=int(n), key_positions=tuple(key_positions),
+                       rows=torch.from_numpy(rows.astype(np.int32)).to(device),
+                       values=vals)
 
 
 def imru_records_from_numpy(

@@ -16,21 +16,28 @@ The port of :mod:`repro.core.executor`'s single-device paths:
 * :func:`build_imru_step` materializes the planned Listing-2 step: map with
   sender-side early aggregation over microbatches, then update.
 
-Relations live on a dense vertex-domain grid ``[0, n)``: a predicate with
-``k`` key columns is a bool presence grid ``[n]^k`` plus one float32 grid
-per value column.  Joins are broadcast ``n^k`` grids, Project an ``any``
-over the eliminated axes, GroupBy a masked ``sum``/``amax``/``amin``
-(``dense-reduce``) or the sorted segment combine (``segment-scan``).  The
-planner picks the segment scan for a sum/max/min only on grids of at most
-21 cells, and that route reaches the segment-combine kernel on the card;
-every other operator of the generic engine, and IMRU's step, is plain
-tensor code.
+Each predicate lives in the storage the planner selects for it.  On a
+dense vertex-domain grid ``[0, n)``, a predicate with ``k`` key columns is
+a bool presence grid ``[n]^k`` plus one float32 grid per value column:
+joins are broadcast ``n^k`` grids, Project an ``any`` over the eliminated
+axes, GroupBy a masked ``sum``/``amax``/``amin`` (``dense-reduce``) or the
+sorted segment combine (``segment-scan``, which the planner picks for a
+sum/max/min only on grids of at most 21 cells).  In a row table
+(:class:`RowRelation` for an EDB), it is a fixed-capacity slab of int32
+id columns, a validity mask and float32 value columns: joins are
+sort-merges on int64 row codes, AntiJoin an exact set-difference, and
+GroupBys past ``2^20`` grid cells and the union merges of value-carrying
+predicates run the sorted segment combine.  The segment combine reaches
+the segment-combine kernel on the card; every other operator of the
+generic engine, and IMRU's step, is plain tensor code.  A row-table run
+whose slabs overflow their capacity runs again on dense grids
+(``FixpointResult.storage_fallback``).
 
 Not ported yet, and raising ``NotImplementedError`` with the queue item:
-row-table storage (ROADMAP A9), the sharded layouts (``mesh=``,
-``exchange=``, ``remesh``: A10), checkpoints and failure injection (A11),
-out-of-core chunks (``chunks=``, ``hbm_budget=``: A12) and per-query
-parameters (``params=``, ``run_batched``: A13).
+the sharded layouts and explicit row exchanges (``mesh=``, ``exchange=``,
+``remesh``: A10), checkpoints and failure injection (A11), out-of-core
+chunks (``chunks=``, ``hbm_budget=``, a planner-chosen chunking: A12) and
+per-query parameters (``params=``, ``run_batched``: A13).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from __future__ import annotations
 import ast
 import functools
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import (
     Any, Callable, Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple,
     Union,
@@ -60,12 +67,19 @@ from repro_torch.core.monoid import MonoidError, get_monoid
 from repro_torch.core.physical import (
     compact_active_edges,
     dense_psum_exchange,
+    difference_row_codes,
     fused_got_exchange,
+    grid_to_rows,
     hash_sort_exchange,
+    join_row_codes,
     merging_exchange,
+    row_codes,
+    row_linear_index,
     segment_combine_sorted,
+    sort_row_codes,
     sparse_hash_sort_exchange,
     sparse_merging_exchange,
+    unique_row_runs,
 )
 from repro_torch.core.planner import GroupBySpec, plan_program
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -74,6 +88,7 @@ from repro_torch.device import resolve_device
 __all__ = [
     "ExecutorError",
     "Relation",
+    "RowRelation",
     "GenericExecutable",
     "compile_program",
     "PregelStepBundle",
@@ -85,6 +100,11 @@ __all__ = [
 
 class ExecutorError(Exception):
     """A program cannot be executed by the generic dense-grid backend."""
+
+
+class _RowCapacityOverflow(Exception):
+    """A row-table slab overflowed its static capacity mid-run; the caller
+    falls back to the (lossless) dense-grid storage."""
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +188,7 @@ class Relation:
 
 def _check_vertex_ids(n: int, key_positions, key_cols) -> None:
     """Fail loudly on out-of-domain / negative vertex ids (they would
-    silently index-wrap into the dense grid)."""
+    silently index-wrap into the dense grid or corrupt row codes)."""
 
     for pos, col in zip(key_positions, key_cols):
         if col.size == 0:
@@ -181,13 +201,109 @@ def _check_vertex_ids(n: int, key_positions, key_cols) -> None:
             )
 
 
-# Raw tuple arrays whose dense grid would exceed this many cells need
-# row-table storage (the reference routes them to a RowRelation).
+@dataclass
+class RowRelation:
+    """A sparse row-table relation: explicit key-tuple rows over ``[0, n)``.
+
+    The row-table counterpart of :class:`Relation`, for an EDB whose dense
+    ``n^k`` grid would be infeasible (e.g. 64k-vertex sparse edges).
+    ``rows`` holds the distinct key tuples ``int32 [count, k]`` in
+    lexicographic order; each value column is a ``float32 [count]`` tensor
+    aligned with ``rows``, on the same device.  The planner keeps
+    predicates bound to a ``RowRelation`` on ``row-table`` storage.
+    """
+
+    n: int
+    key_positions: Tuple[int, ...]
+    rows: torch.Tensor
+    values: Dict[int, torch.Tensor] = field(default_factory=dict)
+
+    @property
+    def arity(self) -> int:
+        return len(self.key_positions) + len(self.values)
+
+    def count(self) -> int:
+        return int(self.rows.shape[0])
+
+    def tuples(self) -> np.ndarray:
+        """The key tuples as an int array [count, n_keys] (lex-sorted, the
+        same order :meth:`Relation.tuples` produces)."""
+
+        return self.rows.cpu().numpy().copy()
+
+    @classmethod
+    def from_columns(
+        cls, n: int, *cols,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "RowRelation":
+        """Build a row-table relation from positional tuple columns (numpy
+        arrays) on ``device`` (default: the card; with none present this
+        raises).
+
+        Same column typing as :meth:`Relation.from_columns` (integer dtype =
+        key, floating = value); rows are deduplicated on the host (last
+        value row wins) and out-of-domain ids fail loudly.
+        """
+
+        device = resolve_device(device)
+        arrs = [np.asarray(c) for c in cols]
+        key_positions = tuple(
+            i for i, c in enumerate(arrs)
+            if np.issubdtype(c.dtype, np.integer)
+        )
+        if not key_positions:
+            raise ExecutorError(
+                "RowRelation needs at least one integer key column (use "
+                "Relation for arity-0 / pure-value predicates)"
+            )
+        keys = [arrs[i].astype(np.int64) for i in key_positions]
+        _check_vertex_ids(n, key_positions, keys)
+        rows = np.stack(keys, axis=-1).astype(np.int32) if keys[0].size \
+            else np.zeros((0, len(keys)), np.int32)
+        # Keep-last dedupe: unique over the reversed rows keeps the last
+        # occurrence of each key tuple, then re-sorts lexicographically.
+        uniq, idx_rev = np.unique(rows[::-1], axis=0, return_index=True)
+        src = rows.shape[0] - 1 - idx_rev
+        return cls(
+            n=n,
+            key_positions=key_positions,
+            rows=torch.as_tensor(uniq, device=device),
+            values={
+                i: torch.as_tensor(np.asarray(arrs[i], np.float32)[src],
+                                   device=device)
+                for i in range(len(arrs)) if i not in key_positions
+            },
+        )
+
+    def to_dense(self) -> Relation:
+        """Materialize onto the dense grid, on this relation's device
+        (differential-test helper; only feasible for small domains)."""
+
+        rows = self.rows.cpu().numpy()
+        cols: List[np.ndarray] = []
+        j = 0
+        for i in range(self.arity):
+            if i in self.key_positions:
+                cols.append(rows[:, j].astype(np.int64))
+                j += 1
+            else:
+                cols.append(self.values[i].cpu().numpy())
+        return Relation.from_columns(self.n, *cols, device=self.rows.device)
+
+
+# Raw tuple arrays whose dense grid would exceed this many cells route to
+# RowRelation automatically (the planner then keeps the predicate on
+# row-table storage).
 _DENSE_REL_CELL_LIMIT = 1 << 24
+
+# Row-table GroupBy lowers through the dense grid-reduce (bit-identical to
+# the dense engine) while the child's grid stays at most this many cells;
+# beyond it the segmented sorted-combine path runs instead.
+_GROUPBY_GRID_CELLS = 1 << 20
 
 
 def _as_relation(name: str, value, domain: Optional[int], device):
-    if isinstance(value, Relation):
+    if isinstance(value, (Relation, RowRelation)):
         return value
     arr = np.asarray(value)
     if domain is None:
@@ -199,11 +315,7 @@ def _as_relation(name: str, value, domain: Optional[int], device):
         cols = tuple(arr[:, i] for i in range(arr.shape[1]))
         if arr.shape[1] and \
                 float(domain) ** arr.shape[1] > _DENSE_REL_CELL_LIMIT:
-            raise NotImplementedError(
-                f"relation {name!r}: its dense grid of {domain}^"
-                f"{arr.shape[1]} cells needs row-table storage, which is "
-                "not ported yet: ROADMAP A9 (row-table storage)"
-            )
+            return RowRelation.from_columns(domain, *cols, device=device)
         return Relation.from_columns(domain, *cols, device=device)
     raise ExecutorError(
         f"relation {name!r}: pass a Relation or an int tuple array "
@@ -295,6 +407,12 @@ class _Ctx:
     # EDB-pure subtrees are shared — their inputs never change within a step.
     shared: FrozenSet[int] = frozenset()
     memo: Dict[int, Any] = field(default_factory=dict)
+    # Row-table storage: the shared intermediate capacity, the row-table
+    # EDB slabs, and the overflow flags (device bools) this firing
+    # accumulated, which the overflow policy reads.
+    row_cap: int = 0
+    row_edb: Mapping[str, Dict[str, Any]] = field(default_factory=dict)
+    overflow: List[torch.Tensor] = field(default_factory=list)
 
 
 def _read_pred(ctx: _Ctx, name: str) -> Dict[str, Any]:
@@ -316,6 +434,14 @@ def _scan_inter(columns, key_positions, present, values_by_pos) -> _Inter:
     for p, grid in values_by_pos.items():
         cols[columns[int(p)]] = grid
     return _Inter(dims, present, cols)
+
+
+def _scan_rows(columns, key_positions, ids, valid, values_by_pos):
+    dims = tuple(columns[p] for p in key_positions)
+    cols = {}
+    for p, col in values_by_pos.items():
+        cols[columns[int(p)]] = col
+    return _Rows(dims, ids, valid, cols)
 
 
 def _operand(inter: _Inter, x, ctx: _Ctx):
@@ -369,6 +495,267 @@ def _join(l: _Inter, r: _Inter, keys: Tuple[str, ...], ctx: _Ctx) -> _Inter:
     return _Inter(out_dims, present, cols)
 
 
+# ---------------------------------------------------------------------------
+# Row-table operators (the sparse storage backend)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Rows:
+    """A row-table intermediate: padded id columns ``int32[cap, k]`` (one
+    column per dim), a slot validity mask, and per-row value columns.
+    Invariant: valid rows are unique by their dim tuple (scans read deduped
+    tables; join/select/project preserve or restore uniqueness), so value
+    scatters and representative-first merges are exact."""
+
+    dims: Tuple[str, ...]
+    ids: torch.Tensor
+    valid: torch.Tensor
+    cols: Dict[str, torch.Tensor]
+
+
+def _codes_for(rows: _Rows, dims: Tuple[str, ...], n: int) -> torch.Tensor:
+    """int64 row codes of a dim subset (shared-key encoding for joins)."""
+
+    cap = rows.ids.shape[0]
+    if not dims:
+        return torch.zeros(cap, dtype=torch.int64, device=rows.ids.device)
+    sub = torch.stack([rows.ids[:, rows.dims.index(d)] for d in dims],
+                      dim=-1)
+    try:
+        return row_codes(sub, n)
+    except ValueError as err:
+        raise ExecutorError(str(err)) from err
+
+
+def _operand_rows(rows: _Rows, x, ctx: _Ctx):
+    if isinstance(x, Const):
+        if not isinstance(x.value, (int, float, bool)):
+            raise ExecutorError(
+                f"non-numeric constant {x.value!r} is not executable on the "
+                "row-table backend"
+            )
+        return torch.tensor(x.value, dtype=_CONST_DTYPES[type(x.value)],
+                            device=ctx.device)
+    if x in rows.cols:
+        return rows.cols[x]
+    if x in rows.dims:
+        return rows.ids[:, rows.dims.index(x)]
+    if x == "J":
+        return ctx.j
+    raise ExecutorError(f"unbound column {x!r} in comparison/UDF input")
+
+
+def _inter_to_rows(inter: _Inter, ctx: _Ctx) -> _Rows:
+    """``to_rows`` boundary converter: compact a dense intermediate into a
+    row table (inserted automatically where mixed-storage operators meet)."""
+
+    cells = int(ctx.n) ** len(inter.dims)
+    cap = cells if 0 < cells <= max(ctx.row_cap, 1) else max(ctx.row_cap, 1)
+    ids, valid, lin, ov = grid_to_rows(inter.present, cap)
+    ctx.overflow.append(ov)
+    cols = {c: g.reshape(-1)[lin] for c, g in inter.cols.items()}
+    return _Rows(inter.dims, ids, valid, cols)
+
+
+def _rows_to_inter(rows: _Rows, ctx: _Ctx) -> _Inter:
+    """``to_grid`` boundary converter: scatter a row table back onto the
+    dense vertex-domain grid (only at dense-stored materialization sites,
+    where the planner already approved the grid size).  Invalid rows land
+    in a spill cell past the grid, which is sliced off."""
+
+    n, k = ctx.n, len(rows.dims)
+    if k == 0:
+        pres = rows.valid.any()
+        cols = {
+            c: torch.where(rows.valid, g, torch.zeros_like(g)).sum()
+            for c, g in rows.cols.items()
+        }
+        return _Inter((), pres, cols)
+    size = n ** k
+    cap = rows.ids.shape[0]
+    lin = row_linear_index(rows.ids, rows.valid, n)
+    present = torch.zeros(size + 1, dtype=torch.bool, device=ctx.device)
+    present[lin] = True
+    cols = {}
+    for c, g in rows.cols.items():
+        g = torch.as_tensor(g, device=ctx.device).broadcast_to((cap,))
+        grid = torch.zeros(size + 1, dtype=g.dtype, device=ctx.device)
+        grid[lin] = g
+        cols[c] = grid[:size].reshape((n,) * k)
+    return _Inter(rows.dims, present[:size].reshape((n,) * k), cols)
+
+
+def _coerce_pair(l, r, ctx: _Ctx):
+    """Promote a mixed dense/row operand pair to row tables (the converter
+    goes dense→rows: the row side may have no feasible grid)."""
+
+    if isinstance(l, _Rows) or isinstance(r, _Rows):
+        if not isinstance(l, _Rows):
+            l = _inter_to_rows(l, ctx)
+        if not isinstance(r, _Rows):
+            r = _inter_to_rows(r, ctx)
+        return l, r, True
+    return l, r, False
+
+
+def _residual_valid(l: _Rows, r: _Rows, keys, li, ri, valid):
+    """Apply the non-structural join key conditions (value-column equality)
+    per output slot: the row analogue of the dense `_join` masks."""
+
+    for key in keys:
+        l_dim, r_dim = key in l.dims, key in r.dims
+        if l_dim and r_dim:
+            continue  # shared id column: equality is in the row codes
+        lv, rv = l.cols.get(key), r.cols.get(key)
+        if l_dim and rv is not None:
+            valid = valid & (rv[ri] == l.ids[:, l.dims.index(key)][li])
+        elif r_dim and lv is not None:
+            valid = valid & (lv[li] == r.ids[:, r.dims.index(key)][ri])
+        elif lv is not None and rv is not None:
+            valid = valid & (lv[li] == rv[ri])
+    return valid
+
+
+def _join_rows(l: _Rows, r: _Rows, keys, ctx: _Ctx) -> _Rows:
+    """Sort-merge equi-join on the shared dims' row codes; pairs expand
+    into the plan's intermediate capacity (overflow-flagged)."""
+
+    n = ctx.n
+    shared = tuple(d for d in l.dims if d in r.dims)
+    out_dims = l.dims + tuple(d for d in r.dims if d not in l.dims)
+    out_cap = max(ctx.row_cap, 1)
+    li, ri, valid, ov = join_row_codes(
+        _codes_for(l, shared, n), l.valid,
+        _codes_for(r, shared, n), r.valid, out_cap,
+    )
+    ctx.overflow.append(ov)
+    valid = _residual_valid(l, r, keys, li, ri, valid)
+    id_cols = []
+    for d in out_dims:
+        if d in l.dims:
+            id_cols.append(l.ids[:, l.dims.index(d)][li])
+        else:
+            id_cols.append(r.ids[:, r.dims.index(d)][ri])
+    ids = torch.stack(id_cols, dim=-1) if id_cols else \
+        torch.zeros((out_cap, 0), dtype=torch.int32, device=ctx.device)
+    cols: Dict[str, torch.Tensor] = {}
+    for c, g in l.cols.items():
+        if c not in out_dims:
+            cols[c] = g[li]
+    for c, g in r.cols.items():
+        if c not in cols and c not in out_dims:
+            cols[c] = g[ri]
+    return _Rows(out_dims, ids, valid, cols)
+
+
+def _antijoin_rows(l: _Rows, r: _Rows, keys, ctx: _Ctx) -> _Rows:
+    """Exact set-difference on row tables: left rows whose shared-dim
+    projection (plus any residual key conditions) has NO right match keep
+    their slots; everything else is invalidated."""
+
+    n = ctx.n
+    shared = tuple(d for d in l.dims if d in r.dims)
+    residual = any(
+        not (key in l.dims and key in r.dims) for key in keys
+    )
+    lc, rc = _codes_for(l, shared, n), _codes_for(r, shared, n)
+    if not residual:
+        keep = difference_row_codes(lc, l.valid, rc, r.valid)
+        return _Rows(l.dims, l.ids, keep, l.cols)
+    # Residual value conditions: probe via the pair expansion, then mark
+    # left rows with any surviving match (unmatched slots spill past the
+    # mask, which is sliced off).
+    cap_l = lc.shape[0]
+    li, ri, valid, ov = join_row_codes(
+        lc, l.valid, rc, r.valid, max(ctx.row_cap, 1)
+    )
+    ctx.overflow.append(ov)
+    valid = _residual_valid(l, r, keys, li, ri, valid)
+    matched = torch.zeros(cap_l + 1, dtype=torch.bool, device=ctx.device)
+    matched[torch.where(valid, li, cap_l)] = True
+    return _Rows(l.dims, l.ids, l.valid & ~matched[:cap_l], l.cols)
+
+
+def _project_rows(op: algebra.Project, child: _Rows, ctx: _Ctx) -> _Rows:
+    cols = {c: child.cols[c] for c in op.columns if c in child.cols}
+    keep = tuple(d for d in child.dims if d in op.columns)
+    if len(keep) == len(child.dims):
+        return _Rows(child.dims, child.ids, child.valid, cols)
+    if cols:
+        raise ExecutorError(
+            f"rule {ctx.label or '?'}: projecting away grid dimensions "
+            "under value columns requires a head aggregate"
+        )
+    # Dropping dims can alias rows: dedupe by sorting the projected codes
+    # and keeping first occurrences (set semantics restored).
+    kept_ids = torch.stack(
+        [child.ids[:, child.dims.index(d)] for d in keep], dim=-1
+    ) if keep else torch.zeros((child.ids.shape[0], 0), dtype=torch.int32,
+                               device=ctx.device)
+    codes = _codes_for(_Rows(keep, kept_ids, child.valid, {}), keep, ctx.n)
+    perm, skey, n_valid = sort_row_codes(codes, child.valid)
+    is_new, _ = unique_row_runs(skey, n_valid)
+    return _Rows(keep, kept_ids[perm], is_new, {})
+
+
+def _groupby_rows(op: algebra.GroupBy, child: _Rows, ctx: _Ctx) -> _Rows:
+    n = ctx.n
+    for k in op.keys:
+        if k not in child.dims:
+            raise ExecutorError(
+                f"rule {ctx.label or '?'}: group key {k!r} must be a "
+                "vertex-domain column"
+            )
+    monoid = _monoid_for(op.agg)
+    if monoid.structured:
+        raise ExecutorError(
+            f"structured monoid {op.agg!r} needs width-typed payload slabs; "
+            "the row-table backend aggregates scalar cells"
+        )
+    if monoid.finalize is not None:
+        raise ExecutorError(
+            f"monoid {op.agg!r} carries a finalize step; the row-table "
+            "backend only supports plain accumulator monoids"
+        )
+    cells = float(n) ** len(child.dims)
+    if 0 < cells <= _GROUPBY_GRID_CELLS:
+        # Lower through the dense grid-reduce when the child's grid is
+        # small: rows are unique-by-dims so the scatter is exact, and the
+        # reduction then performs the same adds in the same order as the
+        # dense engine, so forced-row runs match dense bit for bit.  Large
+        # domains take the segmented path below.
+        return _inter_to_rows(
+            _groupby(op, _rows_to_inter(child, ctx), ctx), ctx
+        )
+    cap = child.ids.shape[0]
+    vals = torch.as_tensor(_operand_rows(child, op.agg_col, ctx),
+                           device=ctx.device).broadcast_to((cap,))
+    if not vals.dtype.is_floating_point:
+        vals = vals.to(torch.float32)
+    key_ids = torch.stack(
+        [child.ids[:, child.dims.index(k)] for k in op.keys], dim=-1
+    ) if op.keys else torch.zeros((cap, 0), dtype=torch.int32,
+                                  device=ctx.device)
+    codes = _codes_for(_Rows(tuple(op.keys), key_ids, child.valid, {}),
+                       tuple(op.keys), n)
+    perm, skey, n_valid = sort_row_codes(codes, child.valid)
+    is_new, seg = unique_row_runs(skey, n_valid)
+    in_valid = torch.arange(cap, dtype=torch.int32,
+                            device=ctx.device) < n_valid
+    # Pre-clustered segmented path: rows arrive sorted by group code, so
+    # segment ids are sorted and the combine is one scan (the
+    # segment-combine kernel on the card).  Only valid runs are read back
+    # (``red[seg]`` under ``is_new``), so an empty segment's value, which
+    # differs by path, never reaches an output.
+    red = segment_combine_sorted(
+        vals[perm], seg, cap, op.agg, edge_active=in_valid
+    )
+    return _Rows(
+        tuple(op.keys), key_ids[perm], is_new, {op.out_col: red[seg]}
+    )
+
+
 def _eval(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
     if ctx.shared and id(op) in ctx.shared:
         hit = ctx.memo.get(id(op))
@@ -379,33 +766,56 @@ def _eval(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
     return _eval_inner(op, ctx)
 
 
-def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
+def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx):
     n = ctx.n
     shape_of = lambda dims: (n,) * len(dims)  # noqa: E731
     if isinstance(op, algebra.ScanEDB):
         if op.relation == "__unit__":
             return _Inter((), torch.tensor(True, device=ctx.device), {})
         rel = ctx.relations[op.relation]
+        if op.relation in ctx.row_edb:
+            tbl = ctx.row_edb[op.relation]
+            dims = tuple(op.columns[p] for p in rel.key_positions)
+            cols = {op.columns[int(p)]: g for p, g in tbl["values"].items()}
+            return _Rows(dims, tbl["ids"], tbl["valid"], cols)
+        if isinstance(rel, RowRelation):
+            raise ExecutorError(
+                f"EDB {op.relation!r} is a RowRelation but was planned onto "
+                "dense-grid storage (its grid is infeasible) — leave its "
+                "storage selection to the planner"
+            )
         return _scan_inter(op.columns, rel.key_positions, rel.present,
                            rel.values)
     if isinstance(op, algebra.Delta):
         entry = _read_pred(ctx, op.relation)
         keys, _ = ctx.sigs[op.relation]
-        return _scan_inter(
-            op.columns, keys, entry.get("delta", entry["present"]),
-            entry["values"],
-        )
+        present = entry.get("delta", entry["present"])
+        if "ids" in entry:
+            return _scan_rows(op.columns, keys, entry["ids"], present,
+                              entry["values"])
+        return _scan_inter(op.columns, keys, present, entry["values"])
     if isinstance(op, (algebra.ScanState, algebra.ScanView, algebra.Frontier)):
         entry = _read_pred(ctx, op.relation)
         keys, _ = ctx.sigs[op.relation]
+        if "ids" in entry:
+            return _scan_rows(op.columns, keys, entry["ids"],
+                              entry["present"], entry["values"])
         return _scan_inter(op.columns, keys, entry["present"],
                            entry["values"])
-    if isinstance(op, algebra.Join):
-        return _join(_eval(op.left, ctx), _eval(op.right, ctx), op.keys, ctx)
-    if isinstance(op, algebra.Cross):
-        return _join(_eval(op.left, ctx), _eval(op.right, ctx), (), ctx)
+    if isinstance(op, (algebra.Join, algebra.Cross)):
+        keys = op.keys if isinstance(op, algebra.Join) else ()
+        l, r, rowmode = _coerce_pair(
+            _eval(op.left, ctx), _eval(op.right, ctx), ctx
+        )
+        if rowmode:
+            return _join_rows(l, r, keys, ctx)
+        return _join(l, r, keys, ctx)
     if isinstance(op, algebra.AntiJoin):
-        l, r = _eval(op.left, ctx), _eval(op.right, ctx)
+        l, r, rowmode = _coerce_pair(
+            _eval(op.left, ctx), _eval(op.right, ctx), ctx
+        )
+        if rowmode:
+            return _antijoin_rows(l, r, op.keys, ctx)
         joined = _join(
             _Inter(l.dims, torch.ones_like(l.present), l.cols), r, op.keys,
             ctx,
@@ -418,12 +828,19 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
         return _Inter(l.dims, l.present & ~match, l.cols)
     if isinstance(op, algebra.Select):
         child = _eval(op.child, ctx)
+        if isinstance(child, _Rows):
+            mask = _CMP[op.op](_operand_rows(child, op.lhs, ctx),
+                               _operand_rows(child, op.rhs, ctx))
+            return _Rows(child.dims, child.ids, child.valid & mask,
+                         child.cols)
         lhs = _operand(child, op.lhs, ctx)
         rhs = _operand(child, op.rhs, ctx)
         mask = _CMP[op.op](lhs, rhs)
         return _Inter(child.dims, child.present & mask, child.cols)
     if isinstance(op, algebra.Project):
         child = _eval(op.child, ctx)
+        if isinstance(child, _Rows):
+            return _project_rows(op, child, ctx)
         cols = {c: child.cols[c] for c in op.columns if c in child.cols}
         keep = tuple(d for d in child.dims if d in op.columns)
         drop = tuple(child.dims.index(d) for d in child.dims if d not in keep)
@@ -445,6 +862,12 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
                 "on the dense-grid backend"
             )
         cols = dict(child.cols)
+        if isinstance(child, _Rows):
+            cols[op.column] = torch.full(
+                (child.ids.shape[0],), op.value, dtype=torch.float32,
+                device=ctx.device,
+            )
+            return _Rows(child.dims, child.ids, child.valid, cols)
         cols[op.column] = torch.tensor(
             op.value, dtype=torch.float32, device=ctx.device,
         ).broadcast_to(shape_of(child.dims))
@@ -454,10 +877,13 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
         udf = ctx.program.udfs.get(op.fn)
         if udf is None or udf.fn is None:
             raise ExecutorError(f"UDF {op.fn!r} has no bound implementation")
+        rowmode = isinstance(child, _Rows)
         args = []
         for c in op.in_cols:
             if isinstance(c, str) and c.startswith("lit:"):
                 args.append(ast.literal_eval(c[4:]))
+            elif rowmode:
+                args.append(_operand_rows(child, c, ctx))
             else:
                 args.append(_operand(child, c, ctx))
         outs = udf.fn(*args)
@@ -468,13 +894,19 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
                 f"UDF {op.fn!r} returned {len(outs)} outputs, rule binds "
                 f"{len(op.out_cols)}"
             )
+        shape = (child.ids.shape[0],) if rowmode else shape_of(child.dims)
         cols = dict(child.cols)
         for name, o in zip(op.out_cols, outs):
             cols[name] = torch.as_tensor(o, device=ctx.device).broadcast_to(
-                shape_of(child.dims))
+                shape)
+        if rowmode:
+            return _Rows(child.dims, child.ids, child.valid, cols)
         return _Inter(child.dims, child.present, cols)
     if isinstance(op, algebra.GroupBy):
-        return _groupby(op, _eval(op.child, ctx), ctx)
+        child = _eval(op.child, ctx)
+        if isinstance(child, _Rows):
+            return _groupby_rows(op, child, ctx)
+        return _groupby(op, child, ctx)
     if isinstance(op, algebra.Unnest):
         raise ExecutorError(
             "set-valued unnesting (rule L8) is a Listing-1 construct: bind "
@@ -707,12 +1139,13 @@ def _referenced_preds(op: algebra.LogicalOp) -> set:
 
 @dataclass
 class GenericExecutable:
-    """A compiled generic program: logical plan + grid backend + drivers."""
+    """A compiled generic program: logical plan + grid/row backend +
+    drivers."""
 
     program: Program
     logical: algebra.LogicalPlan
     plan: Any                        # planner.ProgramPlan
-    relations: Dict[str, Relation]
+    relations: Dict[str, Union[Relation, RowRelation]]
     sigs: Dict[str, Tuple[Tuple[int, ...], Tuple[int, ...]]]
     phases: Tuple[_Phase, ...]
     prelude: Tuple[algebra.RuleDataflow, ...]
@@ -723,22 +1156,61 @@ class GenericExecutable:
     # Canonical shared-subtree ids from the rewrite pass (CSE): _eval
     # memoizes these nodes once per evaluation context.
     shared_ids: FrozenSet[int] = frozenset()
+    # The compile options the lossless dense fallback recompiles with.
+    _compile_kwargs: Dict[str, Any] = field(default_factory=dict, repr=False)
+    # Physical storage per predicate ("dense-grid" / "row-table"), the
+    # row-table slab capacities, the shared intermediate capacity, and the
+    # row-table EDB slabs (planner storage selection).
+    storage: Dict[str, str] = field(default_factory=dict)
+    row_caps: Dict[str, int] = field(default_factory=dict)
+    row_cap: int = 0
+    row_edb: Dict[str, Dict[str, Any]] = field(default_factory=dict)
 
     # -- state plumbing -----------------------------------------------------
 
+    @property
+    def _any_row(self) -> bool:
+        return any(s == "row-table" for s in self.storage.values())
+
+    def _is_row(self, pred: str) -> bool:
+        return self.storage.get(pred) == "row-table"
+
     def _empty_out(self, pred: str) -> Dict[str, Any]:
         keys, vals = self.sigs[pred]
+        dev = self.device
+        if self._is_row(pred):
+            cap = self.row_caps[pred]
+            return {
+                "ids": torch.zeros((cap, len(keys)), dtype=torch.int32,
+                                   device=dev),
+                "present": torch.zeros(cap, dtype=torch.bool, device=dev),
+                "values": {p: torch.zeros(cap, dtype=torch.float32,
+                                          device=dev) for p in vals},
+            }
         shape = (self.domain,) * len(keys)
         return {
-            "present": torch.zeros(shape, dtype=torch.bool,
-                                   device=self.device),
+            "present": torch.zeros(shape, dtype=torch.bool, device=dev),
             "values": {p: torch.zeros(shape, dtype=torch.float32,
-                                      device=self.device) for p in vals},
+                                      device=dev) for p in vals},
         }
 
     def _empty_entry(self, pred: str) -> Dict[str, Any]:
-        entry = self._empty_out(pred)
+        entry = self._init_entry(self._empty_out(pred))
         entry["delta"] = torch.zeros_like(entry["present"])
+        return entry
+
+    def _init_entry(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        """Promote a materialized out into a carried entry: everything is
+        new at J=0, so the delta mask starts as the presence mask.  With
+        any row-table predicate, every carried entry also carries the
+        overflow flag (ORed each step) so capacity flags always have a
+        home, even when this predicate is dense in a mixed plan."""
+
+        entry = dict(out)
+        entry["delta"] = out["present"]
+        if self._any_row:
+            entry["overflow"] = torch.zeros((), dtype=torch.bool,
+                                            device=self.device)
         return entry
 
     def _ctx(self, state, views, materialized, j, label="") -> _Ctx:
@@ -755,12 +1227,23 @@ class GenericExecutable:
             j=j,
             label=label,
             shared=self.shared_ids,
+            row_cap=self.row_cap,
+            row_edb=self.row_edb,
         )
 
-    def _materialize(self, df, inter: _Inter, ctx: _Ctx) -> Dict[str, Any]:
-        """Lower a rule-body intermediate into the head predicate's dense
-        grid: an *out* dict ``{present, values}``."""
+    def _materialize(self, df, inter, ctx: _Ctx) -> Dict[str, Any]:
+        """Lower a rule-body intermediate into the head predicate's storage
+        (dense grid or row table), inserting the boundary converter when the
+        body evaluated on the other representation.  Returns an *out* dict:
+        ``{present, values}`` (dense) or ``{ids, present, values}`` (rows,
+        ``present`` doubling as the slot validity mask)."""
 
+        if self._is_row(df.target):
+            rows = inter if isinstance(inter, _Rows) \
+                else _inter_to_rows(inter, ctx)
+            return self._materialize_rows(df, rows, ctx)
+        if isinstance(inter, _Rows):
+            inter = _rows_to_inter(inter, ctx)
         schema = df.op.schema()
         keys, vals = self.sigs[df.target]
         key_dims = tuple(schema[p] for p in keys)
@@ -784,9 +1267,69 @@ class GenericExecutable:
             values[p] = g.to(torch.float32).broadcast_to(shape)
         return {"present": present, "values": values}
 
+    def _materialize_rows(self, df, rows: _Rows, ctx: _Ctx) -> Dict[str, Any]:
+        schema = df.op.schema()
+        keys, vals = self.sigs[df.target]
+        key_dims = tuple(schema[p] for p in keys)
+        for d in key_dims:
+            if d not in rows.dims:
+                raise ExecutorError(
+                    f"rule {df.label}: key column {d!r} of {df.target!r} is "
+                    "not a grid dimension of the rule body"
+                )
+        cap = rows.ids.shape[0]
+        ids = torch.stack(
+            [rows.ids[:, rows.dims.index(d)] for d in key_dims], dim=-1
+        ) if key_dims else torch.zeros((cap, 0), dtype=torch.int32,
+                                       device=self.device)
+        values = {}
+        for p in vals:
+            col = schema[p]
+            if col not in rows.cols:
+                raise ExecutorError(
+                    f"rule {df.label}: value column {col!r} missing"
+                )
+            values[p] = torch.as_tensor(
+                rows.cols[col], device=self.device
+            ).broadcast_to((cap,)).to(torch.float32)
+        return self._resize_rows(
+            {"ids": ids, "present": rows.valid, "values": values},
+            self.row_caps[df.target], ctx,
+        )
+
+    def _resize_rows(self, out, new_cap: int, ctx: _Ctx) -> Dict[str, Any]:
+        """Re-slab a row out to the predicate's capacity: pad when growing,
+        compact (overflow-flagged) when shrinking."""
+
+        cap = out["ids"].shape[0]
+        if cap == new_cap:
+            return out
+        if cap < new_cap:
+            pad = new_cap - cap
+            return {
+                "ids": torch.nn.functional.pad(out["ids"], (0, 0, 0, pad)),
+                "present": torch.nn.functional.pad(out["present"], (0, pad)),
+                "values": {
+                    p: torch.nn.functional.pad(v, (0, pad))
+                    for p, v in out["values"].items()
+                },
+            }
+        idx, valid = compact_active_edges(out["present"], new_cap)
+        ctx.overflow.append(
+            out["present"].sum(dtype=torch.int64) > new_cap
+        )
+        take = torch.clamp(idx, max=cap - 1)
+        return {
+            "ids": out["ids"][take],
+            "present": valid,
+            "values": {p: v[take] for p, v in out["values"].items()},
+        }
+
     def _merge(self, pred: str, outs, ctx: _Ctx) -> Dict[str, Any]:
         if not outs:
             return self._empty_out(pred)
+        if self._is_row(pred):
+            return self._merge_rows(pred, outs, ctx)
         present = functools.reduce(
             torch.logical_or, [o["present"] for o in outs]
         )
@@ -813,6 +1356,44 @@ class GenericExecutable:
             values[p] = functools.reduce(monoid.combine, parts)
         return {"present": present, "values": values}
 
+    def _row_codes(self, ids: torch.Tensor) -> torch.Tensor:
+        try:
+            return row_codes(ids, self.domain)
+        except ValueError as err:
+            raise ExecutorError(str(err)) from err
+
+    def _merge_rows(self, pred: str, outs, ctx: _Ctx) -> Dict[str, Any]:
+        """Union-merge row outs: concatenate the slabs in rule order (which
+        fixes the f32 sum order), dedupe by row code (representative-first),
+        and fold duplicate values through the merge monoid, then re-slab to
+        the predicate capacity."""
+
+        if len(outs) == 1:
+            return outs[0]
+        _, vals = self.sigs[pred]
+        agg = self.merge_monoids.get(pred)
+        if vals and agg is None:
+            raise ExecutorError(
+                f"predicate {pred!r}: multiple rules derive value "
+                "columns without a combining head aggregate"
+            )
+        ids = torch.cat([o["ids"] for o in outs], dim=0)
+        valid = torch.cat([o["present"] for o in outs], dim=0)
+        cap = ids.shape[0]
+        perm, skey, n_valid = sort_row_codes(self._row_codes(ids), valid)
+        is_new, seg = unique_row_runs(skey, n_valid)
+        in_valid = torch.arange(cap, dtype=torch.int32,
+                                device=self.device) < n_valid
+        values = {}
+        for p in vals:
+            cat = torch.cat([o["values"][p] for o in outs], dim=0)
+            red = segment_combine_sorted(
+                cat[perm], seg, cap, agg, edge_active=in_valid
+            )
+            values[p] = red[seg]
+        merged = {"ids": ids[perm], "present": is_new, "values": values}
+        return self._resize_rows(merged, self.row_caps[pred], ctx)
+
     @staticmethod
     def _diff(old, present, values):
         diff = old["present"] != present
@@ -820,6 +1401,40 @@ class GenericExecutable:
         for p, v in values.items():
             diff = diff | (both & (old["values"][p] != v))
         return diff
+
+    def _diff_rows(self, old, new):
+        """Row-diff: ``(delta_mask_over_new, changed_scalar)``: a new row
+        is delta when its key tuple is absent from the old table or any
+        value column changed; ``changed`` also catches rows that
+        disappeared (the presence-count check)."""
+
+        operm, oskey, onv = sort_row_codes(self._row_codes(old["ids"]),
+                                           old["present"])
+        new_codes = self._row_codes(new["ids"])
+        pos = torch.searchsorted(oskey, new_codes, side="left")
+        posc = torch.clamp(pos, max=oskey.shape[0] - 1)
+        member = (pos < onv) & (oskey[posc] == new_codes)
+        changed_val = torch.zeros_like(member)
+        for p, v in new["values"].items():
+            changed_val = changed_val | (old["values"][p][operm][posc] != v)
+        delta = new["present"] & (~member | (member & changed_val))
+        shrunk = old["present"].sum() != new["present"].sum()
+        return delta, delta.any() | shrunk
+
+    def _rows_to_relation(self, pred: str, entry) -> RowRelation:
+        """Pack a row entry into a lex-sorted RowRelation (the same tuple
+        order :meth:`Relation.tuples` produces), on the device."""
+
+        keys, vals = self.sigs[pred]
+        present = entry["present"]
+        rows = entry["ids"][present]
+        order = torch.argsort(self._row_codes(rows), stable=True)
+        return RowRelation(
+            n=self.domain,
+            key_positions=keys,
+            rows=rows[order],
+            values={p: entry["values"][p][present][order] for p in vals},
+        )
 
     # -- per-phase step -----------------------------------------------------
 
@@ -842,9 +1457,18 @@ class GenericExecutable:
         for pred in phase.carried:
             out = self._merge(pred, acc.get(pred, []), ctx)
             entry = dict(out)
-            entry["delta"] = out["present"] & self._diff(
-                state[pred], out["present"], out["values"]
-            )
+            if self._is_row(pred):
+                entry["delta"], _ = self._diff_rows(state[pred], out)
+            else:
+                entry["delta"] = out["present"] & self._diff(
+                    state[pred], out["present"], out["values"]
+                )
+            if self._any_row:
+                # Fold every capacity flag this step raised (the merges
+                # above included) into the carried overflow flag.
+                entry["overflow"] = functools.reduce(
+                    torch.logical_or, ctx.overflow, state[pred]["overflow"]
+                )
             new_state[pred] = entry
         return new_state
 
@@ -860,17 +1484,29 @@ class GenericExecutable:
         def conv(prev, new):
             same = torch.ones((), dtype=torch.bool, device=self.device)
             for pred in phase.carried:
-                diff = self._diff(
-                    prev[pred], new[pred]["present"], new[pred]["values"]
-                )
-                same = same & ~torch.any(diff)
+                if self._is_row(pred):
+                    _, changed = self._diff_rows(prev[pred], new[pred])
+                    same = same & ~changed
+                else:
+                    diff = self._diff(
+                        prev[pred], new[pred]["present"], new[pred]["values"]
+                    )
+                    same = same & ~torch.any(diff)
             return same
 
         return conv
 
+    @staticmethod
+    def _raise_on_overflow(flags) -> None:
+        """Host-side overflow check: one read of the ORed flags."""
+
+        if flags and bool(functools.reduce(torch.logical_or, flags)):
+            raise _RowCapacityOverflow()
+
     def _run_rules_once(self, dataflows, state, materialized, j):
         """Fire a rule group once (init / final-view / post rules), merging
-        multi-rule targets, and return {target: entry}."""
+        multi-rule targets, and return {target: entry}.  Its capacity flags
+        are read here, as the group's results are consumed at once."""
 
         acc: Dict[str, list] = {}
         order: List[str] = []
@@ -884,24 +1520,23 @@ class GenericExecutable:
             acc.setdefault(df.target, []).append(out)
             # make the target readable by later rules in this group
             views[df.target] = self._merge(df.target, acc[df.target], ctx)
+        self._raise_on_overflow(ctx.overflow)
         return {t: views[t] for t in order}
 
-    def _init_entry(self, out: Dict[str, Any]) -> Dict[str, Any]:
-        """Promote a materialized out into a carried entry: everything is
-        new at J=0, so the delta mask starts as the presence mask."""
+    def _first_state(self):
+        """The carried state before any rule fires, and the prelude's
+        materialized views."""
 
-        entry = dict(out)
-        entry["delta"] = out["present"]
-        return entry
+        state = {pred: self._empty_entry(pred)
+                 for phase in self.phases for pred in phase.carried}
+        return state, dict(self._run_rules_once(self.prelude, state, {}, 0))
 
     def phase_step_fn(self) -> Tuple[Callable, Dict[str, Dict[str, Any]]]:
         """Benchmark hook: the per-iteration step of the FIRST fixpoint
         phase plus its initialized state — one rule firing of the recursive
         stratum, the unit the drivers repeat."""
 
-        state = {pred: self._empty_entry(pred)
-                 for phase in self.phases for pred in phase.carried}
-        materialized = dict(self._run_rules_once(self.prelude, state, {}, 0))
+        state, materialized = self._first_state()
         phase = self.phases[0]
         inits = self._run_rules_once(phase.init, state, materialized, 0)
         for pred in phase.carried:
@@ -937,9 +1572,16 @@ class GenericExecutable:
         :func:`device_fixpoint` (``on_device=True``) or the host driver.
 
         Returns a :class:`FixpointResult` whose ``state`` maps every
-        materialized predicate to its final :class:`Relation`.
+        materialized predicate to its final :class:`Relation` (or
+        :class:`RowRelation` for a row-table predicate).
         ``params=`` raises (ROADMAP A13), and so do ``checkpoint_dir=``,
         ``resume=`` and ``injector=`` (A11).
+
+        Overflow policy (lossless): when any row-table slab overflows its
+        static capacity mid-run, the run is abandoned and run again on
+        dense-grid storage (``storage_fallback=True`` on the result).  The
+        flags stay on the device inside a phase and are read once after
+        it, and once after each group of rules fired outside the loop.
         """
 
         if params is not None:
@@ -951,14 +1593,31 @@ class GenericExecutable:
                 "checkpoint_dir=, resume= and injector= are not ported yet: "
                 "ROADMAP A11 (fault tolerance)"
             )
-        t0 = time.perf_counter()
-        state: Dict[str, Dict[str, Any]] = {
-            pred: self._empty_entry(pred)
-            for phase in self.phases for pred in phase.carried
-        }
-        materialized: Dict[str, Dict[str, Any]] = dict(
-            self._run_rules_once(self.prelude, state, {}, 0)
+        try:
+            return self._run_phases(max_iters, on_device)
+        except _RowCapacityOverflow:
+            return self._dense_fallback_run(max_iters, on_device)
+
+    def _dense_fallback_run(self, max_iters: int,
+                            on_device: bool) -> FixpointResult:
+        for name, rel in self.relations.items():
+            if isinstance(rel, RowRelation):
+                raise ExecutorError(
+                    f"row-table capacity overflow, and EDB {name!r} is a "
+                    "RowRelation whose dense grid is infeasible — raise "
+                    "compile_program(row_cap=) instead"
+                )
+        dense = compile_program(
+            self.program, self.relations, semi_naive=self.semi_naive,
+            domain=self.domain, storage="dense-grid", device=self.device,
+            **self._compile_kwargs,
         )
+        res = dense.run(max_iters, on_device)
+        return replace(res, storage_fallback=True)
+
+    def _run_phases(self, max_iters: int, on_device: bool) -> FixpointResult:
+        t0 = time.perf_counter()
+        state, materialized = self._first_state()
         total, phase_iters, all_conv, stragglers = 0, [], True, 0
         for phase in self.phases:
             inits = self._run_rules_once(phase.init, state, materialized, 0)
@@ -977,6 +1636,12 @@ class GenericExecutable:
                 ).run(state)
                 stragglers += res.straggler_events
             state = res.state
+            # Lossless overflow policy: any capacity flag raised inside the
+            # fixpoint surfaces here, before the phase's results are used.
+            if self._any_row:
+                self._raise_on_overflow(
+                    [state[pred]["overflow"] for pred in phase.carried]
+                )
             total += res.iterations
             phase_iters.append(res.iterations)
             all_conv = all_conv and res.converged
@@ -991,17 +1656,20 @@ class GenericExecutable:
                 phase.post, state, materialized, res.iterations,
             ))
 
-        out: Dict[str, Relation] = {}
+        out: Dict[str, Union[Relation, RowRelation]] = {}
         for pred, entry in list(materialized.items()) + [
             (p, state[p]) for ph in self.phases for p in ph.carried
         ]:
             keys, _ = self.sigs[pred]
-            out[pred] = Relation(
-                n=self.domain,
-                key_positions=keys,
-                present=entry["present"],
-                values=dict(entry["values"]),
-            )
+            if self._is_row(pred):
+                out[pred] = self._rows_to_relation(pred, entry)
+            else:
+                out[pred] = Relation(
+                    n=self.domain,
+                    key_positions=keys,
+                    present=entry["present"],
+                    values=dict(entry["values"]),
+                )
         return FixpointResult(
             state=out,
             iterations=total,
@@ -1051,22 +1719,29 @@ def compile_program(
     ``device`` (default: the card; with none present this raises).
 
     ``relations`` binds the EDB: for generic programs, dense-grid
-    :class:`Relation` instances on ``device`` (or raw int tuple arrays with
-    ``domain=``); for the paper's listings, the front-end physical inputs
-    (Listing 1: ``{"data": Graph}``; Listing 2: ``{"training_data":
-    records}``) with ``binding`` the vectorized UDF bundle
-    (:class:`~repro_torch.core.pregel.VertexProgram` or
+    :class:`Relation` or :class:`RowRelation` instances on ``device`` (or
+    raw int tuple arrays with ``domain=``); for the paper's listings, the
+    front-end physical inputs (Listing 1: ``{"data": Graph}``; Listing 2:
+    ``{"training_data": records}``) with ``binding`` the vectorized UDF
+    bundle (:class:`~repro_torch.core.pregel.VertexProgram` or
     :class:`~repro_torch.core.imru.IMRUTask`), which go to
     ``compile_pregel`` / ``compile_imru``.  Everything else runs on the
-    dense-grid interpreter with sequential fixpoint phases.
+    grid/row interpreter with sequential fixpoint phases.
 
     ``rewrite=True`` runs the :mod:`repro_torch.core.rewrite` optimizer
     pass (join reordering, select pushdown, cross-rule CSE) over the
-    logical plan; its decisions are recorded in ``plan.notes``.  The
-    planner's ``storage-selection(...)`` note is computed as the
-    reference's; a predicate it (or ``storage=`` / ``row_cap=``) puts on
-    row-table storage raises (ROADMAP A9), as do ``mesh=`` and
-    ``exchange=`` (A10) and ``chunks=`` / ``hbm_budget=`` (A12).
+    logical plan; its decisions are recorded in ``plan.notes``.
+
+    ``storage=`` overrides the planner's per-predicate physical storage
+    selection: a string (``"dense-grid"`` / ``"row-table"``) forces every
+    predicate, a mapping forces individual predicates (the rest stay
+    cost-selected).  Predicates bound to a :class:`RowRelation` EDB are
+    always row-table (their dense grid is infeasible); raw arrays whose
+    grid would pass ``2^24`` cells become one.  ``row_cap=`` pins the
+    row-table intermediate slab capacity.  The selection is recorded in
+    ``plan.notes`` as the ``storage-selection(...)`` entry, as the
+    reference's.  ``mesh=`` and ``exchange=`` raise (A10), and so do
+    ``chunks=`` / ``hbm_budget=`` (A12).
     """
 
     if mesh is not None or exchange is not None:
@@ -1110,10 +1785,11 @@ def compile_program(
     if semi_naive:
         logical, sn_notes = algebra.semi_naive_rewrite(logical, program)
 
-    rels: Dict[str, Relation] = {}
+    rels: Dict[str, Union[Relation, RowRelation]] = {}
     for name, value in relations.items():
         rel = _as_relation(name, value, domain, device)
-        for t in [rel.present] + list(rel.values.values()):
+        lead = rel.rows if isinstance(rel, RowRelation) else rel.present
+        for t in [lead] + list(rel.values.values()):
             if t.device.type != device.type:
                 raise ValueError(
                     f"relation {name!r} lies on {t.device}, compile_program "
@@ -1275,11 +1951,14 @@ def compile_program(
         forced = {p: storage for p in predicates}
     elif storage:
         forced = dict(storage)
-    if row_cap is not None or "row-table" in forced.values():
-        raise NotImplementedError(
-            "row-table storage (storage=, row_cap=) is not ported yet: "
-            "ROADMAP A9 (row-table storage)"
-        )
+    for name, rel in rels.items():
+        if isinstance(rel, RowRelation):
+            if forced.get(name, "row-table") != "row-table":
+                raise ExecutorError(
+                    f"EDB {name!r} is a RowRelation: its dense grid is "
+                    "infeasible, storage cannot be forced to dense-grid"
+                )
+            forced[name] = "row-table"
 
     exchange_ops: Dict[str, Optional[str]] = {}
     for pred, agg in merge_monoids.items():
@@ -1293,21 +1972,20 @@ def compile_program(
         tuple(tuple(sorted(g)) for g in phase_groups),
         tuple(specs), domain, MeshSpec((("data", 1),)), hw,
         semi_naive=semi_naive, extra_notes=sn_notes + rw_notes,
-        predicates=predicates, storage=forced or None,
+        predicates=predicates, storage=forced or None, row_cap=row_cap,
         exchange_ops=exchange_ops,
         edb=tuple(sorted(rels)),
         row_value_cols={
             name: len(rel.values) for name, rel in rels.items()
         },
     )
-    rows = sorted(p for p, s in plan.storage.items() if s == "row-table")
-    if rows:
+    if plan.chunks:
         raise NotImplementedError(
-            f"the planner put {rows} on row-table storage, which is not "
-            "ported yet: ROADMAP A9 (row-table storage); its note: "
-            f"{plan.notes[0]}"
+            f"the planner streams {sorted(plan.chunks)} in host-resident "
+            "chunks, which is not ported yet: ROADMAP A12 (out-of-core "
+            "chunk streaming)"
         )
-    return GenericExecutable(
+    ex = GenericExecutable(
         program=program,
         logical=logical,
         plan=plan,
@@ -1320,7 +1998,42 @@ def compile_program(
         semi_naive=semi_naive,
         merge_monoids=merge_monoids,
         shared_ids=shared_ids,
+        _compile_kwargs={"hw": hw, "force_connector": force_connector,
+                         "rewrite": rewrite},
+        storage=dict(plan.storage),
+        row_caps=dict(plan.row_caps),
+        row_cap=plan.row_cap,
     )
+    # Row-table EDB slabs (loop-invariant caching, sparse storage): the
+    # tuples compacted once, padded to the planned capacity, on the device.
+    for name, rel in rels.items():
+        if plan.storage.get(name) != "row-table":
+            continue
+        cap = plan.row_caps[name]
+        if isinstance(rel, RowRelation):
+            rows, raw_vals = rel.rows, rel.values
+        else:
+            rows = torch.nonzero(rel.present).to(torch.int32)
+            raw_vals = {p: g[tuple(rows.long().T)]
+                        for p, g in rel.values.items()}
+        count = rows.shape[0]
+        if count > cap:
+            raise ExecutorError(
+                f"EDB {name!r}: {count} rows exceed its row-table "
+                f"capacity {cap}"
+            )
+        ids = torch.zeros((cap, len(rel.key_positions)), dtype=torch.int32,
+                          device=device)
+        ids[:count] = rows
+        valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        valid[:count] = True
+        values = {}
+        for p, v in raw_vals.items():
+            col = torch.zeros(cap, dtype=torch.float32, device=device)
+            col[:count] = v
+            values[p] = col
+        ex.row_edb[name] = {"ids": ids, "valid": valid, "values": values}
+    return ex
 
 
 def _collect_groupbys(df, sigs, relations, domain) -> List[GroupBySpec]:

@@ -50,6 +50,9 @@ class FixpointResult:
     # Iterations of each fixpoint phase of a multi-phase generic program.
     phase_iterations: Tuple[int, ...] = ()
     straggler_events: int = 0
+    # The generic executor re-ran the program on dense-grid storage after a
+    # row-table slab overflowed its capacity (the lossless fallback).
+    storage_fallback: bool = False
 
 
 def _synchronize(state: Any) -> None:

@@ -4,8 +4,10 @@ Figures 4 and 9), in PyTorch.
 The port of the single-device half of :mod:`repro.core.physical`: the
 group-by / combine primitives (sorted segment combine and scatter combine,
 the two receiver algorithms of Fig. 9), the index join (Fig. 4 O7), the
-frontier compaction of the semi-naive supersteps, and the three Pregel
-connectors with their sparse variants for one device (``axes == ()``).
+frontier compaction of the semi-naive supersteps, the three Pregel
+connectors with their sparse variants for one device (``axes == ()``),
+and the row-table primitives of the generic executor's sparse storage
+(row codes, sort-merge join, set-difference, grid <-> row converters).
 
 Every fast-path combine on a CUDA tensor with an f32/bf16 payload runs the
 hand-written segment-combine kernel, which adds in a fixed order: the
@@ -42,6 +44,14 @@ __all__ = [
     "sparse_hash_sort_exchange",
     "fused_got_exchange",
     "COMBINE_OPS",
+    "row_codes",
+    "sort_row_codes",
+    "unique_row_runs",
+    "join_row_codes",
+    "difference_row_codes",
+    "grid_to_rows",
+    "row_linear_index",
+    "rows_to_grid",
 ]
 
 
@@ -388,3 +398,210 @@ def sparse_hash_sort_exchange(
         dst_ids, payload, n_vertices, axes, op, bucket_cap,
         edge_mask=edge_valid, flag_cols=flag_cols,
     )
+
+
+# ---------------------------------------------------------------------------
+# Row-table primitives (sparse storage for the generic executor)
+# ---------------------------------------------------------------------------
+#
+# A *row table* is the compacted sparse counterpart of the executor's dense
+# vertex-domain grids: a fixed-capacity slab of id columns ``int32[cap, k]``
+# plus a validity mask ``bool[cap]`` (value columns ride alongside as
+# ``[cap]`` tensors owned by the caller).  Every primitive below keeps its
+# shapes static and reads nothing back to the host; set semantics ride on
+# *row codes*, the lexicographic encoding of a row's id tuple, so Join is a
+# sort-merge over codes, AntiJoin an exact searchsorted set-difference, and
+# GroupBy/dedupe unique-run segment combines.
+#
+# Codes are int64 (the reference packs uint32 codes, which torch can
+# neither searchsorted on the CPU nor lexsort): the ``n**k <= 2**32`` guard
+# stays, so every valid code lies below ``_ROW_SENTINEL`` and a stable sort
+# of one composed key puts exactly the valid rows first.  Every index that
+# could leave its range (a pair past the true count, a row past the valid
+# prefix, an invalid row's scatter) is clamped or sent to a spill slot that
+# is sliced off: torch raises on such an index where XLA drops it.
+#
+# Capacity discipline: joins expand into a caller-chosen ``out_cap`` and
+# report an ``overflow`` flag (a device bool) instead of silently dropping
+# rows; the executor accumulates those flags and falls back to the dense
+# grids when any fires (lossless overflow policy).
+
+# The sort key of an invalid row: one past the largest valid code.
+_ROW_SENTINEL = 1 << 32
+
+
+def row_codes(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Lexicographic int64 code of each id row: ``sum ids[:, i] *
+    n**(k-1-i)``.
+
+    Requires ``n ** k <= 2**32`` (checked statically), the reference's
+    code space, so the planner's row-table choices and their errors stay
+    the reference's.
+    """
+
+    cap, k = ids.shape
+    if k and float(n) ** k > 4294967296.0:
+        raise ValueError(
+            f"row_codes: domain**arity = {n}**{k} exceeds the 2^32 row-code "
+            "space (row-table storage caps key arity by domain size)"
+        )
+    code = torch.zeros(cap, dtype=torch.int64, device=ids.device)
+    for i in range(k):
+        code = code * n + ids[:, i].to(torch.int64)
+    return code
+
+
+def sort_row_codes(
+    codes: torch.Tensor, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort a row table by code with valid rows first.
+
+    Returns ``(perm, sorted_key, n_valid)``: ``perm`` (int64) reorders any
+    per-row tensor into sorted order, ``sorted_key`` is monotone (valid
+    rows' ascending codes, then ``_ROW_SENTINEL`` for the invalid suffix),
+    and the first ``n_valid`` (an int32 device scalar) sorted slots are
+    exactly the valid rows.  The sort is stable, so equal codes keep their
+    slab order: the reference's permutation.
+    """
+
+    skey = torch.where(valid, codes, _ROW_SENTINEL)
+    sorted_key, perm = torch.sort(skey, stable=True)
+    return perm, sorted_key, valid.sum(dtype=torch.int32)
+
+
+def unique_row_runs(
+    sorted_key: torch.Tensor, n_valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First-occurrence mask and segment ids (int32) of the unique runs in
+    a sorted key tensor (valid prefix only).  ``seg[i]`` numbers the run
+    row ``i`` belongs to; rows past ``n_valid`` alias the last run and
+    must be masked by the caller (``edge_active``)."""
+
+    cap = sorted_key.shape[0]
+    ar = torch.arange(cap, dtype=torch.int32, device=sorted_key.device)
+    prev = torch.cat([sorted_key[:1], sorted_key[:-1]])
+    is_new = (ar < n_valid) & ((ar == 0) | (sorted_key != prev))
+    seg = torch.clamp(torch.cumsum(is_new, 0, dtype=torch.int32) - 1, min=0)
+    return is_new, seg
+
+
+def join_row_codes(
+    l_codes: torch.Tensor,
+    l_valid: torch.Tensor,
+    r_codes: torch.Tensor,
+    r_valid: torch.Tensor,
+    out_cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-merge equi-join of two row tables on their codes.
+
+    The right table is sorted once; each left row finds its matching run by
+    binary search, and a prefix sum over per-row match counts lays the pairs
+    out densely into ``out_cap`` slots (the static-shape pair expansion).
+    Returns ``(li, ri, valid, overflow)``: left/right row indices (int64,
+    always in range) per output slot, the slot validity mask, and a device
+    flag set when the true pair count exceeds ``out_cap`` (pairs beyond
+    the cap are dropped: the caller must honor the flag).
+    """
+
+    cap_l, cap_r = l_codes.shape[0], r_codes.shape[0]
+    device = l_codes.device
+    t = torch.arange(out_cap, dtype=torch.int64, device=device)
+    if cap_l == 0 or cap_r == 0:
+        zeros = torch.zeros(out_cap, dtype=torch.int64, device=device)
+        return (zeros, zeros, torch.zeros(out_cap, dtype=torch.bool,
+                                          device=device),
+                torch.zeros((), dtype=torch.bool, device=device))
+    perm_r, r_skey, r_nv = sort_row_codes(r_codes, r_valid)
+    start = torch.searchsorted(r_skey, l_codes, side="left")
+    # Clamp to the valid prefix: a left code equal to the sentinel would
+    # otherwise also "match" the invalid suffix.
+    end = torch.minimum(torch.searchsorted(r_skey, l_codes, side="right"),
+                        r_nv.to(torch.int64))
+    cnt = torch.where(l_valid, torch.clamp(end - start, min=0), 0)
+    offs = torch.cumsum(cnt, 0)
+    total = offs[-1]
+    li = torch.clamp(torch.searchsorted(offs, t, side="right"),
+                     max=cap_l - 1)
+    before = offs[li] - cnt[li]
+    rpos = torch.clamp(start[li] + (t - before), 0, cap_r - 1)
+    return li, perm_r[rpos], t < total, total > out_cap
+
+
+def difference_row_codes(
+    l_codes: torch.Tensor,
+    l_valid: torch.Tensor,
+    r_codes: torch.Tensor,
+    r_valid: torch.Tensor,
+) -> torch.Tensor:
+    """Exact set-difference membership mask: True for valid left rows whose
+    code has NO valid right row (the AntiJoin keep-mask).  Capacity-free:
+    the left table is returned in place, only the mask changes."""
+
+    cap_r = r_codes.shape[0]
+    if cap_r == 0:
+        return l_valid.clone()
+    _, r_skey, r_nv = sort_row_codes(r_codes, r_valid)
+    pos = torch.searchsorted(r_skey, l_codes, side="left")
+    member = (pos < r_nv) & (r_skey[torch.clamp(pos, max=cap_r - 1)]
+                             == l_codes)
+    return l_valid & ~member
+
+
+def grid_to_rows(
+    present: torch.Tensor, cap: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact a dense presence grid into a row table (``to_rows`` boundary
+    converter).  Returns ``(ids, valid, lin, overflow)``: id columns
+    ``int32[cap, k]``, slot validity, the clamped linear cell index per
+    slot (int64, for gathering value grids via ``grid.reshape(-1)[lin]``),
+    and the overflow flag (more present cells than ``cap``)."""
+
+    device = present.device
+    shape = tuple(present.shape)
+    if not shape:
+        valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        valid[:1] = present.to(torch.bool)
+        return (
+            torch.zeros((cap, 0), dtype=torch.int32, device=device),
+            valid,
+            torch.zeros(cap, dtype=torch.int64, device=device),
+            torch.zeros((), dtype=torch.bool, device=device),
+        )
+    flat = present.reshape(-1)
+    size = flat.shape[0]
+    idx, valid = compact_active_edges(flat, cap)
+    overflow = flat.sum(dtype=torch.int64) > cap
+    lin = torch.clamp(idx.to(torch.int64), max=size - 1)
+    cols, rest = [], lin
+    for d in reversed(shape):
+        cols.append((rest % d).to(torch.int32))
+        rest = rest // d
+    return torch.stack(cols[::-1], dim=-1), valid, lin, overflow
+
+
+def row_linear_index(ids: torch.Tensor, valid: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Linear dense-grid cell index of each row (int64 ``[cap]``); invalid
+    rows get the spill index ``n**k``, one past the grid, which a scatter
+    into ``n**k + 1`` cells writes and then slices off.  Only meaningful
+    when the dense grid is materializable."""
+
+    cap, k = ids.shape
+    lin = torch.zeros(cap, dtype=torch.int64, device=ids.device)
+    for i in range(k):
+        lin = lin * n + ids[:, i].to(torch.int64)
+    return torch.where(valid, lin, int(n) ** k)
+
+
+def rows_to_grid(ids: torch.Tensor, valid: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Scatter a row table back onto the dense presence grid (``to_grid``
+    boundary converter)."""
+
+    k = ids.shape[1]
+    if k == 0:
+        return valid.any()
+    size = int(n) ** k
+    flat = torch.zeros(size + 1, dtype=torch.bool, device=ids.device)
+    flat[row_linear_index(ids, valid, n)] = True
+    return flat[:size].reshape((n,) * k)

@@ -453,9 +453,9 @@ def _tc(**kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"storage": "row-table"}, "A9"),
-    ({"storage": {"tc": "row-table"}}, "A9"),
-    ({"row_cap": 64}, "A9"),
+    ({"storage": "row-table", "chunks": 2}, "A12"),
+    ({"storage": {"tc": "row-table"}, "mesh": object()}, "A10"),
+    ({"row_cap": 64, "exchange": "bucket-a2a"}, "A10"),
     ({"mesh": object()}, "A10"),
     ({"exchange": "bucket-a2a"}, "A10"),
     ({"chunks": 2}, "A12"),
@@ -490,25 +490,16 @@ def test_remesh_and_run_batched_raise():
         ex.run_batched(max_iters=4, params=[])
 
 
-def test_planner_row_table_choice_raises_with_the_reference_note():
-    # 2048^2 cells is past the planner's dense minimum and the edges are
-    # sparse, so the planner (the reference's too) picks row-table for
-    # them; the port computes the same storage-selection note and raises.
-    n = 2048
-    rng = np.random.default_rng(0)
-    src, dst = rng.integers(0, n, 300), rng.integers(0, n, 300)
-    want = JE.compile_program(JL.transitive_closure_program(),
-                              {"edge": JE.Relation.from_columns(n, src, dst)})
-    assert "row-table" in want.plan.notes[0]
-    rel = TE.Relation.from_columns(n, src, dst, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9") as err:
-        TE.compile_program(TL.transitive_closure_program(), {"edge": rel},
-                           device="cpu")
-    assert want.plan.notes[0] in str(err.value)
-
-
 def test_raw_array_past_the_dense_limit_raises():
+    # A raw array whose grid would pass 2^24 cells becomes a RowRelation,
+    # which cannot be forced onto a dense grid: the reference's error.
     edges = np.array([[0, 1], [1, 2]])
-    with pytest.raises(NotImplementedError, match="A9"):
-        TE.compile_program(TL.transitive_closure_program(), {"edge": edges},
-                           domain=1 << 13, device="cpu")
+    err = _raises_like(
+        lambda: JE.compile_program(JL.transitive_closure_program(),
+                                   {"edge": edges}, domain=1 << 13,
+                                   storage="dense-grid"),
+        lambda: TE.compile_program(TL.transitive_closure_program(),
+                                   {"edge": edges}, domain=1 << 13,
+                                   storage="dense-grid", device="cpu"),
+    )
+    assert isinstance(err, TE.ExecutorError) and "RowRelation" in str(err)
