@@ -514,18 +514,26 @@ class _Rows:
     cols: Dict[str, torch.Tensor]
 
 
+def _id_cols(rows: _Rows, dims: Tuple[str, ...]) -> torch.Tensor:
+    """The id columns of ``dims``, in that order (``[cap, 0]`` for none)."""
+
+    return rows.ids[:, [rows.dims.index(d) for d in dims]]
+
+
+def _codes(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`row_codes`, its code-space error raised as an
+    :class:`ExecutorError`."""
+
+    try:
+        return row_codes(ids, n)
+    except ValueError as err:
+        raise ExecutorError(str(err)) from err
+
+
 def _codes_for(rows: _Rows, dims: Tuple[str, ...], n: int) -> torch.Tensor:
     """int64 row codes of a dim subset (shared-key encoding for joins)."""
 
-    cap = rows.ids.shape[0]
-    if not dims:
-        return torch.zeros(cap, dtype=torch.int64, device=rows.ids.device)
-    sub = torch.stack([rows.ids[:, rows.dims.index(d)] for d in dims],
-                      dim=-1)
-    try:
-        return row_codes(sub, n)
-    except ValueError as err:
-        raise ExecutorError(str(err)) from err
+    return _codes(_id_cols(rows, dims), n)
 
 
 def _operand_rows(rows: _Rows, x, ctx: _Ctx):
@@ -624,21 +632,14 @@ def _join_rows(l: _Rows, r: _Rows, keys, ctx: _Ctx) -> _Rows:
     n = ctx.n
     shared = tuple(d for d in l.dims if d in r.dims)
     out_dims = l.dims + tuple(d for d in r.dims if d not in l.dims)
-    out_cap = max(ctx.row_cap, 1)
     li, ri, valid, ov = join_row_codes(
         _codes_for(l, shared, n), l.valid,
-        _codes_for(r, shared, n), r.valid, out_cap,
+        _codes_for(r, shared, n), r.valid, max(ctx.row_cap, 1),
     )
     ctx.overflow.append(ov)
     valid = _residual_valid(l, r, keys, li, ri, valid)
-    id_cols = []
-    for d in out_dims:
-        if d in l.dims:
-            id_cols.append(l.ids[:, l.dims.index(d)][li])
-        else:
-            id_cols.append(r.ids[:, r.dims.index(d)][ri])
-    ids = torch.stack(id_cols, dim=-1) if id_cols else \
-        torch.zeros((out_cap, 0), dtype=torch.int32, device=ctx.device)
+    ids = torch.cat([l.ids[li], _id_cols(r, out_dims[len(l.dims):])[ri]],
+                    dim=1)
     cols: Dict[str, torch.Tensor] = {}
     for c, g in l.cols.items():
         if c not in out_dims:
@@ -689,12 +690,9 @@ def _project_rows(op: algebra.Project, child: _Rows, ctx: _Ctx) -> _Rows:
         )
     # Dropping dims can alias rows: dedupe by sorting the projected codes
     # and keeping first occurrences (set semantics restored).
-    kept_ids = torch.stack(
-        [child.ids[:, child.dims.index(d)] for d in keep], dim=-1
-    ) if keep else torch.zeros((child.ids.shape[0], 0), dtype=torch.int32,
-                               device=ctx.device)
-    codes = _codes_for(_Rows(keep, kept_ids, child.valid, {}), keep, ctx.n)
-    perm, skey, n_valid = sort_row_codes(codes, child.valid)
+    kept_ids = _id_cols(child, keep)
+    perm, skey, n_valid = sort_row_codes(_codes(kept_ids, ctx.n),
+                                         child.valid)
     is_new, _ = unique_row_runs(skey, n_valid)
     return _Rows(keep, kept_ids[perm], is_new, {})
 
@@ -733,13 +731,8 @@ def _groupby_rows(op: algebra.GroupBy, child: _Rows, ctx: _Ctx) -> _Rows:
                            device=ctx.device).broadcast_to((cap,))
     if not vals.dtype.is_floating_point:
         vals = vals.to(torch.float32)
-    key_ids = torch.stack(
-        [child.ids[:, child.dims.index(k)] for k in op.keys], dim=-1
-    ) if op.keys else torch.zeros((cap, 0), dtype=torch.int32,
-                                  device=ctx.device)
-    codes = _codes_for(_Rows(tuple(op.keys), key_ids, child.valid, {}),
-                       tuple(op.keys), n)
-    perm, skey, n_valid = sort_row_codes(codes, child.valid)
+    key_ids = _id_cols(child, tuple(op.keys))
+    perm, skey, n_valid = sort_row_codes(_codes(key_ids, n), child.valid)
     is_new, seg = unique_row_runs(skey, n_valid)
     in_valid = torch.arange(cap, dtype=torch.int32,
                             device=ctx.device) < n_valid
@@ -1278,10 +1271,7 @@ class GenericExecutable:
                     "not a grid dimension of the rule body"
                 )
         cap = rows.ids.shape[0]
-        ids = torch.stack(
-            [rows.ids[:, rows.dims.index(d)] for d in key_dims], dim=-1
-        ) if key_dims else torch.zeros((cap, 0), dtype=torch.int32,
-                                       device=self.device)
+        ids = _id_cols(rows, key_dims)
         values = {}
         for p in vals:
             col = schema[p]
@@ -1356,12 +1346,6 @@ class GenericExecutable:
             values[p] = functools.reduce(monoid.combine, parts)
         return {"present": present, "values": values}
 
-    def _row_codes(self, ids: torch.Tensor) -> torch.Tensor:
-        try:
-            return row_codes(ids, self.domain)
-        except ValueError as err:
-            raise ExecutorError(str(err)) from err
-
     def _merge_rows(self, pred: str, outs, ctx: _Ctx) -> Dict[str, Any]:
         """Union-merge row outs: concatenate the slabs in rule order (which
         fixes the f32 sum order), dedupe by row code (representative-first),
@@ -1380,7 +1364,7 @@ class GenericExecutable:
         ids = torch.cat([o["ids"] for o in outs], dim=0)
         valid = torch.cat([o["present"] for o in outs], dim=0)
         cap = ids.shape[0]
-        perm, skey, n_valid = sort_row_codes(self._row_codes(ids), valid)
+        perm, skey, n_valid = sort_row_codes(_codes(ids, self.domain), valid)
         is_new, seg = unique_row_runs(skey, n_valid)
         in_valid = torch.arange(cap, dtype=torch.int32,
                                 device=self.device) < n_valid
@@ -1408,9 +1392,9 @@ class GenericExecutable:
         value column changed; ``changed`` also catches rows that
         disappeared (the presence-count check)."""
 
-        operm, oskey, onv = sort_row_codes(self._row_codes(old["ids"]),
+        operm, oskey, onv = sort_row_codes(_codes(old["ids"], self.domain),
                                            old["present"])
-        new_codes = self._row_codes(new["ids"])
+        new_codes = _codes(new["ids"], self.domain)
         pos = torch.searchsorted(oskey, new_codes, side="left")
         posc = torch.clamp(pos, max=oskey.shape[0] - 1)
         member = (pos < onv) & (oskey[posc] == new_codes)
@@ -1428,7 +1412,7 @@ class GenericExecutable:
         keys, vals = self.sigs[pred]
         present = entry["present"]
         rows = entry["ids"][present]
-        order = torch.argsort(self._row_codes(rows), stable=True)
+        order = torch.argsort(_codes(rows, self.domain), stable=True)
         return RowRelation(
             n=self.domain,
             key_positions=keys,
