@@ -1373,31 +1373,40 @@ ROWS_PR_ITERS = 30
 ROWS_PR_TAU = 1.5              # threshold, in units of 1/n
 
 
-def _capture_combines(run):
-    """``run()`` with every segment combine the executor calls recorded:
-    its ``(values, segment_ids, num_segments, op, edge_active)``."""
+def _capture_combines(run, keep=True):
+    """``(run(), calls)``, with every segment combine the executor made in
+    ``run()`` recorded as ``(caller, launches, inputs)``: the executor
+    function that called it, the kernel launches the call made, and (with
+    ``keep``) its ``(values, segment_ids, num_segments, op,
+    edge_active)``."""
 
     from repro_torch.core import executor
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
 
     real, calls = executor.segment_combine_sorted, []
 
     def record(values, ids, n, op="sum", *, edge_active=None, **kw):
-        calls.append((values, ids, n, op, edge_active))
-        return real(values, ids, n, op, edge_active=edge_active, **kw)
+        before = sc_kernel.launch_count
+        out = real(values, ids, n, op, edge_active=edge_active, **kw)
+        calls.append((sys._getframe(1).f_code.co_name,
+                      sc_kernel.launch_count - before,
+                      (values, ids, n, op, edge_active) if keep else None))
+        return out
 
     executor.segment_combine_sorted = record
     try:
-        run()
+        out = run()
     finally:
         executor.segment_combine_sorted = real
-    return calls
+    return out, calls
 
 
 def _row_site(site, call, launches):
     """The kernel at one row site's shapes (captured from the path): held
     against its plain version (``_check_combine``: max/min bit-equal, sums
     within their bar, two launches bit-identical), timed in turns with
-    it, and beside ``torch.segment_reduce`` on the valid prefix."""
+    it, and beside ``torch.segment_reduce`` on the valid prefix.
+    ``launches`` is the site's own count in the workload's counted run."""
 
     import torch
 
@@ -1408,7 +1417,7 @@ def _row_site(site, call, launches):
         segment_combine_reference,
     )
 
-    vals, ids, n, op, act = call
+    vals, ids, n, op, act = call[2]
     vals = vals.reshape(vals.shape[0], -1).contiguous()
     E, F = vals.shape
     tag = f"rows {site}: op={op} E={E} n={n}"
@@ -1422,8 +1431,10 @@ def _row_site(site, call, launches):
     lengths = torch.bincount(ids[:n_valid].long(), minlength=n)
     library_ms = _time_ms(lambda: torch.segment_reduce(
         vals[:n_valid], op, lengths=lengths), 10)
-    # Each input read once (values, ids, the mask), the output written once.
-    bytes_moved = E * (4 * F + 4 + 1) + n * 4 * F
+    # The mask of every slot read once, the values and ids of the active
+    # rows only (the rest of the slab is the inactive suffix), the output
+    # written once.
+    bytes_moved = E + n_valid * (4 * F + 4) + n * 4 * F
     entry = {"site": site, "op": op, "E": E, "F": F, "n": n,
              "valid_rows": n_valid, "launches": launches,
              "max_abs_err": err, "ms": (turns[0] + turns[3]) / 2,
@@ -1489,29 +1500,37 @@ def phase_rows(args, device, report) -> None:
     rng = np.random.default_rng(args.seed + 3)
 
     def run_twice(ex, max_iters, **run_kw):
-        """(cold run, warm run, B1 launches in the cold run, peak bytes
-        above the start)."""
+        """(cold run, warm run, B1 launches in the cold run, those launches
+        by the executor function that made them, peak bytes above the
+        start)."""
 
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         sc_kernel.reset_launch_count()
-        cold = ex.run(max_iters=max_iters, **run_kw)
+        cold, calls = _capture_combines(
+            lambda: ex.run(max_iters=max_iters, **run_kw), keep=False)
         launches = sc_kernel.launch_count
+        by_site = {}
+        for caller, n_launches, _ in calls:
+            by_site[caller] = by_site.get(caller, 0) + n_launches
+        if sum(by_site.values()) != launches:
+            raise AssertionError(f"{launches} segment-combine launches, "
+                                 f"{by_site} of them by call site")
         res = ex.run(max_iters=max_iters, **run_kw)
         peak = torch.cuda.max_memory_allocated() - base
         for r in (cold, res):
             if r.storage_fallback:
                 raise AssertionError("a row-table run fell back to dense")
-        return cold, res, launches, peak
+        return cold, res, launches, by_site, peak
 
-    def line(tag, ex, cold, res, launches, peak):
+    def line(tag, ex, cold, res, launches, by_site, peak):
         print(f"rows: {tag}: {res.iterations} iterations "
               f"{tuple(res.phase_iterations)}, "
               f"{res.seconds / res.iterations * 1e3:.3f} ms/iteration warm "
               f"(first run {cold.seconds / cold.iterations * 1e3:.3f}), "
-              f"{launches} segment-combine launches, peak memory above the "
-              f"start {peak} B")
+              f"{launches} segment-combine launches "
+              f"{json.dumps(by_site)}, peak memory above the start {peak} B")
 
     def plan_line(tag, ex):
         print(f"rows: {tag} plan: caps {ex.row_caps}, intermediate "
@@ -1539,9 +1558,9 @@ def phase_rows(args, device, report) -> None:
         for on_device in (False, True):
             tag = (f"tc semi_naive={semi_naive} "
                    f"{'device' if on_device else 'host'} driver")
-            cold, res, launches, peak = run_twice(ex, 4 * ROWS_CHAIN,
-                                                  on_device=on_device)
-            line(tag, ex, cold, res, launches, peak)
+            cold, res, launches, by_site, peak = run_twice(
+                ex, 4 * ROWS_CHAIN, on_device=on_device)
+            line(tag, ex, cold, res, launches, by_site, peak)
             for r in (cold, res):
                 if not (r.converged
                         and np.array_equal(r.state["tc"].tuples(), want_tc)):
@@ -1573,9 +1592,10 @@ def phase_rows(args, device, report) -> None:
                                        device=device)},
         semi_naive=True, hw=H100_SXM, device=device)
     plan_line("cc", ex)
-    cold, res, launches, peak = run_twice(ex, 4 * n, on_device=True)
+    cold, res, launches, by_site, peak = run_twice(ex, 4 * n,
+                                                   on_device=True)
     line(f"cc semi-naive, {edge.count()} directed edges, {k} components",
-         ex, cold, res, launches, peak)
+         ex, cold, res, launches, by_site, peak)
     for r in (cold, res):
         if not (r.converged and r.state["cc"].present.all()
                 and np.array_equal(r.state["cc"].values[1].cpu().numpy(),
@@ -1588,8 +1608,12 @@ def phase_rows(args, device, report) -> None:
     launch_counts["cc"] = launches
     step, state = ex.phase_step_fn()
     _profile(lambda: step(state, 1), "row cc iteration", 1)
-    calls = _capture_combines(lambda: step(state, 1))
-    sites.append(_row_site("cc groupby", calls[0], launches))
+    _, calls = _capture_combines(lambda: step(state, 1))
+    if [c[0] for c in calls] != ["_groupby_rows"]:
+        raise AssertionError(f"a cc iteration ran combines from "
+                             f"{[c[0] for c in calls]}")
+    sites.append(_row_site("cc groupby", calls[0],
+                           by_site["_groupby_rows"]))
     del edge, ex, cold, res, step, state, calls
 
     # PageRank -> threshold -> reach, every predicate on row tables.
@@ -1607,9 +1631,10 @@ def phase_rows(args, device, report) -> None:
              np.full(n, 0.15 / n, np.float32), device=device)},
         storage="row-table", hw=H100_SXM, device=device)
     plan_line("pagerank", ex)
-    cold, res, launches, peak = run_twice(ex, ROWS_PR_ITERS, on_device=True)
+    cold, res, launches, by_site, peak = run_twice(ex, ROWS_PR_ITERS,
+                                                   on_device=True)
     line(f"pagerank -> threshold -> reach, {src.shape[0]} edges", ex, cold,
-         res, launches, peak)
+         res, launches, by_site, peak)
     if launches < 2 * ROWS_PR_ITERS:
         raise AssertionError(f"pagerank: {launches} segment-combine "
                              f"launches in {ROWS_PR_ITERS} iterations")
@@ -1651,12 +1676,15 @@ def phase_rows(args, device, report) -> None:
           f" relative margin of tau")
     step, state = ex.phase_step_fn()
     _profile(lambda: step(state, 1), "row pagerank iteration", 1)
-    calls = _capture_combines(lambda: step(state, 1))
-    if [c[3] for c in calls] != ["sum", "sum"]:
+    _, calls = _capture_combines(lambda: step(state, 1))
+    if [(c[0], c[2][3]) for c in calls] != [("_groupby_rows", "sum"),
+                                            ("_merge_rows", "sum")]:
         raise AssertionError(f"a pagerank iteration ran combines "
-                             f"{[c[3] for c in calls]}")
-    sites.append(_row_site("pagerank groupby", calls[0], launches))
-    sites.append(_row_site("pagerank merge", calls[1], launches))
+                             f"{[(c[0], c[2][3]) for c in calls]}")
+    sites.append(_row_site("pagerank groupby", calls[0],
+                           by_site["_groupby_rows"]))
+    sites.append(_row_site("pagerank merge", calls[1],
+                           by_site["_merge_rows"]))
     del ex, cold, res, step, state, calls
 
     print(f"rows: segment-combine launches by workload "

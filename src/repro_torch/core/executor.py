@@ -75,6 +75,7 @@ from repro_torch.core.physical import (
     merging_exchange,
     row_codes,
     row_linear_index,
+    rows_to_grid,
     segment_combine_sorted,
     sort_row_codes,
     sparse_hash_sort_exchange,
@@ -573,25 +574,23 @@ def _rows_to_inter(rows: _Rows, ctx: _Ctx) -> _Inter:
     in a spill cell past the grid, which is sliced off."""
 
     n, k = ctx.n, len(rows.dims)
+    present = rows_to_grid(rows.ids, rows.valid, n)
     if k == 0:
-        pres = rows.valid.any()
         cols = {
             c: torch.where(rows.valid, g, torch.zeros_like(g)).sum()
             for c, g in rows.cols.items()
         }
-        return _Inter((), pres, cols)
+        return _Inter((), present, cols)
     size = n ** k
     cap = rows.ids.shape[0]
     lin = row_linear_index(rows.ids, rows.valid, n)
-    present = torch.zeros(size + 1, dtype=torch.bool, device=ctx.device)
-    present[lin] = True
     cols = {}
     for c, g in rows.cols.items():
         g = torch.as_tensor(g, device=ctx.device).broadcast_to((cap,))
         grid = torch.zeros(size + 1, dtype=g.dtype, device=ctx.device)
         grid[lin] = g
         cols[c] = grid[:size].reshape((n,) * k)
-    return _Inter(rows.dims, present[:size].reshape((n,) * k), cols)
+    return _Inter(rows.dims, present, cols)
 
 
 def _coerce_pair(l, r, ctx: _Ctx):

@@ -586,11 +586,7 @@ def row_linear_index(ids: torch.Tensor, valid: torch.Tensor,
     into ``n**k + 1`` cells writes and then slices off.  Only meaningful
     when the dense grid is materializable."""
 
-    cap, k = ids.shape
-    lin = torch.zeros(cap, dtype=torch.int64, device=ids.device)
-    for i in range(k):
-        lin = lin * n + ids[:, i].to(torch.int64)
-    return torch.where(valid, lin, int(n) ** k)
+    return torch.where(valid, row_codes(ids, n), int(n) ** ids.shape[1])
 
 
 def rows_to_grid(ids: torch.Tensor, valid: torch.Tensor,
