@@ -72,8 +72,41 @@ Phases, each of which exits nonzero on failure:
    one), which is held against its plain version at those sites' shapes
    and timed there.  Iterations, ms per iteration, peak memory, planned
    caps and plan notes; one iteration of each profiled.
-   Phases 5, 6 and 7 must give back all the card memory they took.
-8. ``lm``: the flash-attention forward kernel against its plain version
+8. ``ft``: fault tolerance, every run bit-equal to the uninterrupted one.
+   PageRank at the pagerank phase's size on the host driver with a
+   checkpoint of the ``(state, active)`` carry every 4 supersteps into a
+   temporary directory: crashes injected at supersteps 6 and 13, and a run
+   stopped at 10 and resumed from disk (the uninterrupted host-driver run
+   bit-equal to the device driver's); a checkpoint's bytes, the save's
+   device-to-host copy and the writer's I/O, ms per superstep with and
+   without checkpoints.  IMRU BGD on 2^20 records of 1280 features with a
+   crash at iteration 4.  The rows phase's forced-row PageRank ->
+   threshold -> reach pipeline with a crash in phase 1, and a crash at
+   phase 2's first step resumed from disk by the phase cursor.  The
+   injector raises on the host, which is what the drivers restore from.
+   Sizes from ``--log2-vertices`` and ``--supersteps`` (at least 14),
+   ``--imru-log2-records`` (at most 20 used) and ``--rows-log2-vertices``.
+9. ``chunks``: out-of-core streaming.  The same pipeline at n = 65,536
+   with 256 distinct out-edges a vertex (2^24 edges, a 151 MB edge slab),
+   its edge ``RowRelation`` on the host, streamed from pinned memory in
+   ``chunks={"edge": m}`` for m in {4, 7} and with ``hbm_budget`` a
+   quarter of the slab (the planner picks m): ``hot`` exact to float64
+   outside the 1e-5 margin of tau, ``reach`` its closure, ranks within
+   1e-6 relative L1 of the reference run and 1e-5 of float64; two runs at
+   m = 4 bit-identical, and one with a crash in the middle of a chunk
+   stream; one chunk skipped in one iteration must break the bar.  For
+   each m: warm ms per iteration, peak memory, host-to-device bytes and
+   their rate beside a plain pinned copy of the same bytes, from one
+   profiled iteration the copy and compute streams' busy times and the
+   copy time under compute, and a rank iteration timed in turns with the
+   same iteration on chunks already on the card.  B1 at the chunk-fold site (at least m launches a rank
+   iteration) is held to its plain version there and timed.  The planner
+   caps a row slab at 2^20 rows, as the reference's does, so the 2^24-edge
+   slab compiles only chunked (m = 1 must refuse): m = 1, 4, 7 are held
+   against the unchunked run at 2^20 edges, and the 2^24-edge runs against
+   the first m = 4 run.  Size from ``--rows-log2-vertices``.
+   Phases 5 to 9 must give back all the card memory they took.
+10. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
    held per element to the kernel's own error bound, reaching every route
@@ -96,7 +129,7 @@ Phases, each of which exits nonzero on failure:
    ``mma.sync`` kernel, launched outside the wrapper, in turns with the
    kernel), its plain version and PyTorch's SDPA at the main path's
    attention shape.
-9. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
+11. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
    their plain version (``attention_backward`` in f32 on the same inputs
    and statistics) on the forward's sweep shapes with a head dim up to
    160 and rows that see no key, f32 and bf16, both layouts, reaching
@@ -143,6 +176,7 @@ neither of those two lines is printed.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -661,6 +695,15 @@ def power_law_graph(n: int, mean_degree: float, seed: int):
     return src, dst
 
 
+@functools.lru_cache(maxsize=1)
+def _webgraph(n: int, seed: int):
+    """``power_law_graph(n, WEBMAP_MEAN_OUT_DEGREE, seed)``, made once for
+    the pagerank phase and the ft phase after it (1.5 GB of host memory at
+    2^25 vertices)."""
+
+    return power_law_graph(n, WEBMAP_MEAN_OUT_DEGREE, seed)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: PageRank, the main path
 # ---------------------------------------------------------------------------
@@ -767,7 +810,7 @@ def phase_pagerank(args, device, report) -> None:
 
     n = 1 << args.log2_vertices
     t0 = time.perf_counter()
-    src, dst = power_law_graph(n, WEBMAP_MEAN_OUT_DEGREE, args.seed)
+    src, dst = _webgraph(n, args.seed)
     outdeg = np.bincount(src, minlength=n).astype(np.float32)
     max_in = int(np.bincount(dst, minlength=n).max())
     print(f"pagerank: graph n={n} e={src.shape[0]} max in-degree {max_in} "
@@ -1032,6 +1075,21 @@ def _imru_oracle(X, y, lr, iters, bounds):
     return w, IMRU_LAMBDA * math.sqrt(var)
 
 
+def _bgd_task(d, lr, device, map_fn=None):
+    """BGD (the paper's §5.1 task) as an IMRU task on ``device``."""
+
+    import torch
+
+    from repro_torch.core.imru import IMRUTask
+
+    return IMRUTask(
+        init_model=lambda: torch.zeros(d, device=device),
+        map=map_fn or (lambda rec, m: (rec["x"] @ m - rec["y"]) @ rec["x"]),
+        update=lambda j, m, g: m - lr * g,
+        tol=0.0,
+    )
+
+
 def phase_imru(args, device) -> None:
     """BGD through ``compile_imru`` (the planner's plan for the H100) and
     ``ex.run``, on the device driver and the host driver, held against a
@@ -1045,7 +1103,7 @@ def phase_imru(args, device) -> None:
 
     from repro_torch.core.executor import microbatch_slices
     from repro_torch.core.hardware import H100_SXM
-    from repro_torch.core.imru import IMRUTask, compile_imru
+    from repro_torch.core.imru import compile_imru
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the f32 bar assumes f32")
@@ -1056,13 +1114,7 @@ def phase_imru(args, device) -> None:
     lr = IMRU_LR_SCALE / n
 
     def bgd(map_fn=None):
-        return IMRUTask(
-            init_model=lambda: torch.zeros(d, device=device),
-            map=map_fn or (lambda rec, m: (rec["x"] @ m - rec["y"])
-                           @ rec["x"]),
-            update=lambda j, m, g: m - lr * g,
-            tol=0.0,
-        )
+        return _bgd_task(d, lr, device, map_fn)
 
     ex = compile_imru(bgd(), records, hw=H100_SXM, device=device)
     if ex.plan.microbatches < 3:
@@ -1373,11 +1425,12 @@ ROWS_PR_ITERS = 30
 ROWS_PR_TAU = 1.5              # threshold, in units of 1/n
 
 
-def _capture_combines(run, keep=True):
+def _capture_combines(run, keep=True, depth=1):
     """``(run(), calls)``, with every segment combine the executor made in
     ``run()`` recorded as ``(caller, launches, inputs)``: the executor
-    function that called it, the kernel launches the call made, and (with
-    ``keep``) its ``(values, segment_ids, num_segments, op,
+    function that called it (with ``depth`` > 1, the names of that many
+    callers joined by "/", the nearest first), the kernel launches the call
+    made, and (with ``keep``) its ``(values, segment_ids, num_segments, op,
     edge_active)``."""
 
     from repro_torch.core import executor
@@ -1388,8 +1441,11 @@ def _capture_combines(run, keep=True):
     def record(values, ids, n, op="sum", *, edge_active=None, **kw):
         before = sc_kernel.launch_count
         out = real(values, ids, n, op, edge_active=edge_active, **kw)
-        calls.append((sys._getframe(1).f_code.co_name,
-                      sc_kernel.launch_count - before,
+        frame, names = sys._getframe(1), []
+        while frame is not None and len(names) < depth:
+            names.append(frame.f_code.co_name)
+            frame = frame.f_back
+        calls.append(("/".join(names), sc_kernel.launch_count - before,
                       (values, ids, n, op, edge_active) if keep else None))
         return out
 
@@ -1401,7 +1457,7 @@ def _capture_combines(run, keep=True):
     return out, calls
 
 
-def _row_site(site, call, launches):
+def _row_site(site, call, launches, phase="rows"):
     """The kernel at one row site's shapes (captured from the path): held
     against its plain version (``_check_combine``: max/min bit-equal, sums
     within their bar, two launches bit-identical), timed in turns with
@@ -1420,7 +1476,7 @@ def _row_site(site, call, launches):
     vals, ids, n, op, act = call[2]
     vals = vals.reshape(vals.shape[0], -1).contiguous()
     E, F = vals.shape
-    tag = f"rows {site}: op={op} E={E} n={n}"
+    tag = f"{phase} {site}: op={op} E={E} n={n}"
     err, _ = _check_combine(vals, ids, n, act, (), op, tag)
     n_valid = int(act.sum())
     ker = lambda: segment_combine_cuda(vals, ids, n, op,  # noqa: E731
@@ -1443,13 +1499,100 @@ def _row_site(site, call, launches):
              "over the valid prefix",
              "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes"}
-    print(f"rows: segment_combine at the {site} site, E={E} ({n_valid} "
+    print(f"{phase}: segment_combine at the {site} site, E={E} ({n_valid} "
           f"valid) F={F} n={n} op={op}: kernel {entry['ms']:.3f} ms, plain "
           f"{entry['plain_ms']:.3f} ms (in turns: "
           f"{', '.join(f'{t:.3f}' for t in turns)}), segment_reduce "
           f"{library_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms; max abs "
           f"err vs plain {err}")
     return entry
+
+
+def _row_pagerank_rels(n, src, dst, device, edge_device=None):
+    """The EDB of the PageRank -> threshold -> reach pipeline: the edges
+    ``src -> dst`` as a ``RowRelation`` on ``edge_device`` (by default the
+    card) and a dense ``node`` (initial rank, out-degree, base rank)."""
+
+    import numpy as np
+
+    from repro_torch.core.executor import Relation, RowRelation
+
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    return {"edge": RowRelation.from_columns(n, src, dst,
+                                             device=edge_device or device),
+            "node": Relation.from_columns(
+                n, np.arange(n), np.full(n, 1.0 / n, np.float32), deg,
+                np.full(n, 0.15 / n, np.float32), device=device)}
+
+
+def _row_pagerank(n, rels, device, tau=ROWS_PR_TAU, **kw):
+    """The pipeline (threshold ``tau`` / n) on forced row tables over
+    ``rels`` (``_row_pagerank_rels``)."""
+
+    from repro_torch.core.executor import compile_program
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.listings import pagerank_threshold_program
+
+    return compile_program(pagerank_threshold_program(tau=tau / n),
+                           dict(rels), storage="row-table", hw=H100_SXM,
+                           device=device, **kw)
+
+
+def _row_pagerank_edges(n, degree, rng):
+    """``degree`` random out-edges a vertex, repeated edges merged."""
+
+    import numpy as np
+
+    src = np.repeat(np.arange(n), degree)
+    dst = rng.integers(0, n, degree * n)
+    pairs = np.unique(src * n + dst)
+    return pairs // n, pairs % n
+
+
+def _pipeline_oracle(n, src, dst, iters, tau=ROWS_PR_TAU):
+    """(float64 ranks after ``iters`` iterations, the transposed adjacency,
+    the vertices within the 1e-5 relative margin of the threshold ``tau`` /
+    n)."""
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+
+    deg = np.bincount(src, minlength=n).astype(np.float64)
+    adj_t = coo_matrix((np.ones(src.shape[0]), (dst, src)),
+                       shape=(n, n)).tocsr()
+    r64 = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        r64 = 0.85 * (adj_t @ (r64 / deg)) + 0.15 / n
+    tau = tau / n
+    return r64, adj_t, np.abs(r64 - tau) <= PAGERANK_L1_TOL * tau
+
+
+def _reach_closure(adj_t, hot):
+    """The vertices reachable from ``hot`` through ``hot`` vertices."""
+
+    reach = hot.copy()
+    while True:
+        new = reach | (((adj_t @ reach.astype(float)) > 0) & hot)
+        if (new == reach).all():
+            return reach
+        reach = new
+
+
+def _pipeline_sets(res, n):
+    """(ranks as float64, hot as a bool mask, reach as a bool mask) of a
+    pipeline result; the ranks must cover every vertex."""
+
+    import numpy as np
+
+    rank = res.state["rank"]
+    if not np.array_equal(rank.tuples()[:, 0], np.arange(n)):
+        raise AssertionError("pagerank: rank does not cover every vertex")
+    masks = []
+    for p in ("hot", "reach"):
+        m = np.zeros(n, bool)
+        m[res.state[p].tuples()[:, 0]] = True
+        masks.append(m)
+    return (rank.values[1].double().cpu().numpy(),) + tuple(masks)
 
 
 def phase_rows(args, device, report) -> None:
@@ -1487,7 +1630,6 @@ def phase_rows(args, device, report) -> None:
     from repro_torch.core.hardware import H100_SXM
     from repro_torch.core.listings import (
         connected_components_program,
-        pagerank_threshold_program,
         transitive_closure_program,
     )
     from repro_torch.kernels.segment_combine import kernel as sc_kernel
@@ -1617,19 +1759,8 @@ def phase_rows(args, device, report) -> None:
     del edge, ex, cold, res, step, state, calls
 
     # PageRank -> threshold -> reach, every predicate on row tables.
-    src = np.repeat(np.arange(n), ROWS_PR_DEGREE)
-    dst = rng.integers(0, n, ROWS_PR_DEGREE * n)
-    pairs = np.unique(src * n + dst)
-    src, dst = pairs // n, pairs % n
-    deg = np.bincount(src, minlength=n).astype(np.float32)
-    tau = ROWS_PR_TAU / n
-    ex = compile_program(
-        pagerank_threshold_program(tau=tau),
-        {"edge": RowRelation.from_columns(n, src, dst, device=device),
-         "node": Relation.from_columns(
-             n, np.arange(n), np.full(n, 1.0 / n, np.float32), deg,
-             np.full(n, 0.15 / n, np.float32), device=device)},
-        storage="row-table", hw=H100_SXM, device=device)
+    src, dst = _row_pagerank_edges(n, ROWS_PR_DEGREE, rng)
+    ex = _row_pagerank(n, _row_pagerank_rels(n, src, dst, device), device)
     plan_line("pagerank", ex)
     cold, res, launches, by_site, peak = run_twice(ex, ROWS_PR_ITERS,
                                                    on_device=True)
@@ -1639,31 +1770,14 @@ def phase_rows(args, device, report) -> None:
         raise AssertionError(f"pagerank: {launches} segment-combine "
                              f"launches in {ROWS_PR_ITERS} iterations")
     launch_counts["pagerank"] = launches
-    adj_t = coo_matrix((np.ones(src.shape[0]), (dst, src)), shape=(n, n))
-    adj_t = adj_t.tocsr()
-    r64 = np.full(n, 1.0 / n)
-    for _ in range(ROWS_PR_ITERS):
-        r64 = 0.85 * (adj_t @ (r64 / deg)) + 0.15 / n
-    margin = np.abs(r64 - tau) <= PAGERANK_L1_TOL * tau
+    r64, adj_t, margin = _pipeline_oracle(n, src, dst, ROWS_PR_ITERS)
+    tau = ROWS_PR_TAU / n
     for r in (cold, res):
-        rank = r.state["rank"]
-        if not np.array_equal(rank.tuples()[:, 0], np.arange(n)):
-            raise AssertionError("pagerank: rank does not cover every vertex")
-        got = rank.values[1].double().cpu().numpy()
+        got, hot, got_reach = _pipeline_sets(r, n)
         rel_l1 = float(np.abs(got - r64).sum() / np.abs(r64).sum())
-        hot = np.zeros(n, bool)
-        hot[r.state["hot"].tuples()[:, 0]] = True
         # Inside the margin the port's own choice stands; reach follows hot.
         want_hot = np.where(margin, hot, r64 > tau)
-        reach = want_hot.copy()
-        while True:
-            new = reach | (((adj_t @ reach.astype(np.float64)) > 0)
-                           & want_hot)
-            if (new == reach).all():
-                break
-            reach = new
-        got_reach = np.zeros(n, bool)
-        got_reach[r.state["reach"].tuples()[:, 0]] = True
+        reach = _reach_closure(adj_t, want_hot)
         if not (r.phase_iterations[0] == ROWS_PR_ITERS
                 and rel_l1 <= PAGERANK_L1_TOL
                 and np.array_equal(hot, want_hot)
@@ -1696,7 +1810,593 @@ def phase_rows(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the dense LM's serving path (phi4-mini-3.8b)
+# Phase 8: fault tolerance (checkpoints, crash-restore, resume)
+# ---------------------------------------------------------------------------
+
+FT_EVERY = 4                   # supersteps between checkpoints
+FT_CRASHES = (6, 13)           # supersteps the injector crashes at
+FT_STOP = 10                   # superstep a run stops at, to resume from
+FT_IMRU_LOG2 = 20              # records of the IMRU run (cut from 2^23)
+FT_IMRU_CRASH = 4
+FT_ROWS_CRASH = 12             # global step of the generic engine's crash
+
+
+def _tree_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _same_rows(a, b, preds=("rank", "hot", "reach")) -> bool:
+    """Two generic-engine results equal bit for bit (rows and values)."""
+
+    import torch
+
+    for p in preds:
+        x, y = a.state[p], b.state[p]
+        if not torch.equal(x.rows, y.rows):
+            return False
+        for k in x.values:
+            if not torch.equal(x.values[k], y.values[k]):
+                return False
+    return True
+
+
+def phase_ft(args, device) -> None:
+    """Fault tolerance on the card, every run bit-equal to the uninterrupted
+    one (the injector raises on the host; the drivers restore from disk):
+
+    * PageRank at the pagerank phase's size through ``compile_pregel`` on
+      the host driver with a checkpoint every FT_EVERY supersteps (the
+      ``(state, active)`` carry) into a temporary directory: crashes at
+      supersteps FT_CRASHES, and a run stopped at FT_STOP and resumed from
+      disk; the uninterrupted host-driver run must equal the device
+      driver's.  Prints a checkpoint's bytes, the save's synchronous
+      device-to-host copy and the writer's I/O in ms, and ms per superstep
+      with and without checkpoints.
+    * IMRU BGD on 2^FT_IMRU_LOG2 records of the imru phase's 1280
+      features, a crash at iteration FT_IMRU_CRASH (bit-equal, or within
+      the imru phase's bar if cuBLAS is not run-to-run reproducible, with
+      the reason printed).
+    * The rows phase's forced-row PageRank -> threshold -> reach pipeline
+      at n = 2^--rows-log2-vertices: a crash in phase 1, then a crash at
+      phase 2's first step with no restarts left and a phase-cursor resume
+      from disk whose phase-1 crash point never fires."""
+
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.carry import graph_from_numpy
+    from repro_torch.checkpoint import CheckpointStore, latest_step
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.imru import compile_imru
+    from repro_torch.core.pregel import compile_pregel
+    from repro_torch.ft import FailureInjector
+
+    steps = args.supersteps
+    if steps <= max(FT_CRASHES):
+        raise ValueError(f"--supersteps must exceed {max(FT_CRASHES)}")
+    n = 1 << args.log2_vertices
+    src, dst = _webgraph(n, args.seed)
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    g = graph_from_numpy(n, src, dst, outdeg, device=device)
+    ex = compile_pregel(pagerank_program(n), g, device=device)
+    dev_run = ex.run(max_iters=steps)
+    host = ex.run(max_iters=steps, on_device=False)
+
+    def same(res):
+        return (torch.equal(res.state[0], dev_run.state[0])
+                and torch.equal(res.state[1], dev_run.state[1]))
+
+    if not same(host):
+        raise AssertionError("ft: the host driver disagrees with the device "
+                             "driver")
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        ck = ex.run(max_iters=steps, checkpoint_dir=str(root / "every"),
+                    checkpoint_every=FT_EVERY)
+        ckpt_bytes = _tree_bytes(
+            root / "every" / f"step_{latest_step(str(root / 'every')):08d}")
+        inj = FailureInjector(crashes=FT_CRASHES)
+        crashed = ex.run(max_iters=steps, checkpoint_dir=str(root / "crash"),
+                         checkpoint_every=FT_EVERY, injector=inj)
+        stopped = ex.run(max_iters=FT_STOP,
+                         checkpoint_dir=str(root / "resume"),
+                         checkpoint_every=FT_EVERY)
+        resumed = ex.run(max_iters=steps,
+                         checkpoint_dir=str(root / "resume"), resume=True)
+        # One save alone: the synchronous copy to the host, then the I/O.
+        store = CheckpointStore(str(root / "timing"), keep=1)
+        save_ms, io_ms = [], []
+        for k in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store.save(k, dev_run.state)
+            t1 = time.perf_counter()
+            store.wait()
+            save_ms.append((t1 - t0) * 1e3)
+            io_ms.append((time.perf_counter() - t1) * 1e3)
+    for tag, res in (("with checkpoints", ck), ("crashed", crashed),
+                     ("resumed", resumed)):
+        if not same(res):
+            raise AssertionError(f"ft: the pagerank run {tag} is not "
+                                 f"bit-equal to the uninterrupted one")
+    if crashed.restarts != len(FT_CRASHES) or \
+            [e.step for e in inj.fired] != list(FT_CRASHES):
+        raise AssertionError(f"ft: {crashed.restarts} restarts, fired "
+                             f"{inj.fired}")
+    if stopped.iterations != FT_STOP or \
+            resumed.iterations != steps - FT_STOP:
+        raise AssertionError(f"ft: stopped after {stopped.iterations}, "
+                             f"resumed for {resumed.iterations}")
+    per = lambda r: r.seconds / r.iterations * 1e3  # noqa: E731
+    print(f"ft: pagerank n={n} e={src.shape[0]}, {steps} supersteps: host "
+          f"driver {per(host):.3f} ms/superstep (device driver "
+          f"{per(dev_run):.3f}), with a checkpoint every {FT_EVERY} "
+          f"{per(ck):.3f}; crashes at {FT_CRASHES}: {crashed.restarts} "
+          f"restarts, {crashed.seconds:.3f} s in all (uninterrupted "
+          f"{ck.seconds:.3f}); stopped at {FT_STOP} and resumed from disk for "
+          f"{resumed.iterations} ({per(resumed):.3f} ms/superstep); all "
+          f"bit-equal to the device driver's ranks")
+    print(f"ft: a checkpoint of the (state, active) carry {ckpt_bytes} B; "
+          f"a save's device-to-host copy {save_ms[-1]:.3f} ms (runs "
+          f"{', '.join(f'{t:.3f}' for t in save_ms)}), the writer's I/O "
+          f"{io_ms[-1]:.3f} ms ({', '.join(f'{t:.3f}' for t in io_ms)}): "
+          f"{ckpt_bytes / io_ms[-1] / 1e6:.3f} GB/s to disk")
+    del g, ex, dev_run, host, ck, crashed, stopped, resumed
+    torch.cuda.empty_cache()
+
+    # IMRU: the model checkpointed, a crash, bit-equal.
+    n_rec = 1 << min(FT_IMRU_LOG2, args.imru_log2_records)
+    records, _ = _imru_records(n_rec, IMRU_FEATURES, args.seed, device)
+    lr = IMRU_LR_SCALE / n_rec
+    ex = compile_imru(_bgd_task(IMRU_FEATURES, lr, device), records,
+                      hw=H100_SXM, device=device)
+    clean = ex.run(max_iters=IMRU_ITERATIONS, on_device=False,
+                   straggler_fallback=False)
+    with tempfile.TemporaryDirectory() as root:
+        crashed = ex.run(max_iters=IMRU_ITERATIONS, checkpoint_dir=root,
+                         checkpoint_every=2,
+                         injector=FailureInjector(crashes=(FT_IMRU_CRASH,)),
+                         straggler_fallback=False)
+    if crashed.restarts != 1:
+        raise AssertionError(f"ft: imru restarted {crashed.restarts} times")
+    if torch.equal(crashed.state, clean.state):
+        verdict = "bit-equal to the uninterrupted run"
+    else:
+        size = n_rec // ex.plan.microbatches
+        bounds = [(s, min(s + size, n_rec)) for s in range(0, n_rec, size)]
+        lr32 = float(torch.tensor(lr, dtype=torch.float32))
+        oracle, bar = _imru_oracle(records["x"], records["y"], lr32,
+                                   IMRU_ITERATIONS, bounds)
+        errs = [float((r.state.double() - oracle).norm())
+                for r in (clean, crashed)]
+        verdict = (f"not bit-equal (cuBLAS is not run-to-run reproducible "
+                   f"here): ||m - m64|| {errs[1]:.4e}, uninterrupted "
+                   f"{errs[0]:.4e}, bar {bar:.4e}")
+        if max(errs) > bar:
+            raise AssertionError(f"ft: imru after a crash: {verdict}")
+    print(f"ft: imru {n_rec} records x {IMRU_FEATURES}, "
+          f"{ex.plan.microbatches} microbatch(es), crash at iteration "
+          f"{FT_IMRU_CRASH}: {crashed.restarts} restart, {verdict}; "
+          f"{crashed.seconds / IMRU_ITERATIONS * 1e3:.3f} ms/iteration with "
+          f"a checkpoint every 2 (uninterrupted host driver "
+          f"{clean.seconds / IMRU_ITERATIONS * 1e3:.3f})")
+    del records, ex, clean, crashed
+    torch.cuda.empty_cache()
+
+    # The generic engine on row tables: a crash in phase 1, then a
+    # phase-cursor resume from disk.
+    n = 1 << args.rows_log2_vertices
+    src, dst = _row_pagerank_edges(n, ROWS_PR_DEGREE,
+                                   np.random.default_rng(args.seed + 5))
+    rels = _row_pagerank_rels(n, src, dst, device)
+    clean = _row_pagerank(n, rels, device).run(max_iters=ROWS_PR_ITERS)
+    rank_iters = clean.phase_iterations[0]
+    with tempfile.TemporaryDirectory() as root:
+        inj = FailureInjector(crashes=(FT_ROWS_CRASH,))
+        crashed = _row_pagerank(n, rels, device).run(
+            max_iters=ROWS_PR_ITERS, checkpoint_dir=root + "/a",
+            checkpoint_every=FT_EVERY, injector=inj)
+        try:
+            _row_pagerank(n, rels, device).run(
+                max_iters=ROWS_PR_ITERS, checkpoint_dir=root + "/b",
+                checkpoint_every=FT_EVERY,
+                injector=FailureInjector(crashes=(rank_iters,)),
+                max_restarts=0)
+            raise AssertionError("ft: the phase-2 crash did not fire")
+        except RuntimeError as err:
+            if "injected device failure" not in str(err):
+                raise
+        trap = FailureInjector(crashes=(FT_ROWS_CRASH,))
+        resumed = _row_pagerank(n, rels, device).run(
+            max_iters=ROWS_PR_ITERS, checkpoint_dir=root + "/b",
+            checkpoint_every=FT_EVERY, resume=True, injector=trap)
+    if crashed.restarts != 1 or not _same_rows(crashed, clean):
+        raise AssertionError("ft: the row pipeline after a crash differs")
+    if trap.fired or resumed.phase_iterations != clean.phase_iterations \
+            or not _same_rows(resumed, clean):
+        raise AssertionError(f"ft: the row pipeline resumed in phase 2 "
+                             f"differs (fired {trap.fired})")
+    print(f"ft: row pipeline n={n}, {src.shape[0]} edges, phases "
+          f"{clean.phase_iterations}: crash at step {FT_ROWS_CRASH} "
+          f"restored ({crashed.restarts} restart, "
+          f"{crashed.seconds:.3f} s against {clean.seconds:.3f}), and a "
+          f"crash at phase 2's first step resumed from disk in phase 2 "
+          f"({resumed.iterations} iterations run, the phase-1 trap never "
+          f"fired): both bit-equal to the uninterrupted run")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: out-of-core chunk streaming from pinned host memory
+# ---------------------------------------------------------------------------
+
+CHUNKS_DEGREE = 256            # out-degree: 2^24 edges at n = 65,536
+CHUNKS_ITERS = 10              # PageRank iterations of each run
+# Threshold in units of 1/n.  256 out-edges a vertex give in-degrees of
+# 256 +- 16, so ranks of (1 +- 0.05) / n: the rows phase's 1.5 would leave
+# no vertex hot.
+CHUNKS_TAU = 1.05
+# The planner caps a row slab at 2^20 rows (the reference's _ROW_CAP_MAX),
+# and an EDB past its cap compiles only chunked: the chunk counts held
+# against an unchunked run do so at the rows phase's out-degree (2^20
+# edges); the 2^24-edge slab streams in CHUNK_COUNTS_BIG and at the
+# planner's own count, with the join intermediate pinned to one pair an
+# edge (the planner's 2^22 would overflow a chunk's join).
+CHUNK_COUNTS = (1, 4, 7)
+CHUNK_COUNTS_BIG = (4, 7)
+CHUNKS_ROW_CAP = 1 << 24
+CHUNKS_RANK_RTOL = 1e-6        # ranks against the reference run (rel L1)
+CHUNKS_CRASH = (3, 2)          # (iteration, chunk) of the mid-stream crash
+
+
+def _distinct_out_edges(n, degree, rng):
+    """``degree`` distinct out-edges a vertex v: (a_v + k b_v) mod n for
+    k < degree, b_v odd (n a power of two, so the k give distinct ends)."""
+
+    import numpy as np
+
+    a = rng.integers(0, n, n)
+    b = 2 * rng.integers(0, n // 2, n) + 1
+    src = np.repeat(np.arange(n), degree)
+    dst = (np.repeat(a, degree) + np.tile(np.arange(degree), n)
+           * np.repeat(b, degree)) % n
+    return src, dst
+
+
+def _chunked_rank_step(ex):
+    """One rank iteration of a chunked pipeline (``phase_step_fn`` refuses
+    a chunked phase) and the state it starts from."""
+
+    state, materialized = ex._first_state()
+    phase = ex.phases[0]
+    inits = ex._run_rules_once(phase.init, state, materialized, 0)
+    for pred in phase.carried:
+        if pred in inits:
+            state[pred] = ex._init_entry(inits[pred])
+    return ex._chunked_phase_step(phase, materialized), state
+
+
+def _stream_overlap(fn):
+    """Device time of ``fn()`` by stream, from a profiler trace: (ms the
+    host-to-device copies take, ms the other streams are busy, ms of the
+    copies that lie under that busy time)."""
+
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    copies, busy = [], []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            copies.append(span)
+        else:
+            busy.append(span)
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    busy_u = union(busy)
+    under = 0.0
+    for a, b in union(copies):
+        for c, d in busy_u:
+            under += max(0.0, min(b, d) - max(a, c))
+    total = lambda u: sum(b - a for a, b in u) / 1e3  # noqa: E731
+    return total(union(copies)), total(busy_u), under / 1e3
+
+
+def phase_chunks(args, device, report) -> None:
+    """Out-of-core streaming on the card: the forced-row PageRank ->
+    threshold -> reach pipeline at n = 2^--rows-log2-vertices with distinct
+    out-edges (``_distinct_out_edges``), every run of CHUNKS_ITERS rank
+    iterations held to a float64 oracle (ranks within 1e-5 relative L1,
+    ``hot`` exact outside the 1e-5 relative margin of tau, ``reach`` the
+    closure through ``hot``) and to its reference run (ranks within
+    CHUNKS_RANK_RTOL relative L1):
+
+    * at the rows phase's out-degree (2^20 edges, the largest slab the
+      planner admits unchunked), ``chunks={"edge": m}`` for m in
+      CHUNK_COUNTS against the unchunked run;
+    * at CHUNKS_DEGREE (2^24 edges, a 151 MB slab, whose unchunked compile
+      must raise), the edge ``RowRelation`` on the host, streamed from
+      pinned memory for m in CHUNK_COUNTS_BIG and with ``hbm_budget`` a
+      quarter of the slab's planned bytes (the planner picks m), against
+      the first m = 4 run; a second m = 4 run bit-identical, and one with a
+      crash at CHUNKS_CRASH restored from its checkpoint; the same run with
+      one chunk skipped in one iteration must break the bar.
+
+    Prints for each run the warm ms per iteration and peak memory; for the
+    streamed ones the host-to-device bytes an iteration and their rate
+    beside a plain pinned copy of the same bytes, and from one profiled
+    iteration the copy and compute streams' busy times and the copy time
+    under compute.  B1 at the chunk-fold site is held to its plain version
+    and timed there."""
+
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.executor import ExecutorError
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.ft import FailureInjector
+
+    n = 1 << args.rows_log2_vertices
+    rng = np.random.default_rng(args.seed + 7)
+    cpu = torch.device("cpu")
+
+    def run(ex, **kw):
+        """(result, peak bytes above the start)."""
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = ex.run(max_iters=CHUNKS_ITERS, **kw)
+        if res.storage_fallback:
+            raise AssertionError("chunks: a run fell back to dense grids")
+        return res, torch.cuda.max_memory_allocated() - base
+
+    def cell(degree, tau):
+        src, dst = _distinct_out_edges(n, min(degree, n), rng)
+        t0 = time.perf_counter()
+        r64, adj_t, margin = _pipeline_oracle(n, src, dst, CHUNKS_ITERS, tau)
+        print(f"chunks: n={n}, {src.shape[0]} edges ({degree} distinct a "
+              f"vertex), tau {tau}/n, float64 oracle in "
+              f"{time.perf_counter() - t0:.1f}s; {int(margin.sum())} "
+              f"vertices inside the margin of tau, "
+              f"{int((r64 > tau / n).sum())} above it")
+
+        def bar(res, ref=None):
+            """(what breaks the bar or None, ranks' rel L1 against
+            ``ref``'s, against float64)."""
+
+            rank, hot, reach = _pipeline_sets(res, n)
+            rel_64 = float(np.abs(rank - r64).sum() / np.abs(r64).sum())
+            rel = 0.0 if ref is None else float(
+                np.abs(rank - ref).sum() / np.abs(ref).sum())
+            problem = None
+            if res.phase_iterations[0] != CHUNKS_ITERS:
+                problem = f"{res.phase_iterations} iterations"
+            elif rel_64 > PAGERANK_L1_TOL or rel > CHUNKS_RANK_RTOL:
+                problem = f"ranks rel L1 {rel:.3e} (float64 {rel_64:.3e})"
+            elif not np.array_equal(hot, np.where(margin, hot,
+                                                  r64 > tau / n)):
+                problem = "hot differs from float64 outside the margin"
+            elif not np.array_equal(reach, _reach_closure(adj_t, hot)):
+                problem = "reach is not the closure through hot"
+            return problem, rel, rel_64
+
+        return src, dst, bar
+
+    def measure(tag, ex, bar, ref=None):
+        """Two runs of ``ex`` (the first counted by call site), both held
+        to the bar; the printed and returned figures."""
+
+        (cold, _), calls = _capture_combines(lambda: run(ex), keep=False,
+                                             depth=3)
+        fold = sum(k for chain, k, _ in calls
+                   if chain == "_merge_rows/_merge/fire")
+        res, peak = run(ex)
+        for r in (cold, res):
+            problem, rel, rel_64 = bar(r, ref)
+            if problem:
+                raise AssertionError(f"chunks: {tag}: {problem}")
+        m = len(ex.chunked_edb.get("edge", ())) or 1
+        h2d = sum(t.numel() * t.element_size()
+                  for chunk in ex.chunked_edb.get("edge", ())
+                  for t in tree_leaves(chunk))
+        entry = {"m": m, "ms": res.seconds / res.iterations * 1e3,
+                 "cold_ms": cold.seconds / cold.iterations * 1e3,
+                 "peak": peak, "rel_l1": rel, "rel_l1_f64": rel_64,
+                 "h2d_bytes": h2d, "fold_launches": fold}
+        text = (f"chunks: {tag}: {m} chunk(s), {entry['ms']:.3f} "
+                f"ms/iteration warm (first run {entry['cold_ms']:.3f}), peak "
+                f"{peak} B, ranks rel L1 {rel:.3e} from the reference run "
+                f"({rel_64:.3e} from float64)")
+        if m > 1:
+            if fold < m * CHUNKS_ITERS:
+                raise AssertionError(f"chunks: {tag}: {fold} launches at the "
+                                     f"chunk-fold site in {CHUNKS_ITERS} "
+                                     f"iterations of {m} chunks")
+            step, state = _chunked_rank_step(ex)
+            step(state, 1)
+            copy_ms, busy_ms, under_ms = _stream_overlap(
+                lambda: step(state, 1))
+            src_p = torch.empty(h2d, dtype=torch.uint8, pin_memory=True)
+            dst_d = torch.empty(h2d, dtype=torch.uint8, device=device)
+            plain_ms = _time_ms(
+                lambda: dst_d.copy_(src_p, non_blocking=True), 5)
+            del src_p, dst_d
+            # The same rank iteration with every chunk already on the card
+            # (no copies), in turns with the streamed one: what the
+            # stream's copies add to an iteration.
+            resident = [ex._put_chunk(c) for c in ex.chunked_edb["edge"]]
+
+            def timed(keep):
+                if keep:
+                    ex._stream = lambda pred: enumerate(resident)
+                else:
+                    vars(ex).pop("_stream", None)
+                return _time_ms(lambda: step(state, 1), 3)
+
+            turns = [timed(k in (1, 2)) for k in range(4)]
+            vars(ex).pop("_stream", None)
+            del resident
+            stream_ms = (turns[0] + turns[3]) / 2
+            resident_ms = (turns[1] + turns[2]) / 2
+            entry.update(copy_ms=copy_ms, plain_copy_ms=plain_ms,
+                         compute_ms=busy_ms, copy_under_compute_ms=under_ms,
+                         stream_step_ms=stream_ms,
+                         resident_step_ms=resident_ms)
+            if copy_ms > 0:
+                streams = (f"copy stream busy {copy_ms:.3f} ms "
+                           f"({h2d / copy_ms / 1e6:.3f} GB/s), compute busy "
+                           f"{busy_ms:.3f} ms, copy under compute "
+                           f"{under_ms:.3f} ms ({under_ms / copy_ms:.1%})")
+            else:
+                streams = "not measured (the trace holds no copy)"
+            text += (f"; {h2d} B host-to-device an iteration (a plain "
+                     f"pinned copy_ of them alone {plain_ms:.3f} ms, "
+                     f"{h2d / plain_ms / 1e6:.3f} GB/s); one profiled rank "
+                     f"iteration: {streams}; a rank iteration streamed "
+                     f"{stream_ms:.3f} ms, with every chunk resident on the "
+                     f"card {resident_ms:.3f} ms (in turns: "
+                     f"{', '.join(f'{t:.3f}' for t in turns)}); B1 at the "
+                     f"chunk-fold site {fold} launches "
+                     f"({fold / CHUNKS_ITERS:.1f} a rank iteration)")
+            entry["step"] = (step, state)
+        print(text, flush=True)
+        return res, entry
+
+    stats = {}
+    # At the largest slab the planner admits unchunked: every m against
+    # the unchunked run.
+    src, dst, bar = cell(ROWS_PR_DEGREE, ROWS_PR_TAU)
+    on_card = _row_pagerank_rels(n, src, dst, device)
+    on_host = _row_pagerank_rels(n, src, dst, device, edge_device=cpu)
+    ex = _row_pagerank(n, on_card, device)
+    edges = f"{src.shape[0]} edges"
+    base, stats["unchunked"] = measure(f"{edges}, unchunked", ex, bar)
+    ref = _pipeline_sets(base, n)[0]
+    for m in CHUNK_COUNTS:
+        ex = _row_pagerank(n, on_host if m > 1 else on_card, device,
+                           chunks={"edge": m})
+        _, entry = measure(f"{edges}, m={m}", ex, bar, ref)
+        entry.pop("step", None)
+        stats[f"small m={m}"] = entry
+    del ex, base, on_card, on_host
+
+    # The 2^24-edge slab: only chunked.
+    src, dst, bar = cell(CHUNKS_DEGREE, CHUNKS_TAU)
+    on_host = _row_pagerank_rels(n, src, dst, device, edge_device=cpu)
+
+    def big(**kw):
+        return _row_pagerank(n, on_host, device, tau=CHUNKS_TAU,
+                             row_cap=CHUNKS_ROW_CAP, **kw)
+
+    ex = big(chunks={"edge": 4})
+    # the slab's planned bytes: its capped row slab, two int32 ids and a
+    # validity byte a row
+    slab_bytes = ex.row_caps["edge"] * (4 * 2 + 1)
+    if src.shape[0] > ex.row_caps["edge"]:
+        try:
+            _row_pagerank(n, _row_pagerank_rels(n, src, dst, device), device,
+                          tau=CHUNKS_TAU, row_cap=CHUNKS_ROW_CAP,
+                          chunks={"edge": 1})
+            raise AssertionError(f"chunks: {src.shape[0]} edges compiled "
+                                 f"unchunked past the slab's cap")
+        except ExecutorError as err:
+            print(f"chunks: m=1 at {src.shape[0]} edges refuses, as the "
+                  f"reference does (the planner caps a row slab): {err}")
+    at4, entry = measure("m=4", ex, bar)
+    step, state = entry.pop("step")
+    _, fold_calls = _capture_combines(lambda: step(state, 1), depth=3)
+    fold_calls = [c for c in fold_calls if c[0] == "_merge_rows/_merge/fire"]
+    fold_entry = _row_site("chunk fold", fold_calls[0],
+                           entry["fold_launches"], phase="chunks")
+    stats["m=4"] = entry
+    del step, state, fold_calls
+    ref = _pipeline_sets(at4, n)[0]
+    for tag, kw in [(f"m={m}", {"chunks": {"edge": m}})
+                    for m in CHUNK_COUNTS_BIG if m != 4] + [
+            (f"hbm_budget={slab_bytes // 4}",
+             {"hbm_budget": slab_bytes // 4})]:
+        ex = big(**kw)
+        if "hbm_budget" in kw:
+            print(f"chunks: {tag} B (a quarter of the slab's planned "
+                  f"{slab_bytes} B): the planner's "
+                  f"{[x for x in ex.plan.notes if x.startswith('chunking(')]}")
+        _, entry = measure(tag, ex, bar, ref)
+        entry.pop("step", None)
+        stats[tag] = entry
+        del ex
+
+    # Determinism, a crash mid-stream, and a control that must break the
+    # bar: all at m = 4.
+    again, _ = run(big(chunks={"edge": 4}))
+    with tempfile.TemporaryDirectory() as root:
+        inj = FailureInjector(chunk_crashes=(CHUNKS_CRASH,))
+        crashed, _ = run(big(chunks={"edge": 4}), checkpoint_dir=root,
+                         checkpoint_every=2, injector=inj)
+    if not _same_rows(again, at4):
+        raise AssertionError("chunks: two runs at m = 4 differ")
+    fired = [e.detail for e in inj.fired]
+    if crashed.restarts != 1 or fired != [f"chunk {CHUNKS_CRASH[1]}"] \
+            or not _same_rows(crashed, at4):
+        raise AssertionError(f"chunks: the run crashed at {CHUNKS_CRASH} "
+                             f"differs ({crashed.restarts} restarts, fired "
+                             f"{fired})")
+    ex = big(chunks={"edge": 4})
+    real, streams = ex._stream, [0]
+
+    def skipping(pred):
+        streams[0] += 1
+        stream = real(pred)
+        if streams[0] != 3:      # the third rank iteration's stream
+            return stream
+        return ((c, overlay) for c, overlay in stream if c != 1)
+
+    ex._stream = skipping
+    control, _ = run(ex)
+    broken, rel, _ = bar(control, ref)
+    if broken is None:
+        raise AssertionError(f"chunks: a skipped chunk stays inside the "
+                             f"bar (rel L1 {rel:.3e})")
+    print(f"chunks: two runs at m=4 bit-identical; a crash at iteration "
+          f"{CHUNKS_CRASH[0]} chunk {CHUNKS_CRASH[1]} restored "
+          f"({crashed.restarts} restart, fired {fired}) bit-equal; one "
+          f"chunk skipped in one iteration breaks the bar: {broken}")
+    print(f"chunks: {json.dumps(stats)}")
+    for entry in report:
+        if entry["name"] == "segment_combine":
+            entry["chunks_sites"] = [fold_entry]
+    del ex, control, again, crashed, at4
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the dense LM's serving path (phi4-mini-3.8b)
 # ---------------------------------------------------------------------------
 
 
@@ -2213,7 +2913,7 @@ def phase_lm(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: LM training (phi4-mini-3.8b), the backward kernels
+# Phase 11: LM training (phi4-mini-3.8b), the backward kernels
 # ---------------------------------------------------------------------------
 
 # Backward kernels against their plain version (in f32, same inputs, same
@@ -2895,6 +3595,10 @@ def main(argv=None) -> int:
             ("rows", lambda: _freeing("rows",
                                       lambda: phase_rows(args, device,
                                                          report))),
+            ("ft", lambda: _freeing("ft", lambda: phase_ft(args, device))),
+            ("chunks", lambda: _freeing("chunks",
+                                        lambda: phase_chunks(args, device,
+                                                             report))),
             ("lm", lambda: phase_lm(args, device, report)),
             ("train", lambda: phase_train(args, device, report))):
         t0 = time.perf_counter()

@@ -33,11 +33,20 @@ generic engine, and IMRU's step, is plain tensor code.  A row-table run
 whose slabs overflow their capacity runs again on dense grids
 (``FixpointResult.storage_fallback``).
 
+Out of core: a row-table EDB whose slab the planner splits (``chunks=``,
+``hbm_budget=``, or a slab over half the spec's memory) is held as
+identically shaped chunks in pinned host memory and streamed through two
+device buffers each iteration (:class:`_ChunkStream`); the rules that scan
+it fire once a chunk and fold their partial outs through the head's merge
+monoid.  Fault tolerance: ``run(checkpoint_dir=, resume=, injector=)``
+checkpoints the carried state and the materialized views with the phase
+cursor (:mod:`repro_torch.checkpoint`) and restores and replays after a
+host-raised failure.
+
 Not ported yet, and raising ``NotImplementedError`` with the queue item:
 the sharded layouts and explicit row exchanges (``mesh=``, ``exchange=``,
-``remesh``: A10), checkpoints and failure injection (A11), out-of-core
-chunks (``chunks=``, ``hbm_budget=``, a planner-chosen chunking: A12) and
-per-query parameters (``params=``, ``run_batched``: A13).
+``remesh``: A10) and per-query parameters (``params=``, ``run_batched``:
+A13).
 """
 
 from __future__ import annotations
@@ -414,6 +423,10 @@ class _Ctx:
     row_cap: int = 0
     row_edb: Mapping[str, Dict[str, Any]] = field(default_factory=dict)
     overflow: List[torch.Tensor] = field(default_factory=list)
+    # Out-of-core streaming: EDB predicates held as host chunk lists —
+    # their scans may only fire under a chunk overlay (``row_edb`` rebound
+    # to one chunk inside the streaming loop).
+    chunked: FrozenSet[str] = frozenset()
 
 
 def _read_pred(ctx: _Ctx, name: str) -> Dict[str, Any]:
@@ -770,6 +783,12 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx):
             dims = tuple(op.columns[p] for p in rel.key_positions)
             cols = {op.columns[int(p)]: g for p, g in tbl["values"].items()}
             return _Rows(dims, tbl["ids"], tbl["valid"], cols)
+        if op.relation in ctx.chunked:
+            raise ExecutorError(
+                f"chunked EDB {op.relation!r} scanned outside a chunk "
+                "overlay — out-of-core slabs stream through the host chunk "
+                "loop only (fail closed)"
+            )
         if isinstance(rel, RowRelation):
             raise ExecutorError(
                 f"EDB {op.relation!r} is a RowRelation but was planned onto "
@@ -1129,6 +1148,88 @@ def _referenced_preds(op: algebra.LogicalOp) -> set:
     return preds
 
 
+class _ShiftedInjector:
+    """Adapter making a :class:`~repro_torch.ft.FailureInjector` count in
+    *global* iterations across a multi-phase run (the driver hands it the
+    phase-local index): crash-at-iteration-N then targets the same step the
+    checkpoint numbering uses, so a chaos test can aim at a specific phase.
+    """
+
+    def __init__(self, inner: Any, base: int) -> None:
+        self.inner, self.base = inner, base
+
+    def maybe_fail(self, j: int) -> None:
+        self.inner.maybe_fail(self.base + j)
+
+    def maybe_fail_chunk(self, j: int, chunk: int) -> None:
+        """Chunk-granular crash point of the out-of-core streaming loop
+        (no-op for injectors without a chunk schedule)."""
+
+        hook = getattr(self.inner, "maybe_fail_chunk", None)
+        if hook is not None:
+            hook(self.base + j, chunk)
+
+
+class _ChunkStream:
+    """One chunked EDB's host chunks, streamed through the device.
+
+    On the card the chunks lie in pinned host memory (allocated once, at
+    compile) and two device buffers of a chunk's shape take turns: while
+    the compute stream fires the rules on one buffer, a side stream copies
+    the next chunk into the other (``non_blocking``).  Two events per
+    buffer are the whole guard: the compute stream waits on ``copied``
+    before it reads a buffer, and a copy into a buffer waits on
+    ``consumed``, recorded on the compute stream after the firing that read
+    it.  The host never waits.  On the CPU the chunks are plain tensors and
+    each is read in place."""
+
+    def __init__(self, chunks: List[Dict[str, Any]],
+                 device: torch.device) -> None:
+        self.chunks = chunks
+        self.device = device
+        self._bufs: Optional[List[Dict[str, Any]]] = None
+
+    def __len__(self) -> int:
+        return len(self.chunks)
+
+    def _issue(self, c: int) -> None:
+        b = c % 2
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(self._consumed[b])
+            for dst, src in zip(tree_leaves(self._bufs[b]),
+                                tree_leaves(self.chunks[c])):
+                dst.copy_(src, non_blocking=True)
+            self._copied[b].record(self._copy_stream)
+
+    def __iter__(self):
+        """``(c, overlay)`` for every chunk in order; the overlay is valid
+        on the current stream until the next item is asked for."""
+
+        if self.device.type != "cuda":
+            yield from enumerate(self.chunks)
+            return
+        if self._bufs is None:
+            self._bufs = [
+                tree_map(lambda t: torch.empty_like(t, device=self.device),
+                         self.chunks[0])
+                for _ in range(2)
+            ]
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._copied = [torch.cuda.Event() for _ in range(2)]
+            self._consumed = [torch.cuda.Event() for _ in range(2)]
+        compute = torch.cuda.current_stream(self.device)
+        self._issue(0)
+        for c in range(len(self.chunks)):
+            b = c % 2
+            if c + 1 < len(self.chunks):
+                self._issue(c + 1)
+            compute.wait_event(self._copied[b])
+            try:
+                yield c, self._bufs[b]
+            finally:
+                self._consumed[b].record(compute)
+
+
 @dataclass
 class GenericExecutable:
     """A compiled generic program: logical plan + grid/row backend +
@@ -1157,6 +1258,13 @@ class GenericExecutable:
     row_caps: Dict[str, int] = field(default_factory=dict)
     row_cap: int = 0
     row_edb: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+    # Out-of-core streaming: per-predicate host chunk lists (row slabs, all
+    # chunks of a predicate identically shaped; pinned on the card) for EDB
+    # scans whose slab exceeds the planner's memory budget, and the
+    # double-buffered stream of each.
+    chunked_edb: Dict[str, List[Dict[str, Any]]] = field(default_factory=dict)
+    _streams: Dict[str, _ChunkStream] = field(default_factory=dict,
+                                              repr=False)
 
     # -- state plumbing -----------------------------------------------------
 
@@ -1221,6 +1329,7 @@ class GenericExecutable:
             shared=self.shared_ids,
             row_cap=self.row_cap,
             row_edb=self.row_edb,
+            chunked=frozenset(self.chunked_edb),
         )
 
     def _materialize(self, df, inter, ctx: _Ctx) -> Dict[str, Any]:
@@ -1421,8 +1530,13 @@ class GenericExecutable:
 
     # -- per-phase step -----------------------------------------------------
 
-    def _apply_body(self, phase: _Phase, ctx: _Ctx, state, dataflows, acc):
-        """Fire a phase's body dataflows and seal the carried entries."""
+    def _apply_body(self, phase: _Phase, ctx: _Ctx, state, dataflows, acc,
+                    of_extra: Optional[torch.Tensor] = None):
+        """Fire a phase's body dataflows and seal the carried entries.
+        ``acc`` pre-seeds per-target out lists (the chunked streaming loop
+        passes its accumulated partials) and ``of_extra`` folds overflow
+        flags raised outside this firing (per-chunk firings) into the
+        carried overflow flags."""
 
         views = ctx.views
         for df in dataflows:
@@ -1449,8 +1563,10 @@ class GenericExecutable:
             if self._any_row:
                 # Fold every capacity flag this step raised (the merges
                 # above included) into the carried overflow flag.
+                flags = ctx.overflow if of_extra is None \
+                    else ctx.overflow + [of_extra]
                 entry["overflow"] = functools.reduce(
-                    torch.logical_or, ctx.overflow, state[pred]["overflow"]
+                    torch.logical_or, flags, state[pred]["overflow"]
                 )
             new_state[pred] = entry
         return new_state
@@ -1495,9 +1611,28 @@ class GenericExecutable:
         order: List[str] = []
         views: Dict[str, Dict[str, Any]] = {}
         ctx = self._ctx(state, views, materialized, j)
+        base_edb = ctx.row_edb
         for df in dataflows:
             ctx.label = df.label
-            out = self._materialize(df, _eval(df.op, ctx), ctx)
+            refs = self._chunk_refs(df)
+            if refs:
+                # Out-of-core scan in a once-fired rule group: copy the
+                # chunks to the device one by one and fold the partials
+                # through the merge monoid (chunk-count-invariant by monoid
+                # associativity).
+                pred = refs[0]
+                outs = []
+                for chunk in self.chunked_edb[pred]:
+                    ctx.row_edb = dict(base_edb)
+                    ctx.row_edb[pred] = self._put_chunk(chunk)
+                    outs.append(
+                        self._materialize(df, _eval(df.op, ctx), ctx)
+                    )
+                ctx.row_edb = base_edb
+                out = self._merge(df.target, outs, ctx) \
+                    if len(outs) > 1 else outs[0]
+            else:
+                out = self._materialize(df, _eval(df.op, ctx), ctx)
             if df.target not in acc:
                 order.append(df.target)
             acc.setdefault(df.target, []).append(out)
@@ -1505,6 +1640,122 @@ class GenericExecutable:
             views[df.target] = self._merge(df.target, acc[df.target], ctx)
         self._raise_on_overflow(ctx.overflow)
         return {t: views[t] for t in order}
+
+    # -- out-of-core chunked streaming (host-resident EDB slabs) ------------
+
+    def _chunk_refs(self, df) -> Tuple[str, ...]:
+        """The chunked EDB predicates a dataflow's body scans (compile-time
+        validation guarantees at most one)."""
+
+        if not self.chunked_edb:
+            return ()
+        return tuple(sorted(
+            _referenced_preds(df.op) & set(self.chunked_edb)
+        ))
+
+    def _put_chunk(self, chunk) -> Dict[str, Any]:
+        """A device copy of one host chunk, as a row-EDB overlay table."""
+
+        return tree_map(
+            lambda t: t.to(self.device, non_blocking=True), chunk
+        )
+
+    def _chunk_fire_fn(self, pred: str, dfs) -> Callable:
+        """The firing of the body rules scanning one chunked predicate:
+        ``fire(state, acc, materialized, overlay, j) -> (acc, overflow)``
+        evaluates them against a chunk overlay and folds the outs into the
+        running per-target accumulators through the merge monoids.  The
+        overflow flag stays a device bool."""
+
+        m = len(self.chunked_edb[pred])
+
+        def fire(state, acc, materialized, overlay, j):
+            ctx = self._ctx(state, {}, materialized, j)
+            ctx.row_edb = dict(self.row_edb)
+            ctx.row_edb[pred] = overlay
+            # Chunk-proportional intermediates: the planner's join /
+            # convert cap carries 4x headroom over the largest slab, and a
+            # firing that scans 1/m of the chunked slab expects ~1/m of the
+            # join pairs — so the per-chunk intermediate keeps the same
+            # headroom at 1/m the sort/gather cost.  Skew beyond it trips
+            # the usual lossless overflow path.
+            if ctx.row_cap and m > 1:
+                per = -(-ctx.row_cap // m)
+                ctx.row_cap = max(256, 1 << max(per - 1, 0).bit_length())
+            out_acc = dict(acc)
+            for df in dfs:
+                ctx.label = df.label
+                out = self._materialize(df, _eval(df.op, ctx), ctx)
+                out_acc[df.target] = self._merge(
+                    df.target, [out_acc[df.target], out], ctx
+                )
+            of = functools.reduce(
+                torch.logical_or, ctx.overflow,
+                torch.zeros((), dtype=torch.bool, device=self.device),
+            )
+            return out_acc, of
+
+        return fire
+
+    def _chunk_finish_fn(self, phase: _Phase, plain_dfs,
+                         chunk_targets) -> Callable:
+        """The tail of a chunked phase step: fires the non-chunked body
+        rules and seals the carried entries, seeding the per-target
+        accumulators with the streamed partials (and folding the chunk
+        loop's overflow flags into the carried flags)."""
+
+        def finish(state, acc, of_chunks, materialized, j):
+            ctx = self._ctx(state, {}, materialized, j)
+            accs = {t: [acc[t]] for t in chunk_targets}
+            return self._apply_body(phase, ctx, state, plain_dfs, accs,
+                                    of_chunks)
+
+        return finish
+
+    def _chunked_phase_step(self, phase: _Phase, materialized,
+                            injector=None) -> Callable:
+        """The per-iteration step of a phase whose body scans chunked
+        (out-of-core) EDB predicates: each such predicate's chunks stream
+        through the ``fire`` stage (:class:`_ChunkStream`: the next chunk's
+        copy overlaps this chunk's firing), then ``finish`` fires the
+        remaining rules and seals the carried state.  Partial accumulators
+        live only inside one step, so a mid-chunk crash
+        (``injector.maybe_fail_chunk``) discards them and the driver's
+        restore+replay recomputes the step from checkpointed state — chunk
+        cursors never need checkpointing."""
+
+        chunk_dfs: Dict[str, List] = {}
+        for df in phase.body:
+            refs = self._chunk_refs(df)
+            if refs:
+                chunk_dfs.setdefault(refs[0], []).append(df)
+        plain = tuple(df for df in phase.body if not self._chunk_refs(df))
+        targets = tuple(dict.fromkeys(
+            df.target for dfs in chunk_dfs.values() for df in dfs
+        ))
+        fire_fns = {pred: self._chunk_fire_fn(pred, tuple(dfs))
+                    for pred, dfs in chunk_dfs.items()}
+        finish = self._chunk_finish_fn(phase, plain, targets)
+
+        def step(state, j):
+            acc = {t: self._empty_out(t) for t in targets}
+            of = torch.zeros((), dtype=torch.bool, device=self.device)
+            for pred, fire in fire_fns.items():
+                for c, overlay in self._stream(pred):
+                    if injector is not None:
+                        injector.maybe_fail_chunk(j, c)
+                    acc, ov = fire(state, acc, materialized, overlay, j)
+                    of = of | ov
+            return finish(state, acc, of, materialized, j)
+
+        return step
+
+    def _stream(self, pred: str) -> _ChunkStream:
+        stream = self._streams.get(pred)
+        if stream is None:
+            stream = _ChunkStream(self.chunked_edb[pred], self.device)
+            self._streams[pred] = stream
+        return stream
 
     def _first_state(self):
         """The carried state before any rule fires, and the prelude's
@@ -1519,6 +1770,11 @@ class GenericExecutable:
         phase plus its initialized state — one rule firing of the recursive
         stratum, the unit the drivers repeat."""
 
+        if any(self._chunk_refs(df) for df in self.phases[0].body):
+            raise ExecutorError(
+                "phase_step_fn cannot time a chunked phase: the out-of-core "
+                "chunk stream is a host loop, not one jitted step"
+            )
         state, materialized = self._first_state()
         phase = self.phases[0]
         inits = self._run_rules_once(phase.init, state, materialized, 0)
@@ -1528,12 +1784,71 @@ class GenericExecutable:
                 state[pred] = self._init_entry(entry)
         return self._phase_step(phase, materialized), state
 
+    # -- durable checkpoints (fault tolerance) ------------------------------
+
+    @staticmethod
+    def _phase_views(phase: _Phase) -> Tuple[algebra.RuleDataflow, ...]:
+        """The rules whose results a phase leaves in the materialized views:
+        its body's view rules, its finals and its post-stratum rules."""
+
+        return (tuple(df for df in phase.body if not df.next_state)
+                + phase.finals + phase.post)
+
+    def _mat_targets(self) -> Tuple[str, ...]:
+        """Every predicate the run materializes outside the carried state,
+        in a deterministic order — the checkpoint's ``mat`` leaves.  The set
+        is a pure function of the compiled program, so the checkpoint tree
+        structure is constant across phases (targets a resumed run has not
+        reached yet are stored as zero grids and recomputed)."""
+
+        order: List[str] = []
+        for group in [self.prelude] + [self._phase_views(ph)
+                                       for ph in self.phases]:
+            for df in group:
+                if df.target not in order:
+                    order.append(df.target)
+        return tuple(order)
+
+    def _ckpt_tree(self, state, materialized) -> Dict[str, Any]:
+        """The durable snapshot of an in-flight run: all carried state plus
+        every materialized view (zero-padded for targets not yet computed),
+        in the JAX package's checkpoint layout."""
+
+        mat = {
+            t: (
+                dict(e, values=dict(e["values"]))
+                if (e := materialized.get(t)) is not None
+                else self._empty_out(t)
+            )
+            for t in self._mat_targets()
+        }
+        return {"state": {p: dict(e) for p, e in state.items()},
+                "mat": mat}
+
+    def _ckpt_like(self) -> Dict[str, Any]:
+        """A zero template of :meth:`_ckpt_tree`'s structure on this
+        executable's device (the ``like`` of a restore, which puts the
+        restored leaves there)."""
+
+        state = {
+            pred: self._empty_entry(pred)
+            for ph in self.phases for pred in ph.carried
+        }
+        return self._ckpt_tree(state, {})
+
     def remesh(self, mesh) -> "GenericExecutable":
         raise NotImplementedError(
             "remesh is not ported yet: ROADMAP A10 (multi-GPU)"
         )
 
     def run_batched(self, *args, **kwargs):
+        if self._any_row or self.row_edb or self.chunked_edb:
+            raise ExecutorError(
+                "query batching needs all-dense storage: row-table slabs "
+                "carry capacity-overflow flags the vmapped fixpoint cannot "
+                "check host-side, and chunked EDB streams need the host "
+                "chunk loop (fail closed; dispatch sequentially)"
+            )
         raise NotImplementedError(
             "run_batched is not ported yet: ROADMAP A13 (serving)"
         )
@@ -1547,8 +1862,11 @@ class GenericExecutable:
         *,
         params: Optional[Mapping[str, Relation]] = None,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
         resume: bool = False,
         injector: Optional[Any] = None,
+        max_restarts: int = 3,
+        keep_checkpoints: int = 3,
     ) -> FixpointResult:
         """Run every fixpoint phase in sequence to the no-new-facts
         fixpoint (``max_iters`` bounds each phase), under
@@ -1557,27 +1875,39 @@ class GenericExecutable:
         Returns a :class:`FixpointResult` whose ``state`` maps every
         materialized predicate to its final :class:`Relation` (or
         :class:`RowRelation` for a row-table predicate).
-        ``params=`` raises (ROADMAP A13), and so do ``checkpoint_dir=``,
-        ``resume=`` and ``injector=`` (A11).
+        ``params=`` raises (ROADMAP A13).
+
+        Fault tolerance (host driver only): ``checkpoint_dir`` plugs a
+        :class:`~repro_torch.checkpoint.CheckpointStore` into the driver's
+        save/restore hooks — carried state + materialized views are written
+        host-side every ``checkpoint_every`` iterations (default 8) along
+        with the phase cursor, so a crashed run restarts mid-phase and a
+        ``resume=True`` run continues from disk without re-running completed
+        phases.  ``injector`` threads a
+        :class:`~repro_torch.ft.FailureInjector` into the step boundary
+        (and, in a chunked phase, into the chunk stream).  Restored state
+        lands on this executable's device.
 
         Overflow policy (lossless): when any row-table slab overflows its
         static capacity mid-run, the run is abandoned and run again on
         dense-grid storage (``storage_fallback=True`` on the result).  The
         flags stay on the device inside a phase and are read once after
         it, and once after each group of rules fired outside the loop.
+        The fallback run does not checkpoint: its tree structure differs
+        from the row run's.
         """
 
         if params is not None:
             raise NotImplementedError(
                 "params= is not ported yet: ROADMAP A13 (serving)"
             )
-        if checkpoint_dir is not None or injector is not None or resume:
-            raise NotImplementedError(
-                "checkpoint_dir=, resume= and injector= are not ported yet: "
-                "ROADMAP A11 (fault tolerance)"
-            )
         try:
-            return self._run_phases(max_iters, on_device)
+            return self._run_phases(
+                max_iters, on_device, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                injector=injector, max_restarts=max_restarts,
+                keep_checkpoints=keep_checkpoints,
+            )
         except _RowCapacityOverflow:
             return self._dense_fallback_run(max_iters, on_device)
 
@@ -1598,25 +1928,146 @@ class GenericExecutable:
         res = dense.run(max_iters, on_device)
         return replace(res, storage_fallback=True)
 
-    def _run_phases(self, max_iters: int, on_device: bool) -> FixpointResult:
+    def _run_phases(
+        self,
+        max_iters: int,
+        on_device: bool,
+        *,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+        resume: bool = False,
+        injector: Optional[Any] = None,
+        max_restarts: int = 3,
+        keep_checkpoints: int = 3,
+    ) -> FixpointResult:
+        if (checkpoint_dir or injector) and on_device:
+            raise ExecutorError(
+                "fault tolerance (checkpoint_dir/injector) needs the host "
+                "driver: pass on_device=False"
+            )
+        if resume and not checkpoint_dir:
+            raise ExecutorError("resume=True needs checkpoint_dir=")
+        store = None
+        if checkpoint_dir is not None:
+            from repro_torch.checkpoint import CheckpointStore, latest_step
+
+            store = CheckpointStore(checkpoint_dir, keep=keep_checkpoints)
+            if checkpoint_every <= 0:
+                checkpoint_every = 8
+
         t0 = time.perf_counter()
         state, materialized = self._first_state()
-        total, phase_iters, all_conv, stragglers = 0, [], True, 0
+
+        # Resume cursor: phase to continue in (1-based), iteration within it
+        # (checkpoints are written post-init, so a restored state never needs
+        # the init stratum re-fired), and completed phases' iteration counts.
+        start_phase, start_iter = 1, 0
+        done_iters: List[int] = []
+        restored_from_disk = False
+        if store is not None and resume and \
+                latest_step(checkpoint_dir) is not None:
+            restored_from_disk = True
+            tree, _, extra = store.restore(self._ckpt_like())
+            state = tree["state"]
+            start_phase = int(extra.get("phase", 1))
+            start_iter = int(extra.get("iteration", 0))
+            done_iters = [int(x) for x in extra.get("phase_iterations", [])]
+            # Materialized views of completed phases come from the
+            # checkpoint (their fixpoints are sealed); the current and later
+            # phases recompute theirs.
+            for ph in self.phases[: start_phase - 1]:
+                for df in self._phase_views(ph):
+                    materialized[df.target] = tree["mat"][df.target]
+
+        total = sum(done_iters)
+        phase_iters, all_conv = list(done_iters), True
+        restarts = stragglers = 0
         for phase in self.phases:
-            inits = self._run_rules_once(phase.init, state, materialized, 0)
-            for pred in phase.carried:
-                entry = inits.get(pred)
-                if entry is not None:
-                    state[pred] = self._init_entry(entry)
-            step = self._phase_step(phase, materialized)
+            k = phase.index
+            if k < start_phase:
+                continue
+            resumed = restored_from_disk and k == start_phase
+            if not resumed:
+                inits = self._run_rules_once(phase.init, state,
+                                             materialized, 0)
+                for pred in phase.carried:
+                    entry = inits.get(pred)
+                    if entry is not None:
+                        state[pred] = self._init_entry(entry)
+            chunked_phase = any(self._chunk_refs(df) for df in phase.body)
             conv = self._phase_converged(phase)
             if on_device:
-                res = device_fixpoint(step, conv, state, max_iters)
+                if chunked_phase:
+                    raise ExecutorError(
+                        "chunked streaming needs the host driver: the chunk "
+                        "loop issues host-to-device transfers inside every "
+                        "iteration (pass on_device=False)"
+                    )
+                res = device_fixpoint(self._phase_step(phase, materialized),
+                                      conv, state, max_iters)
             else:
-                res = HostFixpointDriver(
-                    step=step, converged=conv,
-                    config=DriverConfig(max_iters=max_iters),
-                ).run(state)
+                shifted = None if injector is None \
+                    else _ShiftedInjector(injector, total)
+                if chunked_phase:
+                    step = self._chunked_phase_step(phase, materialized,
+                                                    injector=shifted)
+                else:
+                    step = self._phase_step(phase, materialized)
+                save_hook = restore_hook = None
+                if store is not None:
+                    base = total  # global step counter offset for this phase
+                    completed = list(phase_iters)
+
+                    def save_hook(s, jj, _k=k, _b=base, _c=completed):
+                        # "chunk" is the out-of-core stream cursor: chunk
+                        # partials live only inside one step (never
+                        # checkpointed), so a restored step always replays
+                        # its chunk stream from 0.
+                        store.save(
+                            _b + jj, self._ckpt_tree(s, materialized),
+                            extra={"phase": _k, "iteration": jj,
+                                   "phase_iterations": _c, "chunk": 0},
+                        )
+
+                    def restore_hook(_k=k):
+                        tr, _, ex = store.restore(self._ckpt_like())
+                        if int(ex.get("phase", -1)) != _k:
+                            raise RuntimeError(
+                                f"latest checkpoint belongs to phase "
+                                f"{ex.get('phase')}; cannot rewind into "
+                                f"phase {_k} mid-driver"
+                            )
+                        return tr["state"], int(ex.get("iteration", 0))
+
+                    # Phase-entry restore point (post-init, iteration 0):
+                    # the current phase always has a checkpoint a mid-phase
+                    # crash can rewind to.
+                    if not resumed:
+                        save_hook(state, 0)
+                driver = HostFixpointDriver(
+                    step=step,
+                    converged=conv,
+                    config=DriverConfig(
+                        max_iters=max_iters,
+                        checkpoint_every=checkpoint_every if store else 0,
+                        max_restarts=max_restarts,
+                    ),
+                    save=save_hook,
+                    restore=restore_hook,
+                    injector=shifted,
+                )
+                try:
+                    res = driver.run(
+                        state, start_iter=start_iter if resumed else 0
+                    )
+                except BaseException:
+                    # The failure is already propagating: drain the async
+                    # writer so it cannot race a successor run (or resume)
+                    # over the same checkpoint directory.
+                    if store is not None:
+                        store.quiesce()
+                    raise
+                restarts += res.restarts
                 stragglers += res.straggler_events
             state = res.state
             # Lossless overflow policy: any capacity flag raised inside the
@@ -1625,19 +2076,22 @@ class GenericExecutable:
                 self._raise_on_overflow(
                     [state[pred]["overflow"] for pred in phase.carried]
                 )
+            it = (start_iter if resumed else 0) + res.iterations
             total += res.iterations
-            phase_iters.append(res.iterations)
+            phase_iters.append(it)
             all_conv = all_conv and res.converged
             # Final views of this phase (frontier reads at the fixpoint),
             # then the post-stratum rules gated on its convergence.
             materialized.update(self._run_rules_once(
                 tuple(df for df in phase.body if not df.next_state)
                 + phase.finals,
-                state, materialized, res.iterations,
+                state, materialized, it,
             ))
             materialized.update(self._run_rules_once(
-                phase.post, state, materialized, res.iterations,
+                phase.post, state, materialized, it,
             ))
+        if store is not None:
+            store.wait()  # surface any pending async-save failure
 
         out: Dict[str, Union[Relation, RowRelation]] = {}
         for pred, entry in list(materialized.items()) + [
@@ -1658,6 +2112,7 @@ class GenericExecutable:
             iterations=total,
             converged=all_conv,
             seconds=time.perf_counter() - t0,
+            restarts=restarts,
             phase_iterations=tuple(phase_iters),
             straggler_events=stragglers,
         )
@@ -1723,18 +2178,24 @@ def compile_program(
     grid would pass ``2^24`` cells become one.  ``row_cap=`` pins the
     row-table intermediate slab capacity.  The selection is recorded in
     ``plan.notes`` as the ``storage-selection(...)`` entry, as the
-    reference's.  ``mesh=`` and ``exchange=`` raise (A10), and so do
-    ``chunks=`` / ``hbm_budget=`` (A12).
+    reference's.
+
+    Out of core: ``chunks=`` (a count for every row-table EDB, or a
+    mapping ``{pred: m}``) splits an EDB's row slab into ``m`` identically
+    shaped host chunks that every iteration streams through the device
+    (pinned host memory and two device buffers on the card, see
+    :class:`_ChunkStream`); ``hbm_budget=`` (bytes) lets the planner split
+    every row-table EDB slab larger than it (default: half the spec's
+    memory).  The split is recorded as the ``chunking(...)`` note, and
+    :func:`_check_chunk_soundness` refuses a program whose rules do not
+    decompose over chunks.  A chunked EDB's :class:`RowRelation` may lie on
+    the CPU when the executable is on the card: its rows never need to be
+    on the device at once.  ``mesh=`` and ``exchange=`` raise (A10).
     """
 
     if mesh is not None or exchange is not None:
         raise NotImplementedError(
             "mesh= and exchange= are not ported yet: ROADMAP A10 (multi-GPU)"
-        )
-    if chunks is not None or hbm_budget is not None:
-        raise NotImplementedError(
-            "chunks= and hbm_budget= are not ported yet: ROADMAP A12 "
-            "(out-of-core chunk streaming)"
         )
     shape = _listing_shape(program)
     if shape == "pregel" and binding is not None:
@@ -1769,17 +2230,19 @@ def compile_program(
         logical, sn_notes = algebra.semi_naive_rewrite(logical, program)
 
     rels: Dict[str, Union[Relation, RowRelation]] = {}
+    # RowRelations left on the CPU for a card executable: allowed only for
+    # the EDBs the plan streams in chunks (checked once the plan is made).
+    host_rows: Dict[str, torch.device] = {}
     for name, value in relations.items():
         rel = _as_relation(name, value, domain, device)
         lead = rel.rows if isinstance(rel, RowRelation) else rel.present
         for t in [lead] + list(rel.values.values()):
-            if t.device.type != device.type:
-                raise ValueError(
-                    f"relation {name!r} lies on {t.device}, compile_program "
-                    f"was asked for {device}: build it there "
-                    "(Relation.from_columns(..., device=) or "
-                    "repro_torch.carry.relation_from_numpy)"
-                )
+            if t.device.type == device.type:
+                continue
+            if isinstance(rel, RowRelation) and t.device.type == "cpu":
+                host_rows[name] = t.device
+                continue
+            _wrong_device(name, t.device, device)
         rels[name] = rel
     if domain is None:
         domains = {r.n for r in rels.values()}
@@ -1958,16 +2421,14 @@ def compile_program(
         predicates=predicates, storage=forced or None, row_cap=row_cap,
         exchange_ops=exchange_ops,
         edb=tuple(sorted(rels)),
+        hbm_budget=hbm_budget, chunks=chunks,
         row_value_cols={
             name: len(rel.values) for name, rel in rels.items()
         },
     )
-    if plan.chunks:
-        raise NotImplementedError(
-            f"the planner streams {sorted(plan.chunks)} in host-resident "
-            "chunks, which is not ported yet: ROADMAP A12 (out-of-core "
-            "chunk streaming)"
-        )
+    for name, where in host_rows.items():
+        if int(plan.chunks.get(name, 0)) <= 1:
+            _wrong_device(name, where, device)
     ex = GenericExecutable(
         program=program,
         logical=logical,
@@ -2000,6 +2461,10 @@ def compile_program(
             raw_vals = {p: g[tuple(rows.long().T)]
                         for p, g in rel.values.items()}
         count = rows.shape[0]
+        m = int(plan.chunks.get(name, 0))
+        if m > 1:
+            ex.chunked_edb[name] = _host_chunks(rows, raw_vals, m, device)
+            continue
         if count > cap:
             raise ExecutorError(
                 f"EDB {name!r}: {count} rows exceed its row-table "
@@ -2016,7 +2481,131 @@ def compile_program(
             col[:count] = v
             values[p] = col
         ex.row_edb[name] = {"ids": ids, "valid": valid, "values": values}
+    if ex.chunked_edb:
+        _check_chunk_soundness(ex)
     return ex
+
+
+def _wrong_device(name: str, where, device: torch.device) -> None:
+    raise ValueError(
+        f"relation {name!r} lies on {where}, compile_program was asked for "
+        f"{device}: build it there (Relation.from_columns(..., device=) or "
+        "repro_torch.carry.relation_from_numpy)"
+    )
+
+
+def _host_chunks(rows: torch.Tensor, raw_vals, m: int,
+                 device: torch.device) -> List[Dict[str, Any]]:
+    """An EDB's row slab split into ``m`` identically shaped host chunks
+    (``ceil(count / m)`` rows each, padded to a power of two; the last may
+    hold fewer valid rows): int32 ids, a validity mask and float32 value
+    columns, in pinned memory when ``device`` is the card, allocated once."""
+
+    rows = rows.cpu()
+    vals = {p: v.cpu() for p, v in raw_vals.items()}
+    count, k = rows.shape[0], rows.shape[1]
+    per = max(-(-count // m), 1)
+    ccap = 1 << max(per - 1, 0).bit_length()
+    pin = device.type == "cuda"
+    chunks: List[Dict[str, Any]] = []
+    for c in range(m):
+        lo, hi = min(c * per, count), min((c + 1) * per, count)
+        ids = torch.zeros((ccap, k), dtype=torch.int32, pin_memory=pin)
+        ids[:hi - lo] = rows[lo:hi]
+        valid = torch.zeros(ccap, dtype=torch.bool, pin_memory=pin)
+        valid[:hi - lo] = True
+        values = {}
+        for p, v in vals.items():
+            col = torch.zeros(ccap, dtype=torch.float32, pin_memory=pin)
+            col[:hi - lo] = v[lo:hi]
+            values[p] = col
+        chunks.append({"ids": ids, "valid": valid, "values": values})
+    return chunks
+
+
+def _check_chunk_soundness(ex: GenericExecutable) -> None:
+    """Fail-closed validation that streaming a predicate's chunks through
+    the fixpoint is chunk-count-invariant: a rule scanning a chunked EDB
+    fires once per chunk and its partial outs fold through the
+    CombineMonoid registry, which is only sound when the rule decomposes
+    over a disjoint union of those scan rows."""
+
+    chunked = set(ex.chunked_edb)
+    body_views = {
+        ph.index: {df.target for df in ph.body if not df.next_state}
+        for ph in ex.phases
+    }
+
+    def check_df(df, phase: Optional[_Phase] = None,
+                 is_body: bool = False) -> None:
+        refs = _referenced_preds(df.op) & chunked
+        if not refs:
+            return
+        if len(refs) > 1:
+            raise ExecutorError(
+                f"rule {df.label}: scans {len(refs)} chunked EDBs "
+                f"({', '.join(sorted(refs))}) — the streaming loop "
+                "decomposes one chunked scan per rule (fail closed)"
+            )
+        pred = next(iter(refs))
+        if is_body and not df.next_state:
+            raise ExecutorError(
+                f"rule {df.label}: per-iteration view rule scans chunked "
+                f"EDB {pred!r} — only carried-state rules stream through "
+                "the chunk loop (fail closed)"
+            )
+        if is_body and phase is not None:
+            read_views = _referenced_preds(df.op) & body_views[phase.index]
+            if read_views:
+                raise ExecutorError(
+                    f"rule {df.label}: chunked rule reads same-phase view "
+                    f"{sorted(read_views)[0]!r}, which the streaming loop "
+                    "fires after the chunk partials (fail closed)"
+                )
+
+        def no_anti(op) -> None:
+            if isinstance(op, algebra.AntiJoin) and (
+                _referenced_preds(op.right) & chunked
+            ):
+                raise ExecutorError(
+                    f"rule {df.label}: chunked EDB {pred!r} on the negated "
+                    "side of an AntiJoin — set difference against a "
+                    "partial chunk is not chunk-invariant (fail closed)"
+                )
+            for child in op.children():
+                no_anti(child)
+
+        def check_gb(op, root: bool) -> None:
+            if isinstance(op, algebra.GroupBy) and (
+                _referenced_preds(op) & chunked
+            ):
+                if not root or ex.merge_monoids.get(df.target) != op.agg:
+                    raise ExecutorError(
+                        f"rule {df.label}: aggregation over chunked EDB "
+                        f"{pred!r} must be the rule's head aggregate (its "
+                        "per-chunk partials fold through the head monoid; "
+                        "fail closed)"
+                    )
+            for child in op.children():
+                check_gb(child, False)
+
+        no_anti(df.op)
+        check_gb(df.op, True)
+        _, vals = ex.sigs[df.target]
+        if vals and ex.merge_monoids.get(df.target) is None:
+            raise ExecutorError(
+                f"rule {df.label}: target {df.target!r} carries value "
+                f"columns but no merge monoid — per-chunk partials from "
+                f"chunked EDB {pred!r} cannot combine (fail closed)"
+            )
+
+    for df in ex.prelude:
+        check_df(df)
+    for ph in ex.phases:
+        for df in ph.init + ph.finals + ph.post:
+            check_df(df, phase=ph)
+        for df in ph.body:
+            check_df(df, phase=ph, is_body=True)
 
 
 def _collect_groupbys(df, sigs, relations, domain) -> List[GroupBySpec]:
@@ -2126,11 +2715,17 @@ class PregelStepBundle:
     superstep: Callable
     sparse_step_factory: Callable[[int], Callable]
     local_edge_cap: int
+    # Failure injection threaded from the compile call: the executable
+    # hands it to its host driver, which fires ``maybe_fail(j)`` at the
+    # step boundary.
+    injector: Optional[Any] = None
 
 
-def build_pregel_steps(prog, graph, plan, mesh=None) -> PregelStepBundle:
+def build_pregel_steps(prog, graph, plan, mesh=None,
+                       injector=None) -> PregelStepBundle:
     """Materialize the planned Listing-1 superstep pipeline on one
-    device."""
+    device.  ``injector`` rides along on the bundle: failures fire at the
+    host step boundary between supersteps, never inside one."""
 
     if mesh is not None:
         raise NotImplementedError(
@@ -2194,6 +2789,7 @@ def build_pregel_steps(prog, graph, plan, mesh=None) -> PregelStepBundle:
         superstep=superstep,
         sparse_step_factory=sparse_step_factory,
         local_edge_cap=graph.n_edges,
+        injector=injector,
     )
 
 

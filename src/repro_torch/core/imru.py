@@ -21,8 +21,7 @@ from the records' statistics, and has the executor build the step
 G3's ``M != NewM`` test: the fixpoint is reached when ``update`` returns the
 model unchanged (to within ``tol``).
 
-One device only: ``mesh=`` is ROADMAP A10; checkpoints, resume and failure
-injection are A11.
+One device only: ``mesh=`` is ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ from repro_torch.core.fixpoint import (
     DriverConfig,
     FixpointResult,
     HostFixpointDriver,
+    checkpointed_run,
     device_fixpoint,
 )
 from repro_torch.core.hardware import MeshSpec, TPU_V5E, HardwareSpec
@@ -130,30 +130,46 @@ class IMRUExecutable:
         on_device: bool = True,
         *,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
         resume: bool = False,
         injector: Optional[Any] = None,
+        max_restarts: int = 3,
+        keep_checkpoints: int = 3,
         straggler_fallback: bool = True,
     ) -> FixpointResult:
         """Run the IMRU fixpoint: :func:`device_fixpoint` when
-        ``on_device``, else the host driver, where a detected straggler
-        switches the reduce to the planner's k-ary aggregation tree (when
-        ``straggler_fallback`` is on); fallbacks taken are recorded in
-        ``straggler_fallbacks`` and ``plan.notes``.  ``checkpoint_dir=``,
-        ``resume=`` and ``injector=`` raise (ROADMAP A11)."""
+        ``on_device`` and no fault tolerance is asked for, else the host
+        driver.
 
-        if checkpoint_dir is not None or resume or injector is not None:
-            raise NotImplementedError(
-                "checkpoint_dir=, resume= and injector= are not ported yet: "
-                "ROADMAP A11 (fault tolerance)"
-            )
+        Fault tolerance (host driver): ``checkpoint_dir`` checkpoints the
+        model host-side every ``checkpoint_every`` iterations (default 8);
+        ``injector`` fires crashes/straggles at the step boundary;
+        ``resume=True`` continues from disk.  A detected straggler switches
+        the reduce to the planner's k-ary aggregation tree when
+        ``straggler_fallback`` is on; fallbacks taken are recorded in
+        ``straggler_fallbacks`` and ``plan.notes``."""
+
+        ft = checkpoint_dir is not None or injector is not None
+        if resume and checkpoint_dir is None:
+            raise ValueError("resume=True needs checkpoint_dir=")
         model = self.init()
-        if on_device:
+        if on_device and not ft:
             return device_fixpoint(self.step, self.converged, model,
                                    max_iters)
-        driver = self.driver(DriverConfig(max_iters=max_iters))
-        if straggler_fallback:
-            driver.on_straggler = self._kary_fallback(driver)
-        return driver.run(model)
+
+        def make_driver(config, save, restore):
+            driver = self.driver(config, save=save, restore=restore,
+                                 injector=injector)
+            if straggler_fallback:
+                driver.on_straggler = self._kary_fallback(driver)
+            return driver
+
+        return checkpointed_run(
+            make_driver, model, self.init, max_iters,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume=resume, max_restarts=max_restarts,
+            keep_checkpoints=keep_checkpoints,
+        )
 
     def _kary_fallback(self, driver: HostFixpointDriver) -> Callable:
         """Straggler response: re-plan the reduce as the k-ary aggregation

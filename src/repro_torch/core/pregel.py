@@ -32,6 +32,7 @@ from repro_torch.core.fixpoint import (
     DriverConfig,
     FixpointResult,
     HostFixpointDriver,
+    checkpointed_run,
     device_fixpoint,
 )
 from repro_torch.core.hardware import MeshSpec, TPU_V5E, HardwareSpec
@@ -111,6 +112,9 @@ class PregelExecutable:
     # Edge-slab size: a compaction capacity at or above it cannot win, so
     # the adaptive driver keeps the frontier-masked dense path.
     local_edge_cap: int = 0
+    # The failure injector threaded from compile (honored at the host step
+    # boundary).
+    injector: Optional[Any] = None
     _sparse_steps: Dict[int, Callable] = field(default_factory=dict,
                                                repr=False)
 
@@ -181,42 +185,80 @@ class PregelExecutable:
         adaptive: Optional[bool] = None,
         *,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+        resume: bool = False,
         injector: Optional[Any] = None,
+        max_restarts: int = 3,
+        keep_checkpoints: int = 3,
     ) -> FixpointResult:
         """Run to the Appendix-B.2 fixpoint.
 
         Semi-naive plans default to the host driver with per-superstep
         adaptive dense/sparse selection; dense plans default to
         :func:`device_fixpoint`.  ``on_device=True`` and ``adaptive=True``
-        exclude each other."""
+        exclude each other.
 
-        if checkpoint_dir is not None or injector is not None:
-            raise NotImplementedError(
-                "checkpoint_dir= and injector= are not ported yet: ROADMAP "
-                "A11 (fault tolerance)"
-            )
+        Fault tolerance (host driver only): ``checkpoint_dir`` checkpoints
+        the ``(state, active)`` carry host-side every ``checkpoint_every``
+        supersteps (default 8) through a
+        :class:`~repro_torch.checkpoint.CheckpointStore`; a crash restores
+        and replays, and ``resume=True`` continues a run from disk.
+        ``injector`` overrides the compile-time
+        :class:`~repro_torch.ft.FailureInjector` at the step boundary.  A
+        restored carry lands on the graph's device."""
+
         if on_device and adaptive:
             raise ValueError(
                 "on_device=True and adaptive=True are incompatible: "
                 "adaptive dense/sparse selection needs the host driver"
             )
+        injector = self.injector if injector is None else injector
+        ft = checkpoint_dir is not None or injector is not None
+        if on_device and ft:
+            raise ValueError(
+                "fault tolerance (checkpoint_dir/injector) needs the host "
+                "driver: pass on_device=False"
+            )
+        if resume and checkpoint_dir is None:
+            raise ValueError("resume=True needs checkpoint_dir=")
         if adaptive is None:
             adaptive = self.semi_naive and not on_device
+        if on_device is None:
+            on_device = not adaptive and not ft
         init = self.init()
-        if not adaptive:
+        if on_device and not adaptive:
             return device_fixpoint(
                 self.superstep, self.converged, init, max_iters
             )
+        return checkpointed_run(
+            lambda config, save, restore: self.driver(
+                config, adaptive=adaptive, save=save, restore=restore,
+                injector=injector),
+            init, self.init, max_iters, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+            max_restarts=max_restarts, keep_checkpoints=keep_checkpoints,
+        )
+
+    def driver(
+        self,
+        config: DriverConfig,
+        adaptive: Optional[bool] = None,
+        **hooks,
+    ) -> HostFixpointDriver:
+        if adaptive is None:
+            adaptive = self.semi_naive
+        hooks.setdefault("injector", self.injector)
         return HostFixpointDriver(
             step=self.superstep,
             converged=self.converged,
-            config=DriverConfig(max_iters=max_iters),
-            select_step=self.adaptive_select_step,
-        ).run(init)
+            config=config,
+            select_step=self.adaptive_select_step if adaptive else None,
+            **hooks,
+        )
 
     def remesh(self, mesh) -> "PregelExecutable":
         raise NotImplementedError(
-            "remesh is not ported yet: ROADMAP A11 (fault tolerance)"
+            "remesh is not ported yet: ROADMAP A10 (multi-GPU)"
         )
 
 
@@ -253,7 +295,6 @@ def compile_pregel(
     force_connector: Optional[str] = None,
     payload_bytes: int = 4,
     semi_naive: bool = False,
-    checkpoint_dir: Optional[str] = None,
     injector: Optional[Any] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> PregelExecutable:
@@ -270,16 +311,13 @@ def compile_pregel(
     their width at compile and the planner prices the true per-message
     bytes (``payload_bytes`` is the fallback when the probe cannot run).
     ``hw`` defaults to the TPU model so plan notes match the JAX package's.
+    ``injector`` (a :class:`~repro_torch.ft.FailureInjector`) rides the
+    executable to its host driver's step boundary.
     """
 
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: ROADMAP A10 (multi-GPU)"
-        )
-    if checkpoint_dir is not None or injector is not None:
-        raise NotImplementedError(
-            "checkpoint_dir= and injector= are not ported yet: ROADMAP A11 "
-            "(fault tolerance)"
         )
     device = resolve_device(device)
     for t in [graph.src, graph.dst] + tree_leaves(graph.vertex_data) \
@@ -340,7 +378,7 @@ def compile_pregel(
     )
 
     # (5): the executor materializes the planned superstep pipeline.
-    bundle = build_pregel_steps(prog, graph, plan)
+    bundle = build_pregel_steps(prog, graph, plan, injector=injector)
     return PregelExecutable(
         prog=prog,
         program=program,
@@ -351,4 +389,5 @@ def compile_pregel(
         semi_naive=semi_naive,
         sparse_step_factory=bundle.sparse_step_factory,
         local_edge_cap=bundle.local_edge_cap,
+        injector=bundle.injector,
     )

@@ -453,13 +453,10 @@ def _tc(**kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"storage": "row-table", "chunks": 2}, "A12"),
     ({"storage": {"tc": "row-table"}, "mesh": object()}, "A10"),
     ({"row_cap": 64, "exchange": "bucket-a2a"}, "A10"),
     ({"mesh": object()}, "A10"),
     ({"exchange": "bucket-a2a"}, "A10"),
-    ({"chunks": 2}, "A12"),
-    ({"hbm_budget": 1 << 20}, "A12"),
 ])
 def test_unported_compile_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -473,9 +470,6 @@ def test_forced_dense_storage_runs():
 
 @pytest.mark.parametrize("kw,item", [
     ({"params": {}}, "A13"),
-    ({"checkpoint_dir": "ckpt"}, "A11"),
-    ({"injector": object()}, "A11"),
-    ({"resume": True}, "A11"),
 ])
 def test_unported_run_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

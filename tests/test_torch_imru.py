@@ -191,12 +191,10 @@ def test_host_driver_logs_every_tenth_iteration(caplog):
     assert done == [10, 20]
 
 
-@pytest.mark.parametrize("field",
-                         ["checkpoint_every", "max_restarts", "log_every"])
+@pytest.mark.parametrize("field", ["log_every"])
 def test_driver_config_rejects_fields_no_driver_reads(field):
-    # Checkpoint and restart settings come with the driver that reads them
-    # (ROADMAP A11); the log interval is a constant.  Passing one fails
-    # rather than being ignored.
+    # The log interval is a constant: passing one fails rather than being
+    # ignored.
     with pytest.raises(TypeError, match=field):
         DriverConfig(**{field: 1})
 
@@ -216,6 +214,10 @@ def test_straggler_triggers_the_kary_fallback_like_jax():
 
     _, torch_task = _tasks(4, 1e-4, update=update)
     jax_ex = jax_compile_imru(jax_task, jr)
+    # Compile the reference's step first: its first call's jit time would
+    # otherwise enter the trailing mean the detection compares against
+    # (under load it can hide iteration 8's straggle).
+    jax_ex.run(max_iters=1, on_device=False)
     jax_res = jax_ex.run(max_iters=iters, on_device=False,
                          injector=FailureInjector(straggles=[
                              (j, base + (slow if j == 8 else 0.0))
@@ -290,13 +292,6 @@ def test_unported_options_raise():
     recs = _records(X, y)[1]
     with pytest.raises(NotImplementedError, match="A10"):
         compile_imru(task, recs, mesh=object(), device="cpu")
-    ex = compile_imru(task, recs, device="cpu")
-    for kw in ({"checkpoint_dir": "ckpt"}, {"resume": True},
-               {"injector": object()}):
-        with pytest.raises(NotImplementedError, match="A11"):
-            ex.run(max_iters=2, on_device=False, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ex.driver(DriverConfig(max_iters=2), save=lambda s, j: None)
 
 
 def test_compile_imru_without_device_needs_a_card():

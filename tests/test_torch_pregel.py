@@ -184,9 +184,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         compile_pregel(torch_prog, tg, mesh=object(), device="cpu")
     ex = compile_pregel(torch_prog, tg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ex.run(max_iters=3, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A10"):
         ex.remesh(None)
 
 
