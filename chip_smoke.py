@@ -105,8 +105,26 @@ Phases, each of which exits nonzero on failure:
    slab compiles only chunked (m = 1 must refuse): m = 1, 4, 7 are held
    against the unchunked run at 2^20 edges, and the 2^24-edge runs against
    the first m = 4 run.  Size from ``--rows-log2-vertices``.
-   Phases 5 to 9 must give back all the card memory they took.
-10. ``lm``: the flash-attention forward kernel against its plain version
+10. ``serve``: online fixpoint serving through ``FixpointServer``
+   (``hw=H100_SXM``) over graphs handed over on the host: personalized
+   PageRank at n = ``--generic-domain`` (16 distinct out-edges a vertex,
+   20 iterations) in batches of 1, 4, 16 and 64 seed sets under
+   ``torch.func.vmap`` and one by one, every query within 1e-5 relative
+   L1 of float64 and batched within the f32 bound of the sums of
+   sequential, the cold request's compile and host-to-device bytes and a
+   warm one's (no compile, no copy of the graph); the same on dense grids
+   at 4n, 16 queries, with peak memory; 64 reachability probes equal to
+   scipy's BFS, batched bit-equal to sequential; row-table serving at n =
+   2^--rows-log2-vertices (4 queries, admitted sequentially, each compiled
+   with its bindings, batching refused) within 1e-5 of float64, B1 held
+   to its plain version at the GroupBy and merge sites; a parameterized
+   program on 4 vertices (segment-scan GroupBys: sum, max, min) whose 16
+   queries launch B1 once a GroupBy firing, sums within
+   ``kernel.sum_depth``'s bar of the sequential runs and max/min
+   bit-equal; then 256 requests through ``serve_request_loop``, answered
+   in arrival order and equal to one-by-one dispatch.
+   Phases 5 to 10 must give back all the card memory they took.
+11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
    held per element to the kernel's own error bound, reaching every route
@@ -129,7 +147,7 @@ Phases, each of which exits nonzero on failure:
    ``mma.sync`` kernel, launched outside the wrapper, in turns with the
    kernel), its plain version and PyTorch's SDPA at the main path's
    attention shape.
-11. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
+12. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
    their plain version (``attention_backward`` in f32 on the same inputs
    and statistics) on the forward's sweep shapes with a head dim up to
    160 and rows that see no key, f32 and bf16, both layouts, reaching
@@ -177,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import json
 import math
 import subprocess
@@ -1475,10 +1494,11 @@ def _row_site(site, call, launches, phase="rows"):
 
     vals, ids, n, op, act = call[2]
     vals = vals.reshape(vals.shape[0], -1).contiguous()
+    ids = ids.to(torch.int32).contiguous()
     E, F = vals.shape
-    tag = f"{phase} {site}: op={op} E={E} n={n}"
+    tag = f"{phase} {site}: op={op} E={E} F={F} n={n}"
     err, _ = _check_combine(vals, ids, n, act, (), op, tag)
-    n_valid = int(act.sum())
+    n_valid = E if act is None else int(act.sum())
     ker = lambda: segment_combine_cuda(vals, ids, n, op,  # noqa: E731
                                        edge_active=act)
     plain = lambda: segment_combine_reference(  # noqa: E731
@@ -1490,7 +1510,8 @@ def _row_site(site, call, launches, phase="rows"):
     # The mask of every slot read once, the values and ids of the active
     # rows only (the rest of the slab is the inactive suffix), the output
     # written once.
-    bytes_moved = E + n_valid * (4 * F + 4) + n * 4 * F
+    bytes_moved = (0 if act is None else E) + n_valid * (4 * F + 4) \
+        + n * 4 * F
     entry = {"site": site, "op": op, "E": E, "F": F, "n": n,
              "valid_rows": n_valid, "launches": launches,
              "max_abs_err": err, "ms": (turns[0] + turns[3]) / 2,
@@ -2396,7 +2417,669 @@ def phase_chunks(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the dense LM's serving path (phi4-mini-3.8b)
+# Phase 10: online fixpoint serving (plan and EDB caches, vmapped batches)
+# ---------------------------------------------------------------------------
+
+SERVE_DEGREE = 16              # distinct out-edges a vertex
+SERVE_ITERS = 20               # personalized PageRank iterations
+SERVE_DAMPING = 0.85
+SERVE_BATCHES = (1, 4, 16, 64)
+SERVE_GRID_FACTOR = 4          # part (b): n = 4 x --generic-domain
+SERVE_GRID_K = 16
+SERVE_PROBES = 64
+SERVE_ROWS_K = 4
+SERVE_SCAN_N = 4               # part (e): 16-cell grids take the segment scan
+SERVE_SCAN_K = 16
+SERVE_REQUESTS = 256
+SERVE_MAX_BATCH = 16
+SERVE_PPR_L1_TOL = 1e-5        # each query's ranks against float64
+
+
+def _h2d_bytes(fn, at_least):
+    """(``fn()``, the bytes of the host-to-device copies in its profiler
+    trace).  ``fn`` is known to copy ``at_least`` bytes; a trace that
+    holds fewer, or no byte counts, has lost events (a process's later
+    profiler runs can), and the bytes are None: not measured."""
+
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    sizes = [e.get("args", {}).get("bytes") for e in events
+             if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+             and "HtoD" in e.get("name", "")]
+    if not sizes or any(b is None for b in sizes) or sum(sizes) < at_least:
+        print(f"serve: the profiler's trace holds {sum(b or 0 for b in sizes)}"
+              f" B of host-to-device copies, under the {at_least} B made: "
+              f"not measured")
+        return out, None
+    return out, int(sum(sizes))
+
+
+def _capture_sorted_combines(run):
+    """``(run(), calls)``: every call of the sorted combine's operator on
+    plain tensors in ``run()`` — under vmap the one call its batching rule
+    makes for the whole batch — as ``(launches, (values, segment_ids,
+    num_segments, op, edge_active))``."""
+
+    import torch
+
+    from repro_torch.core import physical
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+
+    real, calls = physical._sorted_combine, []
+    batched = torch._C._functorch.is_batchedtensor
+
+    def record(*args):
+        if any(isinstance(a, torch.Tensor) and batched(a) for a in args):
+            return real(*args)        # the batching rule calls back in
+        before = sc_kernel.launch_count
+        out = real(*args)
+        calls.append((sc_kernel.launch_count - before, args))
+        return out
+
+    physical._sorted_combine = record
+    try:
+        out = run()
+    finally:
+        physical._sorted_combine = real
+    return out, calls
+
+
+def _ppr_oracle64(src, dst, n, seed_sets, iters, damping=SERVE_DAMPING):
+    """Float64 personalized PageRank of each seed set (the reference test's
+    ``_ppr_oracle``: a vertex's rank counts once a walk from the seeds has
+    reached it; the restart mass stays at the seeds), ``[n, k]``."""
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+
+    adj_t = coo_matrix((np.ones(src.shape[0]), (dst, src)),
+                       shape=(n, n)).tocsr()
+    deg = np.maximum(np.bincount(src, minlength=n).astype(np.float64), 1.0)
+    s = np.zeros((n, len(seed_sets)))
+    for q, vs in enumerate(seed_sets):
+        s[vs, q] = 1.0 / len(vs)
+    seeded = s > 0
+    r, pres = s.copy(), seeded.copy()
+    for _ in range(iters):
+        contrib = np.where(pres, damping * r / deg[:, None], 0.0)
+        r = adj_t @ contrib + np.where(pres & seeded, (1 - damping) * s, 0.0)
+        pres = ((adj_t @ pres.astype(np.float64)) > 0) | (pres & seeded)
+    return np.where(pres, r, 0.0), pres
+
+
+def _rank_of(answers, n):
+    """(ranks as float64 with absent vertices 0, presence) of one query's
+    answer, on the host."""
+
+    import numpy as np
+
+    rank = answers["rank"]
+    if hasattr(rank, "rows"):                  # a RowRelation
+        ids = rank.rows[:, 0].long().cpu().numpy()
+        out, pres = np.zeros(n), np.zeros(n, bool)
+        out[ids] = rank.values[1].double().cpu().numpy()
+        pres[ids] = True
+        return out, pres
+    pres = rank.present.cpu().numpy()
+    return np.where(pres, rank.values[1].double().cpu().numpy(), 0.0), pres
+
+
+def _ppr_check(res, n, want, want_pres, tag):
+    """Every query of ``res`` within SERVE_PPR_L1_TOL relative L1 of its
+    float64 ranks, presence exact; the largest relative L1."""
+
+    import numpy as np
+
+    worst = 0.0
+    for q, answers in enumerate(res.answers):
+        got, pres = _rank_of(answers, n)
+        rel = float(np.abs(got - want[:, q]).sum() / np.abs(want[:, q]).sum())
+        if not (np.array_equal(pres, want_pres[:, q])
+                and rel <= SERVE_PPR_L1_TOL):
+            raise AssertionError(f"serve: {tag}: query {q} off float64 (rel "
+                                 f"L1 {rel:.3e}, presence equal "
+                                 f"{np.array_equal(pres, want_pres[:, q])})")
+        worst = max(worst, rel)
+    return worst
+
+
+def _ppr_pair_gap(a, b, n, bar, tag):
+    """The largest relative L1 distance between two results' queries,
+    which must stay under ``bar``, with presence equal."""
+
+    import numpy as np
+
+    worst = 0.0
+    for x, y in zip(a.answers, b.answers):
+        (rx, px), (ry, py) = _rank_of(x, n), _rank_of(y, n)
+        rel = float(np.abs(rx - ry).sum() / np.abs(ry).sum())
+        if not (np.array_equal(px, py) and rel <= bar):
+            raise AssertionError(f"serve: {tag}: batched and sequential "
+                                 f"differ by {rel:.3e} relative L1 (bar "
+                                 f"{bar:.3e})")
+        worst = max(worst, rel)
+    return worst
+
+
+def _seed_sets(rng, n, k):
+    import numpy as np
+
+    return [np.sort(rng.choice(n, int(rng.integers(1, 9)), replace=False))
+            for _ in range(k)]
+
+
+def _seed_params(n, seed_sets):
+    """The per-query ``seed`` relations, on the host."""
+
+    import numpy as np
+
+    from repro_torch.core.executor import Relation
+
+    return [{"seed": Relation.from_columns(
+        n, vs, np.full(len(vs), 1.0 / len(vs), np.float32), device="cpu")}
+        for vs in seed_sets]
+
+
+def _batched_step(exe, params):
+    """``step(j)``: one batched iteration of ``exe``'s first phase over
+    ``params`` from the state the vmapped prelude and init of
+    ``exe.run_batched`` give."""
+
+    import torch
+
+    from repro_torch.core.tree import tree_map
+
+    stacked = tree_map(lambda *xs: torch.stack(xs),
+                       *[exe._param_grids(ps) for ps in params])
+    state, mat = exe._batched_fn("prelude")(stacked)
+    phase = exe.phases[0]
+    state = exe._batched_fn("init", phase)(state, mat, stacked)
+    step = exe._batched_fn("step", phase)
+    return lambda j: step(state, mat, stacked, j)
+
+
+def phase_serve(args, device, report) -> None:
+    """Online fixpoint serving through ``FixpointServer`` (``hw=H100_SXM``)
+    over graphs made from ``--seed`` and handed over on the host:
+
+    (a) personalized PageRank at n = ``--generic-domain`` (1024: the largest
+        domain the planner keeps dense for a binary predicate), 16 distinct
+        out-edges a vertex, 20 iterations, in batches of 1, 4, 16 and 64
+        seed sets of 1-8 vertices: every query within 1e-5 relative L1 of
+        float64, batched within the f32 bound of the sums of sequential;
+        the cold request's compile and host-to-device bytes, a warm one
+        (a plan-cache hit, no compile, no copy of the graph), per-query ms
+        batched and sequential, the admission notes, one batched iteration
+        profiled;
+    (b) the same program on dense grids at 4 x that n, 16 seed sets: the
+        same bars, and peak memory;
+    (c) point reachability at n, 64 probes: ``reach`` and ``hit`` equal to
+        scipy's BFS, batched bit-equal to sequential;
+    (d) row-table serving at n = 2^--rows-log2-vertices (16 out-edges a
+        vertex): 4 seed sets, admitted sequentially, each compiled with its
+        bindings, ``force="batched"`` refused; within 1e-5 of float64, no
+        dense fallback; B1 at the GroupBy and merge sites (twice an
+        iteration) held to its plain version there and timed;
+    (e) 16 queries of a parameterized program on 4 vertices whose GroupBys
+        take the segment scan (sum; max and min): B1 launches once a
+        GroupBy firing for the batch, sums within ``kernel.sum_depth``'s
+        bar of the sequential runs, max/min bit-equal;
+
+    then 256 requests in runs of PageRank and reachability through
+    ``serve_request_loop`` (``max_batch=16``): answers in arrival order,
+    equal to one-by-one dispatch; requests/s."""
+
+    import numpy as np
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+
+    from repro_torch.core.executor import ExecutorError, Relation, RowRelation
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.monoid import get_monoid
+    from repro_torch.core.parser import parse
+    from repro_torch.core.serving import (
+        FixpointServer,
+        personalized_pagerank_program,
+        point_reachability_program,
+        top_k,
+    )
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+    from repro_torch.launch.query_serve import QueryRequest, serve_request_loop
+
+    rng = np.random.default_rng(args.seed + 11)
+    n = args.generic_domain
+    ppr = personalized_pagerank_program(SERVE_DAMPING)
+    reach_prog = point_reachability_program()
+    sites, launch_counts, stats = [], {}, {}
+
+    def host_graph(n_, src, dst):
+        deg = np.bincount(src, minlength=n_).astype(np.float32)
+        return {"edge": Relation.from_columns(n_, src, dst, device="cpu"),
+                "deg": Relation.from_columns(n_, np.arange(n_), deg,
+                                             device="cpu")}
+
+    def sum_bar(n_, iters):
+        # Any-order f32 sums of at most n_ terms (gamma_n relative to the
+        # terms' magnitudes) in each of the two runs, each iteration; the
+        # damped walk is a contraction in L1, so each iteration's rounding
+        # adds at most once.
+        return 2 * iters * _gamma(n_)
+
+    # (a) batched dense personalized PageRank --------------------------------
+    src, dst = _distinct_out_edges(n, SERVE_DEGREE, rng)
+    shared = host_graph(n, src, dst)
+    server = FixpointServer(shared, device=device, hw=H100_SXM)
+    edge_bytes = n * n                         # the edge grid, bool
+    seed_bytes = 5 * n                         # a seed grid: bool and f32
+    sets = _seed_sets(rng, n, max(SERVE_BATCHES))
+    want, want_pres = _ppr_oracle64(src, dst, n, sets, SERVE_ITERS)
+    params = _seed_params(n, sets)
+    cold, cold_h2d = _h2d_bytes(lambda: server.query(
+        ppr, params[:1], max_iters=SERVE_ITERS, on_device=True),
+        edge_bytes + seed_bytes)
+    warm, warm_h2d = _h2d_bytes(lambda: server.query(
+        ppr, params[1:2], max_iters=SERVE_ITERS, on_device=True),
+        seed_bytes)
+    # The cold request copies edge and deg into the EDB cache (two
+    # misses); the warm one reuses the plan, which holds them on the card,
+    # and copies only its seed.
+    plan_edge = server.plan_cache._entries[cold.plan_key].relations["edge"]
+    if not (not cold.cache_hit and cold.compile_seconds > 0
+            and warm.cache_hit and warm.compile_seconds == 0.0
+            and warm.cache["edb_misses"] == cold.cache["edb_misses"] == 2
+            and warm.cache["edb_hits"] == 0
+            and warm.cache["plan_hits"] == 1
+            and plan_edge.present.device.type == device.type):
+        raise AssertionError(f"serve: cold/warm requests: {cold.cache} "
+                             f"{warm.cache}")
+    if cold_h2d is not None and warm_h2d is not None \
+            and warm_h2d >= edge_bytes:
+        raise AssertionError(f"serve: host-to-device bytes cold {cold_h2d}, "
+                             f"warm {warm_h2d} (the edge grid {edge_bytes})")
+    print(f"serve: (a) n={n}, {src.shape[0]} edges; cold request: compile "
+          f"{cold.compile_seconds * 1e3:.3f} ms, host-to-device "
+          f"{cold_h2d} B (the edge grid {edge_bytes} B); warm request: "
+          f"compile {warm.compile_seconds} s, host-to-device {warm_h2d} B, "
+          f"caches {json.dumps(warm.cache)}; plan {cold.notes[:-1]}")
+    stats["cold"] = {"compile_ms": cold.compile_seconds * 1e3,
+                     "h2d_bytes": cold_h2d, "warm_h2d_bytes": warm_h2d,
+                     "edge_grid_bytes": edge_bytes}
+    bar = sum_bar(n, SERVE_ITERS)
+    per_k = {}
+    for k in SERVE_BATCHES:
+        batch = params[:k]
+        out = {}
+        for force in ("batched", "sequential"):
+            server.query(ppr, batch, max_iters=SERVE_ITERS, on_device=True,
+                         force=force)
+            out[force] = server.query(ppr, batch, max_iters=SERVE_ITERS,
+                                      on_device=True, force=force)
+        b, sq = out["batched"], out["sequential"]
+        if b.batched != (k > 1) or sq.batched:
+            raise AssertionError(f"serve: k={k} dispatched batched="
+                                 f"{b.batched}/{sq.batched}")
+        sub = want[:, :k], want_pres[:, :k]
+        rel_b = _ppr_check(b, n, *sub, f"(a) k={k} batched")
+        rel_s = _ppr_check(sq, n, *sub, f"(a) k={k} sequential")
+        gap = _ppr_pair_gap(b, sq, n, bar, f"(a) k={k}")
+        admitted = server.query(ppr, batch, max_iters=SERVE_ITERS,
+                                on_device=True)
+        per_k[k] = {"batched_ms": b.execute_seconds / k * 1e3,
+                    "sequential_ms": sq.execute_seconds / k * 1e3,
+                    "iterations": b.iterations, "rel_l1_f64": max(rel_b,
+                                                                  rel_s),
+                    "batched_vs_sequential": gap,
+                    "note": admitted.notes[-1]}
+        print(f"serve: (a) k={k}: per query {per_k[k]['batched_ms']:.3f} ms "
+              f"batched, {per_k[k]['sequential_ms']:.3f} ms sequential "
+              f"({b.iterations} iterations); rel L1 vs float64 "
+              f"{per_k[k]['rel_l1_f64']:.3e}, batched vs sequential "
+              f"{gap:.3e} (bar {bar:.3e}); admission {admitted.notes[-1]}")
+    stats["a"] = per_k
+    ids, scores = top_k(b.answers[0]["rank"], 5)
+    print(f"serve: (a) top 5 of query 0 (seeds {sets[0].tolist()}): "
+          f"{ids.tolist()} {scores.tolist()}")
+    exe = server.plan_cache.get(cold.plan_key)
+    one_step = _batched_step(exe, params[:max(SERVE_BATCHES)])
+    one_step(1)
+    _profile(lambda: one_step(1),
+             f"batched ppr iteration (n={n}, k={max(SERVE_BATCHES)})", 1)
+    del one_step, exe
+
+    # (c) point reachability, 64 probes batched ------------------------------
+    pairs = rng.integers(0, n, (SERVE_PROBES, 2))
+    probes = [{"src": Relation.from_columns(n, np.array([a]), device="cpu"),
+               "dst": Relation.from_columns(n, np.array([t]), device="cpu")}
+              for a, t in pairs]
+    adj = coo_matrix((np.ones(src.shape[0]), (src, dst)),
+                     shape=(n, n)).tocsr()
+    edb_hits = server.edb_cache.hits
+    rb, rb_h2d = _h2d_bytes(lambda: server.query(
+        reach_prog, probes, max_iters=n, on_device=True, force="batched"),
+        SERVE_PROBES * 2 * n)
+    rs = server.query(reach_prog, probes, max_iters=n, on_device=True,
+                      force="sequential")
+    if server.edb_cache.hits != edb_hits + 1:
+        raise AssertionError("serve: (c) the reachability plan did not "
+                             "reuse the cached edge grid")
+    for q, (a, t) in enumerate(pairs):
+        closure = np.zeros(n, bool)
+        closure[breadth_first_order(adj, a, return_predecessors=False)] = \
+            True
+        hit = np.zeros(n, bool)
+        hit[t] = closure[t]
+        for res in (rb, rs):
+            if not (np.array_equal(res.answers[q]["reach"].present.cpu()
+                                   .numpy(), closure)
+                    and np.array_equal(res.answers[q]["hit"].present.cpu()
+                                       .numpy(), hit)):
+                raise AssertionError(f"serve: (c) probe {q} ({a} -> {t}) "
+                                     f"differs from scipy's BFS")
+        for pred in ("reach", "hit"):
+            if not torch.equal(rb.answers[q][pred].present,
+                               rs.answers[q][pred].present):
+                raise AssertionError(f"serve: (c) probe {q}: batched != "
+                                     f"sequential")
+    stats["c"] = {"batched_ms": rb.execute_seconds / SERVE_PROBES * 1e3,
+                  "sequential_ms": rs.execute_seconds / SERVE_PROBES * 1e3,
+                  "iterations": rb.iterations,
+                  "hits": int(sum(int(r["hit"].count()) for r in rb.answers)),
+                  "h2d_bytes": rb_h2d}
+    print(f"serve: (c) {SERVE_PROBES} reachability probes: per probe "
+          f"{stats['c']['batched_ms']:.3f} ms batched, "
+          f"{stats['c']['sequential_ms']:.3f} ms sequential "
+          f"({rb.iterations} iterations), {stats['c']['hits']} hit, equal to "
+          f"scipy's BFS; cold compile against the cached edge grid "
+          f"(EDB hits {server.edb_cache.hits}), host-to-device {rb_h2d} B")
+
+    # the request loop ------------------------------------------------------
+    # Runs of 1 to 40 requests, PageRank and reachability in turn.
+    requests, kinds = [], itertools.cycle(("ppr", "reach"))
+    while len(requests) < SERVE_REQUESTS:
+        run, kind = int(rng.integers(1, 41)), next(kinds)
+        for _ in range(min(run, SERVE_REQUESTS - len(requests))):
+            if kind == "ppr":
+                vs = _seed_sets(rng, n, 1)[0]
+                requests.append(QueryRequest(ppr, _seed_params(n, [vs])[0],
+                                             max_iters=SERVE_ITERS,
+                                             tag="ppr"))
+            else:
+                a, t = rng.integers(0, n, 2)
+                requests.append(QueryRequest(reach_prog, {
+                    "src": Relation.from_columns(n, np.array([a]),
+                                                 device="cpu"),
+                    "dst": Relation.from_columns(n, np.array([t]),
+                                                 device="cpu")},
+                    max_iters=n, tag="reach"))
+    for i, r in enumerate(requests):
+        r.tag = f"{r.tag}{i}"
+    serve_request_loop(server, requests[:SERVE_MAX_BATCH], on_device=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    responses = serve_request_loop(server, requests,
+                                   max_batch=SERVE_MAX_BATCH, on_device=True)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if [r.request.tag for r in responses] != [r.tag for r in requests]:
+        raise AssertionError("serve: the request loop's answers are out of "
+                             "order")
+    t0 = time.perf_counter()
+    solo = [server.query(r.program, r.params, max_iters=r.max_iters,
+                         on_device=True) for r in requests]
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    for resp, one in zip(responses, solo):
+        if "rank" in resp.answers:
+            a_, pa = _rank_of(resp.answers, n)
+            b_, pb = _rank_of(one.answers[0], n)
+            gap = float(np.abs(a_ - b_).sum() / np.abs(b_).sum())
+            if not (np.array_equal(pa, pb) and gap <= bar):
+                raise AssertionError(f"serve: loop answer {resp.request.tag}"
+                                     f" off its solo dispatch by {gap:.3e}")
+        elif not all(torch.equal(resp.answers[p].present,
+                                 one.answers[0][p].present)
+                     for p in ("reach", "hit")):
+            raise AssertionError(f"serve: loop answer {resp.request.tag} != "
+                                 f"its solo dispatch")
+    sizes = [r.result.batch for r in responses]
+    dispatches = sum(1 for i, r in enumerate(responses)
+                     if i == 0 or r.result is not responses[i - 1].result)
+    stats["loop"] = {"requests": len(requests), "seconds": loop_s,
+                     "requests_per_s": len(requests) / loop_s,
+                     "dispatches": dispatches,
+                     "solo_requests_per_s": len(requests) / solo_s}
+    print(f"serve: request loop: {len(requests)} requests in {dispatches} "
+          f"dispatches (largest batch {max(sizes)}) in {loop_s:.3f} s, "
+          f"{stats['loop']['requests_per_s']:.1f} requests/s; one by one "
+          f"{stats['loop']['solo_requests_per_s']:.1f} requests/s; answers "
+          f"in arrival order, equal to one-by-one dispatch")
+    del server, shared, responses, solo, rb, rs, b, sq, out, cold, warm
+    del admitted, params, probes, requests
+
+    # (b) dense grids at 4n ------------------------------------------------
+    n_b = SERVE_GRID_FACTOR * n
+    src_b, dst_b = _distinct_out_edges(n_b, SERVE_DEGREE, rng)
+    server = FixpointServer(host_graph(n_b, src_b, dst_b), device=device,
+                            hw=H100_SXM, storage="dense-grid")
+    sets_b = _seed_sets(rng, n_b, SERVE_GRID_K)
+    want_b, pres_b = _ppr_oracle64(src_b, dst_b, n_b, sets_b, SERVE_ITERS)
+    params_b = _seed_params(n_b, sets_b)
+    out = {}
+    for force in ("batched", "sequential"):
+        server.query(ppr, params_b, max_iters=SERVE_ITERS, on_device=True,
+                     force=force)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = server.query(ppr, params_b, max_iters=SERVE_ITERS,
+                           on_device=True, force=force)
+        out[force] = (res, torch.cuda.max_memory_allocated() - base)
+    (b, peak_b), (sq, peak_s) = out["batched"], out["sequential"]
+    bar_b = sum_bar(n_b, SERVE_ITERS)
+    rel = max(_ppr_check(b, n_b, want_b, pres_b, "(b) batched"),
+              _ppr_check(sq, n_b, want_b, pres_b, "(b) sequential"))
+    gap = _ppr_pair_gap(b, sq, n_b, bar_b, "(b)")
+    stats["b"] = {"n": n_b, "k": SERVE_GRID_K,
+                  "batched_ms": b.execute_seconds / SERVE_GRID_K * 1e3,
+                  "sequential_ms": sq.execute_seconds / SERVE_GRID_K * 1e3,
+                  "peak_batched": peak_b, "peak_sequential": peak_s,
+                  "rel_l1_f64": rel, "batched_vs_sequential": gap,
+                  "join_grid_cells": SERVE_GRID_K * n_b * n_b}
+    print(f"serve: (b) n={n_b} dense grids, k={SERVE_GRID_K} (one batched "
+          f"join grid {SERVE_GRID_K * n_b * n_b} cells): per query "
+          f"{stats['b']['batched_ms']:.3f} ms batched, "
+          f"{stats['b']['sequential_ms']:.3f} ms sequential; peak memory "
+          f"above the start {peak_b} B batched, {peak_s} B sequential; rel "
+          f"L1 vs float64 {rel:.3e}, batched vs sequential {gap:.3e} (bar "
+          f"{bar_b:.3e}); {b.notes[-1]}")
+    exe = server.plan_cache.get(b.plan_key)
+    one_step = _batched_step(exe, params_b)
+    one_step(1)
+    _profile(lambda: one_step(1),
+             f"batched ppr iteration (n={n_b}, k={SERVE_GRID_K})", 1)
+    del server, out, b, sq, res, exe, one_step, params_b
+
+    # (d) row-table serving ------------------------------------------------
+    n_d = 1 << args.rows_log2_vertices
+    src_d, dst_d = _distinct_out_edges(n_d, SERVE_DEGREE, rng)
+    deg_d = np.bincount(src_d, minlength=n_d).astype(np.float32)
+    server = FixpointServer(
+        {"edge": RowRelation.from_columns(n_d, src_d, dst_d, device=device),
+         "deg": Relation.from_columns(n_d, np.arange(n_d), deg_d,
+                                      device="cpu")},
+        device=device, hw=H100_SXM, storage="row-table")
+    sets_d = _seed_sets(rng, n_d, SERVE_ROWS_K)
+    want_d, pres_d = _ppr_oracle64(src_d, dst_d, n_d, sets_d, SERVE_ITERS)
+    params_d = _seed_params(n_d, sets_d)
+    try:
+        server.query(ppr, params_d, max_iters=SERVE_ITERS, force="batched")
+        raise AssertionError("serve: (d) row tables were forced batched")
+    except ExecutorError as err:
+        refusal = str(err)
+    sc_kernel.reset_launch_count()
+    res, calls = _capture_combines(lambda: server.query(
+        ppr, params_d, max_iters=SERVE_ITERS, on_device=True))
+    launches = sc_kernel.launch_count
+    by_site = {}
+    for caller, k_, _ in calls:
+        by_site[caller] = by_site.get(caller, 0) + k_
+    if res.batched or "sequential" not in res.notes[-1]:
+        raise AssertionError(f"serve: (d) dispatch {res.notes[-1]}")
+    # A dense fallback would answer with dense relations.
+    if not all(isinstance(a["rank"], RowRelation) for a in res.answers):
+        raise AssertionError("serve: (d) a row-table run fell back to dense "
+                             "grids")
+    rel_d = _ppr_check(res, n_d, want_d, pres_d, "(d) row tables")
+    iters_d = res.iterations
+    if set(by_site) != {"_groupby_rows", "_merge_rows"} or min(
+            by_site.values()) < SERVE_ROWS_K * iters_d:
+        raise AssertionError(f"serve: (d) {launches} segment-combine "
+                             f"launches {by_site} in {SERVE_ROWS_K} queries "
+                             f"of {iters_d} iterations")
+    # Each site at its last firing, the last query's last iteration (its
+    # rank rows spread furthest).
+    group_call = [c for c in calls if c[0] == "_groupby_rows"][-1]
+    merge_call = [c for c in calls if c[0] == "_merge_rows"][-1]
+    del calls
+    sites.append(_row_site("serve row groupby", group_call,
+                           by_site["_groupby_rows"], phase="serve"))
+    sites.append(_row_site("serve row merge", merge_call,
+                           by_site["_merge_rows"], phase="serve"))
+    launch_counts["row ppr"] = launches
+    stats["d"] = {"n": n_d, "edges": int(src_d.shape[0]),
+                  "k": SERVE_ROWS_K, "iterations": iters_d,
+                  "ms_per_query": res.execute_seconds / SERVE_ROWS_K * 1e3,
+                  "rel_l1_f64": rel_d, "launches": by_site}
+    print(f"serve: (d) row tables, n={n_d}, {src_d.shape[0]} edges, "
+          f"k={SERVE_ROWS_K}: {res.notes[-1]}; force='batched' refused: "
+          f"{refusal}; {res.execute_seconds / SERVE_ROWS_K * 1e3:.3f} ms a "
+          f"query (each compiled with its bindings), {iters_d} iterations "
+          f"each, "
+          f"rel L1 vs float64 {rel_d:.3e}; {launches} segment-combine "
+          f"launches {json.dumps(by_site)}")
+    del server, res, group_call, merge_call, params_d
+
+    # (e) segment scans under vmap: one launch a GroupBy firing ------------
+    m = SERVE_SCAN_N
+    src_e = np.array([0, 0, 1, 2, 2, 3])
+    dst_e = np.array([1, 2, 2, 0, 3, 1])
+    spread = parse(
+        "M1: hi(0, X, L)        :- lab(X, L).\n"
+        "M2: hi(J+1, X, max<L>) :- hi(J, Y, L), edge(Y, X).\n"
+        "M3: hi(J+1, X, L)      :- hi(J, X, L).\n"
+        "M4: lo(0, X, L)        :- lab(X, L).\n"
+        "M5: lo(J+1, X, min<L>) :- lo(J, Y, L), edge(Y, X).\n"
+        "M6: lo(J+1, X, L)      :- lo(J, X, L).\n",
+        aggregates={a: get_monoid(a).as_aggregate() for a in ("max", "min")})
+    server = FixpointServer(host_graph(m, src_e, dst_e), device=device,
+                            hw=H100_SXM)
+    seed_e = _seed_params(m, [np.sort(rng.choice(m, int(rng.integers(1, 3)),
+                                                 replace=False))
+                              for _ in range(SERVE_SCAN_K)])
+    lab_e = [{"lab": Relation.from_columns(
+        m, np.arange(m), rng.normal(size=m).astype(np.float32),
+        device="cpu")} for _ in range(SERVE_SCAN_K)]
+    scan = {}
+    # Each iteration fires one GroupBy (the spread program's hi and lo are
+    # two fixpoint phases, one after the other).
+    for tag, prog, batch, preds in (
+            ("sum", ppr, seed_e, ("rank",)),
+            ("max/min", spread, lab_e, ("hi", "lo"))):
+        server.query(prog, batch[:2], max_iters=SERVE_ITERS, force="batched")
+        exe = server.plan_cache.get(server.plan_key(prog, list(batch[0])))
+        if set(exe.plan.connectors.values()) != {"segment-scan"}:
+            raise AssertionError(f"serve: (e) {tag} planned {exe.plan.notes}")
+        got = {}
+        for force in ("batched", "sequential"):
+            sc_kernel.reset_launch_count()
+            res, calls = _capture_sorted_combines(lambda: server.query(
+                prog, batch, max_iters=SERVE_ITERS, on_device=True,
+                force=force))
+            torch.cuda.synchronize()
+            got[force] = (res, sc_kernel.launch_count, calls)
+        (b, lb, calls_b), (sq, ls, calls_s) = (got["batched"],
+                                               got["sequential"])
+        # One launch a GroupBy firing for the whole batch; sequentially,
+        # one a firing of each query's run.
+        widths = {c[1][0].shape[1] for c in calls_b}
+        if not (lb == len(calls_b) == b.iterations
+                and all(c[0] == 1 for c in calls_b)
+                and widths == {SERVE_SCAN_K}
+                and ls == len(calls_s) >= SERVE_SCAN_K * len(preds)):
+            raise AssertionError(f"serve: (e) {tag}: {lb} launches in "
+                                 f"{len(calls_b)} batched combines over "
+                                 f"{b.iterations} iterations; {ls} in "
+                                 f"{len(calls_s)} sequential ones")
+        # The batched combine's inputs at its last firing: against k
+        # single launches within sum_depth's bar (max/min bit-equal).
+        vals, ids, n_seg, op, act = calls_b[-1][1]
+        worst = 0.0
+        for pred in preds:
+            for q in range(SERVE_SCAN_K):
+                x = b.answers[q][pred]
+                y = sq.answers[q][pred]
+                if not torch.equal(x.present, y.present):
+                    raise AssertionError(f"serve: (e) {tag} {pred} query "
+                                         f"{q}: presence differs")
+                xv = torch.where(x.present, x.values[1], 0.0).double()
+                yv = torch.where(y.present, y.values[1], 0.0).double()
+                if tag != "sum":
+                    if not torch.equal(xv, yv):
+                        raise AssertionError(f"serve: (e) {tag} {pred} "
+                                             f"query {q}: batched != "
+                                             f"sequential")
+                    continue
+                d1 = float(sc_kernel.summation_depths(ids, n_seg, 1).max())
+                d2 = float(sc_kernel.summation_depths(
+                    ids, n_seg, SERVE_SCAN_K).max())
+                # Each iteration's combine within gamma_d1 + gamma_d2 of the
+                # rank mass (at most 1), the walk a contraction in L1.
+                bar_e = b.iterations * (_gamma(d1) + _gamma(d2))
+                gap = float((xv - yv).abs().sum())
+                if gap > bar_e:
+                    raise AssertionError(f"serve: (e) sum query {q}: "
+                                         f"batched off sequential by {gap} "
+                                         f"(bar {bar_e})")
+                worst = max(worst, gap)
+        site = _row_site(f"serve segment scan {tag}",
+                         (None, 1, calls_b[-1][1]), lb, phase="serve")
+        site["batch"] = SERVE_SCAN_K
+        sites.append(site)
+        launch_counts[f"scan {tag} batched"] = lb
+        launch_counts[f"scan {tag} sequential"] = ls
+        scan[tag] = {"batched_launches": lb, "batched_iterations":
+                     b.iterations, "sequential_launches": ls,
+                     "sequential_iterations": sq.iterations,
+                     "sum_gap_l1": worst}
+        print(f"serve: (e) {tag} on {m} vertices, k={SERVE_SCAN_K}: batched "
+              f"{lb} segment-combine launches in {b.iterations} iterations "
+              f"(one a GroupBy firing, payload width {widths}); "
+              f"sequential {ls}; batched vs sequential L1 {worst:.3e}")
+    stats["e"] = scan
+    del server, exe, got, b, sq, calls_b, calls_s, vals, ids, act
+    print(f"serve: {json.dumps(stats)}")
+    for entry in report:
+        if entry["name"] == "segment_combine":
+            entry["serve_launches"] = launch_counts
+            entry["serve_sites"] = sites
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the dense LM's serving path (phi4-mini-3.8b)
 # ---------------------------------------------------------------------------
 
 
@@ -2913,7 +3596,7 @@ def phase_lm(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: LM training (phi4-mini-3.8b), the backward kernels
+# Phase 12: LM training (phi4-mini-3.8b), the backward kernels
 # ---------------------------------------------------------------------------
 
 # Backward kernels against their plain version (in f32, same inputs, same
@@ -3599,6 +4282,9 @@ def main(argv=None) -> int:
             ("chunks", lambda: _freeing("chunks",
                                         lambda: phase_chunks(args, device,
                                                              report))),
+            ("serve", lambda: _freeing("serve",
+                                       lambda: phase_serve(args, device,
+                                                           report))),
             ("lm", lambda: phase_lm(args, device, report)),
             ("train", lambda: phase_train(args, device, report))):
         t0 = time.perf_counter()

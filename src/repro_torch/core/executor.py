@@ -43,10 +43,13 @@ checkpoints the carried state and the materialized views with the phase
 cursor (:mod:`repro_torch.checkpoint`) and restores and replays after a
 host-raised failure.
 
-Not ported yet, and raising ``NotImplementedError`` with the queue item:
-the sharded layouts and explicit row exchanges (``mesh=``, ``exchange=``,
-``remesh``: A10) and per-query parameters (``params=``, ``run_batched``:
-A13).
+Online serving: ``run(params=)`` rebinds dense EDB relations for one
+run, and :meth:`GenericExecutable.run_batched` runs k parameterized
+queries through one fixpoint under ``torch.func.vmap`` (the segment
+combine batches through its operator's batching rule, one combine for the
+k queries).  Not ported yet, and raising ``NotImplementedError`` with the
+queue item: the sharded layouts and explicit row exchanges (``mesh=``,
+``exchange=``, ``remesh``: A10).
 """
 
 from __future__ import annotations
@@ -1265,6 +1268,9 @@ class GenericExecutable:
     chunked_edb: Dict[str, List[Dict[str, Any]]] = field(default_factory=dict)
     _streams: Dict[str, _ChunkStream] = field(default_factory=dict,
                                               repr=False)
+    # The vmapped stages of run_batched, built once an executable.
+    _step_cache: Dict[Any, Callable] = field(default_factory=dict,
+                                             repr=False)
 
     # -- state plumbing -----------------------------------------------------
 
@@ -1313,13 +1319,17 @@ class GenericExecutable:
                                             device=self.device)
         return entry
 
-    def _ctx(self, state, views, materialized, j, label="") -> _Ctx:
+    def _ctx(self, state, views, materialized, j, label="",
+             relations=None) -> _Ctx:
+        """A firing's context; ``relations`` overrides the EDB (a run's
+        parameter bindings, :meth:`_bind_params`)."""
+
         return _Ctx(
             program=self.program,
             n=self.domain,
             device=self.device,
             sigs=self.sigs,
-            relations=self.relations,
+            relations=self.relations if relations is None else relations,
             state=state,
             views=views,
             materialized=materialized,
@@ -1571,10 +1581,12 @@ class GenericExecutable:
             new_state[pred] = entry
         return new_state
 
-    def _phase_step(self, phase: _Phase, materialized) -> Callable:
+    def _phase_step(self, phase: _Phase, materialized,
+                    relations=None) -> Callable:
         def step(state, j):
             views: Dict[str, Dict[str, Any]] = {}
-            ctx = self._ctx(state, views, materialized, j)
+            ctx = self._ctx(state, views, materialized, j,
+                            relations=relations)
             return self._apply_body(phase, ctx, state, phase.body, {})
 
         return step
@@ -1602,7 +1614,8 @@ class GenericExecutable:
         if flags and bool(functools.reduce(torch.logical_or, flags)):
             raise _RowCapacityOverflow()
 
-    def _run_rules_once(self, dataflows, state, materialized, j):
+    def _run_rules_once(self, dataflows, state, materialized, j,
+                        relations=None):
         """Fire a rule group once (init / final-view / post rules), merging
         multi-rule targets, and return {target: entry}.  Its capacity flags
         are read here, as the group's results are consumed at once."""
@@ -1610,7 +1623,7 @@ class GenericExecutable:
         acc: Dict[str, list] = {}
         order: List[str] = []
         views: Dict[str, Dict[str, Any]] = {}
-        ctx = self._ctx(state, views, materialized, j)
+        ctx = self._ctx(state, views, materialized, j, relations=relations)
         base_edb = ctx.row_edb
         for df in dataflows:
             ctx.label = df.label
@@ -1660,7 +1673,7 @@ class GenericExecutable:
             lambda t: t.to(self.device, non_blocking=True), chunk
         )
 
-    def _chunk_fire_fn(self, pred: str, dfs) -> Callable:
+    def _chunk_fire_fn(self, pred: str, dfs, relations=None) -> Callable:
         """The firing of the body rules scanning one chunked predicate:
         ``fire(state, acc, materialized, overlay, j) -> (acc, overflow)``
         evaluates them against a chunk overlay and folds the outs into the
@@ -1670,7 +1683,7 @@ class GenericExecutable:
         m = len(self.chunked_edb[pred])
 
         def fire(state, acc, materialized, overlay, j):
-            ctx = self._ctx(state, {}, materialized, j)
+            ctx = self._ctx(state, {}, materialized, j, relations=relations)
             ctx.row_edb = dict(self.row_edb)
             ctx.row_edb[pred] = overlay
             # Chunk-proportional intermediates: the planner's join /
@@ -1697,15 +1710,15 @@ class GenericExecutable:
 
         return fire
 
-    def _chunk_finish_fn(self, phase: _Phase, plain_dfs,
-                         chunk_targets) -> Callable:
+    def _chunk_finish_fn(self, phase: _Phase, plain_dfs, chunk_targets,
+                         relations=None) -> Callable:
         """The tail of a chunked phase step: fires the non-chunked body
         rules and seals the carried entries, seeding the per-target
         accumulators with the streamed partials (and folding the chunk
         loop's overflow flags into the carried flags)."""
 
         def finish(state, acc, of_chunks, materialized, j):
-            ctx = self._ctx(state, {}, materialized, j)
+            ctx = self._ctx(state, {}, materialized, j, relations=relations)
             accs = {t: [acc[t]] for t in chunk_targets}
             return self._apply_body(phase, ctx, state, plain_dfs, accs,
                                     of_chunks)
@@ -1713,7 +1726,7 @@ class GenericExecutable:
         return finish
 
     def _chunked_phase_step(self, phase: _Phase, materialized,
-                            injector=None) -> Callable:
+                            injector=None, relations=None) -> Callable:
         """The per-iteration step of a phase whose body scans chunked
         (out-of-core) EDB predicates: each such predicate's chunks stream
         through the ``fire`` stage (:class:`_ChunkStream`: the next chunk's
@@ -1733,9 +1746,9 @@ class GenericExecutable:
         targets = tuple(dict.fromkeys(
             df.target for dfs in chunk_dfs.values() for df in dfs
         ))
-        fire_fns = {pred: self._chunk_fire_fn(pred, tuple(dfs))
+        fire_fns = {pred: self._chunk_fire_fn(pred, tuple(dfs), relations)
                     for pred, dfs in chunk_dfs.items()}
-        finish = self._chunk_finish_fn(phase, plain, targets)
+        finish = self._chunk_finish_fn(phase, plain, targets, relations)
 
         def step(state, j):
             acc = {t: self._empty_out(t) for t in targets}
@@ -1757,13 +1770,14 @@ class GenericExecutable:
             self._streams[pred] = stream
         return stream
 
-    def _first_state(self):
+    def _first_state(self, relations=None):
         """The carried state before any rule fires, and the prelude's
         materialized views."""
 
         state = {pred: self._empty_entry(pred)
                  for phase in self.phases for pred in phase.carried}
-        return state, dict(self._run_rules_once(self.prelude, state, {}, 0))
+        return state, dict(self._run_rules_once(self.prelude, state, {}, 0,
+                                                relations=relations))
 
     def phase_step_fn(self) -> Tuple[Callable, Dict[str, Dict[str, Any]]]:
         """Benchmark hook: the per-iteration step of the FIRST fixpoint
@@ -1841,7 +1855,151 @@ class GenericExecutable:
             "remesh is not ported yet: ROADMAP A10 (multi-GPU)"
         )
 
-    def run_batched(self, *args, **kwargs):
+    # -- parameterized query bindings (online serving) ----------------------
+
+    def _param_grids(self, params) -> Dict[str, Dict[str, Any]]:
+        """Validate a per-query parameter binding ``{name: Relation}`` and
+        lower it to its grids on this executable's device.  Fail closed: a
+        parameter may only rebind a dense EDB relation of the compiled
+        program, on the same signature."""
+
+        grids: Dict[str, Dict[str, Any]] = {}
+        for name, rel in (params or {}).items():
+            base = self.relations.get(name)
+            if base is None:
+                raise ExecutorError(
+                    f"parameter {name!r} is not an EDB relation of the "
+                    "compiled program"
+                )
+            if (isinstance(base, RowRelation) or isinstance(rel, RowRelation)
+                    or name in self.row_edb or self._is_row(name)):
+                raise ExecutorError(
+                    f"parameter {name!r} is row-table-stored; parameterized "
+                    "bindings need dense-grid storage (fail closed)"
+                )
+            if rel.n != self.domain:
+                raise ExecutorError(
+                    f"parameter {name!r}: domain {rel.n} != compiled "
+                    f"domain {self.domain}"
+                )
+            if (tuple(rel.key_positions) != tuple(base.key_positions)
+                    or set(rel.values) != set(base.values)):
+                raise ExecutorError(
+                    f"parameter {name!r} does not match the compiled "
+                    "relation signature (key/value positions differ)"
+                )
+            grids[name] = {
+                "present": rel.present.to(self.device),
+                "values": {p: g.to(self.device)
+                           for p, g in rel.values.items()},
+            }
+        return grids
+
+    def _bind_params(self, grids) -> Optional[Dict[str, Relation]]:
+        """An EDB view with the parameter grids swapped in (the shared
+        graph relations stay the compile-time grids on the device)."""
+
+        if not grids:
+            return None
+        rels = dict(self.relations)
+        for name, entry in grids.items():
+            rels[name] = Relation(
+                n=self.domain,
+                key_positions=self.relations[name].key_positions,
+                present=entry["present"],
+                values=dict(entry["values"]),
+            )
+        return rels
+
+    def _batched_fn(self, kind: str, phase: Optional[_Phase] = None):
+        """A stage of a batched run, vmapped over a leading query axis of
+        (state, materialized, params) with the iteration ``j`` shared, and
+        built once an executable: the prelude, a phase's init, its step,
+        its finals and post rules, and its convergence test (every
+        query's no-new-facts test)."""
+
+        key = (kind, None if phase is None else phase.index)
+        fn = self._step_cache.get(key)
+        if fn is not None:
+            return fn
+        vmap = torch.func.vmap
+        if kind == "prelude":
+            def one(params):
+                return self._first_state(self._bind_params(params))
+
+            fn = vmap(one)
+        elif kind == "init":
+            def one(state, mat, params, _phase=phase):
+                inits = self._run_rules_once(
+                    _phase.init, state, mat, 0,
+                    relations=self._bind_params(params),
+                )
+                out = dict(state)
+                for pred in _phase.carried:
+                    entry = inits.get(pred)
+                    if entry is not None:
+                        out[pred] = self._init_entry(entry)
+                return out
+
+            fn = vmap(one)
+        elif kind == "step":
+            def one(state, mat, params, j, _phase=phase):
+                return self._phase_step(
+                    _phase, mat, self._bind_params(params)
+                )(state, j)
+
+            fn = vmap(one, in_dims=(0, 0, 0, None))
+        elif kind == "finals":
+            def one(state, mat, params, j, _phase=phase):
+                rels = self._bind_params(params)
+                m = dict(mat)
+                m.update(self._run_rules_once(
+                    tuple(df for df in _phase.body if not df.next_state)
+                    + _phase.finals, state, m, j, relations=rels,
+                ))
+                m.update(self._run_rules_once(
+                    _phase.post, state, m, j, relations=rels
+                ))
+                return m
+
+            fn = vmap(one, in_dims=(0, 0, 0, None))
+        elif kind == "conv":
+            each = vmap(self._phase_converged(phase))
+
+            def fn(prev, new, _each=each):
+                return torch.all(_each(prev, new))
+        else:
+            raise ExecutorError(f"unknown batched stage {kind!r}")
+        self._step_cache[key] = fn
+        return fn
+
+    def run_batched(
+        self,
+        param_sets,
+        max_iters: int,
+        on_device: bool = False,
+    ) -> List[FixpointResult]:
+        """Run k parameterized queries through ONE shared fixpoint.
+
+        ``param_sets`` is a sequence of per-query bindings ``{name:
+        Relation}``, every set binding the same parameter relations.  Each
+        stage is vmapped over a leading query axis (:meth:`_batched_fn`);
+        a phase iterates until *every* query's no-new-facts test holds
+        (extra iterations leave a converged query where it is: a converged
+        state is a fixed point of the step).  One result a query, each
+        with the shared iteration count, ``converged`` and
+        ``phase_iterations``; the answers are k sequential
+        ``run(..., params=...)`` calls' up to the sum order of the segment
+        combine at the batched width.
+
+        Fail closed: batching needs all-dense storage (row-table slabs
+        carry overflow flags the host reads, and chunked EDBs stream
+        through a host loop); admission routes such plans to sequential
+        dispatch (``repro_torch.core.planner.serving_admission``).
+        """
+
+        if not param_sets:
+            raise ExecutorError("run_batched needs at least one param set")
         if self._any_row or self.row_edb or self.chunked_edb:
             raise ExecutorError(
                 "query batching needs all-dense storage: row-table slabs "
@@ -1849,9 +2007,69 @@ class GenericExecutable:
                 "check host-side, and chunked EDB streams need the host "
                 "chunk loop (fail closed; dispatch sequentially)"
             )
-        raise NotImplementedError(
-            "run_batched is not ported yet: ROADMAP A13 (serving)"
-        )
+        grids = [self._param_grids(ps) for ps in param_sets]
+        names = set(grids[0])
+        if any(set(g) != names for g in grids[1:]):
+            raise ExecutorError(
+                "every batched param set must bind the same relations"
+            )
+        if not names:
+            raise ExecutorError(
+                "run_batched needs parameterized bindings (identical "
+                "queries batch trivially — dispatch one run instead)"
+            )
+        k = len(grids)
+        stacked = tree_map(lambda *xs: torch.stack(xs), *grids)
+
+        t0 = time.perf_counter()
+        state_b, mat_b = self._batched_fn("prelude")(stacked)
+        total, phase_iters, all_conv = 0, [], True
+        for phase in self.phases:
+            state_b = self._batched_fn("init", phase)(state_b, mat_b, stacked)
+            bstep = self._batched_fn("step", phase)
+            bconv = self._batched_fn("conv", phase)
+
+            def body(s, j, _b=bstep, _m=mat_b):
+                return _b(s, _m, stacked, j)
+
+            if on_device:
+                res = device_fixpoint(body, bconv, state_b, max_iters)
+            else:
+                res = HostFixpointDriver(
+                    step=body, converged=bconv,
+                    config=DriverConfig(max_iters=max_iters),
+                ).run(state_b)
+            state_b = res.state
+            total += res.iterations
+            phase_iters.append(res.iterations)
+            all_conv = all_conv and res.converged
+            mat_b = self._batched_fn("finals", phase)(
+                state_b, mat_b, stacked, res.iterations
+            )
+
+        seconds = time.perf_counter() - t0
+        entries = list(mat_b.items()) + [
+            (p, state_b[p]) for ph in self.phases for p in ph.carried
+        ]
+        results: List[FixpointResult] = []
+        for q in range(k):
+            out: Dict[str, Any] = {}
+            for pred, entry in entries:
+                keys, _ = self.sigs[pred]
+                out[pred] = Relation(
+                    n=self.domain,
+                    key_positions=keys,
+                    present=entry["present"][q],
+                    values={p: v[q] for p, v in entry["values"].items()},
+                )
+            results.append(FixpointResult(
+                state=out,
+                iterations=total,
+                converged=all_conv,
+                seconds=seconds,
+                phase_iterations=tuple(phase_iters),
+            ))
+        return results
 
     # -- fixpoint entry point ----------------------------------------------
 
@@ -1875,7 +2093,10 @@ class GenericExecutable:
         Returns a :class:`FixpointResult` whose ``state`` maps every
         materialized predicate to its final :class:`Relation` (or
         :class:`RowRelation` for a row-table predicate).
-        ``params=`` raises (ROADMAP A13).
+
+        ``params`` rebinds dense EDB relations for THIS run only (online
+        serving: per-query seed/source/target bindings), moved to this
+        executable's device; the compiled plan is reused as it is.
 
         Fault tolerance (host driver only): ``checkpoint_dir`` plugs a
         :class:`~repro_torch.checkpoint.CheckpointStore` into the driver's
@@ -1897,22 +2118,22 @@ class GenericExecutable:
         from the row run's.
         """
 
-        if params is not None:
-            raise NotImplementedError(
-                "params= is not ported yet: ROADMAP A13 (serving)"
-            )
+        relations = self._bind_params(self._param_grids(params))
         try:
             return self._run_phases(
-                max_iters, on_device, checkpoint_dir=checkpoint_dir,
+                max_iters, on_device, relations=relations,
+                checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every, resume=resume,
                 injector=injector, max_restarts=max_restarts,
                 keep_checkpoints=keep_checkpoints,
             )
         except _RowCapacityOverflow:
-            return self._dense_fallback_run(max_iters, on_device)
+            return self._dense_fallback_run(max_iters, on_device, params)
 
-    def _dense_fallback_run(self, max_iters: int,
-                            on_device: bool) -> FixpointResult:
+    def _dense_fallback_run(
+        self, max_iters: int, on_device: bool,
+        params: Optional[Mapping[str, Relation]] = None,
+    ) -> FixpointResult:
         for name, rel in self.relations.items():
             if isinstance(rel, RowRelation):
                 raise ExecutorError(
@@ -1925,7 +2146,7 @@ class GenericExecutable:
             domain=self.domain, storage="dense-grid", device=self.device,
             **self._compile_kwargs,
         )
-        res = dense.run(max_iters, on_device)
+        res = dense.run(max_iters, on_device, params=params)
         return replace(res, storage_fallback=True)
 
     def _run_phases(
@@ -1933,6 +2154,7 @@ class GenericExecutable:
         max_iters: int,
         on_device: bool,
         *,
+        relations: Optional[Dict[str, Relation]] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 0,
         resume: bool = False,
@@ -1956,7 +2178,7 @@ class GenericExecutable:
                 checkpoint_every = 8
 
         t0 = time.perf_counter()
-        state, materialized = self._first_state()
+        state, materialized = self._first_state(relations)
 
         # Resume cursor: phase to continue in (1-based), iteration within it
         # (checkpoints are written post-init, so a restored state never needs
@@ -1989,7 +2211,8 @@ class GenericExecutable:
             resumed = restored_from_disk and k == start_phase
             if not resumed:
                 inits = self._run_rules_once(phase.init, state,
-                                             materialized, 0)
+                                             materialized, 0,
+                                             relations=relations)
                 for pred in phase.carried:
                     entry = inits.get(pred)
                     if entry is not None:
@@ -2003,16 +2226,18 @@ class GenericExecutable:
                         "loop issues host-to-device transfers inside every "
                         "iteration (pass on_device=False)"
                     )
-                res = device_fixpoint(self._phase_step(phase, materialized),
-                                      conv, state, max_iters)
+                res = device_fixpoint(
+                    self._phase_step(phase, materialized, relations),
+                    conv, state, max_iters)
             else:
                 shifted = None if injector is None \
                     else _ShiftedInjector(injector, total)
                 if chunked_phase:
-                    step = self._chunked_phase_step(phase, materialized,
-                                                    injector=shifted)
+                    step = self._chunked_phase_step(
+                        phase, materialized, injector=shifted,
+                        relations=relations)
                 else:
-                    step = self._phase_step(phase, materialized)
+                    step = self._phase_step(phase, materialized, relations)
                 save_hook = restore_hook = None
                 if store is not None:
                     base = total  # global step counter offset for this phase
@@ -2085,10 +2310,10 @@ class GenericExecutable:
             materialized.update(self._run_rules_once(
                 tuple(df for df in phase.body if not df.next_state)
                 + phase.finals,
-                state, materialized, it,
+                state, materialized, it, relations=relations,
             ))
             materialized.update(self._run_rules_once(
-                phase.post, state, materialized, it,
+                phase.post, state, materialized, it, relations=relations,
             ))
         if store is not None:
             store.wait()  # surface any pending async-save failure

@@ -14,7 +14,10 @@ hand-written segment-combine kernel, which adds in a fixed order: the
 scatter combine sorts by destination first (a stable sort keeps each
 destination's rows in arrival order) and then runs the same kernel, so no
 combine on the path uses float atomics.  On the CPU both stay plain
-scatters that match the JAX reference.
+scatters that match the JAX reference.  The sorted combine's sum/max/min
+path is one ``torch.library`` operator with a batching rule, so under
+``torch.func.vmap`` k queries fold into its payload columns and combine
+in one call.
 """
 
 from __future__ import annotations
@@ -173,20 +176,68 @@ def segment_combine_sorted(
             values, segment_ids, num_segments, monoid,
             edge_active=edge_active, flag_cols=flag_cols, presorted=True,
         )
-    op = monoid.kernel_op
+    out = _sorted_combine(
+        _rows_2d(values).contiguous(), segment_ids.contiguous(),
+        num_segments, monoid.kernel_op,
+        None if edge_active is None else edge_active.contiguous(),
+    )
+    return out.reshape((num_segments,) + tuple(values.shape[1:]))
+
+
+@torch.library.custom_op("repro_torch::segment_combine_sorted",
+                         mutates_args=())
+def _sorted_combine(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    op: str,
+    edge_active: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The sum/max/min sorted combine of ``values[E, F]`` as one operator,
+    so that ``torch.func.vmap`` reaches it through its batching rule
+    (:func:`_sorted_combine_vmap`) instead of tracing the kernel's launch
+    or the plain scatter's in-place writes."""
+
     if kernel_eligible(values, op):
-        flat = _rows_2d(values).contiguous()
-        out = segment_combine_cuda(
-            flat, segment_ids.to(torch.int32).contiguous(), num_segments,
-            op,
-            edge_active=None if edge_active is None
-            else edge_active.contiguous(),
+        return segment_combine_cuda(
+            values, segment_ids.to(torch.int32).contiguous(), num_segments,
+            op, edge_active=edge_active,
         )
-        return out.reshape((num_segments,) + tuple(values.shape[1:]))
     keep = (segment_ids >= 0) & (segment_ids < num_segments)
     if edge_active is not None:
         keep = keep & edge_active
     return _plain_scatter(values, segment_ids, num_segments, op, keep)
+
+
+def _sorted_combine_vmap(info, in_dims, values, segment_ids, num_segments,
+                         op, edge_active):
+    """Batching rule of :func:`_sorted_combine`: k queries, one combine.
+
+    The ids and ``edge_active`` must be shared by the queries (a
+    segment-scan GroupBy's ids depend on the grid alone); batched ones
+    raise.  The query axis moves into the payload columns, ``[k, E, F] ->
+    [E, k*F]``, and the combine runs once: one kernel launch a column
+    slice of ``ACC_FLOATS`` (the kernel splits wider payloads itself), then
+    ``[S, k*F] -> [k, S, F]``.  Each column's sum order does not depend on
+    the others', but the kernel's tile of segments shrinks as the width
+    grows, so a query's sum follows ``kernel.summation_depths`` at width
+    k*F where its own call follows it at width F; max/min are exact."""
+
+    v_dim, id_dim, _, _, act_dim = in_dims
+    if id_dim is not None or act_dim is not None:
+        raise ValueError(
+            "the segment combine batches over its payload only: segment "
+            "ids and edge_active must be shared by the queries"
+        )
+    k = info.batch_size
+    v = values.movedim(v_dim, 1)
+    E, _, F = v.shape
+    out = _sorted_combine(v.reshape(E, k * F).contiguous(), segment_ids,
+                          num_segments, op, edge_active)
+    return out.reshape(num_segments, k, F).movedim(1, 0), 0
+
+
+torch.library.register_vmap(_sorted_combine, _sorted_combine_vmap)
 
 
 def scatter_combine(

@@ -1,1 +1,2 @@
-"""Launchers: serve-step builders (``serve``)."""
+"""Launchers: serve-step builders (``serve``), train-step builders
+(``train``) and the Datalog query-serving request loop (``query_serve``)."""

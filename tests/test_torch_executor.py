@@ -11,7 +11,8 @@ taken in another order).  Listing 1 through ``compile_program(binding=)``
 matches the port's ``compile_pregel`` to <= 1e-8 (the same operators).
 The fail-closed errors raise the same exception types with the same
 messages (up to the package name in a module path), and every option of
-a later queue item raises ``NotImplementedError`` naming it.
+a later queue item raises ``NotImplementedError`` naming it.  Per-query
+parameters and query batching are held in ``tests/test_torch_serving.py``.
 """
 
 import dataclasses
@@ -468,20 +469,33 @@ def test_forced_dense_storage_runs():
     assert ex.run(max_iters=64).converged
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"params": {}}, "A13"),
-])
-def test_unported_run_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _tc().run(max_iters=4, **kw)
+def test_run_with_empty_params_equals_run():
+    # params={} runs as no params, in both packages.
+    src, dst = _edges()
+    j = JE.compile_program(JL.transitive_closure_program(),
+                           {"edge": JE.Relation.from_columns(N, src, dst)})
+    want = np.asarray(j.run(max_iters=64, params={}).state["tc"].present)
+    assert np.array_equal(
+        want, np.asarray(j.run(max_iters=64).state["tc"].present))
+    ex = _tc()
+    got = ex.run(max_iters=64, params={})
+    assert got.converged
+    assert np.array_equal(got.state["tc"].present.numpy(), want)
+    assert np.array_equal(ex.run(max_iters=64).state["tc"].present.numpy(),
+                          want)
 
 
 def test_remesh_and_run_batched_raise():
     ex = _tc()
     with pytest.raises(NotImplementedError, match="A10"):
         ex.remesh(None)
-    with pytest.raises(NotImplementedError, match="A13"):
-        ex.run_batched(max_iters=4, params=[])
+    src, dst = _edges()
+    j = JE.compile_program(JL.transitive_closure_program(),
+                           {"edge": JE.Relation.from_columns(N, src, dst)})
+    err = _raises_like(lambda: j.run_batched([{}], max_iters=4),
+                       lambda: ex.run_batched([{}], max_iters=4))
+    assert isinstance(err, TE.ExecutorError) \
+        and "parameterized bindings" in str(err)
 
 
 def test_raw_array_past_the_dense_limit_raises():
