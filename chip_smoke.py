@@ -5,8 +5,8 @@
                           [--sssp-log2-vertices 22] [--imru-log2-records 23]
                           [--generic-domain 1024]
                           [--rows-log2-vertices 16] [--lm-layers 32]
-                          [--lm-prompt 4000] [--train-layers 32]
-                          [--train-seq 4096]
+                          [--lm-prompt 4000] [--families-layers 0]
+                          [--train-layers 32] [--train-seq 4096]
 
 Phases, each of which exits nonzero on failure:
 
@@ -123,7 +123,7 @@ Phases, each of which exits nonzero on failure:
    ``kernel.sum_depth``'s bar of the sequential runs and max/min
    bit-equal; then 256 requests through ``serve_request_loop``, answered
    in arrival order and equal to one-by-one dispatch.
-   Phases 5 to 10 must give back all the card memory they took.
+   Phases 5 to 10 and 12 must give back all the card memory they took.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -147,7 +147,31 @@ Phases, each of which exits nonzero on failure:
    ``mma.sync`` kernel, launched outside the wrapper, in turns with the
    kernel), its plain version and PyTorch's SDPA at the main path's
    attention shape.
-12. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
+12. ``families``: the other families' serving path, ``launch/serve.py``,
+   at published width with seeded random bf16 weights drawn in bf16:
+   minicpm3-4b (MLA, 62 layers), whisper-medium (encoder-decoder, 24 + 24
+   layers, 4 x 1500 frame embeddings), mixtral-8x22b (MoE, 8 of 56
+   layers), arctic-480b (MoE with a dense residual, 2 of 35 layers),
+   mamba2-130m (SSM, 24 layers) and hymba-1.5b (attention beside SSM
+   heads, 32 layers, a 1024-slot SWA ring), one after another, each freed
+   before the next: 4 requests of ``--lm-prompt`` tokens, then 32 greedy
+   decode steps; prefill s and tokens/s, decode ms a step, peak memory,
+   the MoE's pairs dropped a decode step at its own capacity factor, one
+   prefill and one decode step profiled.  B2 must launch once a
+   self-attention layer in prefill (whisper: also once an encoder layer
+   and once a cross-attention layer, which decode launches too; mamba2:
+   never), all on the route of the family's head dim (``mma`` at MLA's
+   96); two prefills bit-identical.  Bars (``LM_NOISE_FACTOR`` times the
+   bf16 bound measured in the run, the plain path against the same
+   weights in f32, on one request where the plain attention's scores
+   would not fit beside the weights; the MoE at a drop-free capacity, the
+   kernel path's expert choices replayed in the witnesses): prefill and
+   ``TF_STEPS`` decode logits against the plain path, and decode against
+   a teacher-forced forward; one planted fault in each family's own
+   mechanism must break the first.  B2 is held to plain and timed beside
+   SDPA at MLA's prefill shape (D 96) and at whisper's cross-attention
+   shapes.  ``--families-layers`` caps the depths in a rehearsal.
+13. ``train``: the flash-attention backward kernels (dQ, dK/dV) against
    their plain version (``attention_backward`` in f32 on the same inputs
    and statistics) on the forward's sweep shapes with a head dim up to
    160 and rows that see no key, f32 and bf16, both layouts, reaching
@@ -186,9 +210,9 @@ at the main path's shapes, and as its last line ``{"ok": true, "device":
 {...}}``.  Smaller sizes than the defaults make a rehearsal
 (``--lm-layers 2 --lm-prompt 1000 --log2-vertices 20
 --sssp-log2-vertices 18 --imru-log2-records 18 --generic-domain 256
---rows-log2-vertices 12 --train-layers 2 --train-seq 1024`` for a short
-first call after a kernel edit): every phase runs and is checked, but
-neither of those two lines is printed.
+--rows-log2-vertices 12 --families-layers 2 --train-layers 2
+--train-seq 1024`` for a short first call after a kernel edit): every
+phase runs and is checked, but neither of those two lines is printed.
 """
 
 from __future__ import annotations
@@ -202,6 +226,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -245,7 +270,7 @@ LM_DECODE_STEPS = 32
 DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22,
             "imru_log2_records": 23, "generic_domain": 1024,
             "rows_log2_vertices": 16, "lm_layers": 32, "lm_prompt": 4000,
-            "train_layers": 32, "train_seq": 4096}
+            "families_layers": 0, "train_layers": 32, "train_seq": 4096}
 
 
 def _card_line() -> str:
@@ -3085,7 +3110,10 @@ def phase_serve(args, device, report) -> None:
 
 def _flash_cases():
     """(B, H, KH, Sq, Skv, D, causal, window) of the kernel-vs-plain sweep:
-    tests/test_kernels.py's FLASH_SWEEP shapes, ragged tails, D = 160."""
+    tests/test_kernels.py's FLASH_SWEEP shapes, ragged tails, D = 160, and
+    the families' shapes: MLA's q.k head dim 96, whisper's cross-attention
+    (more queries than keys, and one query against the 1500 frames),
+    hymba's 25/5 heads with a window."""
 
     return [
         (1, 2, 2, 128, 128, 64, True, None),
@@ -3101,6 +3129,10 @@ def _flash_cases():
         (1, 4, 2, 1000, 1000, 128, True, 64),
         (1, 4, 2, 1000, 1000, 160, True, None),
         (1, 4, 2, 333, 777, 160, False, 100),
+        (1, 4, 4, 1000, 1000, 96, True, None),
+        (1, 4, 4, 1000, 375, 64, False, None),
+        (1, 4, 4, 1, 1500, 64, False, None),
+        (1, 25, 5, 300, 300, 64, True, 64),
     ]
 
 
@@ -3257,11 +3289,7 @@ def phase_lm(args, device, report) -> None:
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_reference
-    from repro_torch.launch.serve import (
-        build_decode_step,
-        build_prefill_step,
-        greedy_sample,
-    )
+    from repro_torch.launch.serve import build_decode_step, build_prefill_step
     from repro_torch.models import lm
     from repro_torch.models.registry import get_config
 
@@ -3340,45 +3368,19 @@ def phase_lm(args, device, report) -> None:
     ref_prefill_fn, _ = build_prefill_step(plan, None, cache_len, device,
                                            attention="ref")
 
-    wgmma_launches = [0]   # the last serve()'s prefill, on that route
-
-    def serve(fn, weights=params, decode=decode_fn, n=steps, feed=None):
-        """Prefill, then ``n`` decode steps fed the greedy tokens (or
-        ``feed``'s).  Returns (logits per step [n+1, B, V] f32, tokens
-        [B, n+1], prefill s, decode s, launches in prefill, launches in
-        decode)."""
-
-        fa_kernel.reset_launch_count()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache, pos = fn(weights, {"tokens": prompts})
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        n_prefill = fa_kernel.launch_count
-        wgmma_launches[0] = fa_kernel.fwd_wgmma_launch_count
-        out = [logits[:, -1].float()]
-        token = greedy_sample(logits)
-        toks = [token]
-        t0 = time.perf_counter()
-        for i in range(n):
-            if feed is not None:
-                token = feed[:, i:i + 1]
-            logits, cache = decode(weights, cache, token, pos + i)
-            out.append(logits[:, -1].float())
-            token = greedy_sample(logits)
-            toks.append(token)
-        torch.cuda.synchronize()
-        t_decode = time.perf_counter() - t0
-        return (torch.stack(out), torch.cat(toks, dim=1), t_prefill,
-                t_decode, n_prefill, fa_kernel.launch_count - n_prefill)
+    batch = {"tokens": prompts}
 
     # Warm-up on a short prompt (first cuBLAS calls, the kernel's load).
     with torch.inference_mode():
         lm.prefill(params, prompts[:1, :128], cfg, 160)
     torch.cuda.synchronize()
 
-    logits, toks, t_prefill, t_decode, n_prefill, n_decode = serve(prefill_fn)
-    n_wgmma = wgmma_launches[0]
+    run = _serve(prefill_fn, decode_fn, params, batch, steps)
+    logits, toks = run["logits"], run["tokens"]
+    t_prefill, t_decode = run["prefill_s"], run["decode_s"]
+    n_prefill, n_decode = run["prefill_launches"], run["decode_launches"]
+    n_wgmma = run["prefill_wgmma"]
+    del run
     fwd_route = fa_kernel.route("fwd", torch.bfloat16, D)
     if fwd_route != "wgmma":
         raise AssertionError(f"the forward takes the {fwd_route} route at "
@@ -3421,8 +3423,9 @@ def phase_lm(args, device, report) -> None:
     # The whole path against its plain version: the same weights and
     # prompts with the attention's plain version, decode fed the kernel
     # path's tokens.
-    r_logits, r_toks, t_ref, _, r_launch, _ = serve(ref_prefill_fn,
-                                                    feed=toks)
+    run = _serve(ref_prefill_fn, decode_fn, params, batch, steps, feed=toks)
+    r_logits, r_toks = run["logits"], run["tokens"]
+    t_ref, r_launch = run["prefill_s"], run["prefill_launches"]
     if r_launch != 0:
         raise AssertionError("the plain path launched the flash kernel")
     # The bf16 compute bound of this model, measured: the plain path
@@ -3434,8 +3437,10 @@ def phase_lm(args, device, report) -> None:
     f32_prefill_fn, _ = build_prefill_step(plan32, None, cache_len, device,
                                            attention="ref")
     f32_decode_fn, _, _ = build_decode_step(plan32, None, device)
-    f_logits, _, t_f32, _, _, _ = serve(f32_prefill_fn, params32,
-                                        f32_decode_fn, TF_STEPS, feed=toks)
+    run = _serve(f32_prefill_fn, f32_decode_fn, params32, batch, TF_STEPS,
+                 feed=toks)
+    f_logits, t_f32 = run["logits"], run["prefill_s"]
+    del run
     del params32
     torch.cuda.empty_cache()
     floor = [_rel_l2(r_logits[i], f_logits[i], cfg.vocab)
@@ -3596,7 +3601,851 @@ def phase_lm(args, device, report) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: LM training (phi4-mini-3.8b), the backward kernels
+# Phase 12: the other LM families served at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("minicpm3_4b", "whisper_medium", "mixtral_8x22b",
+                "arctic_480b", "mamba2_130m", "hymba_1_5b")
+# Depth cuts the card forces: the bf16 weights of mixtral-8x22b take about
+# 5.0 GB a layer (8 of 56 layers: 41 GB), arctic-480b's 27.2 GB (2 of 35:
+# 55 GB).  Every other configuration is served whole.
+FAMILY_LAYERS = {"mixtral_8x22b": 8, "arctic_480b": 2}
+# whisper-medium's decoder holds 448 positions (max_target_positions in
+# its published config, hf:openai/whisper-medium) and takes a prompt of at
+# most 224 tokens: it is served a 224-token prompt decoded to 448.
+WHISPER_PROMPT = 224
+WHISPER_CONTEXT = 448
+# The plain attention's f32 scores, their shifted copy and exp: the
+# witness runs on one request where three [B, H, S, S] f32 slabs would
+# take more than this share of the card's free memory.
+WITNESS_MEMORY_SHARE = 0.6
+# The MoE witnesses' capacity factor: a decode step's capacity at the
+# configs' 1.25 (one slot an expert) drops pairs that teacher forcing
+# keeps, and n_experts (no drop possible) would give arctic-480b T * k
+# slots an expert.  Every witness run checks that no pair was dropped.
+MOE_WITNESS_CAPACITY = 4.0
+# The one-layer checks at published width: the port's f32 mechanism against
+# a float64 oracle, rel L2 over ONE_LAYER_DECODE decode steps (or the whole
+# scan) within ONE_LAYER_TOL; its planted fault must break the bar.
+ONE_LAYER_TOL = 1e-4
+ONE_LAYER_DECODE = 8
+ONE_LAYER_REQUESTS = 2
+
+
+def _family_cfg(arch, args):
+    """The configuration served: published widths, depth cut only where
+    FAMILY_LAYERS says (and to ``--families-layers`` in a rehearsal)."""
+
+    import dataclasses
+
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(arch)
+    n = FAMILY_LAYERS.get(arch, cfg.n_layers)
+    changes = {}
+    if args.families_layers:
+        n = min(n, args.families_layers)
+        if cfg.enc_layers:
+            changes["enc_layers"] = min(cfg.enc_layers, args.families_layers)
+    if n != cfg.n_layers:
+        changes["n_layers"] = n
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def _family_traffic(cfg, args):
+    """(prompt tokens, decode steps) a request: whisper within its decoder's
+    context, every other family the ``lm`` phase's prompt and steps."""
+
+    if cfg.family == "encdec":
+        S = min(WHISPER_PROMPT, args.lm_prompt)
+        return S, WHISPER_CONTEXT - S
+    return args.lm_prompt, LM_DECODE_STEPS
+
+
+def _family_weights(cfg, gen, device):
+    """Random weights with the JAX package's distribution (normal 0.02,
+    ``small_normal`` 0.02 / sqrt(2 L), ones, zeros) drawn straight in the
+    compute dtype, and in f32 where a spec names it (norm scales, the SSM's
+    A_log, D and dt_bias): the tree ``lm.serving_params`` makes, without
+    an f32 master (arctic's would not fit the card)."""
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import dtype_of
+
+    dt = dtype_of(cfg.compute_dtype)
+    small = 0.02 / max(1.0, (2.0 * cfg.n_layers) ** 0.5)
+
+    def make(spec, stacked):
+        if isinstance(spec, dict):
+            return {k: make(v, stacked) for k, v in spec.items()}
+        shape = ((stacked,) if stacked else ()) + spec.shape
+        d = dtype_of(spec.dtype) if spec.dtype else dt
+        if spec.init in ("zeros", "ones"):
+            fill = torch.zeros if spec.init == "zeros" else torch.ones
+            return fill(shape, dtype=d, device=device)
+        t = torch.randn(shape, generator=gen, dtype=d, device=device)
+        return t.mul_(0.02 if spec.init == "normal" else small)
+
+    return {k: make(v, lm.n_stack(cfg, k))
+            for k, v in lm.model_specs(cfg).items()}
+
+
+def _family_flash_shapes(S):
+    """(tag, B, H, KH, Sq, Skv, D, causal, window) of each B2 launch the
+    families' served path makes (mamba2 makes none)."""
+
+    from repro_torch.models.registry import get_config
+
+    B = LM_REQUESTS
+    mla, wh = get_config("minicpm3_4b"), get_config("whisper_medium")
+    Sw = min(WHISPER_PROMPT, S)
+    shapes = [("minicpm3-4b prefill", B, mla.n_heads, mla.n_kv_heads, S, S,
+               mla.nope_head_dim + mla.rope_head_dim, True, mla.window),
+              ("whisper-medium encoder", B, wh.n_heads, wh.n_kv_heads,
+               wh.enc_seq, wh.enc_seq, wh.hd, False, None),
+              ("whisper-medium decoder self-attention, prefill", B,
+               wh.n_heads, wh.n_kv_heads, Sw, Sw, wh.hd, True, wh.window),
+              ("whisper-medium cross-attention, prefill", B, wh.n_heads,
+               wh.n_heads, Sw, wh.enc_seq, wh.hd, False, None),
+              ("whisper-medium cross-attention, decode step", B, wh.n_heads,
+               wh.n_heads, 1, wh.enc_seq, wh.hd, False, None)]
+    for arch in ("mixtral_8x22b", "arctic_480b", "hymba_1_5b"):
+        cfg = get_config(arch)
+        shapes.append((f"{cfg.name} prefill", B, cfg.n_heads,
+                       cfg.n_kv_heads, S, S, cfg.hd, True, cfg.window))
+    return shapes
+
+
+def _flash_at(B, H, KH, Sq, Skv, D, causal, window, gen, device, tag):
+    """B2 at one of the families' shapes (bf16, the LM's layout): held to
+    its plain version (``_flash_check``) and timed beside the plain version
+    and SDPA (given the window as a boolean mask); returns the report's
+    numbers."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_reference,
+        visible_mask,
+    )
+
+    q, k, v = (torch.randn(s, generator=gen, device=device)
+               .to(torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    err, ratio, _, checked = _flash_check(q, k, v, causal, window, "bshd",
+                                          tag)
+    del checked
+    scale = 1.0 / D ** 0.5
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = _time_ms(lambda: fa_kernel.flash_fwd(
+        q, k, v, causal=causal, window=window, sm_scale=scale,
+        layout="bshd"), 10)
+    plain_ms = _time_ms(lambda: attention_reference(
+        qt, kt, vt, causal=causal, window=window, sm_scale=scale), 3)
+    visible = visible_mask(Sq, Skv, causal, window, device)
+    sdpa = ({"attn_mask": visible} if window is not None
+            else {"is_causal": causal})
+    library_ms = _time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, scale=scale, enable_gqa=H != KH,
+                              **sdpa), 10)
+    # Visible (query, key) pairs; QK^T and PV are 2 FLOP a MAC each.
+    pairs = int(visible.sum())
+    del visible
+    flops = 4.0 * D * B * H * pairs
+    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * KH * D) \
+        + 2 * 4 * B * H * Sq
+    by_ops = flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    route = fa_kernel.route("fwd", torch.bfloat16, D)
+    mask = ("causal" if causal else "bidirectional") + (
+        f", window {window}" if window is not None else "")
+    print(f"families: flash_attention_fwd at {tag} (B={B} H={H} KH={KH} "
+          f"Sq={Sq} Skv={Skv} D={D} bf16 {mask}, {route} route): kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({flops:.4e} FLOP, {nbytes} bytes); vs "
+          f"plain max abs err {err:.3e}, max err / bar {ratio:.3f}",
+          flush=True)
+    return {"at": tag, "shape": {"B": B, "H": H, "KH": KH, "Sq": Sq,
+                                 "Skv": Skv, "D": D, "dtype": "bfloat16",
+                                 "causal": causal, "window": window,
+                                 "layout": "bshd"},
+            "kernel_route": route, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if by_ops else "bytes",
+            "library_ms": library_ms}
+
+
+def _b2_launches(cfg):
+    """B2 launches a prefill and a decode step: one a layer's self-
+    attention (none for the attention-free SSM), and for whisper one an
+    encoder layer and one a decoder layer's cross-attention, which decode
+    also launches (Sq = 1 against the frames)."""
+
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers, cfg.n_layers
+    return cfg.n_layers, 0
+
+
+def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
+           after_prefill=None):
+    """Prefill ``batch``, then ``steps`` decode steps fed the greedy tokens
+    (or ``feed``'s); ``after_prefill(logits, cache)`` may read or edit the
+    prefill's output before decode starts.  Returns a dict: ``logits`` per
+    step [steps+1, B, V] f32, ``tokens`` [B, steps+1], ``prefill_s``,
+    ``decode_s``, and B2's launches in prefill (``prefill_launches``, of
+    them on the wgmma route ``prefill_wgmma``) and in decode
+    (``decode_launches``)."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.serve import greedy_sample
+
+    fa_kernel.reset_launch_count()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        n_prefill = fa_kernel.launch_count
+        n_wgmma = fa_kernel.fwd_wgmma_launch_count
+        if after_prefill is not None:
+            after_prefill(logits, cache)
+        out, token = [logits[:, -1].float()], greedy_sample(logits)
+        toks = [token]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if feed is not None:
+                token = feed[:, i:i + 1]
+            logits, cache = decode_fn(params, cache, token, pos + i)
+            out.append(logits[:, -1].float())
+            token = greedy_sample(logits)
+            toks.append(token)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    return {"logits": torch.stack(out), "tokens": torch.cat(toks, dim=1),
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "prefill_launches": n_prefill, "prefill_wgmma": n_wgmma,
+            "decode_launches": fa_kernel.launch_count - n_prefill}
+
+
+def _experts_in_slices(real):
+    """``blocks._experts`` over slices of experts whose weights, cast to
+    the compute dtype, stay under 1 GiB: the f32 witness of a bf16 MoE (an
+    f32 copy of arctic-480b's 128 experts a layer takes 53.5 GB)."""
+
+    import torch
+
+    def experts(buf, p, dt):
+        n = max(1, (1 << 30) // (p["w_gate"][0].numel() * dt.itemsize))
+        return torch.cat([real(buf[i:i + n], {
+            k: p[k][i:i + n] for k in ("w_gate", "w_up", "w_down")}, dt)
+            for i in range(0, buf.shape[0], n)])
+    return experts
+
+
+def _family_fault(cfg):
+    """(what, context, after_prefill): the planted fault in the family's
+    own mechanism that the whole-path bar must catch."""
+
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import blocks
+
+    none = contextlib.nullcontext
+    if cfg.family == "mla":
+        def drop_latents(logits, cache):
+            cache["layers"]["c"].zero_()
+        return ("the latent cache c lost between prefill and decode "
+                "(zeroed): the absorbed decode attends on the rope scores "
+                "alone, over zero values", none(), drop_latents)
+    if cfg.family == "moe":
+        real = blocks._combine
+
+        def off_by_one(y, slot, weight, order, k):
+            return real(y, torch.clamp(slot + 1, max=y.shape[0] - 1),
+                        weight, order, k)
+        return ("expert rank off by one (each pair reads the slot after its "
+                "own)", mock.patch.object(blocks, "_combine", off_by_one),
+                None)
+    if cfg.family == "ssm":
+        def right_padded(xbc, w, b):
+            # the next K - 1 inputs read in place of the last K - 1
+            K = w.shape[0]
+            pad = torch.nn.functional.pad(xbc, (0, 0, 0, K - 1))
+            return sum(pad[:, i:i + xbc.shape[1]] * w[i]
+                       for i in range(K)) + b
+        return ("the causal conv padded on the wrong side",
+                mock.patch.object(blocks, "_causal_conv", right_padded), None)
+    if cfg.family == "hybrid":
+        def drop_state(logits, cache):
+            cache["layers"]["ssm"]["ssm"].zero_()
+            cache["layers"]["ssm"]["conv"].zero_()
+        return ("SSM state not handed from prefill to decode (zeroed), "
+                "beside the SWA ring", none(), drop_state)
+    if cfg.family == "encdec":
+        def zero_cross(logits, cache):
+            for t in cache["cross"].values():
+                t.zero_()
+        return ("cross K/V zeroed after prefill", none(), zero_cross)
+    raise ValueError(cfg.family)
+
+
+def _rel64(a, b):
+    return float((a.double() - b).norm() / b.norm())
+
+
+def _rms64(x, scale):
+    return (x * (x.square().mean(-1, keepdim=True) + 1e-6).rsqrt()
+            * scale.double())
+
+
+def _rope64(x, sin, cos):
+    """The port's rotary embedding (halves rotated) in float64; x
+    [B, T, H, D], sin/cos [T, D/2]."""
+
+    import torch
+
+    d2 = x.shape[-1] // 2
+    sin, cos = sin[None, :, None].double(), cos[None, :, None].double()
+    x1, x2 = x[..., :d2], x[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _attend64(q, k, v, rows, window):
+    """Causal (and windowed) softmax attention in float64 of the query rows
+    ``rows`` (absolute positions) over keys 0..T-1: q [B, n, H, Dq],
+    k [B, T, H, Dq], v [B, T, H, Dv] -> [B, n, H * Dv]."""
+
+    import torch
+
+    T = k.shape[1]
+    s = torch.einsum("bqhd,bthd->bhqt", q, k) / q.shape[-1] ** 0.5
+    col = torch.arange(T, device=q.device)[None, :]
+    seen = col <= rows[:, None]
+    if window is not None:
+        seen &= col > rows[:, None] - window
+    s = s.masked_fill(~seen, -torch.inf)
+    out = torch.einsum("bhqt,bthd->bqhd", torch.softmax(s, dim=-1), v)
+    return out.reshape(out.shape[0], out.shape[1], -1)
+
+
+def _mla_oracle64(p, x, cfg, rows, sin, cos):
+    """MiniCPM3's multi-head latent attention in float64 without the
+    absorbed form: full-width keys [k_nope, k_rope] and values from the
+    latent, at the query rows ``rows``."""
+
+    import torch
+
+    p = {k: v.double() for k, v in p.items()}
+    x = x.double()
+    B, T, _ = x.shape
+    H, nd, rd, vd, R = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    cq = _rms64(x[:, rows] @ p["q_down"], p["q_norm"])
+    q = (cq @ p["q_up"]).reshape(B, len(rows), H, nd + rd)
+    kv = x @ p["kv_down"]
+    c = _rms64(kv[..., :R], p["kv_norm"])
+    k_rope = _rope64(kv[..., R:][:, :, None], sin, cos).expand(B, T, H, rd)
+    q_rope = _rope64(q[..., nd:], sin[rows], cos[rows])
+    k = (c @ p["k_up"]).reshape(B, T, H, nd)
+    v = (c @ p["v_up"]).reshape(B, T, H, vd)
+    out = _attend64(torch.cat([q[..., :nd], q_rope], dim=-1),
+                    torch.cat([k, k_rope], dim=-1), v, rows, None)
+    return out @ p["wo"]
+
+
+def _gqa_oracle64(p, x, cfg, rows, sin, cos):
+    """GQA attention with a sliding window in float64 at the query rows
+    ``rows``, over every key (no ring)."""
+
+    p = {k: v.double() for k, v in p.items()}
+    x = x.double()
+    B, T, _ = x.shape
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x[:, rows] @ p["wq"]).reshape(B, len(rows), H, D)
+    k = (x @ p["wk"]).reshape(B, T, KH, D)
+    v = (x @ p["wv"]).reshape(B, T, KH, D)
+    if cfg.qk_norm:
+        q, k = _rms64(q, p["q_norm"]), _rms64(k, p["k_norm"])
+    q, k = _rope64(q, sin[rows], cos[rows]), _rope64(k, sin, cos)
+    G = H // KH
+    out = _attend64(q, k.repeat_interleave(G, dim=2),
+                    v.repeat_interleave(G, dim=2), rows, cfg.window)
+    return out @ p["wo"]
+
+
+def _mixer_decode(mixer, p, x, cfg, S, cache_len, after_prefill=None,
+                  during_decode=None):
+    """One layer's mixer: prefill over x[:, :S] (the plain attention),
+    ``after_prefill(cache)``, then a decode step for each later token of
+    x, under ``during_decode``; returns the decode outputs [B, n, E]."""
+
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import LayerCtx
+
+    dev = x.device
+    sin, cos = lm._rope_tables(cfg, torch.arange(S, device=dev)[None])
+    with torch.inference_mode():
+        _, cache = mixer(p, x[:, :S], LayerCtx(
+            cfg=cfg, mode="prefill", sin=sin, cos=cos, cache_len=cache_len,
+            attention="ref"))
+        if after_prefill is not None:
+            after_prefill(cache)
+        outs = []
+        with during_decode or contextlib.nullcontext():
+            for t in range(S, x.shape[1]):
+                sin, cos = lm._rope_tables(
+                    cfg, torch.full((1, 1), t, device=dev))
+                y, cache = mixer(p, x[:, t:t + 1], LayerCtx(
+                    cfg=cfg, mode="decode", sin=sin, cos=cos, pos=t), cache)
+                outs.append(y)
+    return torch.cat(outs, dim=1)
+
+
+def _one_layer_weights(specs, gen, device):
+    """f32 weights that keep activations at unit scale (each matrix normal
+    with std 1 / sqrt(fan-in), norm scales one), so that attention is far
+    from uniform and every term of the mechanism moves the output."""
+
+    import torch
+
+    return {k: (torch.ones(s.shape, device=device) if s.init == "ones"
+                else torch.randn(s.shape, generator=gen, device=device)
+                / s.shape[0] ** 0.5)
+            for k, s in specs.items()}
+
+
+def _one_layer_checks(args, device, gen):
+    """The family mechanisms that random served weights leave near
+    invisible, one layer at published width against float64: MLA's
+    absorbed decode (minicpm3-4b) against attention over full-width keys,
+    hymba-1.5b's ring decode against windowed attention over every key, and
+    ``ssd_chunked`` at mamba2-130m's width against the step recurrence.
+    Each holds ONE_LAYER_TOL, and its planted fault must break it: the
+    decode's rope scores dropped, the ring a slot off, the inter-chunk term
+    dropped."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.registry import get_config
+
+    B, S, n = ONE_LAYER_REQUESTS, args.lm_prompt, ONE_LAYER_DECODE
+    T = S + n
+    rows = torch.arange(S, T, device=device)
+    out = {}
+
+    def hold(name, got, want, fault, what):
+        err, off = _rel64(got, want), _rel64(fault, want)
+        print(f"families: one layer, {name}: rel L2 from float64 {err:.3e} "
+              f"(bar {ONE_LAYER_TOL}); planted fault, {what}: {off:.3e}",
+              flush=True)
+        if err > ONE_LAYER_TOL:
+            raise AssertionError(f"{name} off its float64 oracle by {err}")
+        if off <= ONE_LAYER_TOL:
+            raise AssertionError(f"{name}: the bar passes the planted fault "
+                                 f"({what})")
+        out[name] = {"rel_l2": err, "fault": off}
+
+    for arch in ("minicpm3_4b", "hymba_1_5b"):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        x = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
+        sin, cos = (t[0] for t in lm._rope_tables(
+            cfg, torch.arange(T, device=device)[None]))
+        if cfg.family == "mla":
+            p = _one_layer_weights(blocks.mla_specs(cfg), gen, device)
+            want = _mla_oracle64(p, x, cfg, rows, sin, cos)
+            layer = (blocks.mla_mixer, p, x, cfg, S, T)
+            got = _mixer_decode(*layer)
+            fault = _mixer_decode(*layer, during_decode=mock.patch.object(
+                blocks, "apply_rope", lambda t, sin, cos: torch.zeros_like(t)))
+            hold(f"{cfg.name} absorbed MLA decode, {n} steps after a "
+                 f"{S}-token prefill", got, want, fault,
+                 "the decode's rope scores dropped")
+        else:
+            p = _one_layer_weights(blocks.attention_specs(cfg), gen, device)
+            want = _gqa_oracle64(p, x, cfg, rows, sin, cos)
+            layer = (blocks.attention_mixer, p, x, cfg, S, cfg.window)
+            got = _mixer_decode(*layer)
+
+            def shift(cache):
+                for t in cache.values():
+                    t.copy_(torch.roll(t, 1, dims=1))
+            fault = _mixer_decode(*layer, after_prefill=shift)
+            hold(f"{cfg.name} ring decode ({cfg.window} slots), {n} steps "
+                 f"after a {S}-token prefill", got, want, fault,
+                 "the ring's slots off by one")
+        del p, x, want, got, fault
+
+    # The SSD scan: Mamba2's initial ranges, dt log-uniform in
+    # [1e-3, 1e-1] and -A uniform in [1, 16], so that the state carries
+    # across chunks at the slow heads.
+    cfg = get_config("mamba2_130m")
+    h, P, N, G = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                  cfg.ssm_groups)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=device)
+
+    x, Bm, Cm = draw(B, S, h, P), draw(B, S, G, N), draw(B, S, G, N)
+    dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1), B, S, h))
+    A_log = torch.log(uniform(1.0, 16.0, h))
+    D = torch.ones(h, device=device)
+    want, st_want = _ssd_recurrence64(x, dt, A_log, Bm, Cm, D)
+    chunk = min(cfg.ssm_chunk, S)
+    with torch.inference_mode():
+        got, st = blocks.ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk)
+        real = blocks._ssd_chunk
+
+        def no_y_off(state, *a):
+            return real(state, *a)[0], real(torch.zeros_like(state), *a)[1]
+        with mock.patch.object(blocks, "_ssd_chunk", no_y_off):
+            fault = blocks.ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk)[0]
+    st_err = _rel64(st, st_want)
+    print(f"families: one layer, {cfg.name} ssd_chunked final state: rel L2 "
+          f"from float64 {st_err:.3e} (bar {ONE_LAYER_TOL})")
+    if st_err > ONE_LAYER_TOL:
+        raise AssertionError(f"ssd_chunked's final state off by {st_err}")
+    hold(f"{cfg.name} ssd_chunked over {S} tokens in chunks of {chunk}",
+         got, want, fault, "the inter-chunk term y_off dropped")
+    return out
+
+
+def _ssd_recurrence64(x, dt, A_log, Bm, Cm, D):
+    """The SSM as its step recurrence in float64 (the decode's math):
+    y [b, s, h, p] and the final state [b, h, p, n]."""
+
+    import torch
+
+    x, dt, Bm, Cm = (t.double() for t in (x, dt, Bm, Cm))
+    A = -torch.exp(A_log.double())
+    rep = x.shape[2] // Bm.shape[2]
+    Bh = torch.repeat_interleave(Bm, rep, dim=2)
+    Ch = torch.repeat_interleave(Cm, rep, dim=2)
+    st = x.new_zeros((x.shape[0], x.shape[2], x.shape[3], Bm.shape[3]))
+    ys = []
+    for t in range(x.shape[1]):
+        st = st * torch.exp(dt[:, t] * A)[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dt[:, t], Bh[:, t], x[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], st))
+    return torch.stack(ys, dim=1) + x * D.double()[None, None, :, None], st
+
+
+def _serve_family(arch, args, device, gen):
+    """One configuration: served, profiled, held to its bars.  Returns its
+    numbers."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.serve import build_decode_step, build_prefill_step
+    from repro_torch.models import blocks, lm
+
+    cfg = _family_cfg(arch, args)
+    plan = plan_lm(cfg, "prefill_32k", MeshSpec((("data", 1),)), hw=H100_SXM)
+    cfg = plan.cfg
+    B = LM_REQUESTS
+    S, steps = _family_traffic(cfg, args)
+    cache_len = S + steps
+    if cfg.window is not None:
+        cache_len = min(cache_len, cfg.window)   # a ring, as init_cache's
+    tag = f"families: {cfg.name}"
+
+    gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = _family_weights(cfg, gen, device)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"{tag}: {lm.param_count(cfg)} parameters ({cfg.family}, "
+          f"{cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else "")
+          + f", d_model {cfg.d_model}), {n_bytes / 1e9:.2f} GB of "
+          f"{cfg.compute_dtype} weights drawn in "
+          f"{time.perf_counter() - t0:.1f}s; cache {cache_len} slots",
+          flush=True)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(device)
+    batch = {"tokens": prompts}
+    if cfg.family == "encdec":
+        # the reference's stub: precomputed frame embeddings
+        batch["enc_input"] = torch.randn(
+            (B, cfg.enc_seq, cfg.d_model), generator=gen, device=device,
+            dtype=torch.bfloat16)
+
+    prefill_fn, _ = build_prefill_step(plan, None, cache_len, device)
+    decode_fn, _, _ = build_decode_step(plan, None, device)
+    want_prefill, want_decode = _b2_launches(cfg)
+    D = cfg.nope_head_dim + cfg.rope_head_dim if cfg.family == "mla" \
+        else cfg.hd
+    route = None if cfg.attention_free else fa_kernel.route(
+        "fwd", torch.bfloat16, D)
+
+    # Warm-up on a short prompt (first cuBLAS calls, the kernel's load).
+    with torch.inference_mode():
+        prefill_fn(params, {k: v[:1, :128] if k == "tokens" else v[:1]
+                            for k, v in batch.items()})
+    torch.cuda.synchronize()
+
+    # The served run, at the configuration's own capacity factor; which
+    # of the MoE layers' pairs were kept, recorded (read after the run).
+    kept = []
+    real_route = blocks._route
+
+    def route_kept(*a):
+        out = real_route(*a)
+        kept.append(out[4])
+        return out
+
+    first = []
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(blocks, "_route", route_kept):
+        run = _serve(prefill_fn, decode_fn, params, batch, steps,
+                     after_prefill=lambda logits, cache: first.append(
+                         (logits.clone(), tree_map(torch.clone, cache))))
+    peak = torch.cuda.max_memory_allocated()
+    toks, t_prefill, t_decode = run["tokens"], run["prefill_s"], \
+        run["decode_s"]
+    n_prefill, n_decode = run["prefill_launches"], run["decode_launches"]
+    by_route = {"wgmma": run["prefill_wgmma"],
+                "mma": n_prefill - run["prefill_wgmma"]}
+    print(f"{tag}: served {B} requests x {S} prompt tokens + {steps} greedy "
+          f"decode steps: prefill {t_prefill:.4f}s = "
+          f"{B * S / t_prefill:.1f} tokens/s, decode "
+          f"{t_decode / steps * 1e3:.3f} ms/step = "
+          f"{B * steps / t_decode:.1f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB; B2 launches {n_prefill} in prefill "
+          f"(by route {json.dumps(by_route)}), {n_decode} in {steps} decode "
+          f"steps", flush=True)
+    if n_prefill != want_prefill or n_decode != want_decode * steps:
+        raise AssertionError(f"{cfg.name}: B2 launched {n_prefill} times in "
+                             f"prefill (want {want_prefill}) and {n_decode} "
+                             f"in decode (want {want_decode * steps})")
+    if route is not None and by_route[route] != n_prefill:
+        raise AssertionError(f"{cfg.name}: prefill launches by route "
+                             f"{by_route}, all should take {route} at D {D}")
+    if not (bool(torch.isfinite(run["logits"][..., :cfg.vocab]).all())
+            and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"{cfg.name}: logits not finite or tokens out "
+                             f"of the vocab")
+    del run
+    drops = []
+    if cfg.family == "moe":
+        L = cfg.n_layers
+        shares = [1 - float(torch.cat(kept[i:i + L]).float().mean())
+                  for i in range(0, len(kept), L)]
+        drops = shares[1:]
+        print(f"{tag}: pairs dropped at capacity factor "
+              f"{cfg.capacity_factor} (capacity "
+              f"{blocks.moe_capacity(cfg, B * S)} slots an expert in "
+              f"prefill, {blocks.moe_capacity(cfg, B)} in a decode step): "
+              f"prefill {shares[0]:.4f}, decode steps "
+              f"{', '.join(f'{x:.3f}' for x in drops)}")
+
+    # Where the time goes: one prefill (bit-identical to the first) and
+    # one decode step on its cache.
+    again = []
+
+    def prefill_once():
+        with torch.inference_mode():
+            again.append(prefill_fn(params, batch))
+
+    _profile(prefill_once, f"{arch} prefill", 1)
+    logits2, cache2, pos = again[0]
+    same = torch.equal(logits2, first[0][0]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(cache2),
+                                          tree_leaves(first[0][1])))
+    print(f"{tag}: two prefills bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: two prefills differ")
+    del first, logits2
+
+    def decode_once():
+        decode_fn(params, cache2, toks[:, :1], pos)
+
+    _profile(decode_once, f"{arch} decode step", 1)
+    del cache2, again
+
+    # The bars, on Bw requests (one where the plain attention's scores
+    # would not fit beside the weights), the MoE configurations at
+    # MOE_WITNESS_CAPACITY with every pair kept.  The kernel path's expert
+    # choices are recorded and replayed in the plain, f32 and
+    # teacher-forced witnesses: a near-tie that a rounding flips would
+    # otherwise swap a token's expert.
+    free = torch.cuda.mem_get_info(device)[0]
+    slab = 3 * 4 * B * cfg.n_heads * S * S
+    Bw = B if cfg.attention_free or slab < WITNESS_MEMORY_SHARE * free else 1
+    cfg_w = cfg if not cfg.n_experts else dataclasses.replace(
+        cfg, capacity_factor=MOE_WITNESS_CAPACITY)
+    plan_w = dataclasses.replace(plan, cfg=cfg_w)
+    plan32 = dataclasses.replace(
+        plan, cfg=dataclasses.replace(cfg_w, compute_dtype="float32"))
+    batch_w = {k: v[:Bw] for k, v in batch.items()}
+    feed = toks[:Bw]
+    paths = {
+        "kernel": (build_prefill_step(plan_w, None, cache_len, device)[0],
+                   build_decode_step(plan_w, None, device)[0]),
+        "plain": (build_prefill_step(plan_w, None, cache_len, device,
+                                     attention="ref")[0],
+                  build_decode_step(plan_w, None, device,
+                                    attention="ref")[0]),
+        "f32": (build_prefill_step(plan32, None, cache_len, device,
+                                   attention="ref")[0],
+                build_decode_step(plan32, None, device,
+                                  attention="ref")[0]),
+    }
+    routes = []
+    real_top_k = blocks._top_k
+
+    def record(probs, k):
+        idx = real_top_k(probs, k)
+        routes.append(idx)
+        return idx
+
+    def replay(log):
+        it = iter(log)
+
+        def top_k(probs, k):
+            idx = next(it)
+            if idx.shape != (probs.shape[0], k):
+                raise AssertionError("replayed routes out of step")
+            return idx
+        return mock.patch.object(blocks, "_top_k", top_k)
+
+    def witness(name, ctx):
+        with ctx:
+            return _serve(*paths[name], params, batch_w, TF_STEPS,
+                          feed)["logits"]
+
+    t0 = time.perf_counter()
+    kept.clear()
+    with mock.patch.object(blocks, "_route", route_kept):
+        got = witness("kernel", mock.patch.object(blocks, "_top_k", record))
+        ref = witness("plain", replay(routes))
+        with mock.patch.object(blocks, "_experts",
+                               _experts_in_slices(blocks._experts)):
+            f32 = witness("f32", replay(routes))
+        torch.cuda.empty_cache()
+        # Teacher forcing: one forward over the prompt and the fed tokens,
+        # each MoE layer routed as prefill and the decode steps were.
+        L = cfg.n_layers if cfg.n_experts else 0
+        tf_routes = [torch.cat([routes[l].reshape(Bw, S, -1)] + [
+            routes[L * (1 + i) + l].reshape(Bw, 1, -1)
+            for i in range(TF_STEPS)], dim=1).reshape(Bw * (S + TF_STEPS), -1)
+            for l in range(L)]
+        with replay(tf_routes), torch.inference_mode():
+            full = lm.forward(params, torch.cat([batch_w["tokens"],
+                                                 feed[:, :TF_STEPS]], dim=1),
+                              cfg_w, enc_input=batch_w.get("enc_input"))
+    if not all(bool(k.all()) for k in kept):
+        raise AssertionError(f"{cfg.name}: a witness dropped a pair at "
+                             f"capacity factor {cfg_w.capacity_factor}")
+    tf = [_rel_l2(got[i], full[:, S - 1 + i].float(), cfg.vocab)
+          for i in range(TF_STEPS + 1)]
+    del full
+    floor = [_rel_l2(ref[i], f32[i], cfg.vocab) for i in range(TF_STEPS + 1)]
+    rel = [_rel_l2(got[i], ref[i], cfg.vocab) for i in range(TF_STEPS + 1)]
+    bars = [LM_NOISE_FACTOR * x for x in floor]
+    print(f"{tag}: bars on {Bw} request(s)"
+          + (f" at capacity factor {cfg_w.capacity_factor} (no pair "
+             f"dropped), routes replayed" if cfg.n_experts else "")
+          + f" ({time.perf_counter() - t0:.1f}s): the bf16 bound (plain path "
+          f"vs the same model in f32) {', '.join(f'{x:.3e}' for x in floor)} "
+          f"(prefill, then decode steps); kernel vs plain path "
+          f"{', '.join(f'{x:.3e}' for x in rel)}; decode vs teacher-forced "
+          f"forward {', '.join(f'{x:.3e}' for x in tf)} (bars "
+          f"{', '.join(f'{x:.3e}' for x in bars)})")
+    if max(floor) > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"{cfg.name}: the bf16 plain path is "
+                             f"{max(floor)} off f32")
+    if any(r > b for r, b in zip(rel, bars)):
+        raise AssertionError(f"{cfg.name}: kernel path off the plain path")
+    if any(r > b for r, b in zip(tf, bars)):
+        raise AssertionError(f"{cfg.name}: decode off teacher forcing")
+
+    # The planted fault must break the whole-path bar.
+    what, fault_ctx, after = _family_fault(cfg)
+    with replay(routes), fault_ctx:
+        bad = _serve(*paths["kernel"], params, batch_w, TF_STEPS, feed,
+                     after_prefill=after)["logits"]
+    off = [_rel_l2(bad[i], ref[i], cfg.vocab) for i in range(TF_STEPS + 1)]
+    print(f"{tag}: planted fault, {what}: vs the plain path "
+          f"{', '.join(f'{x:.3e}' for x in off)} (bars "
+          f"{', '.join(f'{x:.3e}' for x in bars)})")
+    if not any(o > b for o, b in zip(off, bars)):
+        raise AssertionError(f"{cfg.name}: the bar passes the planted fault "
+                             f"({what})")
+    del params, paths, routes, tf_routes, got, ref, f32, bad, batch, batch_w
+    return {"arch": arch, "layers": cfg.n_layers, "prompt": S,
+            "decode_steps": steps,
+            "prefill_s": t_prefill, "prefill_tokens_per_s": B * S / t_prefill,
+            "decode_ms_per_step": t_decode / steps * 1e3, "peak_gb":
+            peak / 1e9, "b2_prefill": n_prefill, "b2_route": by_route,
+            "b2_decode_per_step": n_decode / steps, "witness_requests": Bw,
+            "bound": floor, "kernel_vs_plain": rel, "tf": tf,
+            "fault": off, "drop_share_decode": drops}
+
+
+def phase_families(args, device, report) -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + 1)
+    # B2 at every shape the families give it, held to its plain version
+    # and timed beside SDPA.
+    shapes = [_flash_at(*shape[1:], gen, device, shape[0])
+              for shape in _family_flash_shapes(args.lm_prompt)]
+    torch.cuda.empty_cache()
+    one_layer = _one_layer_checks(args, device, gen)
+    torch.cuda.empty_cache()
+    rows = []
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        rows.append(_serve_family(arch, args, device, gen))
+        torch.cuda.empty_cache()
+        print(f"families: {arch} in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    print("families: " + json.dumps({"served": rows,
+                                     "one_layer": one_layer}))
+    entry = next((e for e in report if e["name"] == "flash_attention_fwd"),
+                 None)
+    if entry is not None:
+        entry["family_shapes"] = shapes
+        entry["family_launches_per_prefill"] = {
+            r["arch"]: r["b2_prefill"] for r in rows}
+        entry["family_routes"] = {r["arch"]: r["b2_route"] for r in rows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: LM training (phi4-mini-3.8b), the backward kernels
 # ---------------------------------------------------------------------------
 
 # Backward kernels against their plain version (in f32, same inputs, same
@@ -4239,6 +5088,9 @@ def main(argv=None) -> int:
                     default=DEFAULTS["rows_log2_vertices"])
     ap.add_argument("--lm-layers", type=int, default=DEFAULTS["lm_layers"])
     ap.add_argument("--lm-prompt", type=int, default=DEFAULTS["lm_prompt"])
+    ap.add_argument("--families-layers", type=int,
+                    default=DEFAULTS["families_layers"],
+                    help="cap on each family's depth (0: the stated depths)")
     ap.add_argument("--train-layers", type=int,
                     default=DEFAULTS["train_layers"])
     ap.add_argument("--train-seq", type=int, default=DEFAULTS["train_seq"])
@@ -4286,6 +5138,8 @@ def main(argv=None) -> int:
                                        lambda: phase_serve(args, device,
                                                            report))),
             ("lm", lambda: phase_lm(args, device, report)),
+            ("families", lambda: _freeing(
+                "families", lambda: phase_families(args, device, report))),
             ("train", lambda: phase_train(args, device, report))):
         t0 = time.perf_counter()
         run()

@@ -106,7 +106,8 @@ def lm_params_from_numpy(
 ) -> Any:
     """The port's parameter tree for ``cfg`` from the JAX package's, given
     as numpy arrays.  Every leaf's shape is checked against the port's
-    specs (stacked ``[L, ...]`` for the layers)."""
+    specs (stacked ``[L, ...]`` for the layers, ``[enc_layers, ...]`` for
+    an encoder's)."""
 
     from repro_torch.models import lm
 
@@ -129,8 +130,8 @@ def lm_params_from_numpy(
                              f"the specs {want}")
         return t
 
-    return {k: carry(sub, tree[k], cfg.n_layers if k == "layers" else 0,
-                     k) for k, sub in specs.items()}
+    return {k: carry(sub, tree[k], lm.n_stack(cfg, k), k)
+            for k, sub in specs.items()}
 
 
 def train_state_from_numpy(

@@ -1,3 +1,2 @@
-"""Architecture configs of the families the port runs, one module per
-architecture (copies of the JAX package's ``repro.configs``, data only).
+"""Architecture configs, one module per architecture (copies of the JAX package's ``repro.configs``, data only).
 Each module exposes ``CONFIG``."""

@@ -35,9 +35,10 @@ def _single_device(mesh, device: Device) -> torch.device:
 def build_prefill_step(plan: LMPlan, mesh, cache_len: int,
                        device: Device = None, *, attention: str = "auto"):
     """Returns ``(prefill_fn, None)``; ``prefill_fn(params, batch)`` runs
-    ``batch["tokens"]`` (moved to ``device``) and returns
-    ``(last-token logits, cache, pos)``.  ``attention="ref"`` runs the
-    attention's plain version in place of the flash kernel."""
+    ``batch["tokens"]`` (and an encoder-decoder's ``batch["enc_input"]``
+    frames), moved to ``device``, and returns ``(last-token logits, cache,
+    pos)``.  ``attention="ref"`` runs the attention's plain version in
+    place of the flash kernel.""" 
 
     dev = _single_device(mesh, device)
     if attention not in ATTENTION_IMPLS:
@@ -47,23 +48,32 @@ def build_prefill_step(plan: LMPlan, mesh, cache_len: int,
     @torch.inference_mode()
     def prefill_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"], device=dev)
+        enc_input = batch.get("enc_input")
+        if enc_input is not None:
+            enc_input = torch.as_tensor(enc_input, device=dev)
         return lm.prefill(params, tokens, cfg, cache_len,
-                          attention=attention)
+                          enc_input=enc_input, attention=attention)
 
     return prefill_fn, None
 
 
-def build_decode_step(plan: LMPlan, mesh, device: Device = None):
+def build_decode_step(plan: LMPlan, mesh, device: Device = None, *,
+                      attention: str = "auto"):
     """Returns ``(decode_fn, None, None)``; ``decode_fn(params, cache, token,
-    pos)`` returns ``(logits, cache)`` with the cache updated in place."""
+    pos)`` returns ``(logits, cache)`` with the cache updated in place.
+    ``attention="ref"`` runs an encoder-decoder's cross-attention on its
+    plain version (the self-attention over the cache is plain PyTorch)."""
 
     dev = _single_device(mesh, device)
+    if attention not in ATTENTION_IMPLS:
+        raise ValueError(f"attention must be one of {ATTENTION_IMPLS}")
     cfg = plan.cfg
 
     @torch.inference_mode()
     def decode_fn(params, cache, token, pos):
         token = torch.as_tensor(token, device=dev)
-        return lm.decode_step(params, cache, token, pos, cfg)
+        return lm.decode_step(params, cache, token, pos, cfg,
+                              attention=attention)
 
     return decode_fn, None, None
 

@@ -1,6 +1,7 @@
-"""Layer blocks of the dense family (the JAX package's ``models/blocks.py``).
+"""Layer blocks for every architecture family (the JAX package's
+``models/blocks.py``).
 
-The dense family provides, for :mod:`repro_torch.models.lm`:
+Each family provides, for :mod:`repro_torch.models.lm`:
 
 * ``layer_specs(cfg)`` — a tree of :class:`ParamSpec` (shape + logical
   sharding axes): the single source of truth for init and parameter counts.
@@ -9,12 +10,13 @@ The dense family provides, for :mod:`repro_torch.models.lm`:
   length and position; returns ``(y, new_cache)``.
 * ``layer_cache_specs`` for serving.
 
-Mixers keep softmax statistics in f32 and matmuls in the config's compute
-dtype (``x.to(dt) @ w.to(dt)``, as the JAX package; a weight already in the
-compute dtype is used as it is).  On one device the JAX package's
-``shard(...)`` annotations are no-ops and are dropped, and
-``_maybe_repeat_kv`` is the identity (tp = 1).  The other families (mla,
-moe, ssm, hybrid, encdec) are ROADMAP A14(c) and raise.
+Mixers keep softmax and scan statistics in f32 and matmuls in the config's
+compute dtype (``x.to(dt) @ w.to(dt)``, as the JAX package; a weight
+already in the compute dtype is used as it is).  On one device the JAX
+package's ``shard(...)`` annotations are no-ops and are dropped,
+``_maybe_repeat_kv`` is the identity (tp = 1) and the MoE dispatch runs on
+one data shard (dp = 1).  Decode writes the cache in place: slices for
+the KV and latent caches, ``copy_`` for the SSM state it replaces.
 """
 
 from __future__ import annotations
@@ -45,7 +47,15 @@ __all__ = [
     "attention_cache_specs",
     "mlp_specs",
     "mlp_apply",
-    "unported_family",
+    "mla_specs",
+    "mla_mixer",
+    "mla_cache_specs",
+    "moe_specs",
+    "moe_apply",
+    "ssm_specs",
+    "ssd_chunked",
+    "ssm_mixer",
+    "ssm_cache_specs",
 ]
 
 
@@ -67,13 +77,6 @@ class LayerCtx:
     cache_len: int = 0
     causal: bool = True
     attention: str = "auto"      # chunked_attention's impl: auto | ref
-
-
-def unported_family(cfg: ArchConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-        f"A14(c)); the port runs the dense family"
-    )
 
 
 def _cdt(cfg):
@@ -232,23 +235,459 @@ def attention_cache_specs(cfg: ArchConfig, batch: int, seq: int):
     }
 
 
+
+
 # ---------------------------------------------------------------------------
-# Layer assembly
+# MLA mixer (MiniCPM3 / DeepSeek-style multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    E, H = cfg.d_model, cfg.n_heads
+    Qr, KVr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return {
+        "q_down": ParamSpec((E, Qr), ("embed", None)),
+        "q_norm": ParamSpec((Qr,), (None,), init="ones", dtype="float32"),
+        "q_up": ParamSpec((Qr, H * (nd + rd)), (None, "qkv")),
+        "kv_down": ParamSpec((E, KVr + rd), ("embed", None)),
+        "kv_norm": ParamSpec((KVr,), (None,), init="ones", dtype="float32"),
+        "k_up": ParamSpec((KVr, H * nd), ("kv_lora", "qkv")),
+        "v_up": ParamSpec((KVr, H * vd), ("kv_lora", "qkv")),
+        "wo": ParamSpec((H * vd, E), ("qkv", "embed"), init="small_normal"),
+    }
+
+
+def mla_mixer(p, x, ctx, cache=None):
+    """Prefill attends over full-width keys ``[k_nope, k_rope]`` through
+    ``chunked_attention`` (v zero-padded to the q·k head dim and sliced
+    back); decode keeps the latent ``c`` and the shared rope key ``kr`` and
+    attends in the latent space (the absorbed-matrix form, in f32)."""
+
+    cfg = ctx.cfg
+    dt = _cdt(cfg)
+    B, S, E = x.shape
+    H = cfg.n_heads
+    nd, rd, vd, KVr = (cfg.nope_head_dim, cfg.rope_head_dim,
+                       cfg.v_head_dim, cfg.kv_lora_rank)
+
+    cq = rms_norm(_mm(x, p["q_down"], dt), p["q_norm"])
+    q = _mm(cq, p["q_up"], dt).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    kv = _mm(x, p["kv_down"], dt)
+    c_kv = rms_norm(kv[..., :KVr], p["kv_norm"])       # (B,S,KVr) latent
+    k_rope = kv[..., KVr:].reshape(B, S, 1, rd)
+    if ctx.sin is not None:
+        q_rope = apply_rope(q_rope, ctx.sin, ctx.cos)
+        k_rope = apply_rope(k_rope, ctx.sin, ctx.cos)
+
+    if ctx.mode == "decode":
+        # Absorbed-matrix decode: score and value contraction happen in the
+        # latent space; per-step cost independent of head count x cache len.
+        c_cache, kr_cache = cache["c"], cache["kr"]
+        Lc = c_cache.shape[1]
+        pos = int(ctx.pos)
+        if not 0 <= pos < Lc:
+            raise IndexError(f"decode position {pos} is past the cache "
+                             f"length {Lc}")
+        c_cache[:, pos] = c_kv[:, 0].to(c_cache.dtype)
+        kr_cache[:, pos] = k_rope[:, 0, 0].to(kr_cache.dtype)
+        valid = torch.arange(Lc, device=x.device) <= pos
+        k_up = p["k_up"].to(dt).reshape(KVr, H, nd)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, k_up)
+        scale = 1.0 / ((nd + rd) ** 0.5)
+        c32 = c_cache.to(torch.float32)
+        s = (torch.einsum("bshr,btr->bhst", q_lat.to(torch.float32), c32)
+             + torch.einsum("bshd,btd->bhst", q_rope.to(torch.float32),
+                            kr_cache.to(torch.float32))) * scale
+        s = torch.where(valid, s, -torch.inf)
+        w = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bhst,btr->bshr", w, c32).to(dt)
+        v_up = p["v_up"].to(dt).reshape(KVr, H, vd)
+        out = torch.einsum("bshr,rhv->bshv", ctx_lat, v_up)
+        new_cache = cache
+    else:
+        k_nope = _mm(c_kv, p["k_up"], dt).reshape(B, S, H, nd)
+        v = _mm(c_kv, p["v_up"], dt).reshape(B, S, H, vd)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        # pad v to the q·k head dim for the shared attention primitive
+        v_p = F.pad(v, (0, (nd + rd) - vd))
+        out = chunked_attention(q_full, k, v_p, causal=ctx.causal,
+                                impl=ctx.attention)[..., :vd]
+        new_cache = None
+        if ctx.mode == "prefill":
+            pad = ctx.cache_len - S
+            new_cache = {
+                "c": F.pad(c_kv, (0, 0, 0, pad)),
+                "kr": F.pad(k_rope[:, :, 0, :], (0, 0, 0, pad)),
+            }
+    out = out.reshape(B, S, H * vd)
+    return _mm(out, p["wo"], dt), new_cache
+
+
+def mla_cache_specs(cfg: ArchConfig, batch: int, seq: int):
+    return {
+        "c": ParamSpec((batch, seq, cfg.kv_lora_rank),
+                       ("batch", "kv_seq", None), init="zeros",
+                       dtype=cfg.compute_dtype),
+        "kr": ParamSpec((batch, seq, cfg.rope_head_dim),
+                        ("batch", "kv_seq", None), init="zeros",
+                        dtype=cfg.compute_dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MoE (mixtral / arctic): top-k routing, sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    E, X, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    specs = {
+        "router": ParamSpec((E, X), ("embed", None)),
+        "w_gate": ParamSpec((X, E, Fd), ("experts", "embed", "expert_ffn")),
+        "w_up": ParamSpec((X, E, Fd), ("experts", "embed", "expert_ffn")),
+        "w_down": ParamSpec((X, Fd, E), ("experts", "expert_ffn", "embed"),
+                            init="small_normal"),
+    }
+    if cfg.dense_residual:
+        for k, v in mlp_specs(cfg, cfg.d_ff).items():
+            specs[f"res_{k}"] = v
+    return specs
+
+
+def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots an expert for a batch of ``tokens`` (the JAX package's
+    formula, Python's ``round``)."""
+
+    return int(max(1, round(tokens * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor)))
+
+
+def _top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k experts, the most probable first."""
+
+    return torch.topk(probs, k, dim=-1).indices
+
+
+def _combine(y, slot, weight, order, k: int) -> torch.Tensor:
+    """Each token's output in f32: the weighted expert rows ``y[slot]`` of
+    its k pairs (in sort ``order``) summed in expert order (the order of
+    the JAX package's scatter-add), without float atomics."""
+
+    contrib = y[slot].to(torch.float32) * weight[:, None]
+    # Where each (token, choice) pair sits in the sorted list; a token's
+    # pairs in ascending position are its pairs in expert order.
+    at = torch.empty_like(order)
+    at[order] = torch.arange(order.numel(), device=order.device)
+    at = at.reshape(-1, k).sort(dim=1).values
+    out = contrib[at[:, 0]]
+    for j in range(1, k):
+        out = out + contrib[at[:, j]]
+    return out
+
+
+def _experts(buf, p, dt):
+    """silu(buf Wg) * (buf Wu) Wd for every expert's slots ``buf``
+    (X, C, E), as batched matmuls."""
+
+    h = torch.bmm(buf, p["w_gate"].to(dt))
+    u = torch.bmm(buf, p["w_up"].to(dt))
+    return torch.bmm(F.silu(h) * u, p["w_down"].to(dt))
+
+
+def _route(xf, w_router, cfg: ArchConfig, cap: int):
+    """Top-k routing of the tokens ``xf`` (T, E) and their (token, expert)
+    pairs sorted by expert, stably, so that arrival order ranks the pairs
+    of one expert (ROADMAP C2).  Returns the sort's permutation of the
+    pairs (pair ``t * k + i`` is token t's i-th choice), the sorted pairs'
+    expert ids, gate weights and ranks within their expert, and whether
+    each is kept (rank < ``cap``)."""
+
+    dt = _cdt(cfg)
+    T, k = xf.shape[0], cfg.top_k
+    logits = _mm(xf, w_router, dt).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    idx = _top_k(probs, k)                                # (T, k)
+    gates = torch.gather(probs, -1, idx)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    e_s = idx.reshape(-1)[order]
+    w_s = gates.reshape(-1)[order]
+    start = torch.searchsorted(e_s, e_s, side="left")
+    rank = torch.arange(T * k, device=xf.device) - start
+    return order, e_s, w_s, rank, rank < cap
+
+
+def moe_apply(p, x, cfg: ArchConfig) -> torch.Tensor:
+    """Top-k MoE with static-capacity sort-based dispatch on one data shard.
+
+    Pairs past an expert's capacity are dropped: they are written to a
+    spill row that is sliced off, never clamped onto the slot of a kept
+    pair (the JAX package's clamp overwrites the pair at rank cap - 1:
+    ROADMAP C11).  The experts run as batched matmuls; each token's output
+    is the sum of its pairs' weighted expert outputs (``_combine``),
+    rounded once to the compute dtype.
+    """
+
+    dt = _cdt(cfg)
+    B, S, E = x.shape
+    X, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    cap = moe_capacity(cfg, T)
+    xf = x.reshape(T, E).to(dt)
+    order, e_s, w_s, rank, keep = _route(xf, p["router"], cfg, cap)
+    t_s = torch.div(order, k, rounding_mode="floor")
+    slot = torch.where(keep, e_s * cap + rank, X * cap)  # the spill row
+    buf = xf.new_zeros((X * cap + 1, E))
+    buf[slot] = xf[t_s]
+    y = _experts(buf[:X * cap].view(X, cap, E), p, dt).reshape(X * cap, E)
+    y = torch.cat([y, y.new_zeros((1, E))])              # the spill row
+    out = _combine(y, slot, torch.where(keep, w_s, 0.0), order, k)
+    out = out.to(dt).reshape(B, S, E)
+
+    if cfg.dense_residual:
+        res = {kk[4:]: vv for kk, vv in p.items() if kk.startswith("res_")}
+        out = out + mlp_apply(res, x, cfg)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD mixer
+# ---------------------------------------------------------------------------
+
+
+def ssm_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    E = cfg.d_model
+    Din = cfg.d_inner
+    H, N, G = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    conv_dim = Din + 2 * G * N
+    return {
+        "in_proj": ParamSpec(
+            (E, 2 * Din + 2 * G * N + H), ("embed", "conv_dim")
+        ),
+        "conv_w": ParamSpec((cfg.d_conv, conv_dim), (None, "conv_dim")),
+        "conv_b": ParamSpec((conv_dim,), ("conv_dim",), init="zeros"),
+        "A_log": ParamSpec((H,), ("ssm_heads",), init="ones", dtype="float32"),
+        "D": ParamSpec((H,), ("ssm_heads",), init="ones", dtype="float32"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), init="zeros",
+                             dtype="float32"),
+        "norm": ParamSpec((Din,), ("conv_dim",), init="ones", dtype="float32"),
+        "out_proj": ParamSpec((Din, E), ("conv_dim", "embed"),
+                              init="small_normal"),
+    }
+
+
+def _segsum_decay(dA_chunk: torch.Tensor) -> torch.Tensor:
+    """dA_chunk: (..., Q) log-decay increments -> (..., Q, Q) decay matrix
+    L[i, j] = exp(sum_{k=j+1..i} dA_k) for i >= j, else 0."""
+
+    cs = torch.cumsum(dA_chunk, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    Q = dA_chunk.shape[-1]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                device=dA_chunk.device))
+    return torch.where(tri, torch.exp(diff), 0.0)
+
+
+def _ssd_chunk(st, xcc, dAcc, dtcc, Bcc, Ccc):
+    """One chunk of the SSD scan: the state ``st`` (b,h,p,n) carried in,
+    the chunk's x (b,Q,h,p), log-decays and dt (b,h,Q), B and C (b,Q,h,n);
+    returns the state carried out and the chunk's output (b,Q,h,p)."""
+
+    cs = torch.cumsum(dAcc, dim=-1)
+    L = _segsum_decay(dAcc)                                # (b,h,Q,Q)
+    scores = torch.einsum("bqhn,bkhn->bhqk", Ccc, Bcc)
+    M = scores * L * dtcc[:, :, None, :]
+    y_diag = torch.einsum("bhqk,bkhp->bqhp", M, xcc)
+    decay_states = torch.exp(cs[..., -1:] - cs)            # (b,h,Q)
+    st_c = torch.einsum("bkhn,bhk,bkhp->bhpn", Bcc, decay_states * dtcc,
+                        xcc)
+    out_decay = torch.exp(cs)                              # (b,h,Q)
+    y_off = torch.einsum("bqhn,bhpn,bhq->bqhp", Ccc, st, out_decay)
+    new_st = st * torch.exp(cs[..., -1])[..., None, None] + st_c
+    return new_st, y_diag + y_off
+
+
+def ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk: int):
+    """Chunked state-space duality scan (Mamba2, arXiv:2405.21060 §6).
+
+    x: (b,s,h,p) f32; dt: (b,s,h) f32 (post-softplus); Bm/Cm: (b,s,g,n);
+    A_log: (h,); D: (h,).  Returns y: (b,s,h,p) and the final state
+    (b,h,p,n) — the decode handoff.  A Python loop over chunks (the JAX
+    package's ``lax.scan``): each chunk's (Q x Q) tiles, the state
+    recurrence and the inter-chunk output are computed in turn, so no
+    (b, nc, h, Q, Q) tensor spans all chunks.
+    """
+
+    b, s0, h, p = x.shape
+    g = Bm.shape[2]
+    rep = h // g
+    # Pad to a chunk multiple: padded steps carry dt=0 (decay 1, zero input),
+    # so they perturb neither outputs nor the final state.
+    pad = (-s0) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    s = s0 + pad
+    A = -torch.exp(A_log)                   # (h,) negative decay rates
+    dA = dt * A                             # (b,s,h)
+    Bh = torch.repeat_interleave(Bm, rep, dim=2)     # (b,s,h,n)
+    Ch = torch.repeat_interleave(Cm, rep, dim=2)
+
+    st = x.new_zeros((b, h, p, Bm.shape[3]))
+    ys = []
+    for c0 in range(0, s, chunk):
+        st, y = _ssd_chunk(
+            st, x[:, c0:c0 + chunk], dA[:, c0:c0 + chunk].transpose(1, 2),
+            dt[:, c0:c0 + chunk].transpose(1, 2), Bh[:, c0:c0 + chunk],
+            Ch[:, c0:c0 + chunk])
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = y + x * D[None, None, :, None]
+    return y[:, :s0], st
+
+
+def _split_in_proj(z, cfg: ArchConfig):
+    Din = cfg.d_inner
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    zgate = z[..., :Din]
+    xbc = z[..., Din:Din + Din + 2 * G * N]
+    dt = z[..., Din + Din + 2 * G * N:]
+    return zgate, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C) with kernel (K, C)."""
+
+    K = w.shape[0]
+    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    out = sum(
+        pad[:, i:i + xbc.shape[1], :] * w[i][None, None, :] for i in range(K)
+    )
+    return out + b[None, None, :]
+
+
+def ssm_mixer(p, x, ctx, cache=None):
+    """Decode rounds the new SSM state to the cache's dtype every step, as
+    the JAX package does, and writes it and the conv window into
+    ``cache`` in place."""
+
+    cfg = ctx.cfg
+    dt_c = _cdt(cfg)
+    B, S, E = x.shape
+    Din = cfg.d_inner
+    G, N, H, P = (cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads,
+                  cfg.ssm_head_dim)
+    f32 = torch.float32
+
+    z = _mm(x, p["in_proj"], dt_c)
+    zgate, xbc, dt_raw = _split_in_proj(z, cfg)
+
+    if ctx.mode == "decode":
+        conv_state = cache["conv"]                    # (B, K-1, C)
+        window = torch.cat([conv_state, xbc.to(f32)], dim=1)
+        w = p["conv_w"].to(f32)
+        conv_out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"]
+        xbc_a = F.silu(conv_out)[:, None, :]          # (B,1,C)
+        new_conv = window[:, 1:, :].to(conv_state.dtype)
+    else:
+        conv = _causal_conv(xbc.to(f32), p["conv_w"].to(f32),
+                            p["conv_b"].to(f32))
+        xbc_a = F.silu(conv)
+        new_conv = None
+        if ctx.mode == "prefill":
+            new_conv = xbc.to(f32)[:, -(cfg.d_conv - 1):, :]
+
+    xs = xbc_a[..., :Din].reshape(B, -1, H, P).to(f32)
+    Bm = xbc_a[..., Din:Din + G * N].reshape(B, -1, G, N).to(f32)
+    Cm = xbc_a[..., Din + G * N:].reshape(B, -1, G, N).to(f32)
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["A_log"].to(f32))
+
+    if ctx.mode == "decode":
+        st = cache["ssm"].to(f32)                     # (B,H,P,N)
+        rep = H // G
+        B1 = torch.repeat_interleave(Bm[:, 0], rep, dim=1)   # (B,H,N)
+        C1 = torch.repeat_interleave(Cm[:, 0], rep, dim=1)
+        dt1 = dt[:, 0]                                # (B,H)
+        x1 = xs[:, 0]                                 # (B,H,P)
+        decay = torch.exp(dt1 * A[None, :])           # (B,H)
+        st = st * decay[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dt1, B1, x1)
+        y = torch.einsum("bhn,bhpn->bhp", C1, st)
+        y = y + x1 * p["D"][None, :, None]
+        y = y.reshape(B, 1, Din)
+        cache["conv"].copy_(new_conv)
+        cache["ssm"].copy_(st)
+        new_cache = cache
+    else:
+        y, final_state = ssd_chunked(
+            xs, dt, p["A_log"].to(f32), Bm, Cm, p["D"].to(f32),
+            min(cfg.ssm_chunk, xs.shape[1]),
+        )
+        y = y.reshape(B, S, Din)
+        new_cache = None
+        if ctx.mode == "prefill":
+            new_cache = {"conv": new_conv, "ssm": final_state.to(dt_c)}
+
+    # Gated RMSNorm + out projection.
+    y = rms_norm(y * F.silu(zgate.to(f32)), p["norm"])
+    return _mm(y, p["out_proj"], dt_c), new_cache
+
+
+def ssm_cache_specs(cfg: ArchConfig, batch: int):
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {
+        "conv": ParamSpec((batch, cfg.d_conv - 1, conv_dim),
+                          ("batch", None, "conv_dim"), init="zeros",
+                          dtype="float32"),
+        "ssm": ParamSpec(
+            (batch, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            ("batch", "ssm_heads", None, None), init="zeros",
+            dtype=cfg.compute_dtype,
+        ),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Layer assembly per family
 # ---------------------------------------------------------------------------
 
 
 def layer_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    if cfg.family != "dense":
-        raise unported_family(cfg)
     E = cfg.d_model
 
     def ln():
         return ParamSpec((E,), ("embed",), init="ones", dtype="float32")
 
-    return {
-        "ln1": ln(), "attn": attention_specs(cfg),
-        "ln2": ln(), "mlp": mlp_specs(cfg),
-    }
+    if cfg.family in ("dense", "encdec"):
+        return {
+            "ln1": ln(), "attn": attention_specs(cfg),
+            "ln2": ln(), "mlp": mlp_specs(cfg),
+        }
+    if cfg.family == "mla":
+        return {
+            "ln1": ln(), "attn": mla_specs(cfg),
+            "ln2": ln(), "mlp": mlp_specs(cfg),
+        }
+    if cfg.family == "moe":
+        return {
+            "ln1": ln(), "attn": attention_specs(cfg),
+            "ln2": ln(), "moe": moe_specs(cfg),
+        }
+    if cfg.family == "ssm":
+        return {"ln1": ln(), "ssm": ssm_specs(cfg)}
+    if cfg.family == "hybrid":
+        return {
+            "ln1": ln(), "attn": attention_specs(cfg), "ssm": ssm_specs(cfg),
+            "ln2": ln(), "mlp": mlp_specs(cfg),
+        }
+    raise ValueError(cfg.family)
 
 
 def layer_apply(
@@ -258,18 +697,50 @@ def layer_apply(
     cache: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     cfg = ctx.cfg
-    if cfg.family != "dense":
-        raise unported_family(cfg)
-    h = rms_norm(x, params["ln1"])
-    attn_out, new_cache = attention_mixer(params["attn"], h, ctx, cache)
-    x = x + attn_out
-    h = rms_norm(x, params["ln2"])
-    x = x + mlp_apply(params["mlp"], h, cfg)
-    return x, new_cache
+    fam = cfg.family
+    if fam in ("dense", "encdec", "mla", "moe"):
+        mixer = mla_mixer if fam == "mla" else attention_mixer
+        h = rms_norm(x, params["ln1"])
+        attn_out, new_cache = mixer(params["attn"], h, ctx, cache)
+        x = x + attn_out
+        h = rms_norm(x, params["ln2"])
+        if fam == "moe":
+            x = x + moe_apply(params["moe"], h, cfg)
+        else:
+            x = x + mlp_apply(params["mlp"], h, cfg)
+        return x, new_cache
+    if fam == "ssm":
+        h = rms_norm(x, params["ln1"])
+        y, new_cache = ssm_mixer(params["ssm"], h, ctx, cache)
+        return x + y, new_cache
+    if fam == "hybrid":
+        h = rms_norm(x, params["ln1"])
+        attn_cache = cache.get("attn") if cache else None
+        ssm_cache = cache.get("ssm") if cache else None
+        a, new_attn = attention_mixer(params["attn"], h, ctx, attn_cache)
+        s, new_ssm = ssm_mixer(params["ssm"], h, ctx, ssm_cache)
+        x = x + 0.5 * (a + s)
+        h = rms_norm(x, params["ln2"])
+        x = x + mlp_apply(params["mlp"], h, cfg)
+        new_cache = None
+        if new_attn is not None or new_ssm is not None:
+            new_cache = {"attn": new_attn, "ssm": new_ssm}
+        return x, new_cache
+    raise ValueError(fam)
 
 
 def layer_cache_specs(cfg: ArchConfig, batch: int,
                       seq: int) -> Dict[str, Any]:
-    if cfg.family != "dense":
-        raise unported_family(cfg)
-    return attention_cache_specs(cfg, batch, seq)
+    fam = cfg.family
+    if fam in ("dense", "encdec", "moe"):
+        return attention_cache_specs(cfg, batch, seq)
+    if fam == "mla":
+        return mla_cache_specs(cfg, batch, seq)
+    if fam == "ssm":
+        return ssm_cache_specs(cfg, batch)
+    if fam == "hybrid":
+        return {
+            "attn": attention_cache_specs(cfg, batch, seq),
+            "ssm": ssm_cache_specs(cfg, batch),
+        }
+    raise ValueError(fam)

@@ -100,9 +100,23 @@ class ArchConfig:
         return ((self.vocab + 255) // 256) * 256
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def n_ssm_heads(self) -> int:
-        return self.ssm_heads or (self.ssm_expand * self.d_model
-                                  // self.ssm_head_dim)
+        return self.ssm_heads or (self.d_inner // self.ssm_head_dim)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch decode at 500k context with bounded per-step
+        state?"""
+
+        return self.family in ("ssm", "hybrid") or self.window is not None
 
     def param_count(self) -> int:
         """Parameter count (embeddings + layers), from the param specs."""

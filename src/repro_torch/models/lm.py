@@ -1,6 +1,6 @@
 """LM assembly: embeddings + the layer stack + head; train/prefill/decode.
 
-The JAX package's ``models/lm.py`` for the dense family, on one device:
+The JAX package's ``models/lm.py``, every family, on one device:
 
 * layer parameters are stacked on a leading ``[L, ...]`` axis, as in the
   JAX package, and the depth loop is a Python loop over that axis (the JAX
@@ -18,13 +18,16 @@ The JAX package's ``models/lm.py`` for the dense family, on one device:
   ``(B, S, V)`` slab stays alive;
 * ``params["layers"]`` is either the stacked tree or a list of per-layer
   trees (``launch/train.py`` hands the model per-layer views of the stacked
-  leaves, so each layer's gradient is a tensor of its own).
-
-The other families (encoder-decoder included) raise (ROADMAP A14(c)).
+  leaves, so each layer's gradient is a tensor of its own);
+* whisper (``encdec``) runs the encoder stack (bidirectional) over the
+  frame embeddings ``enc_input`` and wires its output into each decoder
+  layer's cross-attention; at serve time the cross K/V is computed once at
+  prefill and carried in ``cache["cross"]``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from math import prod
 from typing import Any, Dict, Optional, Tuple, Union
@@ -40,10 +43,17 @@ from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerCtx, ParamSpec
-from repro_torch.models.common import ArchConfig, dtype_of, rms_norm, rope
+from repro_torch.models.common import (
+    ArchConfig,
+    chunked_attention,
+    dtype_of,
+    rms_norm,
+    rope,
+)
 
 __all__ = [
     "model_specs",
+    "n_stack",
     "param_count",
     "init_params",
     "serving_params",
@@ -58,7 +68,7 @@ __all__ = [
     "init_cache",
 ]
 
-_STACKED_KEYS = ("layers",)
+_STACKED_KEYS = ("layers", "enc_layers")
 Device = Optional[Union[str, torch.device]]
 
 
@@ -96,17 +106,38 @@ def _embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, family="dense", window=None)
+
+
 def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    return {
+    specs: Dict[str, Any] = {
         "embed": _embed_specs(cfg),
         "layers": blocks.layer_specs(cfg),      # stacked x n_layers
     }
+    if cfg.family == "encdec":
+        specs["enc_layers"] = blocks.layer_specs(_encoder_cfg(cfg))
+        specs["enc_norm"] = ParamSpec((cfg.d_model,), ("embed",),
+                                      init="ones", dtype="float32")
+        specs["layers"]["lnx"] = ParamSpec(
+            (cfg.d_model,), ("embed",), init="ones", dtype="float32")
+        specs["layers"]["xattn"] = blocks.attention_specs(cfg)
+    return specs
+
+
+def n_stack(cfg: ArchConfig, key: str) -> int:
+    """Layers stacked on the leading axis of ``params[key]`` (0: not a
+    stacked key)."""
+
+    if key not in _STACKED_KEYS:
+        return 0
+    return cfg.enc_layers if key == "enc_layers" else cfg.n_layers
 
 
 def param_count(cfg: ArchConfig) -> int:
     total = 0
     for key, sub in model_specs(cfg).items():
-        n = cfg.n_layers if key in _STACKED_KEYS else 1
+        n = n_stack(cfg, key) or 1
         total += sum(n * prod(s.shape) for s in _spec_leaves(sub))
     return total
 
@@ -135,7 +166,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
     device = resolve_device(device)
     params: Dict[str, Any] = {}
     for k, sub in model_specs(cfg).items():
-        stacked = cfg.n_layers if k in _STACKED_KEYS else 0
+        stacked = n_stack(cfg, k)
         params[k] = _spec_map(
             lambda s: _init_leaf(s, cfg, stacked, gen, device), sub)
     return params
@@ -166,11 +197,15 @@ def serving_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _rope_tables(cfg: ArchConfig, positions: torch.Tensor):
-    return rope(positions, cfg.hd, cfg.rope_theta)
+    if cfg.family == "ssm":
+        return None, None
+    dim = cfg.rope_head_dim if cfg.family == "mla" else cfg.hd
+    return rope(positions, dim, cfg.rope_theta)
 
 
-def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:
-    layers = params["layers"]
+def _layer(params: Dict[str, Any], i: int,
+           key: str = "layers") -> Dict[str, Any]:
+    layers = params[key]
     if isinstance(layers, (list, tuple)):
         return layers[i]
     return tree_map(lambda a: a[i], layers)
@@ -197,26 +232,78 @@ def _lm_head(params, x, cfg):
     return logits
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise blocks.unported_family(cfg)
+def _encoder(params, enc_input, cfg, remat_policy="none", attention="auto"):
+    """Whisper encoder: bidirectional dense stack over frame embeddings."""
+
+    if enc_input is None:
+        raise ValueError(f"{cfg.name}: the encoder-decoder needs encoder "
+                         f"frames (enc_input)")
+    S = enc_input.shape[1]
+    x = enc_input.to(dtype_of(cfg.compute_dtype))
+    sin, cos = _rope_tables(cfg, torch.arange(S, device=x.device)[None, :])
+    ctx = LayerCtx(cfg=_encoder_cfg(cfg), mode="train", sin=sin, cos=cos,
+                   causal=False, attention=attention)
+
+    def body(h, layer_params):
+        return blocks.layer_apply(layer_params, h, ctx)[0]
+
+    x = _scan_layers(body, x, params, cfg.enc_layers, remat_policy,
+                     key="enc_layers")
+    return rms_norm(x, params["enc_norm"])
+
+
+def _cross_kv(p, enc_out, cfg):
+    dt = dtype_of(cfg.compute_dtype)
+    B, S, _ = enc_out.shape
+    KH, D = cfg.n_kv_heads, cfg.hd
+    k = (enc_out.to(dt) @ p["wk"].to(dt)).reshape(B, S, KH, D)
+    v = (enc_out.to(dt) @ p["wv"].to(dt)).reshape(B, S, KH, D)
+    return k, v
+
+
+def _cross_attention(p, x, enc_kv, cfg, attention="auto"):
+    """Decoder cross-attention: q from the decoder, K/V from the encoder."""
+
+    dt = dtype_of(cfg.compute_dtype)
+    B, S, _ = x.shape
+    H, D = cfg.n_heads, cfg.hd
+    q = (x.to(dt) @ p["wq"].to(dt)).reshape(B, S, H, D)
+    k, v = enc_kv
+    out = chunked_attention(q, k, v, causal=False, window=None,
+                            impl=attention)
+    return out.reshape(B, S, H * D).to(dt) @ p["wo"].to(dt)
+
+
+_CORE = ("ln1", "attn", "ln2", "mlp")
+
+
+def _apply(layer_params, h, ctx: LayerCtx, cache=None, cross=None):
+    """One decoder layer; with ``cross`` (encdec) its self-attention core,
+    then cross-attention over the encoder's ``cross = (k, v)``."""
+
+    if cross is None:
+        return blocks.layer_apply(layer_params, h, ctx, cache)
+    core = {k: layer_params[k] for k in _CORE}
+    h, c = blocks.layer_apply(core, h, ctx, cache)
+    h = h + _cross_attention(layer_params["xattn"],
+                             rms_norm(h, layer_params["lnx"]), cross,
+                             ctx.cfg, ctx.attention)
+    return h, c
 
 
 def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,
     cfg: ArchConfig,
+    *,
+    enc_input: Optional[torch.Tensor] = None,
+    attention: str = "auto",
 ) -> torch.Tensor:
     """Teacher-forced forward -> logits (B, S, V)."""
 
-    _check_family(cfg)
-    B, S = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
-    sin, cos = _rope_tables(cfg, torch.arange(S, device=x.device)[None, :])
-    ctx = LayerCtx(cfg=cfg, mode="train", sin=sin, cos=cos)
-    for i in range(cfg.n_layers):
-        x, _ = blocks.layer_apply(_layer(params, i), x, ctx)
-    return _lm_head(params, x, cfg)
+    return _lm_head(params, hidden_forward(
+        params, tokens, cfg, enc_input=enc_input, remat_policy="none",
+        attention=attention), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +341,10 @@ def _remat(fn, policy: str):
                      f"{policy!r}")
 
 
-def _scan_layers(body, x, params, n_layers: int, policy: str):
-    """The depth loop ``x = body(x, layer i)`` under the remat ``policy``.
+def _scan_layers(body, x, params, n_layers: int, policy: str,
+                 key: str = "layers"):
+    """The depth loop ``x = body(x, layer i of params[key])`` under the
+    remat ``policy``.
 
     ``group:G`` is sqrt-style checkpointing: only every G-th layer boundary
     is saved for the backward, and a group's G layers are recomputed
@@ -268,14 +357,14 @@ def _scan_layers(body, x, params, n_layers: int, policy: str):
         if n_layers % G == 0 and G > 1:
             def group_body(h, start):
                 for i in range(start, start + G):
-                    h = body(h, _layer(params, i))
+                    h = body(h, _layer(params, i, key))
                 return h
 
             for start in range(0, n_layers, G):
                 x = checkpoint(group_body, x, start, use_reentrant=False)
             return x
         policy = "full"
-    step = _remat(lambda h, i: body(h, _layer(params, i)), policy)
+    step = _remat(lambda h, i: body(h, _layer(params, i, key)), policy)
     for i in range(n_layers):
         x = step(x, i)
     return x
@@ -283,19 +372,24 @@ def _scan_layers(body, x, params, n_layers: int, policy: str):
 
 def hidden_forward(
     params, tokens: torch.Tensor, cfg: ArchConfig, *,
-    remat_policy: str = "full", attention: str = "auto",
+    enc_input: Optional[torch.Tensor] = None, remat_policy: str = "full",
+    attention: str = "auto",
 ) -> torch.Tensor:
     """Forward up to (but excluding) the LM head: final hidden states."""
 
-    _check_family(cfg)
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
     sin, cos = _rope_tables(cfg, torch.arange(S, device=x.device)[None, :])
     ctx = LayerCtx(cfg=cfg, mode="train", sin=sin, cos=cos,
                    attention=attention)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encoder(params, enc_input, cfg, remat_policy, attention)
 
     def body(h, layer_params):
-        return blocks.layer_apply(layer_params, h, ctx)[0]
+        cross = None if enc_out is None else _cross_kv(
+            layer_params["xattn"], enc_out, cfg)
+        return _apply(layer_params, h, ctx, cross=cross)[0]
 
     return _scan_layers(body, x, params, cfg.n_layers, remat_policy)
 
@@ -350,11 +444,13 @@ def loss_fn(
     remat_policy: str = "full", *, attention: str = "auto",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss of ``batch["tokens"]`` (positions where
-    ``batch["mask"]`` is 0 are ignored); returns ``(loss, {"loss": loss})``."""
+    ``batch["mask"]`` is 0 are ignored; ``batch["enc_input"]`` holds an
+    encoder-decoder's frames); returns ``(loss, {"loss": loss})``."""
 
     tokens = batch["tokens"]
-    hidden = hidden_forward(params, tokens, cfg, remat_policy=remat_policy,
-                            attention=attention)
+    hidden = hidden_forward(params, tokens, cfg,
+                            enc_input=batch.get("enc_input"),
+                            remat_policy=remat_policy, attention=attention)
     labels = tokens[:, 1:]
     if "mask" in batch:
         labels = torch.where(batch["mask"][:, 1:] > 0, labels, -1)
@@ -368,7 +464,16 @@ def loss_fn(
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
-    return {"layers": blocks.layer_cache_specs(cfg, batch, seq)}
+    specs = {"layers": blocks.layer_cache_specs(cfg, batch, seq)}
+    if cfg.family == "encdec":
+        kv = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+        specs["cross"] = {
+            "k": ParamSpec(kv, ("batch", None, None, None), init="zeros",
+                           dtype=cfg.compute_dtype),
+            "v": ParamSpec(kv, ("batch", None, None, None), init="zeros",
+                           dtype=cfg.compute_dtype),
+        }
+    return specs
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
@@ -382,53 +487,76 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
     }
 
 
+def _stack_into(stack, i: int, tree, n: int):
+    """``tree`` copied into layer ``i`` of ``stack`` (made ``[n, ...]`` on
+    first use)."""
+
+    if stack is None:
+        stack = tree_map(lambda t: t.new_empty((n,) + t.shape), tree)
+    tree_map(lambda dst, src: dst[i].copy_(src), stack, tree)
+    return stack
+
+
 def prefill(
     params, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int,
-    *, attention: str = "auto",
+    *, enc_input: Optional[torch.Tensor] = None, attention: str = "auto",
 ):
     """Run the prompt, return (last-token logits, filled cache, pos)."""
 
-    _check_family(cfg)
     S = tokens.shape[1]
     x = _embed_tokens(params, tokens, cfg)
     sin, cos = _rope_tables(cfg, torch.arange(S, device=x.device)[None, :])
     ctx = LayerCtx(cfg=cfg, mode="prefill", sin=sin, cos=cos,
                    cache_len=cache_len, attention=attention)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encoder(params, enc_input, cfg, attention=attention)
     # Stacked from the layers' own caches, as the JAX package's scan stacks
     # them: cache_len slots, whatever the window (init_cache would hold
     # min(cache_len, window)).
-    layers = None
+    layers = cross_kv = None
     for i in range(cfg.n_layers):
-        x, c = blocks.layer_apply(_layer(params, i), x, ctx)
-        if layers is None:
-            layers = tree_map(
-                lambda t: t.new_empty((cfg.n_layers,) + t.shape), c)
-        tree_map(lambda dst, src: dst[i].copy_(src), layers, c)
+        layer_params = _layer(params, i)
+        cross = None
+        if enc_out is not None:
+            cross = _cross_kv(layer_params["xattn"], enc_out, cfg)
+            cross_kv = _stack_into(cross_kv, i, dict(zip("kv", cross)),
+                                   cfg.n_layers)
+        x, c = _apply(layer_params, x, ctx, cross=cross)
+        layers = _stack_into(layers, i, c, cfg.n_layers)
     logits = _lm_head(params, x[:, -1:, :], cfg)
-    return logits, {"layers": layers}, S
+    cache = {"layers": layers}
+    if cross_kv is not None:
+        cache["cross"] = cross_kv
+    return logits, cache, S
 
 
 def decode_step(
     params, cache: Dict[str, Any], token: torch.Tensor, pos: int,
-    cfg: ArchConfig,
+    cfg: ArchConfig, *, attention: str = "auto",
 ):
     """One decode step: token (B, 1) + cache -> (logits, cache).
 
     ``pos`` is the absolute position of ``token``.  The cache is updated in
-    place and returned (the JAX package donates it to the jitted step)."""
+    place and returned (the JAX package donates it to the jitted step).
+    ``attention`` is the cross-attention's implementation (encdec); the
+    self-attention over the cache is plain PyTorch."""
 
-    _check_family(cfg)
     B = token.shape[0]
     pos = int(pos)
     x = _embed_tokens(params, token, cfg)
     sin, cos = _rope_tables(
         cfg, torch.full((1, 1), pos, dtype=torch.int32, device=x.device))
-    sin = sin.expand((B,) + sin.shape[1:])
-    cos = cos.expand((B,) + cos.shape[1:])
-    ctx = LayerCtx(cfg=cfg, mode="decode", sin=sin, cos=cos, pos=pos)
+    if sin is not None:
+        sin = sin.expand((B,) + sin.shape[1:])
+        cos = cos.expand((B,) + cos.shape[1:])
+    ctx = LayerCtx(cfg=cfg, mode="decode", sin=sin, cos=cos, pos=pos,
+                   attention=attention)
     for i in range(cfg.n_layers):
         layer_cache = tree_map(lambda a: a[i], cache["layers"])
-        x, _ = blocks.layer_apply(_layer(params, i), x, ctx, layer_cache)
+        cross = None
+        if cfg.family == "encdec":
+            cross = (cache["cross"]["k"][i], cache["cross"]["v"][i])
+        x, _ = _apply(_layer(params, i), x, ctx, layer_cache, cross)
     logits = _lm_head(params, x, cfg)
     return logits, cache
-

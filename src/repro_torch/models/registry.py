@@ -1,8 +1,7 @@
 """Model registry: config lookup, reduced configs, the model bundle.
 
-Every architecture id of the JAX package is listed; :func:`get_config`
-returns the config of the families the port runs (dense) and raises, naming
-the ROADMAP item, for the others.
+Every architecture id of the JAX package is listed, and :func:`get_config`
+returns each one's config from ``repro_torch.configs``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ from repro_torch.models.common import ArchConfig
 
 __all__ = [
     "ARCH_IDS",
-    "PORTED_ARCH_IDS",
     "get_config",
     "reduced_config",
     "build_model",
@@ -35,10 +33,6 @@ ARCH_IDS = (
     "hymba_1_5b",
 )
 
-# The dense family, whose configs live in ``repro_torch.configs``.
-PORTED_ARCH_IDS = ("minitron_8b", "phi4_mini_3_8b", "stablelm_12b",
-                   "chameleon_34b")
-
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 
@@ -46,19 +40,13 @@ def get_config(name: str) -> ArchConfig:
     key = _ALIASES.get(name, name).replace("-", "_")
     if key not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}")
-    if key not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{name}: only the dense family is ported so far "
-            f"({', '.join(PORTED_ARCH_IDS)}); the mla, moe, ssm, hybrid and "
-            f"encdec families are ROADMAP A14(c)")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.CONFIG
 
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
-    """Tiny dense config for CPU tests: the JAX package's ``reduced_config``
-    for the dense family (the other families' reductions come with their
-    slice, ROADMAP A14(c))."""
+    """Family-preserving tiny config for CPU tests (the JAX package's
+    ``reduced_config``)."""
 
     changes: Dict[str, Any] = dict(
         n_layers=2,
@@ -69,8 +57,20 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         vocab=128,
         head_dim=16,
     )
+    if cfg.family == "mla":
+        changes.update(q_lora_rank=32, kv_lora_rank=16, rope_head_dim=8,
+                       nope_head_dim=8, v_head_dim=16)
+    if cfg.n_experts:
+        # capacity_factor = n_experts -> capacity == T*k: drop-free routing,
+        # so prefill/decode outputs match teacher forcing exactly in tests.
+        changes.update(n_experts=4, top_k=2, moe_d_ff=64, capacity_factor=4.0)
+    if cfg.ssm_state:
+        changes.update(ssm_state=16, ssm_head_dim=16, ssm_heads=0,
+                       ssm_chunk=8)
     if cfg.window is not None:
         changes.update(window=16)
+    if cfg.family == "encdec":
+        changes.update(enc_layers=2, enc_seq=24)
     changes["param_dtype"] = "float32"
     changes["compute_dtype"] = "float32"
     return dataclasses.replace(cfg, **changes)
@@ -83,6 +83,7 @@ def build_model(cfg: ArchConfig):
         "init_params": lambda gen, **kw: lm.init_params(cfg, gen, **kw),
         "forward": lambda p, t, **kw: lm.forward(p, t, cfg, **kw),
         "prefill": lambda p, t, L, **kw: lm.prefill(p, t, cfg, L, **kw),
-        "decode_step": lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),
+        "decode_step": lambda p, c, t, pos, **kw: lm.decode_step(
+            p, c, t, pos, cfg, **kw),
         "init_cache": lambda b, s, **kw: lm.init_cache(cfg, b, s, **kw),
     }

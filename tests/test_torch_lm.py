@@ -15,8 +15,12 @@ cache is longer than the window), JAX parameters from
   ``examples/serve_lm.py`` gives the same tokens as the JAX package's
   ``build_prefill_step`` / ``build_decode_step``;
 * ``plan_lm``'s notes and ``LMPlan`` fields are byte-equal to the JAX
-  package's for every dense config x shape cell, on one device and on a
-  (data 16, model 16) mesh.
+  package's for every config x shape cell, on one device and on a (data
+  16, model 16) mesh, and every config's parameter count equals the JAX
+  package's.
+
+The other families are held against the JAX package in
+``tests/test_torch_families.py``.
 """
 
 import dataclasses
@@ -43,7 +47,6 @@ from repro_torch.models import lm
 from repro_torch.models.common import SHAPES, ArchConfig, cross_entropy_loss
 from repro_torch.models.registry import (
     ARCH_IDS,
-    PORTED_ARCH_IDS,
     build_model,
     get_config,
     reduced_config,
@@ -51,8 +54,10 @@ from repro_torch.models.registry import (
 
 F32_TOL = 1e-5
 BF16_REL_L2 = 2e-2
-CASES = list(PORTED_ARCH_IDS) + ["phi4_mini_3_8b+window",
-                                 "phi4_mini_3_8b+narrow_window"]
+DENSE_IDS = ("minitron_8b", "phi4_mini_3_8b", "stablelm_12b",
+             "chameleon_34b")
+CASES = list(DENSE_IDS) + ["phi4_mini_3_8b+window",
+                           "phi4_mini_3_8b+narrow_window"]
 
 
 def _configs(case, **changes):
@@ -183,7 +188,7 @@ def test_greedy_serving_matches_jax():
 MESHES = {"one": (("data", 1),), "pod": (("data", 16), ("model", 16))}
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_plan_lm_is_byte_equal(arch, shape, mesh):
@@ -202,21 +207,13 @@ def test_plan_lm_is_byte_equal(arch, shape, mesh):
 
 
 def test_param_count_matches_jax():
-    for arch in PORTED_ARCH_IDS:
+    for arch in ARCH_IDS:
         assert get_config(arch).param_count() == \
             jax_get_config(arch).param_count()
     assert get_config("phi4_mini_3_8b").param_count() == 4_451_404_800
 
 
 def test_unported_families_and_meshes_raise():
-    for arch in ARCH_IDS:
-        if arch not in PORTED_ARCH_IDS:
-            with pytest.raises(NotImplementedError, match="A14"):
-                get_config(arch)
-    cfg = dataclasses.replace(reduced_config(get_config("minitron_8b")),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="A14"):
-        lm.model_specs(cfg)
     plan = plan_lm(get_config("minitron_8b"), "decode_32k",
                    MeshSpec((("data", 1),)))
     with pytest.raises(NotImplementedError, match="A10"):
