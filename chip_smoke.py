@@ -7,6 +7,7 @@
                           [--rows-log2-vertices 16] [--lm-layers 32]
                           [--lm-prompt 4000] [--families-layers 0]
                           [--train-layers 32] [--train-seq 4096]
+                          [--families-train-layers 0]
 
 Phases, each of which exits nonzero on failure:
 
@@ -123,7 +124,7 @@ Phases, each of which exits nonzero on failure:
    ``kernel.sum_depth``'s bar of the sequential runs and max/min
    bit-equal; then 256 requests through ``serve_request_loop``, answered
    in arrival order and equal to one-by-one dispatch.
-   Phases 5 to 10 and 12 must give back all the card memory they took.
+   Phases 5 to 10, 12 and 14 must give back all the card memory they took.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -202,6 +203,32 @@ Phases, each of which exits nonzero on failure:
    dQ and dK/dV each timed in turns with the parent's design (the
    ``mma.sync`` kernel, launched outside the wrapper);
    times beside PyTorch's SDPA backward.
+14. ``families_train``: the other families' training.  First the backward
+   kernels at every shape their training launches (a microbatch of 4:
+   minicpm3-4b's q.k head dim 96 on the ``mma`` route, whisper-medium's
+   1500-frame encoder, 448-token decoder and 448 x 1500 cross-attention,
+   hymba-1.5b's 25/5 heads with a 1024-key window, mixtral-8x22b's 48/8
+   heads), per element against the plain backward within
+   ``kernel.bf16_bwd_error_bound``, two launches bit-identical, each timed
+   beside SDPA's backward and its bound.  Then minicpm3-4b, whisper-
+   medium, mamba2-130m, hymba-1.5b, mixtral-8x22b and arctic-480b in turn,
+   at published width with the planner's train dtypes, each at the largest
+   depth whose params, AdamW state, f32 gradient accumulator and
+   activations fit the card's free memory (``_train_reckoning``, printed;
+   arctic-480b fits not one layer and is not trained): the whole path at 2
+   layers and one sequence, kernel path against the plain attention
+   within ``LM_NOISE_FACTOR`` times the bf16 bound measured in the run
+   (expert choices replayed), with one planted backward fault a family
+   that leaves the forward exact and must break that bar (MLA's rope key,
+   the MoE's gate weights, the SSD loop's carried state, hymba's SSM
+   branch, whisper's cross K/V, each detached); then 3 AdamW steps of 8 x
+   ``--train-seq`` tokens in 2 microbatches (whisper: 8 x 448 tokens and 8
+   x 1500 seeded frames), the forward, dQ and dK/dV launches a step exact
+   by route, step 0 run twice from the seed's state with every param and
+   moment bit-identical (ROADMAP C6), one step profiled by group (flash,
+   GEMMs, the SSD loop, the MoE dispatch, elementwise) with the idle share.
+   The SSM families train from Mamba2's decay initialisation.
+   ``--families-train-layers`` caps the depths in a rehearsal.
 
 Prints the card's name and power limit first and again after the phases'
 seconds, one
@@ -211,7 +238,8 @@ at the main path's shapes, and as its last line ``{"ok": true, "device":
 (``--lm-layers 2 --lm-prompt 1000 --log2-vertices 20
 --sssp-log2-vertices 18 --imru-log2-records 18 --generic-domain 256
 --rows-log2-vertices 12 --families-layers 2 --train-layers 2
---train-seq 1024`` for a short first call after a kernel edit): every
+--train-seq 1024 --families-train-layers 2`` for a short first call after
+a kernel edit): every
 phase runs and is checked, but neither of those two lines is printed.
 """
 
@@ -270,7 +298,8 @@ LM_DECODE_STEPS = 32
 DEFAULTS = {"log2_vertices": 25, "supersteps": 20, "sssp_log2_vertices": 22,
             "imru_log2_records": 23, "generic_domain": 1024,
             "rows_log2_vertices": 16, "lm_layers": 32, "lm_prompt": 4000,
-            "families_layers": 0, "train_layers": 32, "train_seq": 4096}
+            "families_layers": 0, "train_layers": 32, "train_seq": 4096,
+            "families_train_layers": 0}
 
 
 def _card_line() -> str:
@@ -3240,42 +3269,125 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile(fn, label, steps) -> None:
+def _ranged(name, fn):
+    """``fn`` inside a profiler range named ``name`` (a distinct name for
+    None: a range that only stops an outer one from claiming its kernels)."""
+
+    from torch.profiler import record_function
+
+    @functools.wraps(fn)
+    def wrapper(*a, **kw):
+        with record_function(f"range: {name}"):
+            return fn(*a, **kw)
+    return wrapper
+
+
+def _range_kernels(prof, names):
+    """[(kernel name, device us, innermost range)] of every kernel the
+    profile linked to an op, each once: the range is the innermost
+    ``_ranged`` range among the op's callers (None where none), where a
+    backward op counts as called from the forward op that made its
+    autograd node (same thread and sequence number).  A range's own span
+    on the device timeline is no kernel."""
+
+    from torch.autograd import DeviceType
+
+    fwd, owners = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.kernels:
+            owners.setdefault(e.id, e)
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            fwd.setdefault((e.thread, e.sequence_nr), e)
+    labels = {f"range: {n}": n for n in names}
+    seen = {}
+
+    def range_of(e, depth=0):
+        chain = []
+        found = None
+        while e is not None:
+            if e.id in seen:
+                found = seen[e.id]
+                break
+            chain.append(e.id)
+            if e.name in labels:
+                found = labels[e.name]
+                break
+            if e.name.startswith("autograd::engine::evaluate_function") \
+                    and e.sequence_nr >= 0 and depth < 4:
+                f = fwd.get((e.fwd_thread, e.sequence_nr))
+                if f is not None:
+                    found = range_of(f, depth + 1)
+                    break
+            e = e.cpu_parent
+        for i in chain:
+            seen[i] = found
+        return found
+
+    return [(k.name, k.duration, range_of(e)) for e in owners.values()
+            for k in e.kernels
+            if not k.name.startswith(("range: ", "Activity Buffer"))]
+
+
+def _profile(fn, label, steps, ranges=(), groups=None):
     """Device time by kernel over ``fn()`` (kernel events only) and the
-    device's idle share of that window."""
+    device's idle share of that window; with ``ranges`` ((group, module,
+    attribute) triples), each function named there runs inside a profiler
+    range, and ``groups(kernel name, range)`` sorts each kernel by name and
+    range.  Returns the summary."""
+
+    import contextlib
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    with contextlib.ExitStack() as stack:
+        for name, module, attr in ranges:
+            stack.enter_context(mock.patch.object(
+                module, attr, _ranged(name, getattr(module, attr))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    # (a range's own span on the device timeline is no kernel)
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0
-            and not e.key.startswith("Activity Buffer")]
+            and not e.key.startswith(("Activity Buffer", "range: "))]
     rows.sort(key=lambda r: -r[1])
     busy = sum(t for _, t, _ in rows)
     print(f"profile: {label}: wall {wall_us / steps / 1e3:.3f} ms/{label}, "
           f"device busy {busy / steps / 1e3:.3f} ms/{label}, idle share "
           f"{max(0.0, 1 - busy / wall_us):.3f}")
-    groups = {}
-    for key, t, _ in rows:
-        group = next((g for g, words in PROFILE_GROUPS
-                      if any(w in key for w in words)), "other")
-        groups[group] = groups.get(group, 0.0) + t
+    by_group = {}
+    if groups is None:
+        for key, t, _ in rows:
+            group = next((g for g, words in PROFILE_GROUPS
+                          if any(w in key for w in words)), "other")
+            by_group[group] = by_group.get(group, 0.0) + t
+    else:
+        for key, t, rng in _range_kernels(prof, [n for n, _, _ in ranges]):
+            group = groups(key, rng)
+            by_group[group] = by_group.get(group, 0.0) + t
+        linked = sum(by_group.values())
+        if linked < busy:
+            by_group["not linked to an op"] = busy - linked
     print(f"profile: {label} by group: " + ", ".join(
         f"{g} {t / steps / 1e3:.3f} ms ({t / busy:.1%})"
-        for g, t in sorted(groups.items(), key=lambda x: -x[1])))
+        for g, t in sorted(by_group.items(), key=lambda x: -x[1]))
+        + f" (grouped {sum(by_group.values()) / steps / 1e3:.3f} ms)")
     for key, t, n in rows[:10]:
         print(f"profile:   {t / steps / 1e3:9.3f} ms/{label} {t / busy:6.1%} "
               f"x{n // steps:<4d} {key[:80]}")
+    return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
+            "idle_share": max(0.0, 1 - busy / wall_us),
+            "groups_ms": {g: t / steps / 1e3 for g, t in by_group.items()}}
 
 
 def phase_lm(args, device, report) -> None:
@@ -4115,11 +4227,12 @@ def _one_layer_checks(args, device, gen):
     chunk = min(cfg.ssm_chunk, S)
     with torch.inference_mode():
         got, st = blocks.ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk)
-        real = blocks._ssd_chunk
+        real = blocks._ssd_chunk_states
 
-        def no_y_off(state, *a):
-            return real(state, *a)[0], real(torch.zeros_like(state), *a)[1]
-        with mock.patch.object(blocks, "_ssd_chunk", no_y_off):
+        def no_y_off(st_c, decay):
+            states, final = real(st_c, decay)
+            return torch.zeros_like(states), final
+        with mock.patch.object(blocks, "_ssd_chunk_states", no_y_off):
             fault = blocks.ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk)[0]
     st_err = _rel64(st, st_want)
     print(f"families: one layer, {cfg.name} ssd_chunked final state: rel L2 "
@@ -4321,22 +4434,7 @@ def _serve_family(arch, args, device, gen):
                                   attention="ref")[0]),
     }
     routes = []
-    real_top_k = blocks._top_k
-
-    def record(probs, k):
-        idx = real_top_k(probs, k)
-        routes.append(idx)
-        return idx
-
-    def replay(log):
-        it = iter(log)
-
-        def top_k(probs, k):
-            idx = next(it)
-            if idx.shape != (probs.shape[0], k):
-                raise AssertionError("replayed routes out of step")
-            return idx
-        return mock.patch.object(blocks, "_top_k", top_k)
+    replay = _routes_replayed
 
     def witness(name, ctx):
         with ctx:
@@ -4346,7 +4444,7 @@ def _serve_family(arch, args, device, gen):
     t0 = time.perf_counter()
     kept.clear()
     with mock.patch.object(blocks, "_route", route_kept):
-        got = witness("kernel", mock.patch.object(blocks, "_top_k", record))
+        got = witness("kernel", replay(routes))
         ref = witness("plain", replay(routes))
         with mock.patch.object(blocks, "_experts",
                                _experts_in_slices(blocks._experts)):
@@ -4604,20 +4702,15 @@ TRAIN_COUNTS = "(fwd, dq, dkv, fwd wgmma, dq wgmma, dkv wgmma)"
 
 
 def _train_want(K, cfg, microbatches):
-    """``_train_counts`` of one train step of ``cfg`` in bf16 with full
-    remat (each layer's forward runs again in its backward), every forward,
-    dQ and dK/dV launch on the wgmma route; raises if that route does not
-    take cfg's head dim."""
+    """``_family_train_want`` of phi4's train step, every forward, dQ and
+    dK/dV launch on the wgmma route; raises if that route does not take
+    cfg's head dim."""
 
-    import torch
-
-    routes = tuple(K.route(kernel, torch.bfloat16, cfg.hd)
-                   for kernel in ("fwd", "dq", "dkv"))
-    if routes != ("wgmma",) * 3:
-        raise AssertionError(f"the forward, dQ and dK/dV take the {routes} "
-                             f"routes at D = {cfg.hd}, not wgmma")
-    n = cfg.n_layers * microbatches
-    return (2 * n, n, n, 2 * n, n, n)
+    want = _family_train_want(K, cfg, microbatches)
+    if want[3:] != want[:3]:
+        raise AssertionError(f"the forward, dQ and dK/dV do not all take the "
+                             f"wgmma route at D = {cfg.hd}")
+    return want
 
 
 def phase_train(args, device, report) -> None:
@@ -5047,6 +5140,676 @@ def phase_train(args, device, report) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the other LM families trained at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_TRAIN_ARCHS = ("minicpm3_4b", "whisper_medium", "mamba2_130m",
+                      "hymba_1_5b", "mixtral_8x22b", "arctic_480b")
+FAMILY_TRAIN_STEPS = 3
+# The depth reckoning plans for the card's memory less this reserve (the
+# CUDA context and loaded kernels, cuBLAS's workspaces, the caching
+# allocator's rounding): a depth that depends on the card, not on what
+# earlier phases left behind.  mixtral-8x22b at 2 layers peaks at 77.4 GB
+# of the H100's 85.0.
+TRAIN_MEMORY_RESERVE = 8e9
+# Mamba2's initialisation of the SSM's decay (arXiv:2405.21060 and its
+# reference code): A ~ U[1, 16], dt ~ logU[1e-3, 1e-1] through dt_bias =
+# softplus^-1(dt).  The ssm and hybrid families train from it here: at the
+# packages' own A_log = 1, dt_bias = 0 each step decays by e^-1.9, the state
+# carried from one chunk to the next moves the gradient by less than its bf16
+# rounding, and a fault there would pass unseen.
+SSM_A_RANGE = (1.0, 16.0)
+SSM_DT_RANGE = (1e-3, 1e-1)
+# Kernel-name groups of the family training profiles, after the flash
+# kernels; record_function ranges put the SSD chunk loop's kernels (its
+# small GEMMs too) and the MoE dispatch's (routing, sorts, gathers and
+# scatters, the combine; not the expert GEMMs) in groups of their own.
+TRAIN_RANGES = (("ssd loop", "ssd_chunked"), ("moe dispatch", "moe_apply"),
+                (None, "_experts"))
+
+
+def _train_group(key, rng):
+    """The profile group of a kernel named ``key`` launched inside the
+    ``TRAIN_RANGES`` range ``rng``."""
+
+    words = dict(PROFILE_GROUPS)
+    if any(w in key for w in words["flash_fwd"]):
+        return "flash fwd"
+    if any(w in key for w in words["flash_bwd"]):
+        return "flash bwd"
+    if rng == "ssd loop":
+        return rng
+    if any(w in key for w in words["gemm"]):
+        return "gemm"
+    if rng == "moe dispatch":
+        return rng
+    return next((g for g, w in PROFILE_GROUPS[3:] if any(x in key for x in w)),
+                "elementwise and other")
+
+
+def _attention_dim(cfg):
+    """The q.k head dim of cfg's flash launches."""
+
+    if cfg.family == "mla":
+        return cfg.nope_head_dim + cfg.rope_head_dim
+    return cfg.hd
+
+
+def _family_train_want(K, cfg, microbatches):
+    """``_train_counts`` of one train step of cfg in bf16 with full remat:
+    each flash forward launches again when its layer is recomputed in the
+    backward, once a microbatch; the routes those of cfg's head dim."""
+
+    import torch
+
+    n = _b2_launches(cfg)[0] * microbatches
+    wgmma = [bool(n) and K.route(kernel, torch.bfloat16,
+                                 _attention_dim(cfg)) == "wgmma"
+             for kernel in ("fwd", "dq", "dkv")]
+    return (2 * n, n, n, 2 * n * wgmma[0], n * wgmma[1], n * wgmma[2])
+
+
+def _train_reckoning(cfg, plan, batch, seq, budget):
+    """(depth, text): the largest depth (decoder layers; an encoder stays
+    whole) whose training state and activations fit ``budget`` bytes, 0 if
+    one layer does not.
+
+    State a parameter: the params and AdamW's m in the plan's dtypes, v in
+    f32 (``adamw`` keeps it so, as the JAX package's does) and the gradient
+    accumulator (f32 over several microbatches).  Activations of a
+    microbatch of T tokens: each layer's saved input (full remat), and one
+    layer's recompute and backward at a time: its widest tensors in the
+    compute dtype (attention's q, k, v and output, the MLP's three
+    d_ff-wide tensors, the MoE's expert slots: X cap rows of d_model in,
+    three of moe_d_ff inside; the SSD loop's f32 chunk tiles) and its
+    largest weight gradient in the params' dtype (autograd hands each
+    leaf's gradient to the accumulator and frees it), or the cross
+    entropy's f32 logit chunks, whichever is larger.  (mixtral-8x22b at 2
+    layers: reckoned 74.6 GB, measured 77.4 GB peak on the card.)"""
+
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import moe_capacity
+
+    size = {"float32": 4, "bfloat16": 2}
+    pb, cd = size[cfg.param_dtype], size[cfg.compute_dtype]
+    acc = 4 if plan.microbatches > 1 else pb
+    per_param = pb + size[plan.m_dtype] + 4 + acc
+    one, two = (lm.param_count(dataclasses.replace(cfg, n_layers=n))
+                for n in (1, 2))
+    per_layer, fixed = two - one, 2 * one - two
+    B = batch // plan.microbatches
+    T = B * seq
+    E = cfg.d_model
+    wide = 8 * E + 4 * cfg.n_heads * _attention_dim(cfg)
+    if cfg.family != "moe" or cfg.dense_residual:      # a dense MLP
+        wide += 3 * cfg.d_ff
+    if cfg.n_experts:
+        slots = cfg.n_experts * moe_capacity(cfg, T)
+        wide += (slots * (E + 3 * cfg.moe_d_ff)) / T + 2 * cfg.top_k * E
+    if cfg.ssm_state:
+        wide += 2 * (2 * cfg.d_inner + cfg.n_ssm_heads) \
+            + 6 * cfg.n_ssm_heads * cfg.ssm_chunk * 4 // cd
+    largest = max(math.prod(spec.shape) for spec in
+                  lm._spec_leaves(lm.model_specs(cfg)["layers"]))
+    layer = max(T * wide * cd + largest * pb,
+                3 * B * 512 * cfg.padded_vocab * 4)
+    enc = B * cfg.enc_seq * E * cd * cfg.enc_layers
+
+    def need(L):
+        state = (fixed + L * per_layer) * per_param
+        return state, state + T * E * cd * L + enc + layer
+
+    depth = 0
+    while depth < cfg.n_layers and need(depth + 1)[1] <= budget:
+        depth += 1
+    L = max(depth, 1)
+    state, total = need(L)
+    text = (f"{per_layer / 1e9:.3f}B parameters a layer, {fixed / 1e9:.3f}B "
+            f"outside the layers, {per_param} B a parameter (params "
+            f"{cfg.param_dtype}, m {plan.m_dtype}, v float32, accumulator "
+            f"{'float32' if acc == 4 else cfg.param_dtype}); at {L} "
+            f"layer(s) {state / 1e9:.1f} GB of state + {(total - state) / 1e9:.1f}"
+            f" GB of activations ({B} x {seq} tokens a microbatch; one "
+            f"layer's recompute and backward {layer / 1e9:.1f} GB) = "
+            f"{total / 1e9:.1f} GB against {budget / 1e9:.1f} GB")
+    if depth and depth < cfg.n_layers:
+        text += f"; at {depth + 1} layers {need(depth + 1)[1] / 1e9:.1f} GB"
+    return depth, text
+
+
+def _ssm_init(params, gen):
+    """Mamba2's decay initialisation (SSM_A_RANGE, SSM_DT_RANGE) written
+    into the SSM's A_log and dt_bias leaves, in place."""
+
+    import torch
+
+    ssm = params["layers"]["ssm"]
+
+    def uniform(lo, hi, like):
+        return lo + (hi - lo) * torch.rand(like.shape, generator=gen,
+                                           device=like.device)
+
+    ssm["A_log"].copy_(torch.log(uniform(*SSM_A_RANGE, ssm["A_log"])))
+    dt = torch.exp(uniform(math.log(SSM_DT_RANGE[0]),
+                           math.log(SSM_DT_RANGE[1]), ssm["dt_bias"]))
+    ssm["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def _family_params(cfg, gen, device):
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, gen, device=device)
+    if cfg.ssm_state:
+        _ssm_init(params, gen)
+    return params
+
+
+def _family_batch(cfg, B, S, gen, device, stream=None):
+    """A batch of B sequences of S tokens (from the zipf ``stream``, else
+    uniform from ``gen``) and, for the encoder-decoder, B x enc_seq frame
+    embeddings from ``gen``."""
+
+    import torch
+
+    if stream is not None:
+        batch = next(stream)
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                         device=device, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["enc_input"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                         generator=gen, device=device)
+    return batch
+
+
+def _backward_fault(cfg):
+    """(what, context): the family's planted backward fault.  Each leaves
+    the forward's values exact and takes a gradient path away."""
+
+    from repro_torch.models import blocks, lm
+
+    if cfg.family == "mla":
+        real = blocks.apply_rope
+
+        def rope_key_detached(x, sin, cos):
+            out = real(x, sin, cos)
+            return out.detach() if x.shape[2] == 1 else out   # k_rope
+        return ("the rope key detached",
+                mock.patch.object(blocks, "apply_rope", rope_key_detached))
+    if cfg.family == "moe":
+        real = blocks._route
+
+        def gates_detached(*a, **kw):
+            order, e_s, w_s, rank, keep = real(*a, **kw)
+            return order, e_s, w_s.detach(), rank, keep
+        return ("the gate weights detached (no gradient to the router)",
+                mock.patch.object(blocks, "_route", gates_detached))
+    if cfg.family == "ssm":
+        real = blocks._ssd_chunk_states
+
+        def state_detached(st_c, decay):
+            states, final = real(st_c, decay)
+            return states.detach(), final
+        return ("the state carried between chunks detached",
+                mock.patch.object(blocks, "_ssd_chunk_states",
+                                  state_detached))
+    if cfg.family == "hybrid":
+        real = blocks.ssm_mixer
+
+        def ssm_detached(*a, **kw):
+            y, cache = real(*a, **kw)
+            return y.detach(), cache
+        return ("the SSM branch detached",
+                mock.patch.object(blocks, "ssm_mixer", ssm_detached))
+    if cfg.family == "encdec":
+        real = lm._cross_kv
+
+        def cross_detached(*a):
+            return tuple(t.detach() for t in real(*a))
+        return ("the cross K/V detached",
+                mock.patch.object(lm, "_cross_kv", cross_detached))
+    raise ValueError(cfg.family)
+
+
+def _routes_replayed(log):
+    """A context in which ``blocks._top_k`` records its choices into
+    ``log`` (when empty) or replays them in call order (when not), so that
+    paths that round differently route every token alike."""
+
+    from repro_torch.models import blocks
+
+    real = blocks._top_k
+    replay = bool(log)
+    it = iter(list(log))
+
+    def top_k(probs, k):
+        if not replay:
+            log.append(real(probs, k))
+            return log[-1]
+        idx = next(it)
+        if idx.shape != (probs.shape[0], k):
+            raise AssertionError("replayed routes out of step")
+        return idx
+    return mock.patch.object(blocks, "_top_k", top_k)
+
+
+def _family_grad_check(cfg, S, args, device, gen, K):
+    """The whole training path at full width, TRAIN_CHECK_LAYERS layers,
+    one sequence: loss and gradients of the kernel path against the plain-
+    attention path within LM_NOISE_FACTOR times the plain path's own
+    distance from the same model in f32 (over all leaves and leaf by leaf;
+    the MoE's expert choices recorded on the plain path and replayed); the
+    family's planted backward fault must break that bar.  The plain path's
+    gradients wait on the host, so that the f32 model and its gradients
+    fit beside the params at mixtral's width."""
+
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import lm
+
+    changes = {"n_layers": min(cfg.n_layers, TRAIN_CHECK_LAYERS)}
+    if cfg.enc_layers:
+        changes["enc_layers"] = min(cfg.enc_layers, TRAIN_CHECK_LAYERS)
+    ccfg = dataclasses.replace(cfg, **changes)
+    gen.manual_seed(args.seed + 7)
+    params = _family_params(ccfg, gen, device)
+    batch = _family_batch(ccfg, 1, S, gen, device)
+    routes = []
+
+    def grads(p, c, attention, ctx):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
+        with ctx, _routes_replayed(routes):
+            loss, _ = lm.loss_fn(leaves, batch, c, remat_policy="full",
+                                 attention=attention)
+            loss.backward()
+        # a leaf a fault cut off from the loss gets no gradient: zero
+        out = [torch.zeros_like(t) if t.grad is None else t.grad
+               for t in tree_leaves(leaves)]
+        del leaves
+        torch.cuda.synchronize()
+        return float(loss.detach()), out
+
+    def against(gs, ref):
+        """(rel L2 over all leaves, rel L2 of each leaf) of gs from ref,
+        leaf by leaf on the card."""
+
+        num, den, per = 0.0, 0.0, []
+        for g, r in zip(gs, ref):
+            r = r.to(device).double()
+            d = float((g.to(device).double() - r).square().sum())
+            n = float(r.square().sum())
+            num, den = num + d, den + n
+            per.append((d / n) ** 0.5 if n > 0 else (0.0 if d == 0 else
+                                                      math.inf))
+        return (num / den) ** 0.5, per
+
+    none = contextlib.nullcontext()
+    t0 = time.perf_counter()
+    loss_r, g = grads(params, ccfg, "ref", none)
+    g_r = [t.cpu() for t in g]
+    del g
+    K.reset_launch_count()
+    loss_k, g_k = grads(params, ccfg, "auto", none)
+    launches = _train_counts(K)
+    want = _family_train_want(K, ccfg, 1)
+    rel, per_k = against(g_k, g_r)
+    del g_k
+    what, fault_ctx = _backward_fault(ccfg)
+    loss_bad, g_bad = grads(params, ccfg, "auto", fault_ctx)
+    off, per_bad = against(g_bad, g_r)
+    del g_bad
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(ccfg, compute_dtype="float32",
+                                param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    loss_f, g_f = grads(params32, cfg32, "ref", none)
+    del params32
+    # the bf16 bound: the plain path's distance from the same model in f32
+    floor, per_floor = against(g_r, g_f)
+    del g_f, g_r
+    torch.cuda.empty_cache()
+
+    def ratio(per):
+        return max((p / f if f > 0 else (0.0 if p == 0 else math.inf))
+                   for p, f in zip(per, per_floor))
+
+    leaf_ratio, fault_ratio = ratio(per_k), ratio(per_bad)
+    loss_floor = abs(loss_r - loss_f) / abs(loss_f)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    bad_loss = abs(loss_bad - loss_k)
+    tag = f"families_train: {cfg.name}"
+    print(f"{tag}: whole path at full width, {ccfg.n_layers} layers, 1 x {S} "
+          f"tokens ({time.perf_counter() - t0:.1f}s"
+          + (", expert choices replayed" if cfg.n_experts else "")
+          + f"): loss kernel {loss_k:.6f}, plain {loss_r:.6f}, f32 "
+          f"{loss_f:.6f}; gradients rel L2 kernel vs plain {rel:.3e} (bar "
+          f"{LM_NOISE_FACTOR} x the bf16 bound {floor:.3e} = "
+          f"{LM_NOISE_FACTOR * floor:.3e}); loss rel {loss_rel:.3e} (bar "
+          f"{LM_NOISE_FACTOR * max(loss_floor, floor):.3e}); largest per-"
+          f"leaf ratio to the leaf's own bound {leaf_ratio:.3f} (bar "
+          f"{LM_NOISE_FACTOR}); launches {TRAIN_COUNTS} {launches}, want "
+          f"{want}; planted fault, {what}: loss moved {bad_loss:.3e}, rel L2 "
+          f"{off:.3e}, largest per-leaf ratio {fault_ratio:.3f}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{tag}: the check's kernel path launched "
+                             f"{TRAIN_COUNTS} {launches} times, want {want}")
+    if floor > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"{tag}: the bf16 plain path is {floor} off f32")
+    if rel > LM_NOISE_FACTOR * floor or leaf_ratio > LM_NOISE_FACTOR or \
+            loss_rel > LM_NOISE_FACTOR * max(loss_floor, floor):
+        raise AssertionError(f"{tag}: kernel path's gradients off the plain "
+                             f"path's")
+    if bad_loss != 0.0:
+        raise AssertionError(f"{tag}: the planted fault ({what}) moved the "
+                             f"forward's loss")
+    if off <= LM_NOISE_FACTOR * floor and fault_ratio <= LM_NOISE_FACTOR:
+        raise AssertionError(f"{tag}: the gradient bar passes the planted "
+                             f"fault ({what})")
+    return {"layers": ccfg.n_layers, "bound": floor, "kernel_vs_plain": rel,
+            "leaf_ratio": leaf_ratio, "loss_rel": loss_rel,
+            "fault": what, "fault_rel": off, "fault_leaf_ratio": fault_ratio}
+
+
+def _family_bwd_shapes(S):
+    """(tag, B, H, KH, Sq, Skv, D, causal, window) of each shape at which
+    the families' training launches the backward kernels (a microbatch)."""
+
+    from repro_torch.models.registry import get_config
+
+    B = TRAIN_BATCH // TRAIN_MICROBATCHES
+    mla, wh = get_config("minicpm3_4b"), get_config("whisper_medium")
+    Sw = min(WHISPER_CONTEXT, S)
+    shapes = [("minicpm3-4b (MLA, D 96)", B, mla.n_heads, mla.n_kv_heads, S,
+               S, _attention_dim(mla), True, None),
+              ("whisper-medium encoder", B, wh.n_heads, wh.n_kv_heads,
+               wh.enc_seq, wh.enc_seq, wh.hd, False, None),
+              ("whisper-medium decoder self-attention", B, wh.n_heads,
+               wh.n_kv_heads, Sw, Sw, wh.hd, True, None),
+              ("whisper-medium cross-attention", B, wh.n_heads, wh.n_heads,
+               Sw, wh.enc_seq, wh.hd, False, None)]
+    for arch in ("hymba_1_5b", "mixtral_8x22b"):
+        cfg = get_config(arch)
+        shapes.append((cfg.name, B, cfg.n_heads, cfg.n_kv_heads, S, S,
+                       cfg.hd, True, cfg.window))
+    return shapes
+
+
+def _bwd_at(B, H, KH, Sq, Skv, D, causal, window, gen, device, tag):
+    """B3 and B4 at one of the families' training shapes (bf16, the LM's
+    layout): per element against the plain backward (f32, the same inputs
+    and statistics) within ``kernel.bf16_bwd_error_bound``, one batch row at
+    a time; two launches bit-identical; each timed beside SDPA's backward
+    (given a binding window as a boolean mask) and its bound.  Returns the
+    report's numbers."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward,
+        visible_mask,
+    )
+
+    q, k, v, do = (torch.randn(s, generator=gen, device=device)
+                   .to(torch.bfloat16)
+                   for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D),
+                             (B, Sq, H, D)))
+    (m, l, delta, scale), got, same = _bwd_run(q, k, v, do, causal, window,
+                                               "bshd")
+    if not same:
+        raise AssertionError(f"two backward launches differ: {tag}")
+    err, bad, ratio = [0.0, 0.0, 0.0], 0, 0.0
+    for b in range(B):
+        row = slice(b, b + 1)
+        qb, kb, vb, dob = (t[row].transpose(1, 2) for t in (q, k, v, do))
+        ref = attention_backward(qb.float(), kb.float(), vb.float(),
+                                 dob.float(), m[row], l[row], delta[row],
+                                 causal=causal, window=window,
+                                 sm_scale=scale)
+        bars = K.bf16_bwd_error_bound(qb, kb, vb, dob, m[row], l[row],
+                                      delta[row], ref, causal=causal,
+                                      window=window, sm_scale=scale)
+        e, n, r = _bwd_off([g[row].transpose(1, 2) for g in got], ref, bars)
+        err = [max(a, x) for a, x in zip(err, e)]
+        bad, ratio = bad + n, max(ratio, r)
+        del ref, bars
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"backward off plain by more than its bar on "
+                             f"{bad} elements (max abs err {max(err)}, max "
+                             f"err / bar {ratio}): {tag}")
+    del got
+    kw = dict(causal=causal, window=window, sm_scale=scale, layout="bshd")
+    dq_ms = _time_ms(lambda: K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw),
+                     5)
+    dkv_ms = _time_ms(lambda: K.flash_bwd_dkv(q, k, v, do, m, l, delta,
+                                              **kw), 5)
+    visible = visible_mask(Sq, Skv, causal, window, device)
+    pairs = int(visible.sum())
+    binding = window is not None and not bool(visible.equal(
+        visible_mask(Sq, Skv, causal, None, device)))
+    sdpa = {"attn_mask": visible} if binding else {"is_causal": causal}
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, scale=scale, enable_gqa=H != KH, **sdpa)
+    dot = do.transpose(1, 2)
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, dot, retain_graph=True), 5)
+    del sdpa_out, leaves, visible
+    out = {}
+    nbytes = {
+        "dq": 2 * (2 * B * Sq * H * D + 2 * B * Skv * KH * D)
+        + 3 * 4 * B * H * Sq,
+        "dkv": 2 * (2 * B * Sq * H * D + 4 * B * Skv * KH * D)
+        + 3 * 4 * B * H * Sq,
+    }
+    for key, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        flops = BWD_FLOP_PER_PAIR[key] * D * B * H * pairs
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes[key] / HBM_BYTES_PER_S
+        out[key] = {"ms": ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "route": K.route(key, torch.bfloat16, D)}
+    mask = ("causal" if causal else "bidirectional") + (
+        f", window {window}" if window is not None else "")
+    print(f"families_train: backward kernels at {tag} (B={B} H={H} KH={KH} "
+          f"Sq={Sq} Skv={Skv} D={D} bf16 {mask}): dq ({out['dq']['route']}) "
+          f"{dq_ms:.3f} ms (bound {out['dq']['bound_ms']:.4f}), dkv "
+          f"({out['dkv']['route']}) {dkv_ms:.3f} ms (bound "
+          f"{out['dkv']['bound_ms']:.4f}), SDPA backward (dq, dk, dv) "
+          f"{library_ms:.3f} ms; vs plain max abs err (dq, dk, dv) "
+          f"{', '.join(f'{e:.3e}' for e in err)}, max err / bound "
+          f"{ratio:.3f}", flush=True)
+    return {"at": tag, "shape": {"B": B, "H": H, "KH": KH, "Sq": Sq,
+                                 "Skv": Skv, "D": D, "dtype": "bfloat16",
+                                 "causal": causal, "window": window,
+                                 "layout": "bshd"},
+            "max_abs_err": err, "max_err_over_bound": ratio,
+            "dq": out["dq"], "dkv": out["dkv"], "library_ms": library_ms}
+
+
+def _state_leaves(state):
+    from repro_torch.core.tree import tree_leaves
+
+    return tree_leaves(state["params"]) + tree_leaves(tuple(state["opt"]))
+
+
+def _train_family(arch, args, device, gen, budget):
+    """One configuration trained: the depth reckoning, the whole-path
+    gradient check, FAMILY_TRAIN_STEPS steps of the main run (step 0 twice,
+    from the same seed, bit-identical), one step profiled.  Returns its
+    numbers, or None where not one layer fits."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.launch.train import build_train_step, make_optimizer
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.registry import get_config
+
+    full = get_config(arch)
+    plan = plan_lm(full, "train_4k", MeshSpec((("data", 1),)), hw=H100_SXM)
+    plan = dataclasses.replace(plan, microbatches=TRAIN_MICROBATCHES)
+    S = min(WHISPER_CONTEXT, args.train_seq) if full.family == "encdec" \
+        else args.train_seq
+    depth, reckoning = _train_reckoning(plan.cfg, plan, TRAIN_BATCH, S,
+                                        budget)
+    tag = f"families_train: {full.name}"
+    print(f"{tag}: depth {depth} of {full.n_layers} by the reckoning: "
+          f"{reckoning}", flush=True)
+    if depth == 0:
+        print(f"{tag}: not trained on one card (not one layer fits; its "
+              f"training waits for a mesh, ROADMAP A10)", flush=True)
+        return None
+    changes = {"n_layers": depth}
+    if args.families_train_layers:
+        changes["n_layers"] = min(depth, args.families_train_layers)
+        if full.enc_layers:
+            changes["enc_layers"] = min(full.enc_layers,
+                                        args.families_train_layers)
+    cfg = dataclasses.replace(plan.cfg, **changes)
+    plan = dataclasses.replace(plan, cfg=cfg)
+
+    check = _family_grad_check(cfg, S, args, device, gen, K)
+    torch.cuda.empty_cache()
+
+    # The main run: 8 x S tokens a step in 2 microbatches (whisper: 8 x 448
+    # decoder tokens and 8 x 1500 frames), AdamW at TRAIN_LR.
+    stream = SyntheticLMStream(DataConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=TRAIN_BATCH,
+        seed=args.seed, task="zipf"), device=device)
+    gen.manual_seed(args.seed + 11)
+    batches = [_family_batch(cfg, TRAIN_BATCH, S, gen, device, stream)
+               for _ in range(FAMILY_TRAIN_STEPS + 1)]
+
+    def fresh():
+        gen.manual_seed(args.seed)
+        params = _family_params(cfg, gen, device)
+        opt = make_optimizer(plan, lr=TRAIN_LR)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        return state, build_train_step(plan, None, optimizer=opt,
+                                       device=device)[0]
+
+    # Determinism (ROADMAP C6): step 0 from the seed's state, kept on the
+    # host, then the state made again from the seed and the main run's
+    # step 0 must give the same bits in every param and moment.
+    state, step_fn = fresh()
+    state, metrics = step_fn(state, batches[0])
+    first = (float(metrics["loss"]), float(metrics["grad_norm"]))
+    kept = [t.cpu() for t in _state_leaves(state)]
+    state_bytes = sum(t.numel() * t.element_size() for t in kept)
+    del state, step_fn, metrics
+    torch.cuda.empty_cache()
+
+    state, step_fn = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_count()
+    want = _family_train_want(K, cfg, TRAIN_MICROBATCHES)
+    rows, same = [], None
+    tokens = TRAIN_BATCH * S
+    for i in range(FAMILY_TRAIN_STEPS):
+        before = _train_counts(K)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(_train_counts(K), before))
+        rows.append((dt, loss, gnorm, n))
+        print(f"{tag}: step {i}: {dt:.3f}s = {tokens / dt:.1f} tokens/s, "
+              f"loss {loss:.6f}, grad_norm {gnorm:.6f}, launches "
+              f"{TRAIN_COUNTS} {n}", flush=True)
+        if i == 0:
+            same = (loss, gnorm) == first and all(
+                torch.equal(t, h.to(device))
+                for t, h in zip(_state_leaves(state), kept))
+            del kept
+    peak = torch.cuda.max_memory_allocated()
+    steady = [r[0] for r in rows[1:]]
+    s_step = sum(steady) / len(steady)
+    print(f"{tag}: {lm.param_count(cfg)} parameters ({cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder" if cfg.enc_layers else "")
+          + f"), {state_bytes / 1e9:.2f} GB of state; {FAMILY_TRAIN_STEPS} "
+          f"steps, steady {s_step:.3f} s/step = {tokens / s_step:.1f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB; step 0 twice from the "
+          f"seed bit-identical: {same}; launches a step {want} wanted",
+          flush=True)
+    if any(r[3] != want for r in rows):
+        raise AssertionError(f"{tag}: flash kernels launched "
+                             f"{[r[3] for r in rows]} times a step, want "
+                             f"{want}")
+    if not all(math.isfinite(x) for r in rows for x in r[1:3]):
+        raise AssertionError(f"{tag}: loss or grad_norm not finite")
+    if not same:
+        raise AssertionError(f"{tag}: two runs of step 0 from the same state "
+                             f"differ")
+    if int(state["step"]) != FAMILY_TRAIN_STEPS:
+        raise AssertionError(f"{tag}: state step {int(state['step'])}")
+
+    ranges = [(name, blocks, attr) for name, attr in TRAIN_RANGES]
+    prof = _profile(lambda: step_fn(state, batches[FAMILY_TRAIN_STEPS]),
+                    f"{cfg.name} train step", 1, ranges=ranges,
+                    groups=_train_group)
+    del state, step_fn, batches, stream
+    return {"arch": arch, "layers": cfg.n_layers,
+            "enc_layers": cfg.enc_layers, "depth_reckoning": reckoning,
+            "tokens_per_step": tokens, "s_per_step": s_step,
+            "tokens_per_s": tokens / s_step, "peak_gb": peak / 1e9,
+            "losses": [r[1] for r in rows], "grad_norms": [r[2] for r in rows],
+            "step_s": [r[0] for r in rows], "launches_per_step": want,
+            "bit_identical": same, "check": check, "profile": prof}
+
+
+def phase_families_train(args, device, report) -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + 3)
+    t_phase = time.perf_counter()
+    # B3 and B4 at every shape the families' training gives them.
+    shapes = [_bwd_at(*shape[1:], gen, device, shape[0])
+              for shape in _family_bwd_shapes(args.train_seq)]
+    torch.cuda.empty_cache()
+    budget = torch.cuda.mem_get_info(device)[1] - TRAIN_MEMORY_RESERVE
+    rows = []
+    for arch in FAMILY_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        row = _train_family(arch, args, device, gen, budget)
+        torch.cuda.empty_cache()
+        print(f"families_train: {arch} in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        if row is not None:
+            rows.append(row)
+    print("families_train: " + json.dumps({"trained": rows,
+                                           "bwd_shapes": shapes}))
+    print(f"families_train: phase in {time.perf_counter() - t_phase:.1f}s")
+    for entry in report:
+        if entry["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
+            key = entry["name"][10:]
+            entry["family_train_shapes"] = [
+                {"at": s["at"], "shape": s["shape"], **s[key],
+                 "library_ms": s["library_ms"]} for s in shapes]
+            entry["family_train_launches_per_step"] = {
+                r["arch"]: r["launches_per_step"][1 if key == "dq" else 2]
+                for r in rows}
+
+
 def _freeing(name, run) -> None:
     """Run a phase and check that it gave back every byte it took on the
     card (the train phase after it peaks at 65 GB)."""
@@ -5094,6 +5857,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train-layers", type=int,
                     default=DEFAULTS["train_layers"])
     ap.add_argument("--train-seq", type=int, default=DEFAULTS["train_seq"])
+    ap.add_argument("--families-train-layers", type=int,
+                    default=DEFAULTS["families_train_layers"],
+                    help="cap on each family's training depth (0: the "
+                         "depths the memory reckoning gives)")
     args = ap.parse_args(argv)
     full = all(getattr(args, k) == v for k, v in DEFAULTS.items())
 
@@ -5140,7 +5907,10 @@ def main(argv=None) -> int:
             ("lm", lambda: phase_lm(args, device, report)),
             ("families", lambda: _freeing(
                 "families", lambda: phase_families(args, device, report))),
-            ("train", lambda: phase_train(args, device, report))):
+            ("train", lambda: phase_train(args, device, report)),
+            ("families_train", lambda: _freeing(
+                "families_train",
+                lambda: phase_families_train(args, device, report)))):
         t0 = time.perf_counter()
         run()
         seconds[name] = round(time.perf_counter() - t0, 1)

@@ -160,6 +160,17 @@ def _qkv(p, x, cfg, rope_tabs):
     return q, k, v
 
 
+def _check_cache_len(cache_len: int, S: int) -> None:
+    """A cache without a ring must hold the whole prompt: a negative pad
+    would crop it to its first ``cache_len`` positions without a word (the
+    JAX package's ``jnp.pad`` refuses it too; ROADMAP C13)."""
+
+    if cache_len < S:
+        raise ValueError(f"prefill of S = {S} tokens into a cache of "
+                         f"cache_len = {cache_len} slots: a cache without a "
+                         f"window must hold the prompt (ROADMAP C13)")
+
+
 def _ring_valid(pos: int, L: int, window: int, device) -> torch.Tensor:
     """Ring cache: slot i holds absolute position p = the largest p <= pos
     with p % L == i.  Visible iff p exists and lies in the window
@@ -216,6 +227,7 @@ def attention_mixer(
                 k_keep = torch.roll(k[:, -Lc:], roll, dims=1)
                 v_keep = torch.roll(v[:, -Lc:], roll, dims=1)
             else:
+                _check_cache_len(Lc, S)
                 pad = Lc - S
                 k_keep = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v_keep = F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -317,6 +329,7 @@ def mla_mixer(p, x, ctx, cache=None):
                                 impl=ctx.attention)[..., :vd]
         new_cache = None
         if ctx.mode == "prefill":
+            _check_cache_len(ctx.cache_len, S)
             pad = ctx.cache_len - S
             new_cache = {
                 "c": F.pad(c_kv, (0, 0, 0, pad)),
@@ -429,6 +442,13 @@ def moe_apply(p, x, cfg: ArchConfig) -> torch.Tensor:
     ROADMAP C11).  The experts run as batched matmuls; each token's output
     is the sum of its pairs' weighted expert outputs (``_combine``),
     rounded once to the compute dtype.
+
+    The backward's index-accumulates give the same bits in any order
+    (ROADMAP C6): the gathers ``xf[t_s]`` add each token's top_k <= 2
+    rows onto zero (two addends commute exactly); ``y[slot]``, the
+    gate gathers and the combine's ``contrib[at[:, j]]`` read each kept
+    row once (one addend onto zero), and the spill row's zeros are sliced
+    off.
     """
 
     dt = _cdt(cfg)
@@ -481,33 +501,33 @@ def ssm_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 def _segsum_decay(dA_chunk: torch.Tensor) -> torch.Tensor:
     """dA_chunk: (..., Q) log-decay increments -> (..., Q, Q) decay matrix
-    L[i, j] = exp(sum_{k=j+1..i} dA_k) for i >= j, else 0."""
+    L[i, j] = exp(sum_{k=j+1..i} dA_k) for i >= j, else 0.
+
+    The upper triangle is masked before the exp (to exp(-inf) = 0): its
+    sums are positive and overflow to inf at the published chunk sizes,
+    and a mask after the exp then gives the backward 0 * inf = NaN (the
+    JAX package's ``where(tri, exp(diff), 0)`` does; ROADMAP C14).  The
+    values are the same bits either way."""
 
     cs = torch.cumsum(dA_chunk, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     Q = dA_chunk.shape[-1]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                 device=dA_chunk.device))
-    return torch.where(tri, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(tri, diff, -torch.inf))
 
 
-def _ssd_chunk(st, xcc, dAcc, dtcc, Bcc, Ccc):
-    """One chunk of the SSD scan: the state ``st`` (b,h,p,n) carried in,
-    the chunk's x (b,Q,h,p), log-decays and dt (b,h,Q), B and C (b,Q,h,n);
-    returns the state carried out and the chunk's output (b,Q,h,p)."""
+def _ssd_chunk_states(st_c, decay):
+    """The inter-chunk recurrence: each chunk's state contribution ``st_c``
+    (b,nc,h,p,n) and whole-chunk decay (b,nc,h) -> the state entering
+    each chunk (b,nc,h,p,n) and the final state (b,h,p,n)."""
 
-    cs = torch.cumsum(dAcc, dim=-1)
-    L = _segsum_decay(dAcc)                                # (b,h,Q,Q)
-    scores = torch.einsum("bqhn,bkhn->bhqk", Ccc, Bcc)
-    M = scores * L * dtcc[:, :, None, :]
-    y_diag = torch.einsum("bhqk,bkhp->bqhp", M, xcc)
-    decay_states = torch.exp(cs[..., -1:] - cs)            # (b,h,Q)
-    st_c = torch.einsum("bkhn,bhk,bkhp->bhpn", Bcc, decay_states * dtcc,
-                        xcc)
-    out_decay = torch.exp(cs)                              # (b,h,Q)
-    y_off = torch.einsum("bqhn,bhpn,bhq->bqhp", Ccc, st, out_decay)
-    new_st = st * torch.exp(cs[..., -1])[..., None, None] + st_c
-    return new_st, y_diag + y_off
+    st = st_c.new_zeros(st_c[:, 0].shape)
+    states = []
+    for c in range(st_c.shape[1]):
+        states.append(st)
+        st = st * decay[:, c, :, None, None] + st_c[:, c]
+    return torch.stack(states, dim=1), st
 
 
 def ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk: int):
@@ -515,10 +535,12 @@ def ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk: int):
 
     x: (b,s,h,p) f32; dt: (b,s,h) f32 (post-softplus); Bm/Cm: (b,s,g,n);
     A_log: (h,); D: (h,).  Returns y: (b,s,h,p) and the final state
-    (b,h,p,n) — the decode handoff.  A Python loop over chunks (the JAX
-    package's ``lax.scan``): each chunk's (Q x Q) tiles, the state
-    recurrence and the inter-chunk output are computed in turn, so no
-    (b, nc, h, Q, Q) tensor spans all chunks.
+    (b,h,p,n) — the decode handoff.  The JAX package's ``lax.scan`` over
+    chunks, with each chunk's (Q x Q) tiles, its state contribution and
+    its output from the incoming state computed for all chunks at once
+    (batched over a chunk axis); only the state recurrence
+    (``_ssd_chunk_states``, two small products a chunk) runs chunk by
+    chunk.
     """
 
     b, s0, h, p = x.shape
@@ -533,20 +555,26 @@ def ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk: int):
         Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
     s = s0 + pad
+    nc = s // chunk
     A = -torch.exp(A_log)                   # (h,) negative decay rates
-    dA = dt * A                             # (b,s,h)
-    Bh = torch.repeat_interleave(Bm, rep, dim=2)     # (b,s,h,n)
-    Ch = torch.repeat_interleave(Cm, rep, dim=2)
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h).transpose(2, 3)       # (b,nc,h,Q)
+    dAc = dtc * A[None, None, :, None]
+    Bc = torch.repeat_interleave(Bm, rep, dim=2).reshape(b, nc, chunk, h, -1)
+    Cc = torch.repeat_interleave(Cm, rep, dim=2).reshape(b, nc, chunk, h, -1)
 
-    st = x.new_zeros((b, h, p, Bm.shape[3]))
-    ys = []
-    for c0 in range(0, s, chunk):
-        st, y = _ssd_chunk(
-            st, x[:, c0:c0 + chunk], dA[:, c0:c0 + chunk].transpose(1, 2),
-            dt[:, c0:c0 + chunk].transpose(1, 2), Bh[:, c0:c0 + chunk],
-            Ch[:, c0:c0 + chunk])
-        ys.append(y)
-    y = torch.cat(ys, dim=1)
+    cs = torch.cumsum(dAc, dim=-1)                          # (b,nc,h,Q)
+    L = _segsum_decay(dAc)                                  # (b,nc,h,Q,Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    M = scores * L * dtc[..., None, :]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
+    decay_states = torch.exp(cs[..., -1:] - cs)             # (b,nc,h,Q)
+    st_c = torch.einsum("bckhn,bchk,bckhp->bchpn", Bc, decay_states * dtc,
+                        xc)
+    states, st = _ssd_chunk_states(st_c, torch.exp(cs[..., -1]))
+    y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Cc, states,
+                         torch.exp(cs))
+    y = (y_diag + y_off).reshape(b, s, h, p)
     y = y + x * D[None, None, :, None]
     return y[:, :s0], st
 
@@ -601,7 +629,12 @@ def ssm_mixer(p, x, ctx, cache=None):
         xbc_a = F.silu(conv)
         new_conv = None
         if ctx.mode == "prefill":
-            new_conv = xbc.to(f32)[:, -(cfg.d_conv - 1):, :]
+            # The last K - 1 conv inputs; a shorter prompt's window is
+            # left-padded with the causal conv's own zeros, so that decode
+            # always meets K - 1 rows (ROADMAP C12).
+            keep = cfg.d_conv - 1
+            new_conv = F.pad(xbc.to(f32)[:, max(0, S - keep):, :],
+                             (0, 0, max(0, keep - S), 0))
 
     xs = xbc_a[..., :Din].reshape(B, -1, H, P).to(f32)
     Bm = xbc_a[..., Din:Din + G * N].reshape(B, -1, G, N).to(f32)

@@ -49,6 +49,8 @@ from repro_torch.models import blocks, lm
 from repro_torch.models.registry import get_config, reduced_config
 
 F32_REL = 1e-5
+# |logit| of the padded vocab's columns (masked to -1e30 in the head)
+PADDED_LOGIT = 1e29
 BF16_REL_L2 = 2e-2
 FAMILIES = ("minicpm3_4b", "whisper_medium", "mixtral_8x22b", "arctic_480b",
             "mamba2_130m", "hymba_1_5b")
@@ -97,7 +99,9 @@ def _close(got, want, tol=F32_REL, what=""):
     want = np.asarray(want, np.float64)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     err = float(np.max(np.abs(got - want))) if got.size else 0.0
-    bar = tol * (float(np.max(np.abs(want))) if want.size else 0.0)
+    # the scale of the values, not of the padded vocab's -1e30 columns
+    real = np.abs(want)[np.abs(want) < PADDED_LOGIT]
+    bar = tol * (float(np.max(real)) if real.size else 0.0)
     assert err <= bar, f"{what}: max abs err {err} > {bar}"
 
 
@@ -334,35 +338,46 @@ def test_moe_apply_drop_free_matches_jax(arch, T):
 
 def _moe_oracle(p, x, cfg):
     """float64 top-k MoE that keeps each expert's first ``cap`` arrivals
-    (pairs in token order); returns the output [T, E] and the tokens that
-    hold rank ``cap - 1`` in an expert that overflows."""
+    (pairs in token order), in torch, so that autograd can differentiate it
+    (the routing is chosen without gradients, as the layer's; the gates,
+    the experts and the dense residual carry them).  ``p`` and ``x`` are
+    arrays or tensors of any float dtype; returns the output [T, E] (f64)
+    and the tokens that hold rank ``cap - 1`` in an expert that
+    overflows."""
 
-    p = {k: np.asarray(v, np.float64) for k, v in p.items()}
-    x = np.asarray(x, np.float64).reshape(-1, cfg.d_model)
+    def f64(a):
+        return a.to(torch.float64) if isinstance(a, torch.Tensor) else \
+            torch.from_numpy(np.asarray(a, np.float64))
+
+    p = {k: f64(v) for k, v in p.items()}
+    x = f64(x).reshape(-1, cfg.d_model)
     T, X, k = x.shape[0], cfg.n_experts, cfg.top_k
     cap = blocks.moe_capacity(cfg, T)
-    logits = x @ p["router"]
-    probs = np.exp(logits - logits.max(-1, keepdims=True))
-    probs /= probs.sum(-1, keepdims=True)
-    choice = np.argsort(-probs, axis=-1, kind="stable")[:, :k]
-    gates = np.take_along_axis(probs, choice, -1)
-    gates /= gates.sum(-1, keepdims=True)
-    out = np.zeros_like(x)
+    probs = torch.softmax(x @ p["router"], dim=-1)
+    choice = np.argsort(-probs.detach().numpy(), axis=-1,
+                        kind="stable")[:, :k]
+    gates = torch.gather(probs, -1, torch.from_numpy(choice))
+    gates = gates / gates.sum(-1, keepdim=True)
     arrivals = {e: [] for e in range(X)}
     for t in range(T):
         for i in range(k):
-            arrivals[int(choice[t, i])].append((t, gates[t, i]))
+            arrivals[int(choice[t, i])].append((t, i))
     at_last_slot = set()
+    rows = []
     for e, pairs in arrivals.items():
         if len(pairs) > cap:
             at_last_slot.add(pairs[cap - 1][0])
-        for t, g in pairs[:cap]:
+        for t, i in pairs[:cap]:
             h = x[t] @ p["w_gate"][e]
             u = x[t] @ p["w_up"][e]
-            out[t] += g * ((h / (1 + np.exp(-h))) * u) @ p["w_down"][e]
+            y = (torch.nn.functional.silu(h) * u) @ p["w_down"][e]
+            rows.append((t, gates[t, i] * y))
+    out = x.new_zeros(x.shape)
+    for t, y in rows:
+        out = out.index_add(0, torch.tensor([t]), y[None])
     if cfg.dense_residual:
         h = x @ p["res_w_gate"]
-        out += ((h / (1 + np.exp(-h))) * (x @ p["res_w_up"])) \
+        out = out + (torch.nn.functional.silu(h) * (x @ p["res_w_up"])) \
             @ p["res_w_down"]
     return out, at_last_slot
 
@@ -377,7 +392,7 @@ def test_moe_overflow_drops_at_capacity(arch, seed):
     want, clobbered = _moe_oracle(tmoe, x, tc)
     assert clobbered, "the case must overflow an expert"
     got = blocks.moe_apply(tmoe, torch.from_numpy(x), tc)
-    _close(got.reshape(want.shape), want)
+    _close(got.reshape(want.shape), want.numpy())
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "arctic_480b"])
@@ -389,6 +404,7 @@ def test_reference_moe_clobbers_rank_cap_minus_1(arch, seed):
 
     jc, tc, jmoe, tmoe, x = _moe_case(arch, capacity_factor=0.5, seed=seed)
     want, clobbered = _moe_oracle(tmoe, x, tc)
+    want = want.numpy()
     ref = np.asarray(jblocks.moe_apply(jmoe, jnp.asarray(x), jc),
                      np.float64).reshape(want.shape)
     err = np.abs(ref - want).max(-1)
@@ -409,3 +425,133 @@ def test_moe_route_is_stable_and_ranks_arrivals():
         assert torch.equal(members, torch.sort(members).values)
         assert torch.equal(rank[e_s == e], torch.arange(len(members)))
     assert torch.equal(keep, rank < 3)
+
+
+# ---------------------------------------------------------------------------
+# Repairs: a prompt shorter than the conv window (ROADMAP C12), caches that
+# do not hold the prompt or the position (ROADMAP C13)
+# ---------------------------------------------------------------------------
+
+
+def _decode_against_teacher_forcing(params, cfg, toks, prompt, steps,
+                                    cache_len):
+    """Each of ``steps`` decode steps' logits after a ``prompt``-token
+    prefill, against the teacher-forced forward's at the same position."""
+
+    t = torch.from_numpy(toks)
+    _, cache, pos = lm.prefill(params, t[:, :prompt], cfg, cache_len)
+    assert pos == prompt
+    for i in range(steps):
+        got, _ = lm.decode_step(params, cache, t[:, pos + i:pos + i + 1],
+                                pos + i, cfg)
+        want = lm.forward(params, t[:, :pos + i + 1], cfg)[:, -1:]
+        _close(got, want.numpy(), what=f"prompt {prompt} step {i}")
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1_5b"])
+@pytest.mark.parametrize("prompt", [1, 2, 3])
+def test_decode_after_a_prompt_shorter_than_the_conv_window(arch, prompt):
+    """ROADMAP C12: prefill keeps the last d_conv - 1 conv inputs, left-
+    padded with the causal conv's zeros when the prompt is shorter, so
+    decode after 1, 2 or 3 prompt tokens (d_conv 4) matches teacher
+    forcing."""
+
+    jc, tc = _configs(arch)
+    assert tc.d_conv == 4
+    _, tp = _params(jc, tc)
+    toks, _ = _inputs(jc, S=prompt + 5)
+    _, cache, _ = lm.prefill(tp, torch.from_numpy(toks[:, :prompt]), tc, 16)
+    conv = cache["layers"]["ssm"]["conv"] if arch == "hymba_1_5b" else \
+        cache["layers"]["conv"]
+    assert conv.shape[2] == tc.d_conv - 1
+    assert not conv[:, :, :tc.d_conv - 1 - prompt].any()
+    _decode_against_teacher_forcing(tp, tc, toks, prompt, 5, 16)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1_5b"])
+@pytest.mark.parametrize("prompt", [1, 2])
+def test_reference_decode_crashes_after_a_prompt_shorter_than_the_window(
+        arch, prompt):
+    """The JAX package keeps a conv window of ``prompt`` rows, and its
+    first decode step's einsum against the 4-row kernel raises (ROADMAP
+    C12): the port does not copy the crash."""
+
+    jc, _ = _configs(arch)
+    jp = jlm.init_params(jc, jax.random.PRNGKey(0))
+    toks, _ = _inputs(jc, S=prompt + 1)
+    _, jcache, _ = jlm.prefill(jp, jnp.asarray(toks[:, :prompt]), jc, 16)
+    with pytest.raises((ValueError, TypeError)):
+        jlm.decode_step(jp, jcache, jnp.asarray(toks[:, prompt:]),
+                        jnp.int32(prompt), jc)
+
+
+C13_ARCHS = ["phi4_mini_3_8b", "minicpm3_4b"]
+
+
+@pytest.mark.parametrize("arch", C13_ARCHS)
+def test_prefill_into_a_cache_shorter_than_the_prompt_raises(arch):
+    """ROADMAP C13: a cache without a ring must hold the prompt.  The port
+    raises where a negative pad would crop it to its first slots; the JAX
+    package refuses too (``jnp.pad`` with a negative width)."""
+
+    jc, tc = _configs(arch)
+    assert tc.window is None
+    jp, tp = _params(jc, tc)
+    toks, _ = _inputs(jc, S=12)
+    with pytest.raises(ValueError, match=r"S = 12 .*cache_len = 8"):
+        lm.prefill(tp, torch.from_numpy(toks), tc, 8)
+    with pytest.raises(ValueError):
+        jlm.prefill(jp, jnp.asarray(toks), jc, 8)
+    lg, cache, _ = lm.prefill(tp, torch.from_numpy(toks), tc, 12)
+    assert all(leaf.shape[2] == 12 for leaf in cache["layers"].values())
+
+
+def test_ring_prefill_is_unchanged_by_the_cache_check():
+    """The windowed configs keep their ring when the cache is shorter than
+    the prompt (no C13 error), and it matches the JAX package's."""
+
+    jc, tc = _configs("mixtral_8x22b")
+    jp, tp = _params(jc, tc)
+    toks, _ = _inputs(jc, S=28)
+    assert tc.window == 16
+    _, jcache, _ = jlm.prefill(jp, jnp.asarray(toks), jc, 12)
+    _, cache, _ = lm.prefill(tp, torch.from_numpy(toks), tc, 12)
+    _close_tree(cache, jcache, "ring cache")
+
+
+@pytest.mark.parametrize("arch", C13_ARCHS)
+def test_decode_past_the_cache_raises_where_the_reference_answers_wrong(
+        arch):
+    """ROADMAP C13, the deliberate departure: decode at a position at or
+    past the cache's length raises ``IndexError`` in the port, where the
+    JAX package's ``dynamic_update_slice`` clamps the write onto the last
+    slot and answers, off from teacher forcing."""
+
+    jc, tc = _configs(arch)
+    jp, tp = _params(jc, tc)
+    toks, _ = _inputs(jc, S=12)
+    prompt, cache_len = 6, 8
+    _, cache, _ = lm.prefill(tp, torch.from_numpy(toks[:, :prompt]), tc,
+                             cache_len)
+    _, jcache, _ = jlm.prefill(jp, jnp.asarray(toks[:, :prompt]), jc,
+                               cache_len)
+    for pos in range(prompt, cache_len):
+        tok = toks[:, pos:pos + 1]
+        lm.decode_step(tp, cache, torch.from_numpy(tok), pos, tc)
+        _, jcache = jlm.decode_step(jp, jcache, jnp.asarray(tok),
+                                    jnp.int32(pos), jc)
+    off = []
+    for pos in range(cache_len, 12):
+        tok = toks[:, pos:pos + 1]
+        with pytest.raises(IndexError, match="past the cache"):
+            lm.decode_step(tp, cache, torch.from_numpy(tok), pos, tc)
+        jlg, jcache = jlm.decode_step(jp, jcache, jnp.asarray(tok),
+                                      jnp.int32(pos), jc)
+        want = np.asarray(jlm.forward(jp, jnp.asarray(toks[:, :pos + 1]), jc,
+                                      remat_policy="none"))[:, -1:,
+                                                              :jc.vocab]
+        jlg = np.asarray(jlg)[..., :jc.vocab]
+        assert np.isfinite(jlg).all()
+        off.append(float(np.abs(jlg - want).max())
+                   / float(np.abs(want).max()))
+    assert min(off) > 10 * F32_REL, off

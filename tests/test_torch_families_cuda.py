@@ -1,6 +1,7 @@
 """The LM families' card paths: the flash forward kernel (B2) at the shapes
-the mla, hybrid and encdec families give it, and the MoE dispatch at
-mixtral-8x22b's full width.
+the mla, hybrid and encdec families give it, the backward kernels (B3, B4)
+at the shapes their training gives them, and the MoE dispatch at
+mixtral-8x22b's full width, forward and backward.
 
 These tests need the card (the CUDA kernel has no CPU mode) and skip
 without one; they import nothing of JAX, so they run on the machine with
@@ -17,6 +18,14 @@ routing the layer chose, within a first-order bound of its bf16
 roundings (``_expert_bound``); a pair clobbered as the JAX package's clamp
 clobbers it (ROADMAP C11) would be off by its whole gated output.  Two
 calls are bit-identical.
+
+B3 and B4 are held per element to the plain backward (``attention_backward``
+in f32 on the same bf16 inputs and statistics) within the kernels' own
+bound (``kernel.bf16_bwd_error_bound``) at MLA's q.k head dim 96 (the
+``mma`` route), hymba's 25/5 heads at D 64 with its 1024-key window, and
+whisper's 448 decoder positions against its 1500 frames.  The MoE layer's
+backward (bf16, the configs' capacity factor) gives the same bits twice:
+every index-accumulate in it adds at most two terms onto zero.
 """
 
 import dataclasses
@@ -26,7 +35,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as K
-from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward,
+    attention_reference,
+)
 from repro_torch.models import blocks
 from repro_torch.models.registry import get_config
 
@@ -171,3 +183,85 @@ def test_moe_apply_full_width_drops_at_capacity():
     bar = 1.1 * (bar + BF16_UNIT * want.abs())
     err = (got.reshape(T, E).double() - want).abs()
     assert int((err > bar).sum()) == 0, float((err / bar).max())
+
+
+# (B, H, KH, Sq, Skv, D, causal, window) of the families' training: MLA's
+# q.k head dim 96 (mma route), hymba's windowed 25/5 heads, whisper's
+# decoder against its frames.
+BWD_SHAPES = [
+    (1, 8, 8, 1024, 1024, 96, True, None),
+    (1, 25, 5, 2048, 2048, 64, True, 1024),
+    (2, 16, 16, 448, 1500, 64, False, None),
+]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_backward_matches_plain_at_family_training_shapes(shape):
+    device = _card()
+    B, H, KH, Sq, Skv, D, causal, window = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(Sq * 3 + Skv + D)
+    q, k, v, do = (torch.randn(s, generator=gen, device=device)
+                   .to(torch.bfloat16)
+                   for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D),
+                             (B, Sq, H, D)))
+    scale = 1.0 / D ** 0.5
+    kw = dict(causal=causal, window=window, sm_scale=scale, layout="bshd")
+    out, m, l = K.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (K.dq_launch_count, K.dkv_launch_count)
+    dq = K.flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+    torch.cuda.synchronize()
+    assert (K.dq_launch_count, K.dkv_launch_count) == (before[0] + 1,
+                                                       before[1] + 1)
+    want_route = "wgmma" if D in K.WGMMA_HEAD_DIMS else "mma"
+    assert K.route("dq", torch.bfloat16, D) == want_route
+    assert K.route("dkv", torch.bfloat16, D) == want_route
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    ref = attention_backward(qt.float(), kt.float(), vt.float(), dot.float(),
+                             m, l, delta, causal=causal, window=window,
+                             sm_scale=scale)
+    bars = K.bf16_bwd_error_bound(qt, kt, vt, dot, m, l, delta, ref,
+                                  causal=causal, window=window,
+                                  sm_scale=scale)
+    for got, want, bar in zip((dq, dk, dv), ref, bars):
+        assert got.dtype == torch.bfloat16
+        err = (got.transpose(1, 2).float() - want).abs()
+        assert int((err > bar).sum()) == 0, float((err / bar).max())
+
+
+def test_moe_backward_full_width_is_bit_identical():
+    """mixtral-8x22b's MoE layer at its full width, 2048 tokens at the
+    capacity factor it trains at (1.25), bf16: two backward
+    passes give the same gradient bits for the input, the router and every
+    expert weight, and the router gets a gradient."""
+
+    device = _card()
+    cfg = get_config("mixtral_8x22b")
+    E, X, Fd, T = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, 2048
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+
+    def w(*shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device=device) * scale) \
+            .to(torch.bfloat16)
+
+    p = {"router": w(E, X), "w_gate": w(X, E, Fd), "w_up": w(X, E, Fd),
+         "w_down": w(X, Fd, E, scale=0.02 / (2 * cfg.n_layers) ** 0.5)}
+    x = torch.randn((1, T, E), generator=gen, device=device) \
+        .to(torch.bfloat16)
+    dy = torch.randn((1, T, E), generator=gen, device=device) \
+        .to(torch.bfloat16)
+
+    def grads():
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xl = x.detach().requires_grad_()
+        out = blocks.moe_apply(leaves, xl, cfg)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        return [xl.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    first, second = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert float(first[1 + sorted(p).index("router")].abs().max()) > 0
