@@ -229,6 +229,19 @@ Phases, each of which exits nonzero on failure:
    GEMMs, the SSD loop, the MoE dispatch, elementwise) with the idle share.
    The SSM families train from Mamba2's decay initialisation.
    ``--families-train-layers`` caps the depths in a rehearsal.
+15. ``census``: the dry-run census (``launch/census.py``) of the LM
+   paths.  phi4-mini at 2 layers, a 4 x 1000 prefill through the plain
+   attention, must count the same FLOPs, bytes and ops on the card as on
+   the ``meta`` device, and a census of the kernel path must raise
+   (its kernels launch outside the dispatcher).  Then every LM path the
+   ``lm``, ``families``, ``train`` and ``families_train`` phases timed
+   (phi4's prefill, decode step and train step; each family's prefill
+   and train step) is counted on ``meta`` at its plan, shapes, dtypes and
+   depth, one worker process a path: its FLOPs, bytes, compute and
+   memory terms on the H100's data sheet (``H100_SXM``) and its measured
+   time over that bound, which must not be under ``CENSUS_FLOOR``; its
+   peak estimate must lie within ``CENSUS_PEAK_FACTOR`` of the path's
+   ``max_memory_allocated``.
 
 Prints the card's name and power limit first and again after the phases'
 seconds, one
@@ -246,10 +259,12 @@ phase runs and is checked, but neither of those two lines is printed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3390,7 +3405,7 @@ def _profile(fn, label, steps, ranges=(), groups=None):
             "groups_ms": {g: t / steps / 1e3 for g, t in by_group.items()}}
 
 
-def phase_lm(args, device, report) -> None:
+def phase_lm(args, device, report, timed=None) -> None:
     import dataclasses
 
     import numpy as np
@@ -3487,9 +3502,12 @@ def phase_lm(args, device, report) -> None:
         lm.prefill(params, prompts[:1, :128], cfg, 160)
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     run = _serve(prefill_fn, decode_fn, params, batch, steps)
     logits, toks = run["logits"], run["tokens"]
     t_prefill, t_decode = run["prefill_s"], run["decode_s"]
+    _timed_path(timed, f"{cfg.name} prefill {B} x {S}", plan, (params, batch),
+                t_prefill, run["prefill_peak"], cache_len=cache_len)
     n_prefill, n_decode = run["prefill_launches"], run["decode_launches"]
     n_wgmma = run["prefill_wgmma"]
     del run
@@ -3529,7 +3547,11 @@ def phase_lm(args, device, report) -> None:
         for i in range(n):
             decode_fn(params, cache, toks[:, i:i + 1], pos + i)
 
+    torch.cuda.reset_peak_memory_stats()
     _profile(decode_few, "decode step", 4)
+    _timed_path(timed, f"{cfg.name} decode step {B} x {cache_len}", plan,
+                (params, cache, toks[:, :1], pos), t_decode / steps,
+                torch.cuda.max_memory_allocated(), kind="decode")
     del cache
 
     # The whole path against its plain version: the same weights and
@@ -3910,7 +3932,9 @@ def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
     (or ``feed``'s); ``after_prefill(logits, cache)`` may read or edit the
     prefill's output before decode starts.  Returns a dict: ``logits`` per
     step [steps+1, B, V] f32, ``tokens`` [B, steps+1], ``prefill_s``,
-    ``decode_s``, and B2's launches in prefill (``prefill_launches``, of
+    ``decode_s``, ``prefill_peak`` (``max_memory_allocated`` after the
+    prefill: its peak where the caller reset the statistics before), and
+    B2's launches in prefill (``prefill_launches``, of
     them on the wgmma route ``prefill_wgmma``) and in decode
     (``decode_launches``)."""
 
@@ -3926,6 +3950,7 @@ def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
         logits, cache, pos = prefill_fn(params, batch)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
+        prefill_peak = torch.cuda.max_memory_allocated()
         n_prefill = fa_kernel.launch_count
         n_wgmma = fa_kernel.fwd_wgmma_launch_count
         if after_prefill is not None:
@@ -3944,6 +3969,7 @@ def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
         t_decode = time.perf_counter() - t0
     return {"logits": torch.stack(out), "tokens": torch.cat(toks, dim=1),
             "prefill_s": t_prefill, "decode_s": t_decode,
+            "prefill_peak": prefill_peak,
             "prefill_launches": n_prefill, "prefill_wgmma": n_wgmma,
             "decode_launches": fa_kernel.launch_count - n_prefill}
 
@@ -4264,7 +4290,7 @@ def _ssd_recurrence64(x, dt, A_log, Bm, Cm, D):
     return torch.stack(ys, dim=1) + x * D.double()[None, None, :, None], st
 
 
-def _serve_family(arch, args, device, gen):
+def _serve_family(arch, args, device, gen, timed=None):
     """One configuration: served, profiled, held to its bars.  Returns its
     numbers."""
 
@@ -4345,6 +4371,9 @@ def _serve_family(arch, args, device, gen):
     peak = torch.cuda.max_memory_allocated()
     toks, t_prefill, t_decode = run["tokens"], run["prefill_s"], \
         run["decode_s"]
+    _timed_path(timed, f"{cfg.name} prefill {B} x {S}", plan,
+                (params, batch), t_prefill, run["prefill_peak"],
+                cache_len=cache_len)
     n_prefill, n_decode = run["prefill_launches"], run["decode_launches"]
     by_route = {"wgmma": run["prefill_wgmma"],
                 "mma": n_prefill - run["prefill_wgmma"]}
@@ -4510,7 +4539,7 @@ def _serve_family(arch, args, device, gen):
             "fault": off, "drop_share_decode": drops}
 
 
-def phase_families(args, device, report) -> None:
+def phase_families(args, device, report, timed=None) -> None:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4527,7 +4556,7 @@ def phase_families(args, device, report) -> None:
     rows = []
     for arch in FAMILY_ARCHS:
         t0 = time.perf_counter()
-        rows.append(_serve_family(arch, args, device, gen))
+        rows.append(_serve_family(arch, args, device, gen, timed))
         torch.cuda.empty_cache()
         print(f"families: {arch} in {time.perf_counter() - t0:.1f}s",
               flush=True)
@@ -4713,7 +4742,7 @@ def _train_want(K, cfg, microbatches):
     return want
 
 
-def phase_train(args, device, report) -> None:
+def phase_train(args, device, report, timed=None) -> None:
     import dataclasses
 
     import torch
@@ -4921,6 +4950,8 @@ def phase_train(args, device, report) -> None:
         raise AssertionError("loss or grad_norm not finite")
     if int(state["step"]) != TRAIN_STEPS:
         raise AssertionError(f"state step {int(state['step'])}")
+    _timed_path(timed, f"{cfg.name} train step {TRAIN_BATCH} x {S}", plan,
+                (state, batches[0]), sum(steady) / len(steady), peak)
 
     def one_step():
         step_fn(state, batches[TRAIN_STEPS])
@@ -5641,7 +5672,7 @@ def _state_leaves(state):
     return tree_leaves(state["params"]) + tree_leaves(tuple(state["opt"]))
 
 
-def _train_family(arch, args, device, gen, budget):
+def _train_family(arch, args, device, gen, budget, timed=None):
     """One configuration trained: the depth reckoning, the whole-path
     gradient check, FAMILY_TRAIN_STEPS steps of the main run (step 0 twice,
     from the same seed, bit-identical), one step profiled.  Returns its
@@ -5759,6 +5790,8 @@ def _train_family(arch, args, device, gen, budget):
                              f"differ")
     if int(state["step"]) != FAMILY_TRAIN_STEPS:
         raise AssertionError(f"{tag}: state step {int(state['step'])}")
+    _timed_path(timed, f"{cfg.name} train step {TRAIN_BATCH} x {S}", plan,
+                (state, batches[0]), s_step, peak)
 
     ranges = [(name, blocks, attr) for name, attr in TRAIN_RANGES]
     prof = _profile(lambda: step_fn(state, batches[FAMILY_TRAIN_STEPS]),
@@ -5774,7 +5807,7 @@ def _train_family(arch, args, device, gen, budget):
             "bit_identical": same, "check": check, "profile": prof}
 
 
-def phase_families_train(args, device, report) -> None:
+def phase_families_train(args, device, report, timed=None) -> None:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5790,7 +5823,7 @@ def phase_families_train(args, device, report) -> None:
     rows = []
     for arch in FAMILY_TRAIN_ARCHS:
         t0 = time.perf_counter()
-        row = _train_family(arch, args, device, gen, budget)
+        row = _train_family(arch, args, device, gen, budget, timed)
         torch.cuda.empty_cache()
         print(f"families_train: {arch} in {time.perf_counter() - t0:.1f}s",
               flush=True)
@@ -5808,6 +5841,219 @@ def phase_families_train(args, device, report) -> None:
             entry["family_train_launches_per_step"] = {
                 r["arch"]: r["launches_per_step"][1 if key == "dq" else 2]
                 for r in rows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the census of every timed LM path (launch/census.py)
+# ---------------------------------------------------------------------------
+
+# A measured time under CENSUS_FLOOR times its census bound fails: the
+# census counts work the step does not do, or the timing ends early.  The
+# bound counts attention as full blocks (the plain chunked version's work,
+# masked blocks too): an over-count the bar is not loosened for.
+CENSUS_FLOOR = 0.95
+# The census's peak estimate within this factor of max_memory_allocated.
+CENSUS_PEAK_FACTOR = 2.0
+# The device-independence check: phi4 at 2 layers, a 4 x 1000 prefill.
+CENSUS_CHECK_LAYERS, CENSUS_CHECK_BATCH, CENSUS_CHECK_PROMPT = 2, 4, 1000
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """A tensor's shape and dtype, standing in for it in a timed path's
+    arguments (sent to the census's worker processes)."""
+
+    shape: tuple
+    dtype: str
+
+
+def _stand_ins(tree):
+    import torch
+
+    from repro_torch.core.tree import tree_map
+
+    return tree_map(lambda t: _Leaf(tuple(t.shape), str(t.dtype)[6:])
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _on_meta(tree):
+    """``tree`` with each tensor or ``_Leaf`` made a ``meta`` tensor of its
+    shape and dtype."""
+
+    import torch
+
+    from repro_torch.core.tree import tree_map
+
+    def meta(x):
+        if isinstance(x, torch.Tensor):
+            x = _Leaf(tuple(x.shape), str(x.dtype)[6:])
+        if isinstance(x, _Leaf):
+            return torch.empty(x.shape, dtype=getattr(torch, x.dtype),
+                               device="meta")
+        return x
+
+    return tree_map(meta, tree)
+
+
+def _timed_path(timed, name, plan, args, measured_s, peak_bytes, *,
+                kind=None, cache_len=None):
+    """Record a timed LM path for the ``census`` phase: its plan, its
+    step's arguments' shapes and dtypes, its measured time and its
+    ``max_memory_allocated``."""
+
+    if timed is not None:
+        timed.append({"name": name, "kind": kind or plan.kind, "plan": plan,
+                      "cache_len": cache_len, "args": _stand_ins(args),
+                      "measured_s": measured_s, "peak_bytes": peak_bytes})
+
+
+def _census_of_path(path):
+    """The census of one timed path's step, built by the port's entry
+    points on the ``meta`` device from its plan, at its arguments' shapes
+    and dtypes (run in a worker process)."""
+
+    import torch
+
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.launch.census import census_of, roofline_terms
+    from repro_torch.launch.serve import build_decode_step, build_prefill_step
+    from repro_torch.launch.train import build_train_step, make_optimizer
+
+    meta = torch.device("meta")
+    plan, kind = path["plan"], path["kind"]
+    if kind == "train":
+        step = build_train_step(plan, None, device=meta,
+                                optimizer=make_optimizer(plan, lr=TRAIN_LR))[0]
+    elif kind == "prefill":
+        step = build_prefill_step(plan, None, path["cache_len"], meta)[0]
+    else:
+        step = build_decode_step(plan, None, meta)[0]
+    t0 = time.perf_counter()
+    _, census = census_of(step, *_on_meta(path["args"]))
+    terms = roofline_terms(census, 1, hw=H100_SXM)
+    return {"flops": census.dot_flops, "bytes": census.bytes_accessed,
+            "region_bytes": census.vmem_region_bytes,
+            "peak_estimate_bytes": census.peak_bytes,
+            "census_s": time.perf_counter() - t0,
+            **{k: terms[k] for k in ("compute_s", "memory_s",
+                                     "step_lower_bound_s", "dominant")}}
+
+
+def _census_equal(card, meta):
+    return (card.dot_flops == meta.dot_flops
+            and card.bytes_accessed == meta.bytes_accessed
+            and card.vmem_region_bytes == meta.vmem_region_bytes
+            and card.op_counts == meta.op_counts)
+
+
+def phase_census(args, device, timed) -> None:
+    """(a) The census of phi4's plain-attention prefill on the card equals
+    its census on ``meta``, and a census of the kernel path raises.  (b)
+    Each path the run timed, counted on ``meta`` at its shapes and depth
+    (in worker processes, one a path), against its measured time: the
+    measured time over the H100's data-sheet bound.  (c) The census's peak
+    estimate against the path's ``max_memory_allocated``."""
+
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.launch.census import census_of
+    from repro_torch.launch.serve import build_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config
+
+    t_phase = time.perf_counter()
+    # Start the workers first: they count on the host while (a) runs.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=max(1, min(len(timed), os.cpu_count() or 1)),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(_census_of_path, p) for p in timed]
+
+        # (a) Device independence, and the kernel path refused.
+        cfg = dataclasses.replace(get_config(LM_ARCH),
+                                  n_layers=CENSUS_CHECK_LAYERS)
+        plan = plan_lm(cfg, "prefill_32k", MeshSpec((("data", 1),)),
+                       hw=H100_SXM)
+        cfg, B, S = plan.cfg, CENSUS_CHECK_BATCH, CENSUS_CHECK_PROMPT
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed + 5)
+        params = lm.serving_params(cfg, lm.init_params(cfg, gen,
+                                                       device=device))
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                         device=device, dtype=torch.int32)}
+        _, on_card = census_of(build_prefill_step(
+            plan, None, S, device, attention="ref")[0], params, batch)
+        _, on_meta = census_of(build_prefill_step(
+            plan, None, S, "meta", attention="ref")[0],
+            *_on_meta((params, batch)))
+        same = _census_equal(on_card, on_meta)
+        print(f"census: {cfg.name} ({cfg.n_layers} layers) prefill {B} x {S}"
+              f" with the plain attention: on the card {on_card.dot_flops:.6e}"
+              f" FLOPs, {on_card.bytes_accessed:.6e} bytes, "
+              f"{sum(on_card.op_counts.values())} ops; on meta "
+              f"{on_meta.dot_flops:.6e}, {on_meta.bytes_accessed:.6e}, "
+              f"{sum(on_meta.op_counts.values())}: equal {same}", flush=True)
+        if not same:
+            raise AssertionError("the census on the card differs from the "
+                                 "census on meta")
+        try:
+            census_of(build_prefill_step(plan, None, S, device)[0], params,
+                      batch)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        print(f"census: the kernel path's census raises: {refused}")
+        if refused is None or "flash_fwd" not in refused:
+            raise AssertionError("a census of the kernel path did not raise "
+                                 "naming the kernel")
+        del params, batch, on_card
+        torch.cuda.empty_cache()
+
+        # (b), (c) Each timed path against its census.
+        card = _card_line()
+        rows, failed = [], []
+        for path, future in zip(timed, futures):
+            c = future.result()
+            share = path["measured_s"] / c["step_lower_bound_s"]
+            peak = c["peak_estimate_bytes"] / path["peak_bytes"]
+            rows.append({"path": path["name"], **c,
+                         "measured_s": path["measured_s"],
+                         "measured_over_bound": share,
+                         "max_memory_allocated": path["peak_bytes"],
+                         "peak_estimate_over_measured": peak})
+            print(f"census: {path['name']} [{card}]: {c['flops']:.6e} FLOPs, "
+                  f"{c['bytes']:.6e} bytes ({c['region_bytes']:.6e} in the "
+                  f"kernels' regions); compute_s {c['compute_s']:.6f}, "
+                  f"memory_s {c['memory_s']:.6f}, step_lower_bound_s "
+                  f"{c['step_lower_bound_s']:.6f} ({c['dominant']}); "
+                  f"measured {path['measured_s']:.6f} s, measured / bound "
+                  f"{share:.4f}; peak estimate "
+                  f"{c['peak_estimate_bytes'] / 1e9:.3f} GB vs "
+                  f"max_memory_allocated {path['peak_bytes'] / 1e9:.3f} GB "
+                  f"({peak:.3f}); counted in {c['census_s']:.1f}s",
+                  flush=True)
+            if share < CENSUS_FLOOR:
+                failed.append(f"{path['name']}: measured / bound {share:.4f}"
+                              f" under {CENSUS_FLOOR}")
+            if not 1 / CENSUS_PEAK_FACTOR <= peak <= CENSUS_PEAK_FACTOR:
+                failed.append(f"{path['name']}: peak estimate / measured "
+                              f"{peak:.3f} outside {CENSUS_PEAK_FACTOR}x")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    seconds = time.perf_counter() - t_phase
+    print("census: " + json.dumps({"card": card, "hardware": H100_SXM.name,
+                                   "paths": rows, "phase_s": seconds}))
+    print(f"census: {len(rows)} timed paths against their census on "
+          f"{card}; phase in {seconds:.1f}s", flush=True)
+    if not rows:
+        raise AssertionError("no timed LM path reached the census")
+    if failed:
+        raise AssertionError("census: " + "; ".join(failed))
 
 
 def _freeing(name, run) -> None:
@@ -5884,6 +6130,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
     report = []
+    timed = []
     seconds = {}
     for name, run in (
             ("kernels", lambda: phase_kernels(device)),
@@ -5904,13 +6151,16 @@ def main(argv=None) -> int:
             ("serve", lambda: _freeing("serve",
                                        lambda: phase_serve(args, device,
                                                            report))),
-            ("lm", lambda: phase_lm(args, device, report)),
+            ("lm", lambda: phase_lm(args, device, report, timed)),
             ("families", lambda: _freeing(
-                "families", lambda: phase_families(args, device, report))),
-            ("train", lambda: phase_train(args, device, report)),
+                "families",
+                lambda: phase_families(args, device, report, timed))),
+            ("train", lambda: phase_train(args, device, report, timed)),
             ("families_train", lambda: _freeing(
                 "families_train",
-                lambda: phase_families_train(args, device, report)))):
+                lambda: phase_families_train(args, device, report, timed))),
+            ("census", lambda: _freeing(
+                "census", lambda: phase_census(args, device, timed)))):
         t0 = time.perf_counter()
         run()
         seconds[name] = round(time.perf_counter() - t0, 1)

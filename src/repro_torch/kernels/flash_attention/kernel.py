@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.census import refuse_kernel
 
 __all__ = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "route",
            "bf16_error_bound", "bf16_bwd_error_bound", "launch_count",
@@ -178,6 +179,7 @@ def flash_fwd(
     ``l`` f32 ``[B, H, Sq]`` (see :mod:`.ref` for the contract)."""
 
     global launch_count, fwd_wgmma_launch_count
+    refuse_kernel("flash_fwd (B2)")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
@@ -248,6 +250,7 @@ def flash_bwd_dq(
     like q (see :func:`.ref.attention_backward` for the contract)."""
 
     global dq_launch_count, dq_wgmma_launch_count
+    refuse_kernel("flash_bwd_dq (B3)")
     B, H, KH, Sq, Skv, D = _bwd_inputs("flash_bwd_dq", q, k, v, do, m, l,
                                        delta, window, layout)
     chosen = route("dq", q.dtype, D)
@@ -284,6 +287,7 @@ def flash_bwd_dkv(
     query heads of its KV head's group; inputs as :func:`flash_bwd_dq`."""
 
     global dkv_launch_count, dkv_wgmma_launch_count
+    refuse_kernel("flash_bwd_dkv (B4)")
     B, H, KH, Sq, Skv, D = _bwd_inputs("flash_bwd_dkv", q, k, v, do, m, l,
                                        delta, window, layout)
     chosen = route("dkv", q.dtype, D)

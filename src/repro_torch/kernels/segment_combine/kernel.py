@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.census import refuse_kernel
 
 __all__ = ["segment_combine_cuda", "launch_count", "reset_launch_count",
            "CHUNK_ROWS", "CHUNK_DEPTH", "PIECE_CHUNKS", "ACC_FLOATS",
@@ -188,6 +189,7 @@ def segment_combine_cuda(
     global launch_count
     if not values.is_cuda:
         raise ValueError("segment_combine_cuda needs CUDA tensors")
+    refuse_kernel("segment_combine (B1)")
     if op not in _OPS:
         raise ValueError(f"segment_combine_cuda: op must be sum/max/min, "
                          f"got {op!r}")

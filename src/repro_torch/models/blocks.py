@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.census import vmem_region
 from repro_torch.models.common import (
     ArchConfig,
     apply_rope,
@@ -563,17 +564,19 @@ def ssd_chunked(x, dt, A_log, Bm, Cm, D, chunk: int):
     Bc = torch.repeat_interleave(Bm, rep, dim=2).reshape(b, nc, chunk, h, -1)
     Cc = torch.repeat_interleave(Cm, rep, dim=2).reshape(b, nc, chunk, h, -1)
 
-    cs = torch.cumsum(dAc, dim=-1)                          # (b,nc,h,Q)
-    L = _segsum_decay(dAc)                                  # (b,nc,h,Q,Q)
-    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
-    M = scores * L * dtc[..., None, :]
-    y_diag = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
-    decay_states = torch.exp(cs[..., -1:] - cs)             # (b,nc,h,Q)
-    st_c = torch.einsum("bckhn,bchk,bckhp->bchpn", Bc, decay_states * dtc,
-                        xc)
-    states, st = _ssd_chunk_states(st_c, torch.exp(cs[..., -1]))
-    y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Cc, states,
-                         torch.exp(cs))
+    # the SSD kernel's body: its (Q x Q) tiles stay on chip there
+    with vmem_region("ssd"):
+        cs = torch.cumsum(dAc, dim=-1)                      # (b,nc,h,Q)
+        L = _segsum_decay(dAc)                              # (b,nc,h,Q,Q)
+        scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+        M = scores * L * dtc[..., None, :]
+        y_diag = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
+        decay_states = torch.exp(cs[..., -1:] - cs)         # (b,nc,h,Q)
+        st_c = torch.einsum("bckhn,bchk,bckhp->bchpn", Bc,
+                            decay_states * dtc, xc)
+        states, st = _ssd_chunk_states(st_c, torch.exp(cs[..., -1]))
+        y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Cc, states,
+                             torch.exp(cs))
     y = (y_diag + y_off).reshape(b, s, h, p)
     y = y + x * D[None, None, :, None]
     return y[:, :s0], st

@@ -24,6 +24,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.launch.census import vmem_region
+
 __all__ = [
     "ArchConfig",
     "SHAPES",
@@ -235,19 +237,22 @@ def _chunked_fwd(q, k, v, causal, window, chunk, scale):
     l = torch.zeros((B, KH, group, Sq, 1), device=dev)
     acc = torch.zeros((B, KH, group, Sq, D), device=dev)
     for ci in range(nk):
-        kc, vc = kf[:, :, ci], vf[:, :, ci]
-        cols = ci * chunk + torch.arange(chunk, device=dev)
-        s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc)
-        mask = _chunk_mask(rows, cols, Skv, causal, window)
-        s = torch.where(mask, s, -torch.inf)
-        m_cur = torch.amax(s, dim=-1, keepdim=True)
-        m_new = torch.maximum(m, m_cur)
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = corr * l + torch.sum(p, -1, keepdim=True)
-        acc = acc * corr + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
-        m = m_new
+        # the flash kernel's body: s and p stay on chip there
+        with vmem_region("flash"):
+            kc, vc = kf[:, :, ci], vf[:, :, ci]
+            cols = ci * chunk + torch.arange(chunk, device=dev)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc)
+            mask = _chunk_mask(rows, cols, Skv, causal, window)
+            s = torch.where(mask, s, -torch.inf)
+            m_cur = torch.amax(s, dim=-1, keepdim=True)
+            m_new = torch.maximum(m, m_cur)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                               0.0)
+            l = corr * l + torch.sum(p, -1, keepdim=True)
+            acc = acc * corr + torch.einsum("bkgqc,bkcd->bkgqd", p, vc)
+            m = m_new
     out = acc / torch.where(l > 0, l, 1.0)
     m = torch.where(torch.isfinite(m), m, 0.0)
     return out, m, l
@@ -282,16 +287,18 @@ class _ChunkedAttention(torch.autograd.Function):
         dq_acc = torch.zeros_like(qg)
         dk_chunks, dv_chunks = [], []
         for ci in range(nk):
-            kc, vc = kf[:, :, ci], vf[:, :, ci]
-            cols = ci * chunk + torch.arange(chunk, device=q.device)
-            s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc)
-            mask = _chunk_mask(rows, cols, Skv, causal, window)
-            p = torch.where(mask, torch.exp(s - m), 0.0) / l_safe
-            dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, vc)
-            ds = p * (dp - delta)
-            dq_acc = dq_acc + torch.einsum("bkgqc,bkcd->bkgqd", ds, kc)
-            dv_chunks.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dof))
-            dk_chunks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg))
+            # the dQ and dK/dV kernels' body
+            with vmem_region("flash"):
+                kc, vc = kf[:, :, ci], vf[:, :, ci]
+                cols = ci * chunk + torch.arange(chunk, device=q.device)
+                s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc)
+                mask = _chunk_mask(rows, cols, Skv, causal, window)
+                p = torch.where(mask, torch.exp(s - m), 0.0) / l_safe
+                dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, vc)
+                ds = p * (dp - delta)
+                dq_acc = dq_acc + torch.einsum("bkgqc,bkcd->bkgqd", ds, kc)
+                dv_chunks.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dof))
+                dk_chunks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg))
         # s = (q * scale) . k, so ds/dq needs the extra scale while ds/dk is
         # exactly ds^T qg (qg already carries the scale).
         dq = (dq_acc * scale).reshape(B, H, Sq, D).transpose(1, 2)

@@ -56,6 +56,7 @@ __all__ = [
     "n_stack",
     "param_count",
     "init_params",
+    "abstract_params",
     "serving_params",
     "forward",
     "hidden_forward",
@@ -66,6 +67,7 @@ __all__ = [
     "decode_step",
     "cache_specs",
     "init_cache",
+    "abstract_cache",
 ]
 
 _STACKED_KEYS = ("layers", "enc_layers")
@@ -169,6 +171,21 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
         stacked = n_stack(cfg, k)
         params[k] = _spec_map(
             lambda s: _init_leaf(s, cfg, stacked, gen, device), sub)
+    return params
+
+
+def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameters' shapes and dtypes as tensors on the ``meta``
+    device (no storage, no generator): the JAX package's
+    ``abstract_params``, for the dry run."""
+
+    meta = torch.device("meta")
+    params: Dict[str, Any] = {}
+    for k, sub in model_specs(cfg).items():
+        stacked = n_stack(cfg, k)
+        params[k] = _spec_map(lambda s: torch.empty(
+            ((stacked,) + s.shape) if stacked else s.shape,
+            dtype=dtype_of(s.dtype or cfg.param_dtype), device=meta), sub)
     return params
 
 
@@ -485,6 +502,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
             device=device), v)
         for k, v in cache_specs(cfg, batch, seq).items()
     }
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
+    """:func:`init_cache`'s tree on the ``meta`` device (the JAX
+    package's ``abstract_cache``)."""
+
+    return init_cache(cfg, batch, seq, device="meta")
 
 
 def _stack_into(stack, i: int, tree, n: int):

@@ -1,4 +1,5 @@
-"""Model registry: config lookup, reduced configs, the model bundle.
+"""Model registry: config lookup, reduced configs, the dry run's inputs
+(abstract params, input specs, the cells' skip rule), the model bundle.
 
 Every architecture id of the JAX package is listed, and :func:`get_config`
 returns each one's config from ``repro_torch.configs``.
@@ -8,15 +9,20 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
+
+import torch
 
 from repro_torch.models import lm
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import SHAPES, ArchConfig, dtype_of
 
 __all__ = [
     "ARCH_IDS",
     "get_config",
     "reduced_config",
+    "abstract_params",
+    "input_specs",
+    "cell_is_applicable",
     "build_model",
 ]
 
@@ -74,6 +80,54 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
     changes["param_dtype"] = "float32"
     changes["compute_dtype"] = "float32"
     return dataclasses.replace(cfg, **changes)
+
+
+def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
+    return lm.abstract_params(cfg)
+
+
+def cell_is_applicable(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
+    """The JAX package's skip rule: ``long_500k`` runs only for the
+    sub-quadratic configs."""
+
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        return False, (
+            f"{cfg.name}: long_500k skipped — pure full attention "
+            "(O(S) KV state per step; no sub-quadratic path)"
+        )
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, Any]:
+    """Stand-ins on the ``meta`` device for every model input of a shape
+    cell, in the JAX package's dtypes (int32 tokens):
+
+    * train:   {tokens (B,S), [enc_input]}
+    * prefill: {tokens (B,S), [enc_input]}
+    * decode:  {token (B,1), pos, cache tree}
+
+    ``pos`` is a Python int, ``S - 1`` (the last slot of the cache), where
+    the JAX package has an int32 scalar: the port's ``decode_step`` takes
+    the position as an int."""
+
+    shp = SHAPES[shape_name]
+    B = shp["batch"]
+    S = shp["seq"]
+    meta = torch.device("meta")
+    if shp["kind"] in ("train", "prefill"):
+        specs: Dict[str, Any] = {
+            "tokens": torch.empty((B, S), dtype=torch.int32, device=meta),
+        }
+        if cfg.family == "encdec":
+            specs["enc_input"] = torch.empty(
+                (B, cfg.enc_seq, cfg.d_model),
+                dtype=dtype_of(cfg.compute_dtype), device=meta)
+        return specs
+    return {
+        "token": torch.empty((B, 1), dtype=torch.int32, device=meta),
+        "pos": S - 1,
+        "cache": lm.abstract_cache(cfg, B, S),
+    }
 
 
 def build_model(cfg: ArchConfig):
