@@ -124,7 +124,33 @@ Phases, each of which exits nonzero on failure:
    ``kernel.sum_depth``'s bar of the sequential runs and max/min
    bit-equal; then 256 requests through ``serve_request_loop``, answered
    in arrival order and equal to one-by-one dispatch.
-   Phases 5 to 10, 12 and 14 must give back all the card memory they took.
+   Phases 5 to 10, 10b, 12 and 14 must give back all the card memory they
+   took.
+10b. ``mesh``: sharded Pregel and IMRU on ``MESH_RANKS`` (4) ranks spawned
+   by ``launch_ranks``: with four cards one a rank over ``nccl``, on one
+   card all on ``cuda:0`` over ``gloo`` staged through pinned host
+   buffers (printed: world, backend, transport, ranks a GPU, bytes
+   staged).  Every rank builds the same global graph from files this
+   script writes.  PageRank at the pagerank phase's size and supersteps
+   on the planner's connector (``dense_psum``) within ``PAGERANK_L1_TOL``
+   of the phase's scipy float64 oracle; ``merging`` and ``hash_sort`` at
+   the sssp phase's size (their buckets hold a whole slab) likewise, in
+   ``MESH_BUCKET_SUPERSTEPS`` supersteps, and
+   the max combine (``_max_program``) bit-equal to the single-device run;
+   each PageRank run twice bit-identical, and with rank 1's sends dropped
+   for one superstep outside the bar.  Semi-naive SSSP at the sssp
+   phase's size on all three connectors equal to BFS, at least one sparse
+   superstep each, modes printed.  IMRU BGD on a (2, 2) pod x data mesh,
+   each rank its quarter of ``--imru-log2-records`` x 1280 records made
+   from the seed, ``MESH_IMRU_ITERATIONS`` iterations under flat,
+   hierarchical, kary_tree and scatter (within the imru phase's bar of a
+   float64 oracle, reduced over the ranks, and within
+   ``MESH_SCHEDULE_RTOL`` of flat) and the ``int8_ef`` codec (within that
+   bar plus its quantization bound, see ``MESH_RANKS``).  ms a superstep
+   or an iteration, B1 launches a rank (at least one in every cell), the
+   bytes a rank hands each collective a superstep; B1 at the merging and
+   hash_sort receivers' shapes held to its plain version and timed
+   (``mesh_sites`` in B1's report entry).  Any rank's failure fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -814,6 +840,14 @@ def pagerank_program(n: int):
     )
 
 
+@functools.lru_cache(maxsize=1)
+def _webgraph_oracle(n: int, seed: int, iters: int):
+    """``pagerank_oracle`` of ``_webgraph(n, seed)``, computed once for the
+    pagerank phase and the mesh phase (65 s at 2^25 vertices)."""
+
+    return pagerank_oracle(*_webgraph(n, seed), n, iters)
+
+
 def pagerank_oracle(src, dst, n: int, iters: int):
     """float64 PageRank with the Pregel semantics of the program above: a
     vertex that gets no message from an active source keeps its rank and
@@ -920,7 +954,7 @@ def phase_pagerank(args, device, report) -> None:
         raise AssertionError(f"kernel launched {launches} times in "
                              f"{args.supersteps} supersteps")
     t1 = time.perf_counter()
-    oracle = pagerank_oracle(src, dst, n, args.supersteps)
+    oracle = _webgraph_oracle(n, args.seed, args.supersteps)
     rel_l1 = float(np.abs(rank - oracle).sum() / np.abs(oracle).sum())
     print(f"pagerank: {res.iterations} supersteps in {res.seconds:.3f}s "
           f"({res.seconds / res.iterations * 1e3:.2f} ms/superstep), "
@@ -1112,7 +1146,7 @@ def _imru_records(n, d, seed, device):
     return {"x": X, "y": y}, w_true
 
 
-def _imru_oracle(X, y, lr, iters, bounds):
+def _imru_oracle(X, y, lr, iters, bounds, reduce=None, scales=None):
     """float64 BGD on the card, chunk by chunk, sharing no code with the
     port's IMRU, and the bar on the f32 run's distance from it.
 
@@ -1135,10 +1169,17 @@ def _imru_oracle(X, y, lr, iters, bounds):
       rounded with variance at most u^2 / 3 of its square):
       (u^2 / 3) (||lr g64_k||^2 + ||m64_{k+1}||^2).
 
-    ``lr`` is the f32 step size the run multiplies by.  Returns (w, bar)."""
+    ``lr`` is the f32 step size the run multiplies by.  Returns (w, bar).
+
+    On a mesh, ``X`` and ``y`` are this rank's records and ``reduce`` sums
+    a gradient over the ranks (float64 and f32 alike), so that every rank
+    gets the same oracle and bar; ``scales``, if given, receives each
+    iteration's largest |float64 gradient component| of any rank.
+    """
 
     import torch
 
+    reduce = reduce or (lambda g, op="sum": g)
     d = X.shape[1]
     w = torch.zeros(d, dtype=torch.float64, device=X.device)
     var = 0.0
@@ -1155,6 +1196,9 @@ def _imru_oracle(X, y, lr, iters, bounds):
             x = X[s:e]
             part = (x @ w32 - y[s:e]) @ x
             g32 = part if g32 is None else g32 + part
+        if scales is not None:
+            scales.append(float(reduce(g.abs().max(), "max")))
+        g, g32 = reduce(g), reduce(g32)
         step = lr * g
         w = w - step
         var += (lr * float((g32.double() - g).norm())) ** 2
@@ -5702,7 +5746,7 @@ def _train_family(arch, args, device, gen, budget, timed=None):
           f"{reckoning}", flush=True)
     if depth == 0:
         print(f"{tag}: not trained on one card (not one layer fits; its "
-              f"training waits for a mesh, ROADMAP A10)", flush=True)
+              f"training waits for a mesh, ROADMAP A10f)", flush=True)
         return None
     changes = {"n_layers": depth}
     if args.families_train_layers:
@@ -6055,6 +6099,405 @@ def phase_census(args, device, timed) -> None:
     if failed:
         raise AssertionError("census: " + "; ".join(failed))
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh (sharded Pregel and IMRU over torch.distributed)
+# ---------------------------------------------------------------------------
+#
+# MESH_RANKS ranks, spawned by launch_ranks: with as many GPUs, one a rank
+# over nccl; on one card, all on cuda:0 over gloo, staged through pinned
+# host buffers.  Every rank builds the same global graph and keeps its
+# shard.  The int8_ef bar adds to the f32 bar what the codec's rounding can
+# move the model: a rank's residual holds each component within half a
+# quantization step s_k = max |g + r| / 127, the update telescopes to
+# lr * sum_r (r_{r,k} - r_{r,k+1}) an iteration, and ||I - lr X^T X|| <= 1
+# carries it undamped at most, so ||m - m_exact|| <= lr R sqrt(d) sum_k s_k
+# for R ranks.  s_k is read from the float64 oracle's per-rank gradients,
+# doubled for the residual it adds and the trajectory it moves.
+
+MESH_RANKS = 4
+MESH_TIMEOUT = 600.0
+MESH_CC_SUPERSTEPS = 8
+# PageRank supersteps of the merging and hash_sort cells (the pagerank
+# phase's count at 2^25): their slab-sized buckets cost 0.33-0.35 s a
+# superstep on one card, three runs a connector.
+MESH_BUCKET_SUPERSTEPS = 10
+MESH_IMRU_ITERATIONS = 5
+MESH_SCHEDULES = ("flat", "hierarchical", "kary_tree", "scatter")
+MESH_SCHEDULE_RTOL = 1e-6
+
+
+def _max_program():
+    """Max-label propagation (connected components on the directed
+    graph): the max combine of the mesh phase's 2^22 cells."""
+
+    import torch
+
+    from repro_torch.core.pregel import VertexProgram
+
+    return VertexProgram(
+        init_vertex=lambda ids, vd: ids.to(torch.float32),
+        message=lambda j, s, ed: s,
+        apply=lambda j, s, inbox, got: (torch.maximum(s, inbox),
+                                        torch.maximum(s, inbox) > s),
+        combine="max")
+
+
+def _sssp_program(source):
+    import torch
+
+    from repro_torch.core.pregel import VertexProgram
+
+    return VertexProgram(
+        init_vertex=lambda ids, vd: torch.where(ids == source, 0.0, 1e9),
+        message=lambda j, s, ed: s + 1.0,
+        apply=lambda j, s, inbox, got: (torch.minimum(s, inbox),
+                                        torch.minimum(s, inbox) < s),
+        combine="min")
+
+
+def _counted_run(ex, mesh, iters):
+    """``ex.run`` with the kernel's and the mesh's counts set to 0 just
+    before and read just after: (result, B1 launches, bytes handed to
+    each collective, staged bytes)."""
+
+    import torch
+
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    mesh.stats.reset()
+    sc_kernel.reset_launch_count()
+    res = ex.run(max_iters=iters)
+    launches = sc_kernel.launch_count
+    return (res, launches, dict(mesh.stats.sent), mesh.stats.staged_bytes)
+
+
+def _dropped_sends(rank, call):
+    """The connectors with one planted fault: on ``rank``, connector call
+    number ``call`` (two a dense superstep: inbox, then got) sends zeros,
+    as if that rank's exchange had been skipped for one superstep."""
+
+    import torch.distributed as dist
+
+    from repro_torch.core import executor
+
+    calls = [0]
+
+    def wrap(real):
+        def faulty(dst, payload, *a, **kw):
+            hit = calls[0] == call and dist.get_rank() == rank
+            calls[0] += 1
+            return real(dst, payload * 0 if hit else payload, *a, **kw)
+        return faulty
+
+    return mock.patch.dict(executor._EXCHANGES, {
+        k: wrap(v) for k, v in executor._EXCHANGES.items()})
+
+
+def _mesh_pagerank(mesh, n, graph, oracle, conn, supersteps, capture):
+    """PageRank on the mesh: the counted run, a second run (bit-identical),
+    and one with rank 1's sends dropped at superstep ``supersteps - 2``,
+    which must break the bar."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import physical
+    from repro_torch.core.pregel import compile_pregel
+
+    prog = pagerank_program(n)
+    ex = compile_pregel(prog, graph, mesh=mesh, force_connector=conn)
+    site = []
+    real = physical.segment_combine_sorted
+
+    def keep(values, ids, num, op="sum", *, edge_active=None, **kw):
+        if not site and num == n // MESH_RANKS + 1:
+            site.append((values, ids, num, op, edge_active))
+        return real(values, ids, num, op, edge_active=edge_active, **kw)
+
+    with mock.patch.object(physical, "segment_combine_sorted",
+                           keep if capture else real):
+        res, launches, sent, staged = _counted_run(ex, mesh, supersteps)
+    again = ex.run(max_iters=supersteps)
+    same = bool(torch.equal(res.state[0], again.state[0]))
+    del again
+
+    def rel(r):
+        rank = r.state[0][:, 0].double().cpu().numpy()
+        ok = bool(np.isfinite(rank).all())
+        return float(np.abs(rank - oracle).sum() / np.abs(oracle).sum()) \
+            if ok else float("inf")
+
+    with _dropped_sends(1, 2 * (supersteps - 2)):
+        bad = compile_pregel(prog, graph, mesh=mesh, force_connector=conn)
+    fault = rel(bad.run(max_iters=supersteps))
+    it = res.iterations
+    return {"connector": ex.plan.connector, "notes": list(ex.plan.notes),
+            "iterations": it, "ms": res.seconds / it * 1e3,
+            "launches": launches, "rel_l1": rel(res), "identical": same,
+            "fault_rel_l1": fault,
+            "sent_per_superstep": {k: v / it for k, v in sent.items()},
+            "staged_per_superstep": staged / it,
+            "slab": ex.local_edge_cap}, site
+
+
+def _mesh_rank(rank, world, cfg):
+    """One rank of the mesh phase: every cell, in the order of the
+    phase's docstring; returns its numbers (rank 0 also the receiver's
+    B1 site)."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.carry import graph_from_numpy
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.imru import compile_imru
+    from repro_torch.core.pregel import compile_pregel
+    from repro_torch.launch.mesh import make_data_mesh, make_mesh
+    from repro_torch.parallel import collectives as C
+
+    d = Path(cfg["dir"])
+    on_card = cfg["device"] == "cuda"
+    data = make_data_mesh(device=cfg["device"], backend=cfg["backend"])
+    out = {"device": str(data.device), "transport": data.transport,
+           "world": world}
+
+    def graph(tag, n):
+        src, dst = np.load(d / f"{tag}_src.npy"), np.load(d / f"{tag}_dst.npy")
+        outdeg = np.bincount(src, minlength=n).astype(np.float32)
+        return graph_from_numpy(n, src, dst, outdeg, device="cpu")
+
+    # PageRank at the pagerank phase's size, the planner's connector.
+    n = cfg["n"]
+    g = graph("pr", n)
+    out["pagerank"], _ = _mesh_pagerank(
+        data, n, g, np.load(d / "pr_oracle.npy"), None, cfg["supersteps"],
+        False)
+    del g
+    # merging and hash_sort at the sssp phase's size: PageRank, and the max
+    # combine against the single-device run.
+    m = cfg["m"]
+    g = graph("sssp", m)
+    oracle = np.load(d / "sssp_pr_oracle.npy")
+    want_max = np.load(d / "max_single.npy")
+    for conn in ("merging", "hash_sort"):
+        cell, site = _mesh_pagerank(data, m, g, oracle, conn,
+                                    MESH_BUCKET_SUPERSTEPS,
+                                    rank == 0 and on_card)
+        if site:
+            out[f"site/{conn}"] = _row_site(
+                f"{conn} receiver", ("mesh", cell["launches"], site[0]),
+                cell["launches"], phase="mesh")
+        del site
+        out[f"pagerank/{conn}"] = cell
+        ex = compile_pregel(_max_program(), g, mesh=data,
+                            force_connector=conn)
+        res, launches, _, _ = _counted_run(ex, data, MESH_CC_SUPERSTEPS)
+        out[f"max/{conn}"] = {
+            "equal": bool(np.array_equal(res.state[0].cpu().numpy(),
+                                         want_max)),
+            "ms": res.seconds / res.iterations * 1e3, "launches": launches}
+    # Semi-naive SSSP on all three connectors against BFS.
+    want = np.load(d / "bfs.npy")
+    for conn in ("dense_psum", "merging", "hash_sort"):
+        ex = compile_pregel(_sssp_program(cfg["source"]), g, mesh=data,
+                            force_connector=conn, semi_naive=True)
+        res, launches, sent, staged = _counted_run(ex, data, 1000)
+        out[f"sssp/{conn}"] = {
+            "equal": bool(res.converged and np.array_equal(
+                res.state[0].double().cpu().numpy(), want)),
+            "modes": list(res.modes), "iterations": res.iterations,
+            "ms": res.seconds / res.iterations * 1e3, "launches": launches,
+            "sent": sent, "staged": staged}
+    del g
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # IMRU BGD on (2, 2) pod x data: this rank's quarter of the records.
+    mesh = make_mesh((2, 2), ("pod", "data"), device=cfg["device"],
+                     backend=cfg["backend"])
+    shard = mesh.linear_index(mesh.batch_axes)
+    rows, dim = cfg["records"] // MESH_RANKS, IMRU_FEATURES
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(cfg["seed"])
+    w_true = torch.randn(dim, generator=gen, device=mesh.device)
+    gen.manual_seed((cfg["seed"] << 8) + 1 + shard)
+    X = torch.empty((rows, dim), device=mesh.device)
+    y = torch.empty(rows, device=mesh.device)
+    for s in range(0, rows, 1 << 20):
+        e = min(s + (1 << 20), rows)
+        X[s:e].normal_(generator=gen)
+        y[s:e] = X[s:e] @ w_true
+    lr = IMRU_LR_SCALE / cfg["records"]
+    lr32 = float(torch.tensor(lr, dtype=torch.float32))
+    recs = {"x": X, "y": y}
+    imru = {}
+    for sched in MESH_SCHEDULES + ("int8_ef",):
+        codec = "int8_ef" if sched == "int8_ef" else None
+        ex = compile_imru(_bgd_task(dim, lr, mesh.device), recs, mesh=mesh,
+                          hw=H100_SXM, codec=codec,
+                          force_reduce="flat" if codec else sched)
+        res = ex.run(max_iters=MESH_IMRU_ITERATIONS)
+        imru[sched] = (res.state.double(), res.seconds / res.iterations * 1e3,
+                       list(ex.plan.notes), ex.plan.microbatches)
+    # The oracle's own microbatch bounds, as the plan states them.
+    size = rows // imru["flat"][3]
+    bounds = [(s, min(s + size, rows)) for s in range(0, rows, size)]
+
+    def reduce(t, op="sum"):
+        with C.bind(mesh):
+            return (C.pmax if op == "max" else C.psum)(t, mesh.batch_axes)
+
+    scales = []
+    w64, bar = _imru_oracle(X, y, lr32, MESH_IMRU_ITERATIONS, bounds,
+                            reduce=reduce, scales=scales)
+    quant = 2 * lr32 * MESH_RANKS * math.sqrt(dim) * sum(
+        s / 127 for s in scales)
+    flat = imru["flat"][0]
+    out["imru"] = {
+        k: {"err": float((v[0] - w64).norm()), "ms": v[1], "notes": v[2],
+            "vs_flat": float((v[0] - flat).norm() / flat.norm()),
+            "finite": bool(torch.isfinite(v[0]).all())}
+        for k, v in imru.items()}
+    out["imru_bar"], out["imru_int8_bar"] = bar, bar + quant
+    out["imru_microbatches"] = imru["flat"][3]
+    out["staged_total"] = data.stats.staged_bytes + mesh.stats.staged_bytes
+    del X, y, recs, imru
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(args, device, report) -> None:
+    """Sharded Pregel and IMRU on MESH_RANKS ranks (the module docstring's
+    phase 16).  Inputs and oracles are made here and handed over in
+    files; every rank returns its numbers, which are checked here."""
+
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse import csgraph
+
+    from repro_torch.carry import graph_from_numpy
+    from repro_torch.core.pregel import compile_pregel
+    from repro_torch.launch.mesh import launch_ranks
+
+    n_gpus = torch.cuda.device_count()
+    backend = "nccl" if n_gpus >= MESH_RANKS and device.type == "cuda" \
+        else "gloo"
+    n, m = 1 << args.log2_vertices, 1 << args.sssp_log2_vertices
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        d = Path(tmp)
+        src, dst = _webgraph(n, args.seed)
+        np.save(d / "pr_src.npy", src)
+        np.save(d / "pr_dst.npy", dst)
+        np.save(d / "pr_oracle.npy",
+                _webgraph_oracle(n, args.seed, args.supersteps))
+        src, dst = power_law_graph(m, WEBMAP_MEAN_OUT_DEGREE, args.seed + 1)
+        np.save(d / "sssp_src.npy", src)
+        np.save(d / "sssp_dst.npy", dst)
+        np.save(d / "sssp_pr_oracle.npy",
+                pagerank_oracle(src, dst, m, MESH_BUCKET_SUPERSTEPS))
+        source = int(np.bincount(src, minlength=m).argmax())
+        A = sp.csr_matrix((np.ones(src.shape[0]), (src, dst)), shape=(m, m))
+        bfs = csgraph.shortest_path(A, directed=True, unweighted=True,
+                                    indices=source)
+        np.save(d / "bfs.npy", np.where(np.isinf(bfs), 1e9, bfs))
+        del A, bfs
+        g = graph_from_numpy(m, src, dst, np.zeros(m, np.float32),
+                             device=device)
+        single = compile_pregel(_max_program(), g, device=device).run(
+            max_iters=MESH_CC_SUPERSTEPS)
+        np.save(d / "max_single.npy", single.state[0].cpu().numpy())
+        del g, single, src, dst
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"mesh: inputs and oracles in {time.perf_counter() - t0:.1f}s;"
+              f" spawning {MESH_RANKS} ranks over {backend} on {n_gpus} "
+              f"GPU(s)", flush=True)
+        t1 = time.perf_counter()
+        cfg = {"dir": tmp, "backend": backend, "device": device.type,
+               "n": n, "m": m,
+               "supersteps": args.supersteps, "source": source,
+               "records": 1 << args.imru_log2_records, "seed": args.seed}
+        ranks = launch_ranks(_mesh_rank, MESH_RANKS, cfg, store_dir=tmp,
+                             backend=backend, timeout=MESH_TIMEOUT)
+    r0 = ranks[0]
+    per_gpu = MESH_RANKS / len({r["device"] for r in ranks})
+    print(f"mesh: world {MESH_RANKS}, backend {backend}, transport "
+          f"{r0['transport']}, {per_gpu:g} rank(s) a GPU, ranks ran in "
+          f"{time.perf_counter() - t1:.1f}s; bytes staged a rank "
+          f"{[r['staged_total'] for r in ranks]}")
+    failed = []
+    cells = [("pagerank", n, args.supersteps)] + [
+        (f"pagerank/{c}", m, MESH_BUCKET_SUPERSTEPS)
+        for c in ("merging", "hash_sort")]
+    for key, size, steps in cells:
+        c = r0[key]
+        launches = [r[key]["launches"] for r in ranks]
+        print(f"mesh: {key} n={size}, {steps} supersteps, {c['connector']} (plan "
+              f"{c['notes'][-1]}), slab {c['slab']} edges a rank: "
+              f"{c['ms']:.3f} ms/superstep (ranks "
+              f"{[round(r[key]['ms'], 3) for r in ranks]}), B1 launches a "
+              f"rank {launches}, bytes a rank a superstep "
+              f"{ {k: int(v) for k, v in c['sent_per_superstep'].items()} }"
+              f", staged {int(c['staged_per_superstep'])}; rel L1 vs scipy "
+              f"float64 {c['rel_l1']:.3e} (tol {PAGERANK_L1_TOL}), two runs "
+              f"bit-identical {c['identical']}, rank 1's sends dropped at "
+              f"superstep {steps - 2}: rel L1 "
+              f"{c['fault_rel_l1']:.3e}")
+        if not (c["rel_l1"] <= PAGERANK_L1_TOL and c["identical"]
+                and c["fault_rel_l1"] > PAGERANK_L1_TOL
+                and min(launches) > 0
+                and all(r[key]["rel_l1"] == c["rel_l1"] for r in ranks)):
+            failed.append(key)
+        if key == "pagerank" and c["connector"] != "dense_psum":
+            failed.append(f"the planner chose {c['connector']}")
+    for conn in ("merging", "hash_sort"):
+        c = r0[f"max/{conn}"]
+        print(f"mesh: max combine on {conn}, {MESH_CC_SUPERSTEPS} "
+              f"supersteps: bit-equal to the single-device run {c['equal']}"
+              f", {c['ms']:.3f} ms/superstep, B1 launches a rank "
+              f"{[r[f'max/{conn}']['launches'] for r in ranks]}")
+        if not all(r[f"max/{conn}"]["equal"] for r in ranks):
+            failed.append(f"max/{conn}")
+    for conn in ("dense_psum", "merging", "hash_sort"):
+        c = r0[f"sssp/{conn}"]
+        print(f"mesh: semi-naive SSSP n={m} on {conn}: equal to BFS "
+              f"{c['equal']} in {c['iterations']} supersteps, "
+              f"{c['ms']:.3f} ms/superstep, B1 launches a rank "
+              f"{[r[f'sssp/{conn}']['launches'] for r in ranks]}, bytes "
+              f"{ {k: int(v) for k, v in c['sent'].items()} }, staged "
+              f"{c['staged']}, modes {c['modes']}")
+        if not (all(r[f"sssp/{conn}"]["equal"] for r in ranks)
+                and any(x.startswith("sparse@") for x in c["modes"])):
+            failed.append(f"sssp/{conn}")
+    bar, bar8 = r0["imru_bar"], r0["imru_int8_bar"]
+    for k, c in r0["imru"].items():
+        b = bar8 if k == "int8_ef" else bar
+        print(f"mesh: imru {1 << args.imru_log2_records} x {IMRU_FEATURES} "
+              f"on (2, 2) pod x data, {k}: {c['ms']:.3f} ms/iteration, "
+              f"||m - m64|| {c['err']:.4e} (bar {b:.4e}), relative to flat "
+              f"{c['vs_flat']:.3e}; plan {c['notes'][-1]}")
+        if not (c["finite"] and c["err"] <= b):
+            failed.append(f"imru/{k}")
+        if k != "int8_ef" and c["vs_flat"] > MESH_SCHEDULE_RTOL:
+            failed.append(f"imru/{k} vs flat")
+    entry = next(e for e in report if e["name"] == "segment_combine") \
+        if any(e["name"] == "segment_combine" for e in report) else None
+    sites = [r0[f"site/{c}"] for c in ("merging", "hash_sort")
+             if f"site/{c}" in r0]
+    if entry is not None:
+        entry["mesh_sites"] = sites
+    if failed:
+        raise AssertionError("mesh: " + "; ".join(failed))
+
+
 
 def _freeing(name, run) -> None:
     """Run a phase and check that it gave back every byte it took on the
@@ -6151,6 +6594,9 @@ def main(argv=None) -> int:
             ("serve", lambda: _freeing("serve",
                                        lambda: phase_serve(args, device,
                                                            report))),
+            ("mesh", lambda: _freeing("mesh",
+                                      lambda: phase_mesh(args, device,
+                                                         report))),
             ("lm", lambda: phase_lm(args, device, report, timed)),
             ("families", lambda: _freeing(
                 "families",

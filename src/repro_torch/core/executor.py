@@ -48,14 +48,18 @@ run, and :meth:`GenericExecutable.run_batched` runs k parameterized
 queries through one fixpoint under ``torch.func.vmap`` (the segment
 combine batches through its operator's batching rule, one combine for the
 k queries).  Not ported yet, and raising ``NotImplementedError`` with the
-queue item: the sharded layouts and explicit row exchanges (``mesh=``,
-``exchange=``, ``remesh``: A10).
+queue item: the generic engine's sharded layouts and explicit row
+exchanges (``mesh=``, ``exchange=``: A10b) and ``remesh`` (A10c).  The
+Listing-1/2 steps (``build_pregel_steps``, ``build_imru_step``) run on a
+mesh.
 """
 
 from __future__ import annotations
 
 import ast
+import contextlib
 import functools
+import math
 import time
 from dataclasses import dataclass, field, replace
 from typing import (
@@ -85,6 +89,7 @@ from repro_torch.core.physical import (
     hash_sort_exchange,
     join_row_codes,
     merging_exchange,
+    reduce_tree,
     row_codes,
     row_linear_index,
     rows_to_grid,
@@ -97,6 +102,8 @@ from repro_torch.core.physical import (
 from repro_torch.core.planner import GroupBySpec, plan_program
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.optim.compression import ef_int8_allreduce, init_ef_state
+from repro_torch.parallel import collectives as C
 
 __all__ = [
     "ExecutorError",
@@ -1852,7 +1859,7 @@ class GenericExecutable:
 
     def remesh(self, mesh) -> "GenericExecutable":
         raise NotImplementedError(
-            "remesh is not ported yet: ROADMAP A10 (multi-GPU)"
+            "remesh is not ported yet: ROADMAP A10c (elastic meshes)"
         )
 
     # -- parameterized query bindings (online serving) ----------------------
@@ -2415,12 +2422,13 @@ def compile_program(
     :func:`_check_chunk_soundness` refuses a program whose rules do not
     decompose over chunks.  A chunked EDB's :class:`RowRelation` may lie on
     the CPU when the executable is on the card: its rows never need to be
-    on the device at once.  ``mesh=`` and ``exchange=`` raise (A10).
+    on the device at once.  ``mesh=`` and ``exchange=`` raise (A10b).
     """
 
     if mesh is not None or exchange is not None:
         raise NotImplementedError(
-            "mesh= and exchange= are not ported yet: ROADMAP A10 (multi-GPU)"
+            "mesh= and exchange= are not ported yet: ROADMAP A10b "
+            "(the generic engine's row exchanges)"
         )
     shape = _listing_shape(program)
     if shape == "pregel" and binding is not None:
@@ -2884,12 +2892,13 @@ def _rows_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _compact_and_gather(prog, j, state, active, src, dst, cap: int, *,
-                        edge_data=None):
-    """Sparse-superstep prologue: mask the edge slab by source activity,
-    compact the frontier into ``cap`` slots, gather the compacted endpoints,
-    state and edge data, and run the message UDF.  Returns ``(dst_c,
-    payload, valid)``.  Empty slots carry a clamped in-range index: their
-    payload is computed from real state but excluded via ``valid``."""
+                        pad=None, edge_data=None):
+    """Sparse-superstep prologue: mask the edge slab by source activity
+    (and padding, on sharded slabs), compact the frontier into ``cap``
+    slots, gather the compacted endpoints, state and edge data, and run the
+    message UDF.  Returns ``(dst_c, payload, valid)``.  Empty slots carry a
+    clamped in-range index: their payload is computed from real state but
+    excluded via ``valid``."""
 
     if src.shape[0] == 0:
         # Zero-edge slab: one inert edge, masked off, so every gather below
@@ -2905,6 +2914,8 @@ def _compact_and_gather(prog, j, state, active, src, dst, cap: int, *,
         mask = torch.zeros(1, dtype=torch.bool, device=device)
     else:
         mask = torch.index_select(active, 0, src)
+        if pad is not None:
+            mask = mask & ~pad
     idx, valid = compact_active_edges(mask, cap)
     idx_c = torch.clamp(idx, max=src.shape[0] - 1)
     src_c = torch.index_select(src, 0, idx_c)
@@ -2940,80 +2951,149 @@ class PregelStepBundle:
     superstep: Callable
     sparse_step_factory: Callable[[int], Callable]
     local_edge_cap: int
+    # Sharded meshes: ``active -> int[n_shards]`` shard-local active-edge
+    # counts, gathered so that every rank reads the same vector.
+    shard_count_fn: Optional[Callable] = None
     # Failure injection threaded from the compile call: the executable
     # hands it to its host driver, which fires ``maybe_fail(j)`` at the
     # step boundary.
     injector: Optional[Any] = None
 
 
+def _edge_slab(graph, n_shards: int, shard: int, device: torch.device):
+    """This shard's edge slab: the edges whose source it owns (contiguous
+    vertex ranges of ``n / n_shards``), in edge order, padded to the
+    largest shard's count so that every rank runs the same shapes.  Returns
+    ``(src_l, dst_l, pad, edge_data, slab_cap)``: local source rows, global
+    destinations, the padding mask, and every ``edge_data`` leaf riding the
+    same rows.  Padding rows point at source row 0 and destination 0 with
+    zero edge data, and are masked off before their payload can travel."""
+
+    n_local = graph.n_vertices // n_shards
+    owner = graph.src.to(torch.int64) // n_local
+    slab_cap = int(torch.bincount(owner, minlength=n_shards).max()) \
+        if graph.n_edges else 0
+    idx = torch.nonzero(owner == shard).reshape(-1)
+    k = idx.shape[0]
+
+    def slab(leaf, fill):
+        out = torch.full((slab_cap,) + tuple(leaf.shape[1:]), fill,
+                         dtype=leaf.dtype, device=leaf.device)
+        out[:k] = leaf[idx.to(leaf.device)]
+        return out.to(device)
+
+    src_l = slab(graph.src - shard * n_local, 0)
+    dst_l = slab(graph.dst, 0)
+    pad = torch.arange(slab_cap, device=device) >= k
+    edata = tree_map(lambda e: slab(e, 0), graph.edge_data)
+    return src_l, dst_l, pad, edata, slab_cap
+
+
 def build_pregel_steps(prog, graph, plan, mesh=None,
                        injector=None) -> PregelStepBundle:
-    """Materialize the planned Listing-1 superstep pipeline on one
-    device.  ``injector`` rides along on the bundle: failures fire at the
-    host step boundary between supersteps, never inside one."""
+    """Materialize the planned Listing-1 superstep pipeline.  ``injector``
+    rides along on the bundle: failures fire at the host step boundary
+    between supersteps, never inside one.
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded Pregel (mesh=) is not ported yet: ROADMAP A10 "
-            "(multi-GPU)"
-        )
+    With a ``mesh`` whose ``pod``/``data`` axes hold more than one rank,
+    this rank owns the vertex rows ``[s n/S, (s+1) n/S)`` of its shard s
+    (of S) and the edge slab of their sources (:func:`_edge_slab`); the
+    carries its steps take and return hold those rows only.  Each step
+    runs under ``collectives.bind(mesh)``, where the connectors exchange
+    over the sharding axes, and every decision the host takes between
+    steps comes from gathered values (``shard_count_fn``), so every rank
+    runs the same step in lockstep."""
+
     connector = _EXCHANGES[plan.connector]
+    sparse_ex = _SPARSE_EXCHANGES.get(plan.connector)
     op = prog.combine
     monoid = get_monoid(op)
     n = graph.n_vertices
+    batch_axes = () if mesh is None else mesh.batch_axes
+
+    if batch_axes:
+        n_shards = math.prod(mesh.shape[a] for a in batch_axes)
+        if n % n_shards:
+            raise ValueError("n_vertices must divide the data shards")
+        src, dst, pad, edata, slab_cap = _edge_slab(
+            graph, n_shards, mesh.linear_index(batch_axes), mesh.device)
+        bound = functools.partial(C.bind, mesh)
+    else:
+        src, dst, pad, edata = graph.src, graph.dst, None, graph.edge_data
+        slab_cap = graph.n_edges
+        bound = contextlib.nullcontext
 
     def superstep(carry, j):
         """One superstep (Fig. 4's O7..O15 pipeline)."""
 
         state, active = carry
-        # O7 index join: probe source state by gather.
-        src_state = tree_map(
-            lambda s: torch.index_select(s, 0, graph.src), state
-        )
-        src_active = torch.index_select(active, 0, graph.src)
-        payload = prog.message(j, src_state, graph.edge_data)
-        # Vote-to-halt: inactive sources contribute the combine identity.
-        payload = torch.where(
-            _rows_mask(src_active, payload), payload,
-            monoid.identity_like(payload),
-        )
-        # O15 sender combine + connector + O14 receiver combine.
-        inbox = connector(graph.dst, payload, n, (), op)
-        got = connector(
-            graph.dst, torch.where(src_active, 1.0, 0.0), n, (), "sum",
-        ) > 0
-        # O8 apply + O9/O10 masked state update (the L7 non-null check).
-        return _apply_and_merge(prog, j, state, inbox, got)
-
-    sparse_ex = _SPARSE_EXCHANGES.get(plan.connector)
+        with bound():
+            # O7 index join: probe source state by gather.
+            src_state = tree_map(
+                lambda s: torch.index_select(s, 0, src), state)
+            src_active = torch.index_select(active, 0, src)
+            if pad is not None:
+                src_active = src_active & ~pad
+            payload = prog.message(j, src_state, edata)
+            # Vote-to-halt: inactive sources contribute the combine
+            # identity.
+            payload = torch.where(
+                _rows_mask(src_active, payload), payload,
+                monoid.identity_like(payload),
+            )
+            # O15 sender combine + connector + O14 receiver combine.
+            inbox = connector(dst, payload, n, batch_axes, op)
+            got = connector(
+                dst, torch.where(src_active, 1.0, 0.0), n, batch_axes,
+                "sum",
+            ) > 0
+            # O8 apply + O9/O10 masked state update (the L7 non-null
+            # check).
+            return _apply_and_merge(prog, j, state, inbox, got)
 
     def sparse_step_factory(cap: int) -> Callable:
         """Frontier-compacted superstep: gather, message UDF, combine and
-        exchange run over a ``cap``-sized slab of the active edges."""
+        exchange run over a ``cap``-sized slab of the active edges (on a
+        mesh, every shard compacts its slab into the same ``cap``)."""
 
         def step(carry, j):
             state, active = carry
-            dst_c, payload, valid = _compact_and_gather(
-                prog, j, state, active, graph.src, graph.dst, cap,
-                edge_data=graph.edge_data,
-            )
-            if sparse_ex is None:
-                ex = lambda fused: dense_psum_exchange(
-                    dst_c, fused, n, (), op, edge_mask=valid, flag_cols=1,
+            with bound():
+                dst_c, payload, valid = _compact_and_gather(
+                    prog, j, state, active, src, dst, cap, pad=pad,
+                    edge_data=edata,
                 )
-            else:
-                ex = lambda fused: sparse_ex(
-                    dst_c, fused, valid, n, (), op, flag_cols=1,
-                )
-            inbox, got = fused_got_exchange(ex, payload, valid, op)
-            return _apply_and_merge(prog, j, state, inbox, got)
+                if sparse_ex is None:
+                    # No sparse connector variant: the frontier-masked
+                    # dense exchange still moves N-sized partials, but the
+                    # edge-side work runs on the compacted slab.
+                    ex = lambda fused: dense_psum_exchange(
+                        dst_c, fused, n, batch_axes, op, edge_mask=valid,
+                        flag_cols=1,
+                    )
+                else:
+                    ex = lambda fused: sparse_ex(
+                        dst_c, fused, valid, n, batch_axes, op, flag_cols=1,
+                    )
+                inbox, got = fused_got_exchange(ex, payload, valid, op)
+                return _apply_and_merge(prog, j, state, inbox, got)
 
         return step
+
+    shard_count_fn = None
+    if batch_axes:
+        def shard_count_fn(active):
+            local = (torch.index_select(active, 0, src) & ~pad).sum(
+                dtype=torch.int32).reshape(1)
+            with bound():
+                return C.all_gather(local, batch_axes).reshape(-1).cpu() \
+                    .numpy()
 
     return PregelStepBundle(
         superstep=superstep,
         sparse_step_factory=sparse_step_factory,
-        local_edge_cap=graph.n_edges,
+        local_edge_cap=slab_cap,
+        shard_count_fn=shard_count_fn,
         injector=injector,
     )
 
@@ -3038,17 +3118,21 @@ def microbatch_slices(n_records: int, microbatches: int):
 
 
 def build_imru_step(task, records, plan, mesh, mesh_spec):
-    """Materialize the planned Listing-2 step (Fig. 5) on one device: map
-    with sender-side early aggregation over the planned microbatches (one
-    accumulator, added to in a fixed order), then the update UDF.  On one
-    device the planned reduce is the identity.  Returns ``(step,
-    records)``; the records stay where they are (loop-invariant caching).
+    """Materialize the planned Listing-2 step (Fig. 5): map with
+    sender-side early aggregation over the planned microbatches (one
+    accumulator, added to in a fixed order), the planned reduce, then the
+    update UDF.  Returns ``(step, records)``; the records stay where they
+    are (loop-invariant caching).
+
+    On one device the reduce is the identity.  With a ``mesh`` whose
+    ``pod``/``data`` axes hold more than one rank, ``records`` are this
+    rank's shard (the model is replicated over ``model``): the partial
+    statistic goes through ``reduce_tree`` under the planned schedule, or,
+    with the ``int8_ef`` codec, through ``ef_int8_allreduce`` over the
+    sharding axes with residuals carried from one iteration to the next
+    (zero at iteration 0).
     """
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded IMRU (mesh=) is not ported yet: ROADMAP A10 (multi-GPU)"
-        )
     n_records = int(tree_leaves(records)[0].shape[0])
     slices = microbatch_slices(n_records, plan.microbatches)
 
@@ -3063,7 +3147,30 @@ def build_imru_step(task, records, plan, mesh, mesh_spec):
             acc = stat if acc is None else tree_map(torch.add, acc, stat)
         return acc
 
+    batch_axes = () if mesh is None else mesh.batch_axes
+    if not batch_axes:
+        def step(model, j):
+            return task.update(j, model, local_partial(model))
+
+        return step, records
+
+    sched = plan.reduce
+    ef = {}
+
     def step(model, j):
-        return task.update(j, model, local_partial(model))
+        partial = local_partial(model)
+        with C.bind(mesh):
+            if sched.codec == "int8_ef":
+                if j == 0 or "state" not in ef:
+                    ef["state"] = init_ef_state(partial)
+                total, ef["state"] = ef_int8_allreduce(
+                    partial, ef["state"], batch_axes)
+            else:
+                total = reduce_tree(
+                    partial, sched,
+                    data_axes=tuple(a for a in ("data",) if a in batch_axes),
+                    pod_axis="pod",
+                )
+        return task.update(j, model, total)
 
     return step, records

@@ -11,7 +11,11 @@
   dense<->sparse ``select_step``.
 
 Termination mirrors Appendix B.2: ``max_iters`` is reached or the iteration
-derives no new facts (``converged(prev, new)``).
+derives no new facts (``converged(prev, new)``).  On a mesh every rank runs
+its own driver over its shard, and both drivers read the one flag a
+superstep that :func:`agreed` all-reduces, so that every rank stops at the
+same iteration: a rank that stopped alone would leave the others waiting
+in the next collective.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core.tree import tree_leaves
+from repro_torch.parallel import collectives as C
 
 __all__ = [
     "FixpointResult",
@@ -31,6 +36,7 @@ __all__ = [
     "HostFixpointDriver",
     "DriverConfig",
     "checkpointed_run",
+    "agreed",
 ]
 
 logger = logging.getLogger(__name__)
@@ -64,6 +70,18 @@ def _synchronize(state: Any) -> None:
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
             torch.cuda.synchronize(leaf.device)
             return
+
+
+def agreed(done: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``done`` on every rank of ``axes`` (a one-element bool tensor that
+    holds only where each rank's holds): an all-reduce MAX of the ranks'
+    ``not done``.  Without a mesh or axes, ``done`` itself."""
+
+    if mesh is None or not axes:
+        return done
+    with C.bind(mesh):
+        return ~C.pmax((~done).reshape(1).to(torch.int32), axes) \
+            .to(torch.bool).reshape(())
 
 
 def device_fixpoint(

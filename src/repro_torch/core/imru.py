@@ -21,7 +21,10 @@ from the records' statistics, and has the executor build the step
 G3's ``M != NewM`` test: the fixpoint is reached when ``update`` returns the
 model unchanged (to within ``tol``).
 
-One device only: ``mesh=`` is ROADMAP A10.
+With ``mesh=`` each rank holds its shard of the records (sharded over the
+``pod``/``data`` axes, replicated over ``model``) and a replica of the
+model; the partial statistics meet in the planned reduce schedule (or the
+``int8_ef`` codec) and every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from repro_torch.core.fixpoint import (
     DriverConfig,
     FixpointResult,
     HostFixpointDriver,
+    agreed,
     checkpointed_run,
     device_fixpoint,
 )
@@ -47,6 +51,8 @@ from repro_torch.core.listings import imru_program
 from repro_torch.core.planner import IMRUPhysicalPlan, IMRUStats, plan_imru
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_spec_of
+from repro_torch.parallel import collectives as C
 
 __all__ = ["IMRUTask", "IMRUExecutable", "compile_imru", "tree_sum_aggregate"]
 
@@ -108,6 +114,7 @@ class IMRUExecutable:
     stats: Optional[IMRUStats] = None
     hw: HardwareSpec = TPU_V5E
     straggler_fallbacks: Tuple[str, ...] = ()
+    mesh: Optional[Any] = None
 
     def init(self) -> Any:
         return tree_map(lambda t: torch.as_tensor(t, device=self.device),
@@ -120,7 +127,8 @@ class IMRUExecutable:
         same = torch.ones((), dtype=torch.bool, device=self.device)
         for a, b in zip(tree_leaves(prev), tree_leaves(new)):
             same = same & torch.all(torch.abs(a - b) <= self.task.tol)
-        return same
+        return agreed(same, self.mesh,
+                      () if self.mesh is None else self.mesh.batch_axes)
 
     # -- drivers ------------------------------------------------------------
 
@@ -147,9 +155,15 @@ class IMRUExecutable:
         ``resume=True`` continues from disk.  A detected straggler switches
         the reduce to the planner's k-ary aggregation tree when
         ``straggler_fallback`` is on; fallbacks taken are recorded in
-        ``straggler_fallbacks`` and ``plan.notes``."""
+        ``straggler_fallbacks`` and ``plan.notes``.  On a mesh fault
+        tolerance is ROADMAP A10c, and the straggler fallback is off: one
+        rank that swapped its schedule alone would leave the lockstep."""
 
         ft = checkpoint_dir is not None or injector is not None
+        if ft and self.mesh is not None:
+            raise NotImplementedError(
+                "fault tolerance on a mesh is not ported yet: ROADMAP A10c"
+            )
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir=")
         model = self.init()
@@ -160,7 +174,7 @@ class IMRUExecutable:
         def make_driver(config, save, restore):
             driver = self.driver(config, save=save, restore=restore,
                                  injector=injector)
-            if straggler_fallback:
+            if straggler_fallback and self.mesh is None:
                 driver.on_straggler = self._kary_fallback(driver)
             return driver
 
@@ -235,12 +249,17 @@ def compile_imru(
     records' shapes and dtypes and from the model's, which ``init_model``
     gives on the ``meta`` device (no data, no map run).  ``hw`` defaults to
     the TPU model so plan notes match the JAX package's.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`): ``records`` are
+    this rank's shard, on the mesh's device, of equal size on every rank
+    of the ``pod``/``data`` axes; the planner sees their sum and
+    ``mesh_spec`` defaults to :func:`~repro_torch.launch.mesh.mesh_spec_of`
+    the mesh.  ``force_reduce`` pins the reduce schedule and ``codec`` the
+    codec around it (``bf16``, or ``int8_ef`` with error feedback).
     """
 
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP A10 (multi-GPU)"
-        )
+        device = mesh.device
     device = resolve_device(device)
     leaves = tree_leaves(records)
     for t in leaves:
@@ -250,6 +269,16 @@ def compile_imru(
                 f"{device}: put them there "
                 "(repro_torch.carry.imru_records_from_numpy)"
             )
+    n_records = int(leaves[0].shape[0])
+    if mesh is not None and mesh.batch_axes:
+        # Each rank holds its shard; the planner sees them all.
+        with C.bind(mesh):
+            counts = C.all_gather(torch.tensor([n_records], device=device),
+                                  mesh.batch_axes).reshape(-1).tolist()
+        if len(set(counts)) != 1:
+            raise ValueError(f"the ranks' record shards differ in size: "
+                             f"{counts}")
+        n_records = sum(counts)
 
     # (1)-(3): Datalog -> schedule -> logical plan.  These raise on any
     # violation of the paper's semantic requirements.
@@ -265,14 +294,14 @@ def compile_imru(
         model_bytes = sum(_nbytes(torch.as_tensor(m))
                           for m in tree_leaves(model0))
         stats = IMRUStats(
-            n_records=int(leaves[0].shape[0]),
+            n_records=n_records,
             record_bytes=sum(_nbytes(t, 1) for t in leaves),
             model_bytes=model_bytes,
             stat_bytes=model_bytes,  # gradient-shaped statistic
             flops_per_record=2.0 * model_bytes / 4.0,
         )
     if mesh_spec is None:
-        mesh_spec = _ONE_DEVICE
+        mesh_spec = _ONE_DEVICE if mesh is None else mesh_spec_of(mesh)
     plan = plan_imru(
         stats, mesh_spec, hw,
         force_reduce=force_reduce, codec=codec, microbatches=microbatches,
@@ -280,7 +309,7 @@ def compile_imru(
 
     # (5): the executor materializes the planned step (map + early
     # aggregation over microbatches + update).
-    step, records = build_imru_step(task, records, plan, None, mesh_spec)
+    step, records = build_imru_step(task, records, plan, mesh, mesh_spec)
 
     return IMRUExecutable(
         task=task,
@@ -293,4 +322,5 @@ def compile_imru(
         mesh_spec=mesh_spec,
         stats=stats,
         hw=hw,
+        mesh=mesh,
     )

@@ -1,13 +1,15 @@
-"""Physical operators of the single-device Pregel path (paper Section 4,
-Figures 4 and 9), in PyTorch.
+"""Physical operators (paper Section 4, Figures 4, 5 and 9), in PyTorch.
 
-The port of the single-device half of :mod:`repro.core.physical`: the
-group-by / combine primitives (sorted segment combine and scatter combine,
-the two receiver algorithms of Fig. 9), the index join (Fig. 4 O7), the
-frontier compaction of the semi-naive supersteps, the three Pregel
-connectors with their sparse variants for one device (``axes == ()``),
-and the row-table primitives of the generic executor's sparse storage
-(row codes, sort-merge join, set-difference, grid <-> row converters).
+The port of :mod:`repro.core.physical`: the reduce schedules of Fig. 5
+(flat, hierarchical, k-ary tree over ``ppermute``, reduce-scatter) and the
+bf16 / int8 error-feedback codecs around them; the group-by / combine
+primitives (sorted segment combine and scatter combine, the two receiver
+algorithms of Fig. 9); the index join (Fig. 4 O7); the frontier compaction
+of the semi-naive supersteps; the three Pregel connectors and their sparse
+variants, on one device and sharded over the mesh axes the executor binds
+(:mod:`repro_torch.parallel.collectives`); and the row-table primitives of
+the generic executor's sparse storage (row codes, sort-merge join,
+set-difference, grid <-> row converters).
 
 Every fast-path combine on a CUDA tensor with an f32/bf16 payload runs the
 hand-written segment-combine kernel, which adds in a fixed order: the
@@ -22,7 +24,9 @@ in one call.
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -32,10 +36,22 @@ from repro_torch.core.monoid import (
     generic_segment_combine,
     get_monoid,
 )
+from repro_torch.core.planner import ReduceSchedule
+from repro_torch.core.tree import tree_map
 from repro_torch.kernels.segment_combine.kernel import segment_combine_cuda
 from repro_torch.kernels.segment_combine.ops import kernel_eligible
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.collectives import axes_present as _axes_present
+from repro_torch.parallel.collectives import axis_size as _named_axis_size
 
 __all__ = [
+    "psum_tree",
+    "reduce_tree",
+    "kary_tree_psum",
+    "compress_bf16",
+    "CompressionState",
+    "compress_int8_ef",
+    "decompress_int8",
     "segment_combine_sorted",
     "scatter_combine",
     "index_join",
@@ -75,12 +91,137 @@ def _rows_2d(values: torch.Tensor) -> torch.Tensor:
     return values.reshape(values.shape[0], math.prod(values.shape[1:]))
 
 
-def _require_single_device(axes: Tuple[str, ...]) -> None:
-    if axes:
-        raise NotImplementedError(
-            f"sharded connectors (axes={axes!r}) are not ported yet: "
-            "ROADMAP A10 (multi-GPU)"
-        )
+# ---------------------------------------------------------------------------
+# Reduce schedules (the aggregation-tree feature): run under collectives.bind
+# ---------------------------------------------------------------------------
+
+
+def kary_tree_psum(x: torch.Tensor, axis: str, k: int = 4) -> torch.Tensor:
+    """K-ary reduction tree over a named axis via ``ppermute`` rounds (the
+    paper's 4-ary aggregation tree, Fig. 5 O8): each round, every group of
+    ``k`` consecutive participants sends to its group leader; after
+    ``ceil(log_k n)`` rounds index 0 holds the total, which a ``psum`` of
+    the root's value (the others' zeros) hands back to every member."""
+
+    n = _named_axis_size(axis)
+    if n == 1:
+        return x
+    idx = C.axis_index(axis)
+    stride = 1
+    total = x
+    while stride < n:
+        group = stride * k
+        partial = total
+        for j in range(1, k):
+            off = j * stride
+            # Each member receives from idx + off (mod n); only leaders
+            # whose source lies within range take it.
+            shifted = C.ppermute(total, axis,
+                                 [((i + off) % n, i) for i in range(n)])
+            if idx % group == 0 and idx + off < n:
+                partial = partial + shifted
+        total = partial
+        stride = group
+    return C.psum(total if idx == 0 else torch.zeros_like(total), (axis,))
+
+
+def psum_tree(x: torch.Tensor, schedule: ReduceSchedule,
+              data_axes: Tuple[str, ...] = ("data",),
+              pod_axis: str = "pod") -> torch.Tensor:
+    """Apply one reduce schedule to a single tensor (see
+    :func:`reduce_tree`)."""
+
+    data_axes = _axes_present(data_axes)
+    pods = _axes_present((pod_axis,))
+
+    if schedule.kind == "flat":
+        axes = tuple(data_axes) + pods
+        return C.psum(x, axes) if axes else x
+    if schedule.kind == "hierarchical":
+        # Early aggregation within the pod, then across pods: the paper's
+        # machine-local pre-aggregation + 1-level tree.
+        out = C.psum(x, data_axes) if data_axes else x
+        if pods:
+            out = C.psum(out, pods)
+        return out
+    if schedule.kind == "kary_tree":
+        out = C.psum(x, data_axes) if data_axes else x
+        if pods:
+            out = kary_tree_psum(out, pods[0], schedule.kary)
+        return out
+    if schedule.kind == "scatter":
+        # ZeRO-1 dataflow: reduce-scatter over data, reduce the shard
+        # across pods, all-gather it back.
+        out = x
+        if data_axes:
+            n = _axes_size(data_axes)
+            flat = out.reshape(-1)
+            pad = (-flat.shape[0]) % n
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            shard = C.psum_scatter(flat.reshape(n, -1), data_axes)
+            if pods:
+                shard = C.psum(shard, pods)
+            gathered = C.all_gather(shard, data_axes)
+            out = gathered.reshape(-1)[: out.numel()].reshape(out.shape)
+        elif pods:
+            out = C.psum(out, pods)
+        return out
+    raise ValueError(f"unknown schedule {schedule.kind!r}")
+
+
+def _axes_size(axes: Tuple[str, ...]) -> int:
+    return math.prod(_named_axis_size(a) for a in axes)
+
+
+def reduce_tree(tree, schedule: ReduceSchedule,
+                data_axes: Tuple[str, ...] = ("data",),
+                pod_axis: str = "pod"):
+    """Apply a reduce schedule to every leaf of a tree of partials.  The
+    bf16 codec casts each f32 leaf around the collective; the int8
+    error-feedback codec carries state and is applied by its caller
+    (:func:`repro_torch.optim.compression.ef_int8_allreduce`)."""
+
+    def one(x):
+        if schedule.codec == "bf16" and x.dtype == torch.float32:
+            y = x.to(torch.bfloat16)
+            return psum_tree(y, schedule, data_axes, pod_axis).to(x.dtype)
+        return psum_tree(x, schedule, data_axes, pod_axis)
+
+    return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# Gradient codecs
+# ---------------------------------------------------------------------------
+
+
+def compress_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16)
+
+
+@dataclass
+class CompressionState:
+    """Error-feedback residual for int8 compression (one leaf)."""
+
+    residual: torch.Tensor
+
+
+def compress_int8_ef(x: torch.Tensor, residual: torch.Tensor):
+    """Error-feedback int8 quantization: q = round((x+r)/s), r' = x+r - s*q
+    (round half to even, as ``jnp.round``).  The residual carries the
+    quantization error into the next step [Seide et al., 1-bit SGD].
+    Returns ``(q_int8, scale, new_residual)``."""
+
+    y = x + residual
+    scale = torch.clamp(torch.max(torch.abs(y)) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
+    return q, scale, y - q.to(y.dtype) * scale
+
+
+def decompress_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return q.to(dtype) * scale
 
 
 def _generic_combine(
@@ -357,14 +498,108 @@ def dense_psum_exchange(
     edge_mask: Optional[torch.Tensor] = None,
     flag_cols: int = 0,
 ) -> torch.Tensor:
-    """Dense partial-vector exchange.  On one device it is the scatter
-    combine of the outbound messages into a length-N vector; ``edge_mask``
-    drops inactive edges (the frontier-masked path)."""
+    """Dense partial-vector exchange: each shard scatter-combines its
+    outbound messages into a dense length-N vector (on the card through
+    the segment-combine kernel), then one ``psum_scatter`` both reduces
+    and re-partitions it to the owners.  Collective volume: N payloads a
+    shard, whatever the edge count.  ``psum_scatter`` only sums: max/min
+    and the generic monoids all-gather the N-row partials (``n_shards x
+    N`` rows on each rank) and fold them in shard order, max/min with the
+    identity in the rows a shard sent nothing to.  ``edge_mask`` drops
+    inactive edges (the frontier-masked path)."""
 
-    _require_single_device(axes)
-    return scatter_combine(
+    monoid = get_monoid(op)
+    dense = scatter_combine(
         payload, dst_ids, n_vertices, op, edge_active=edge_mask,
         flag_cols=flag_cols,
+    )
+    axes = _axes_present(axes)
+    if not axes:
+        return dense
+    n_shards = _axes_size(axes)
+    grouped = dense.reshape((n_shards, n_vertices // n_shards)
+                            + tuple(dense.shape[1:]))
+    if monoid.kernel_op != "sum":
+        if monoid.kernel_op is not None:
+            # The fold needs the identity wherever a shard's partial holds
+            # no message: the kernel reads 0 there (its contract: an empty
+            # segment, or one whose combine stayed at its +-1e30 identity,
+            # as inactive sources' +-inf messages leave it), which would
+            # win a min over positive messages.  A second combine of
+            # "this row carries a message" marks the real ones.
+            flat = _rows_2d(payload)
+            real = flat < 1e30 if monoid.kernel_op == "min" \
+                else flat > -1e30
+            hit = scatter_combine(real.to(flat.dtype), dst_ids, n_vertices,
+                                  "max", edge_active=edge_mask)
+            grouped = torch.where(hit.reshape(dense.shape) > 0, dense,
+                                  monoid.identity_like(dense)
+                                  ).reshape(grouped.shape)
+        gathered = C.all_gather(grouped, axes)
+        if monoid.kernel_op is not None:
+            fn = COMBINE_OPS[monoid.kernel_op][0]
+        else:
+            fn = lambda a, b: monoid.combine_slab(a, b, flag_cols)
+        combined = functools.reduce(
+            fn, [gathered[i] for i in range(gathered.shape[0])])
+        return combined[_linear_shard_index(axes)]
+    return C.psum_scatter(grouped, axes)
+
+
+def _linear_shard_index(axes: Tuple[str, ...]) -> int:
+    return C.bound_mesh().linear_index(axes)
+
+
+def _bucket_by_owner(
+    dst_ids: torch.Tensor,
+    payload: torch.Tensor,
+    n_vertices: int,
+    n_shards: int,
+    bucket_cap: int,
+    presorted: bool,
+    edge_active=None,
+):
+    """Pack messages into fixed-capacity per-owner buckets for the
+    all-to-all: ``(ids[n_shards, cap], vals[n_shards, cap, ...])``, empty
+    slots with id -1 and payload 0.
+
+    A bucket keeps its first ``bucket_cap`` rows (in sort order); the rest
+    are dropped, and so are rows excluded by ``edge_active``, which take
+    the owner ``n_shards`` and sort after every real row.  A dropped row
+    is written to a spill slot past the buckets, which is sliced off: the
+    reference clamps overflow into slot cap - 1 and so overwrites the row
+    kept there (ROADMAP C5), and sends excluded rows past its buffer,
+    which XLA drops and torch refuses (C1).  The sort is stable on an
+    int64 key (C2): owner, then destination when ``presorted``, then
+    arrival order.
+    """
+
+    n_local_v = n_vertices // n_shards
+    owner = torch.clamp(dst_ids.to(torch.int64) // n_local_v, 0,
+                        n_shards - 1)
+    if edge_active is not None:
+        owner = torch.where(edge_active, owner, n_shards)
+    key = owner * (n_vertices + 1)
+    if presorted:
+        key = key + dst_ids.to(torch.int64)
+    order = torch.argsort(key, stable=True)
+    owner_s = owner[order]
+    pos = torch.arange(owner_s.shape[0], dtype=torch.int64,
+                       device=owner_s.device)
+    rank = pos - torch.searchsorted(owner_s, owner_s, side="left")
+    spill = n_shards * bucket_cap
+    slot = torch.where((rank < bucket_cap) & (owner_s < n_shards),
+                       owner_s * bucket_cap + rank, spill)
+    ids_b = torch.full((spill + 1,), -1, dtype=dst_ids.dtype,
+                       device=dst_ids.device)
+    ids_b[slot] = dst_ids[order]
+    vals_b = torch.zeros((spill + 1,) + tuple(payload.shape[1:]),
+                         dtype=payload.dtype, device=payload.device)
+    vals_b[slot] = payload[order]
+    return (
+        ids_b[:spill].reshape(n_shards, bucket_cap),
+        vals_b[:spill].reshape((n_shards, bucket_cap)
+                               + tuple(payload.shape[1:])),
     )
 
 
@@ -385,18 +620,64 @@ def _single_device_exchange(
     )
 
 
+def _sparse_exchange(
+    dst_ids, payload, n_vertices, axes, op, bucket_cap, presorted,
+    edge_active=None, flag_cols=0,
+):
+    axes = _axes_present(axes)
+    if not axes:
+        return _single_device_exchange(
+            dst_ids, payload, n_vertices, op, presorted,
+            edge_active=edge_active, flag_cols=flag_cols,
+        )
+    # Sharded: excluded rows are dropped at bucket packing and never
+    # travel.  The all-to-all runs over the axes' group taken together.
+    n_shards = _axes_size(axes)
+    n_local_v = n_vertices // n_shards
+    ids_b, vals_b = _bucket_by_owner(
+        dst_ids, payload, n_vertices, n_shards, bucket_cap, presorted,
+        edge_active=edge_active,
+    )
+    flat_ids = C.all_to_all(ids_b, axes).reshape(-1)
+    vals_x = C.all_to_all(vals_b, axes)
+    flat_vals = vals_x.reshape((-1,) + tuple(vals_x.shape[2:]))
+    base = _linear_shard_index(axes) * n_local_v
+    occupied = flat_ids >= 0
+    local = flat_ids.to(torch.int64) - base
+    valid = occupied & (local >= 0) & (local < n_local_v)
+    local = torch.where(valid, local, n_local_v)  # spill row n_local_v
+
+    if presorted:
+        # The receiver merges the senders' sorted runs (a stable sort of
+        # nearly sorted ids), then the sorted combine: the merging
+        # connector.  Empty slots are the receiver's frontier mask, so the
+        # kernel skips blocks made wholly of padding.
+        order = torch.argsort(local, stable=True)
+        out = segment_combine_sorted(
+            flat_vals[order], local[order], n_local_v + 1, op,
+            edge_active=occupied[order], flag_cols=flag_cols,
+        )
+    else:
+        out = scatter_combine(
+            flat_vals, local, n_local_v + 1, op, edge_active=occupied,
+            flag_cols=flag_cols,
+        )
+    return out[:n_local_v]
+
+
 def merging_exchange(dst_ids, payload, n_vertices, axes,
                      op="sum", bucket_cap=None, edge_mask=None,
                      flag_cols=0):
-    """The hash-partitioning *merging* connector (Fig. 4): sort by
-    destination, then the sorted combine.  ``edge_mask`` excludes inactive
-    edges; on the card the kernel skips edge blocks that are wholly
-    inactive.  ``bucket_cap`` sizes the all-to-all buckets of the sharded
-    form and is unused on one device."""
+    """The hash-partitioning *merging* connector (Fig. 4): sender-side
+    sort by destination, all-to-all, receiver-side ordered merge and the
+    sorted combine.  ``edge_mask`` excludes inactive edges: on one device
+    the kernel skips edge blocks that are wholly inactive; sharded, masked
+    rows are dropped at bucket packing.  ``bucket_cap`` (default: the
+    whole slab, so nothing drops) sizes each per-owner bucket."""
 
-    _require_single_device(axes)
-    return _single_device_exchange(
-        dst_ids, payload, n_vertices, op, True,
+    cap = bucket_cap or dst_ids.shape[0]
+    return _sparse_exchange(
+        dst_ids, payload, n_vertices, axes, op, cap, True,
         edge_active=edge_mask, flag_cols=flag_cols,
     )
 
@@ -404,12 +685,12 @@ def merging_exchange(dst_ids, payload, n_vertices, axes,
 def hash_sort_exchange(dst_ids, payload, n_vertices, axes,
                        op="sum", bucket_cap=None, edge_mask=None,
                        flag_cols=0):
-    """The hash connector with receiver-side grouping (Fig. 9 variant): the
-    receiver scatter-combines in arrival order."""
+    """The hash connector with receiver-side grouping (Fig. 9 variant):
+    all-to-all in arrival order, the receiver scatter-combines."""
 
-    _require_single_device(axes)
-    return _single_device_exchange(
-        dst_ids, payload, n_vertices, op, False,
+    cap = bucket_cap or dst_ids.shape[0]
+    return _sparse_exchange(
+        dst_ids, payload, n_vertices, axes, op, cap, False,
         edge_active=edge_mask, flag_cols=flag_cols,
     )
 

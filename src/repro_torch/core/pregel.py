@@ -15,6 +15,15 @@ runs the front end (stratifier, algebra, semi-naive rewrite), probes the
 workload statistics, cost-plans the physical strategy, and has the executor
 build the supersteps.  Supersteps run to the Appendix-B.2 fixpoint: no
 active vertices.
+
+On a mesh (``compile_pregel(mesh=)``, one process a rank: see
+:mod:`repro_torch.launch.mesh`) every rank compiles the same global graph
+and keeps its shard: the vertex rows of its ``pod``/``data`` coordinate
+and the edges whose source it owns.  The carry holds the shard's rows;
+each decision the host takes between supersteps (converged, dense /
+sparse / halt, the sparse capacity) comes from collectively reduced
+values, so every rank runs the same superstep; the result's state is
+gathered to the global arrays after the loop.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from repro_torch.core.fixpoint import (
     DriverConfig,
     FixpointResult,
     HostFixpointDriver,
+    agreed,
     checkpointed_run,
     device_fixpoint,
 )
@@ -46,13 +56,16 @@ from repro_torch.core.planner import (
 )
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_spec_of
+from repro_torch.parallel import collectives as C
 
 __all__ = ["Graph", "VertexProgram", "PregelExecutable", "compile_pregel"]
 
 
 @dataclass
 class Graph:
-    """Static graph on one device: dense ids, an edge list."""
+    """Static graph: dense ids, an edge list.  For a mesh, the global
+    graph, on the CPU or the rank's device."""
 
     n_vertices: int
     src: torch.Tensor         # int32[E] source vertex ids
@@ -109,30 +122,70 @@ class PregelExecutable:
     sparse_step_factory: Optional[Callable[[int], Callable]] = field(
         default=None, repr=False
     )
-    # Edge-slab size: a compaction capacity at or above it cannot win, so
-    # the adaptive driver keeps the frontier-masked dense path.
+    # Edge-slab size (a shard's, on a mesh): a compaction capacity at or
+    # above it cannot win, so the adaptive driver keeps the
+    # frontier-masked dense path.
     local_edge_cap: int = 0
     # The failure injector threaded from compile (honored at the host step
     # boundary).
     injector: Optional[Any] = None
+    # A mesh (repro_torch.launch.mesh.Mesh) the vertices are sharded over,
+    # and ``active -> int[n_shards]``, the gathered shard-local active-edge
+    # counts.
+    mesh: Optional[Any] = None
+    shard_count_fn: Optional[Callable] = field(default=None, repr=False)
     _sparse_steps: Dict[int, Callable] = field(default_factory=dict,
                                                repr=False)
 
     @property
     def device(self) -> torch.device:
-        return self.graph.device
+        return self.graph.device if self.mesh is None else self.mesh.device
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return () if self.mesh is None else self.mesh.batch_axes
+
+    def to_shard(self, tree: Any) -> Any:
+        """This rank's rows of global per-vertex tensors, on its device
+        (the identity off a mesh)."""
+
+        if not self.batch_axes:
+            return tree
+        n_shards = int(np.prod([self.mesh.shape[a]
+                                for a in self.batch_axes]))
+        rows = self.graph.n_vertices // n_shards
+        lo = self.mesh.linear_index(self.batch_axes) * rows
+        return tree_map(lambda t: t[lo:lo + rows].to(self.device), tree)
+
+    def gather(self, tree: Any) -> Any:
+        """The global per-vertex tensors from every rank's rows (a
+        collective: every rank calls it)."""
+
+        if not self.batch_axes:
+            return tree
+        with C.bind(self.mesh):
+            return tree_map(
+                lambda t: C.all_gather(t, self.batch_axes).reshape(
+                    (-1,) + tuple(t.shape[1:])), tree)
 
     def init(self) -> Tuple[Any, torch.Tensor]:
-        n = self.graph.n_vertices
-        ids = torch.arange(n, dtype=torch.int32, device=self.device)
-        state = self.prog.init_vertex(ids, self.graph.vertex_data)
-        active = torch.ones(n, dtype=torch.bool, device=self.device)
-        return state, active
+        """The initial carry: ``init_vertex`` over the global ids and
+        vertex data (UDFs may close over global arrays, as the JAX
+        package's see the global state), then this rank's rows."""
 
-    @staticmethod
-    def converged(prev, new) -> torch.Tensor:
+        n = self.graph.n_vertices
+        device = self.device
+        ids = torch.arange(n, dtype=torch.int32, device=device)
+        vdata = tree_map(lambda t: t.to(device), self.graph.vertex_data)
+        state = self.prog.init_vertex(ids, vdata)
+        active = torch.ones(n, dtype=torch.bool, device=device)
+        return self.to_shard((state, active))
+
+    def converged(self, prev, new) -> torch.Tensor:
+        """No vertex active on any shard: one all-reduced flag."""
+
         _, active = new
-        return ~torch.any(active)
+        return agreed(~torch.any(active), self.mesh, self.batch_axes)
 
     # -- semi-naive (delta-frontier) execution ------------------------------
 
@@ -140,7 +193,18 @@ class PregelExecutable:
         """|Δ frontier| in edges: edges whose source is active (one
         reduction, read on the host)."""
 
-        return int(torch.index_select(active, 0, self.graph.src).sum())
+        return int(self.shard_edge_counts(active).sum())
+
+    def shard_edge_counts(self, active: torch.Tensor) -> np.ndarray:
+        """Shard-local active-edge counts, int array of length n_shards,
+        the same on every rank: on a mesh one gathered read a superstep,
+        which the host driver aggregates into one decision (sum -> density,
+        max -> compaction capacity)."""
+
+        if self.shard_count_fn is None:
+            return np.asarray([int(torch.index_select(
+                active, 0, self.graph.src).sum())])
+        return self.shard_count_fn(active)
 
     def sparse_superstep(self, cap: int) -> Callable:
         """The frontier-compacted superstep for a static capacity (cached;
@@ -163,15 +227,17 @@ class PregelExecutable:
     def adaptive_select_step(self, carry, j: int) -> Tuple[Callable, str]:
         """Per-superstep dense<->sparse choice (the Fig. 9 connector choice
         recomputed online): measure the frontier, consult the plan's
-        density threshold, and pick the executing superstep."""
+        density threshold, and pick the executing superstep.  On a mesh the
+        gathered shard counts make one decision for every rank."""
 
         _, active = carry
-        total = self.active_edge_count(active)
+        counts = self.shard_edge_counts(active)
+        total = int(counts.sum())
         if total == 0:
             return self.halt_superstep, "halt(empty-frontier)"
         density = total / max(self.graph.n_edges, 1)
         if self.plan.mode_for_density(density) == "sparse":
-            cap = self.plan.sparse_cap_for(total)
+            cap = self.plan.sparse_cap_for(int(counts.max()))
             if cap < self.local_edge_cap:
                 return self.sparse_superstep(cap), f"sparse@{cap}"
         return self.superstep, "dense"
@@ -196,16 +262,17 @@ class PregelExecutable:
         Semi-naive plans default to the host driver with per-superstep
         adaptive dense/sparse selection; dense plans default to
         :func:`device_fixpoint`.  ``on_device=True`` and ``adaptive=True``
-        exclude each other.
+        exclude each other.  On a mesh the result's state is the global
+        state, gathered after the loop (``seconds`` leaves the gather out).
 
-        Fault tolerance (host driver only): ``checkpoint_dir`` checkpoints
-        the ``(state, active)`` carry host-side every ``checkpoint_every``
-        supersteps (default 8) through a
-        :class:`~repro_torch.checkpoint.CheckpointStore`; a crash restores
-        and replays, and ``resume=True`` continues a run from disk.
-        ``injector`` overrides the compile-time
-        :class:`~repro_torch.ft.FailureInjector` at the step boundary.  A
-        restored carry lands on the graph's device."""
+        Fault tolerance (host driver only, one device only: on a mesh it
+        is ROADMAP A10c): ``checkpoint_dir`` checkpoints the ``(state,
+        active)`` carry host-side every ``checkpoint_every`` supersteps
+        (default 8) through a :class:`~repro_torch.checkpoint.
+        CheckpointStore`; a crash restores and replays, and ``resume=True``
+        continues a run from disk.  ``injector`` overrides the
+        compile-time :class:`~repro_torch.ft.FailureInjector` at the step
+        boundary.  A restored carry lands on the graph's device."""
 
         if on_device and adaptive:
             raise ValueError(
@@ -219,6 +286,10 @@ class PregelExecutable:
                 "fault tolerance (checkpoint_dir/injector) needs the host "
                 "driver: pass on_device=False"
             )
+        if ft and self.mesh is not None:
+            raise NotImplementedError(
+                "fault tolerance on a mesh is not ported yet: ROADMAP A10c"
+            )
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir=")
         if adaptive is None:
@@ -227,17 +298,22 @@ class PregelExecutable:
             on_device = not adaptive and not ft
         init = self.init()
         if on_device and not adaptive:
-            return device_fixpoint(
+            res = device_fixpoint(
                 self.superstep, self.converged, init, max_iters
             )
-        return checkpointed_run(
-            lambda config, save, restore: self.driver(
-                config, adaptive=adaptive, save=save, restore=restore,
-                injector=injector),
-            init, self.init, max_iters, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, resume=resume,
-            max_restarts=max_restarts, keep_checkpoints=keep_checkpoints,
-        )
+        else:
+            res = checkpointed_run(
+                lambda config, save, restore: self.driver(
+                    config, adaptive=adaptive, save=save, restore=restore,
+                    injector=injector),
+                init, self.init, max_iters, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                max_restarts=max_restarts,
+                keep_checkpoints=keep_checkpoints,
+            )
+        if self.batch_axes:
+            res.state = self.gather(res.state)
+        return res
 
     def driver(
         self,
@@ -258,7 +334,7 @@ class PregelExecutable:
 
     def remesh(self, mesh) -> "PregelExecutable":
         raise NotImplementedError(
-            "remesh is not ported yet: ROADMAP A10 (multi-GPU)"
+            "remesh is not ported yet: ROADMAP A10c (elastic meshes)"
         )
 
 
@@ -313,16 +389,29 @@ def compile_pregel(
     ``hw`` defaults to the TPU model so plan notes match the JAX package's.
     ``injector`` (a :class:`~repro_torch.ft.FailureInjector`) rides the
     executable to its host driver's step boundary.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`; every rank calls
+    this with the same global graph) shards the vertices and the edge
+    slabs over its ``pod``/``data`` axes on the mesh's device;
+    ``mesh_spec`` defaults to :func:`~repro_torch.launch.mesh.mesh_spec_of`
+    it, so the plan and its notes are the JAX package's for that mesh.
     """
 
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP A10 (multi-GPU)"
-        )
+        # The graph stays global (on the CPU or the rank's device); the
+        # executor cuts this rank's shard to the mesh's device.
+        if device is not None and torch.device(device).type \
+                != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
+        if not mesh.batch_axes:
+            graph = _graph_to(graph, device)
     device = resolve_device(device)
     for t in [graph.src, graph.dst] + tree_leaves(graph.vertex_data) \
             + tree_leaves(graph.edge_data):
-        if isinstance(t, torch.Tensor) and t.device.type != device.type:
+        if mesh is None and isinstance(t, torch.Tensor) \
+                and t.device.type != device.type:
             raise ValueError(
                 f"graph tensors lie on {t.device}, compile_pregel was asked "
                 f"for {device}: build the graph there "
@@ -363,7 +452,8 @@ def compile_pregel(
 
     # (4): physical plan from graph statistics.
     if mesh_spec is None:
-        mesh_spec = MeshSpec((("data", 1),))
+        mesh_spec = MeshSpec((("data", 1),)) if mesh is None \
+            else mesh_spec_of(mesh)
     stats = PregelStats(
         n_vertices=graph.n_vertices,
         n_edges=graph.n_edges,
@@ -378,7 +468,7 @@ def compile_pregel(
     )
 
     # (5): the executor materializes the planned superstep pipeline.
-    bundle = build_pregel_steps(prog, graph, plan, injector=injector)
+    bundle = build_pregel_steps(prog, graph, plan, mesh, injector=injector)
     return PregelExecutable(
         prog=prog,
         program=program,
@@ -390,4 +480,13 @@ def compile_pregel(
         sparse_step_factory=bundle.sparse_step_factory,
         local_edge_cap=bundle.local_edge_cap,
         injector=bundle.injector,
+        mesh=mesh,
+        shard_count_fn=bundle.shard_count_fn,
     )
+
+
+def _graph_to(graph: Graph, device: torch.device) -> Graph:
+    return Graph(graph.n_vertices, graph.src.to(device),
+                 graph.dst.to(device),
+                 tree_map(lambda t: t.to(device), graph.vertex_data),
+                 tree_map(lambda t: t.to(device), graph.edge_data))

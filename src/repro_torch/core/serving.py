@@ -28,7 +28,7 @@ Three mechanisms, each measurable on its own:
   flags are read on the host) and dispatches one query at a time, each
   compiled with its bindings.
 
-``mesh=`` raises ``NotImplementedError`` naming ROADMAP A10.
+``mesh=`` raises ``NotImplementedError`` naming ROADMAP A10d.
 """
 
 from __future__ import annotations
@@ -167,7 +167,7 @@ def plan_cache_key(
 
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP A10 (multi-GPU)"
+            "mesh= is not ported yet: ROADMAP A10d (serving on a mesh)"
         )
     prog = parse(program) if isinstance(program, str) else program
     h = hashlib.sha256()
@@ -388,7 +388,7 @@ class FixpointServer:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "FixpointServer(mesh=) is not ported yet: ROADMAP A10 "
+                "FixpointServer(mesh=) is not ported yet: ROADMAP A10d "
                 "(multi-GPU)"
             )
         self.device = resolve_device(device)

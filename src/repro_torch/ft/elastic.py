@@ -13,7 +13,7 @@ bounded-staleness aggregation (the port of :mod:`repro.ft.elastic`).
   (``resume=True``).
 * **Elastic re-planning.**  :class:`ElasticPlanner` maps a shrunken device
   set to the nearest valid mesh description; moving state onto that mesh
-  (``remesh``) is the multi-GPU work of ROADMAP A10.
+  (``remesh``) is the multi-GPU work of ROADMAP A10c.
 * **Straggler mitigation.**  :func:`stale_aggregate` reduces over the
   shards that arrived and carries the late ones into the next step, under
   any monoid for which a late application is sound.

@@ -34,7 +34,7 @@ only, so a full-width step is counted on a host with no card.
 * **Hand-written kernels** launch through ``ctypes``, which the dispatcher
   never sees: a launch under a census raises (:func:`refuse_kernel`)
   rather than count zero.
-* **Collectives**: the port has no mesh yet (ROADMAP A10), so the
+* **Collectives**: the LM has no mesh in the port yet (ROADMAP A10e), so the
   collective fields (``by_type_*``, ``ici_link_bytes``,
   ``dcn_link_bytes``, ``total_operand_bytes``) stay zero; the collective
   census waits for collectives to count.

@@ -32,7 +32,7 @@ Where the artifact differs from the JAX package's:
 * ``--mesh`` takes ``one`` (the default, the ``mesh=None`` branch of both
   packages' step builders); the JAX package's ``single`` and ``multi``
   meshes (256 and 512 devices) raise ``NotImplementedError``: meshes are
-  ROADMAP A10;
+  ROADMAP A10e;
 * ``--save-hlo`` is gone: there is no HLO.
 
 ``--all`` spawns one subprocess per cell and skips cells whose artifact
@@ -119,7 +119,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "one",
     if mesh_kind != "one":
         raise NotImplementedError(
             f"the {mesh_kind!r} mesh ({MESH_KINDS[mesh_kind]} devices) is "
-            f"not ported yet (ROADMAP A10); the port's dry run takes mesh "
+            f"not ported yet (ROADMAP A10e); the port's dry run takes mesh "
             f"'one'")
 
     mesh_spec = MeshSpec((("data", 1),))
@@ -226,7 +226,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=(*MESH_KINDS, "both"), default="one",
                     help="one device (the port's); 'single', 'multi' and "
                          "'both' (the JAX package's meshes) wait for "
-                         "ROADMAP A10")
+                         "ROADMAP A10e")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--variant", default="")

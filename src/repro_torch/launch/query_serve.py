@@ -68,7 +68,7 @@ def build_query_server(
     EDB on ``device`` (default: the card) — the serving analogue of
     ``build_prefill_step``/``build_decode_step`` (kwargs forward:
     ``plan_cache_capacity=``, ``hw=``, admission knobs, compile
-    overrides).  A ``mesh`` raises (ROADMAP A10)."""
+    overrides).  A ``mesh`` raises (ROADMAP A10d)."""
 
     return FixpointServer(relations, mesh=mesh, device=device, **kwargs)
 

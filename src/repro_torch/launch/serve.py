@@ -5,7 +5,7 @@ state = (KV cache, position), loop body = one superstep of the serving
 dataflow.  The cache is updated in place (the JAX package donates it to the
 jitted step for the same effect).  PyTorch runs eagerly, so the builders
 return plain functions; their return arity is the JAX package's.  Placement
-over a mesh is ROADMAP A10: a ``mesh`` that is not ``None`` raises.
+over a mesh is ROADMAP A10e: a ``mesh`` that is not ``None`` raises.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ Device = Optional[Union[str, torch.device]]
 def _single_device(mesh, device: Device) -> torch.device:
     if mesh is not None:
         raise NotImplementedError(
-            "serving over a device mesh is not ported yet (ROADMAP A10); "
+            "serving over a device mesh is not ported yet (ROADMAP A10e); "
             "pass mesh=None")
     return resolve_device(device)
 

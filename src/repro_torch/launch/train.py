@@ -15,7 +15,7 @@ gradient into the accumulator as soon as autograd has it (a post-accumulate
 hook on per-layer views of the stacked parameters) and frees it, so no
 whole set of per-microbatch gradients is held.  As in the JAX package the
 accumulator is f32 when there are several microbatches and the parameters'
-dtype when there is one.  Placement over a mesh is ROADMAP A10: a ``mesh``
+dtype when there is one.  Placement over a mesh is ROADMAP A10e: a ``mesh``
 that is not ``None`` raises.
 """
 
@@ -88,7 +88,7 @@ def build_train_step(
 
     if mesh is not None:
         raise NotImplementedError(
-            "training over a device mesh is not ported yet (ROADMAP A10); "
+            "training over a device mesh is not ported yet (ROADMAP A10e); "
             "pass mesh=None")
     if attention not in ATTENTION_IMPLS:
         raise ValueError(f"attention must be one of {ATTENTION_IMPLS}")

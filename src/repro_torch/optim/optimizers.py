@@ -13,8 +13,7 @@ elementwise, so the slices give the same values as the whole.
 is an int32 scalar tensor; learning rates and bias corrections are
 computed from it in f32.
 
-The int8 error-feedback gradient codec (``optim/compression.py``) needs
-collectives and comes with the multi-device slice (ROADMAP A10).
+The int8 error-feedback gradient codec is ``optim/compression.py``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,211 @@
+"""Named-axis collectives over a :class:`~repro_torch.launch.mesh.Mesh`.
+
+The port's stand-ins for the ``lax`` collectives the JAX package calls
+inside ``shard_map``.  The axes a call may name are the ones bound by
+:func:`bind`, as ``shard_map`` binds a mesh's axes: the executor's sharded
+steps run under ``bind(mesh)``, and outside it :func:`axes_present` finds
+no axis, so the same connector code runs on one device.
+
+* :func:`axis_index`, :func:`axis_size`
+* :func:`psum`, :func:`pmax` -> ``all_reduce``
+* :func:`psum_scatter` -> ``reduce_scatter`` (untiled: ``x[n, ...]`` in,
+  the sum's row of this rank out)
+* :func:`all_gather` -> ``all_gather_into_tensor`` (untiled: ``[n, ...]``)
+* :func:`all_to_all` -> ``all_to_all_single`` (tiled on dim 0)
+* :func:`ppermute` -> ``batch_isend_irecv``, the permutation in axis-local
+  indices
+
+An op over several axes runs over the group of those axes taken together,
+ranks in row-major order of the axes (which must be in the mesh's order).
+Bool payloads travel as uint8.  With staged ``gloo`` on the card every
+payload is copied to a pinned host buffer and back here, in
+:func:`_on_wire`, the one place that stages; the mesh's ``stats`` count
+each op's bytes and the staged bytes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Callable, Iterator, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["bind", "bound_mesh", "axes_present", "axis_index", "axis_size",
+           "psum", "pmax", "psum_scatter", "all_gather", "all_to_all",
+           "ppermute"]
+
+_BOUND: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_bound_mesh", default=None)
+
+# torch 2.13 renames reduce_scatter_tensor and all_gather_into_tensor (same
+# arguments); older releases have only the old names.
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+@contextlib.contextmanager
+def bind(mesh) -> Iterator[None]:
+    """Bind ``mesh``'s axes for the collectives called inside."""
+
+    token = _BOUND.set(mesh)
+    try:
+        yield
+    finally:
+        _BOUND.reset(token)
+
+
+def bound_mesh():
+    return _BOUND.get()
+
+
+def _mesh():
+    mesh = _BOUND.get()
+    if mesh is None:
+        raise NameError("no mesh axes are bound: call inside "
+                        "collectives.bind(mesh)")
+    return mesh
+
+
+def axes_present(axis_names: Sequence[str]) -> Tuple[str, ...]:
+    """The names among ``axis_names`` that the bound mesh has."""
+
+    mesh = _BOUND.get()
+    if mesh is None:
+        return ()
+    return tuple(a for a in axis_names if a in mesh.axis_names)
+
+
+def axis_size(axis: str) -> int:
+    return _mesh().shape[axis]
+
+
+def axis_index(axis: str) -> int:
+    return _mesh().coordinate(axis)
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _on_wire(mesh, name: str, send: torch.Tensor, recv_shape,
+             call: Callable[[torch.Tensor, torch.Tensor], None]
+             ) -> torch.Tensor:
+    """Run ``call(send, recv)`` on wire tensors and return ``recv`` on
+    ``send``'s device: bool as uint8, and with staged gloo both through
+    pinned host buffers."""
+
+    dtype = send.dtype
+    wire = torch.uint8 if dtype == torch.bool else dtype
+    send = send.contiguous().view(wire) if dtype == torch.bool \
+        else send.contiguous()
+    nbytes = send.numel() * send.element_size()
+    mesh.stats.sent[name] += nbytes
+    if mesh.staged and send.is_cuda:
+        host = torch.empty(send.shape, dtype=wire, pin_memory=True)
+        host.copy_(send)
+        recv = torch.empty(recv_shape, dtype=wire, pin_memory=True)
+        call(host, recv)
+        out = recv.to(send.device)
+        mesh.stats.staged_bytes += nbytes + recv.numel() * recv.element_size()
+    else:
+        out = torch.empty(recv_shape, dtype=wire, device=send.device)
+        call(send, out)
+    return out.view(torch.bool) if dtype == torch.bool else out
+
+
+def _all_reduce(x: torch.Tensor, axes, op, name: str) -> torch.Tensor:
+    axes = _axes(axes)
+    if not axes:
+        return x
+    mesh = _mesh()
+    # A reduction does not depend on the axes' order.
+    group = mesh.group(tuple(sorted(axes, key=mesh.axis_names.index)))
+
+    def call(send, recv):
+        recv.copy_(send)
+        dist.all_reduce(recv, op=op, group=group)
+
+    return _on_wire(mesh, name, x, x.shape, call)
+
+
+def psum(x: torch.Tensor, axes) -> torch.Tensor:
+    return _all_reduce(x, axes, dist.ReduceOp.SUM, "psum")
+
+
+def pmax(x: torch.Tensor, axes) -> torch.Tensor:
+    return _all_reduce(x, axes, dist.ReduceOp.MAX, "pmax")
+
+
+def psum_scatter(x: torch.Tensor, axes) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=0, tiled=False)``:
+    ``x[n, ...]`` summed over the group, row ``axis_index`` of the sum."""
+
+    axes = _axes(axes)
+    mesh = _mesh()
+    group = mesh.group(axes)
+    return _on_wire(mesh, "psum_scatter", x, x.shape[1:],
+                    lambda s, r: _reduce_scatter(r.view(-1), s.view(-1),
+                                                 group=group))
+
+
+def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
+    """``lax.all_gather(x, axes, tiled=False)``: ``[n, ...]``, row i from
+    the group's rank i."""
+
+    axes = _axes(axes)
+    mesh = _mesh()
+    group = mesh.group(axes)
+    n = math.prod(mesh.shape[a] for a in axes)
+    return _on_wire(mesh, "all_gather", x, (n,) + tuple(x.shape),
+                    lambda s, r: _all_gather(r.view(-1), s.view(-1),
+                                             group=group))
+
+
+def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
+    """``lax.all_to_all(x, axes, 0, 0, tiled=True)``: block i of dim 0 goes
+    to the group's rank i; the received blocks, in sender order."""
+
+    axes = _axes(axes)
+    mesh = _mesh()
+    group = mesh.group(axes)
+    return _on_wire(mesh, "all_to_all", x, x.shape,
+                    lambda s, r: dist.all_to_all_single(
+                        r.view(-1), s.view(-1), group=group))
+
+
+def ppermute(x: torch.Tensor, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute``: for each ``(src, dst)`` of ``perm`` (axis-local
+    indices) ``src`` sends ``x`` to ``dst``; a rank that nobody sends to
+    gets zeros."""
+
+    mesh = _mesh()
+    group = mesh.group((axis,))
+    ranks = dist.get_process_group_ranks(group)
+    me = mesh.coordinate(axis)
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    if len(srcs) > 1 or len(dsts) > 1:
+        raise ValueError(f"ppermute needs a permutation, got {perm}")
+
+    def call(send, recv):
+        recv.zero_()
+        ops = []
+        for d in dsts:
+            if d == me:
+                recv.copy_(send)
+            else:
+                ops.append(dist.P2POp(dist.isend, send, ranks[d], group))
+        for s in srcs:
+            if s != me:
+                ops.append(dist.P2POp(dist.irecv, recv, ranks[s], group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+
+    return _on_wire(mesh, "ppermute", x, x.shape, call)

@@ -6,7 +6,7 @@ Model code in the JAX package annotates parameters and activations with
 axes.  The port runs on one device so far: the rules are kept because the
 planner's plan carries them (and its notes name them), while the model
 code drops the ``shard(...)`` annotations, which are no-ops on one device.
-Multi-device placement is ROADMAP A10.
+Multi-device placement of the LM is ROADMAP A10e.
 """
 
 from __future__ import annotations

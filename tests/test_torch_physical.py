@@ -205,10 +205,24 @@ def test_generic_segment_combine_matches_jax(name, presorted):
 
 
 def test_sharded_axes_raise():
+    """Axes that no mesh binds are absent, as outside ``shard_map``: the
+    connectors run their one-device form, as the JAX package's do
+    (sharded runs: tests/test_torch_spmd.py); a named-axis collective
+    itself raises ``NameError`` there, as ``lax.axis_index`` does."""
+
+    from repro_torch.parallel import collectives
+
     ids, vals, act, N = _slab(8)
     for name in EXCHANGES:
-        with pytest.raises(NotImplementedError, match="A10"):
-            _exchange(tp, name)(_t(ids), _t(vals), N, ("data",))
+        want = _exchange(jp, name)(jnp.asarray(ids), jnp.asarray(vals), N,
+                                   ("data",))
+        got = _exchange(tp, name)(_t(ids), _t(vals), N, ("data",))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(NameError):
+        collectives.axis_index("data")
+    with pytest.raises(NameError):
+        collectives.psum(_t(vals), ("data",))
 
 
 @pytest.mark.parametrize("name", ["sum", "max", "min", "argmin", "topk",

@@ -8,6 +8,8 @@ min/max states equal exactly (order-insensitive combines); PageRank within
 1e-6 relative (f32 sums taken in another order).
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -179,10 +181,32 @@ def test_compile_pregel_without_device_needs_a_card():
         compile_pregel(torch_prog, tg)
 
 
-def test_unported_options_raise():
+@contextlib.contextmanager
+def _one_rank_mesh(tmp_path):
+    """A ``(1,)`` data mesh over a one-rank gloo process group."""
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield make_data_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_unported_options_raise(tmp_path):
+    """A mesh runs (tests/test_torch_spmd.py); fault tolerance on it and
+    ``remesh`` are still to port (A10c)."""
+
     (_, torch_prog), _, tg = _case("sssp")
-    with pytest.raises(NotImplementedError, match="A10"):
-        compile_pregel(torch_prog, tg, mesh=object(), device="cpu")
+    with _one_rank_mesh(tmp_path) as mesh:
+        ex = compile_pregel(torch_prog, tg, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="A10"):
+            ex.run(max_iters=4, on_device=False,
+                   checkpoint_dir=str(tmp_path / "ckpt"))
     ex = compile_pregel(torch_prog, tg, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         ex.remesh(None)
