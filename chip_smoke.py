@@ -150,7 +150,22 @@ Phases, each of which exits nonzero on failure:
    or an iteration, B1 launches a rank (at least one in every cell), the
    bytes a rank hands each collective a superstep; B1 at the merging and
    hash_sort receivers' shapes held to its plain version and timed
-   (``mesh_sites`` in B1's report entry).  Any rank's failure fails it.
+   (``mesh_sites`` in B1's report entry).  Then the generic engine on the
+   same ranks (``_mesh_generic``), each cell the generic or rows phase's
+   program on its inputs: semi-naive transitive closure on dense grids
+   at ``--generic-domain``, each rank holding and computing its block of
+   n / 4 rows, exact to ``_tc_oracle``; at n = 2^``--rows-log2-vertices``
+   on row tables, the chains' semi-naive transitive closure and semi-naive
+   connected components on ``bucket-a2a``, exact, and the forced-row
+   PageRank -> threshold -> reach pipeline on ``bucket-a2a`` and on
+   ``psum-scatter`` within the rows phase's bar of float64.  Each runs
+   twice, bit-identical, with no dense fallback and every rank's answer
+   equal to rank 0's: ms an iteration beside the generic or rows phase's
+   single-device time of the same program in this run, bytes a rank hands
+   each collective an iteration and the bytes staged, B1 launches a rank
+   by executor site (at least one at every GroupBy's receivers), and B1 at
+   the receivers' shapes held to its plain version and timed beside
+   ``torch.segment_reduce``.  Any rank's failure fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -241,8 +256,9 @@ Phases, each of which exits nonzero on failure:
    at published width with the planner's train dtypes, each at the largest
    depth whose params, AdamW state, f32 gradient accumulator and
    activations fit the card's free memory (``_train_reckoning``, printed;
-   arctic-480b fits not one layer and is not trained): the whole path at 2
-   layers and one sequence, kernel path against the plain attention
+   arctic-480b fits not one layer and is not trained), minicpm3-4b and
+   hymba-1.5b cut to 16 layers (``FAMILY_TRAIN_DEPTH_CAP``): the whole
+   path at 2 layers and one sequence, kernel path against the plain attention
    within ``LM_NOISE_FACTOR`` times the bf16 bound measured in the run
    (expert choices replayed), with one planted backward fault a family
    that leaves the forward exact and must break that bar (MLA's rope key,
@@ -1379,7 +1395,7 @@ def _tc_oracle(src, dst, n):
         tc = new
 
 
-def phase_generic(args, device) -> None:
+def phase_generic(args, device, single=None) -> None:
     """The generic engine at the largest domain the planner keeps on dense
     grids for a binary predicate (n^2 cells under its row-table minimum):
     transitive closure (host and device drivers, naive and semi-naive),
@@ -1389,7 +1405,9 @@ def phase_generic(args, device) -> None:
     sum/max/min GroupBy is a masked reduction).  The planner takes the
     segment scan instead only on grids of at most 21 cells: a PageRank ->
     threshold -> reach pipeline on 4 vertices drives that route, which
-    reaches the segment-combine kernel, and counts its launches."""
+    reaches the segment-combine kernel, and counts its launches.  Warm ms
+    per iteration go into ``single`` by tag (the mesh phase prints them
+    beside its cells)."""
 
     import numpy as np
     from scipy.sparse import coo_matrix
@@ -1436,6 +1454,8 @@ def phase_generic(args, device) -> None:
 
     def check_tc(ex, tag, **run_kw):
         cold, res, peak = run_twice(ex, **run_kw)
+        if single is not None:
+            single[f"generic {tag}"] = res.seconds / res.iterations * 1e3
         print(f"generic: {tag}: {ms_line(cold, res)}, converged "
               f"{res.converged}, peak memory above the start {peak} B")
         for r in (cold, res):
@@ -1729,7 +1749,7 @@ def _pipeline_sets(res, n):
     return (rank.values[1].double().cpu().numpy(),) + tuple(masks)
 
 
-def phase_rows(args, device, report) -> None:
+def phase_rows(args, device, report, single=None) -> None:
     """Row-table storage (``RowRelation`` EDBs, planner-selected and forced
     row tables) at n = 65,536, the largest domain whose binary row codes
     fit the 2^32 code space; every input from ``--seed``, every result
@@ -1749,7 +1769,9 @@ def phase_rows(args, device, report) -> None:
 
     Prints iterations, warm ms per iteration, peak memory, planned caps and
     plan notes for each, profiles one iteration of each, and holds the
-    kernel against its plain version at the row sites' shapes."""
+    kernel against its plain version at the row sites' shapes.  Warm ms
+    per iteration go into ``single`` by tag (the mesh phase prints them
+    beside its cells)."""
 
     import numpy as np
     from scipy.sparse import coo_matrix
@@ -1801,6 +1823,9 @@ def phase_rows(args, device, report) -> None:
         return cold, res, launches, by_site, peak
 
     def line(tag, ex, cold, res, launches, by_site, peak):
+        if single is not None:
+            single[f"rows {tag.split(',')[0]}"] = \
+                res.seconds / res.iterations * 1e3
         print(f"rows: {tag}: {res.iterations} iterations "
               f"{tuple(res.phase_iterations)}, "
               f"{res.seconds / res.iterations * 1e3:.3f} ms/iteration warm "
@@ -5222,6 +5247,11 @@ def phase_train(args, device, report, timed=None) -> None:
 FAMILY_TRAIN_ARCHS = ("minicpm3_4b", "whisper_medium", "mamba2_130m",
                       "hymba_1_5b", "mixtral_8x22b", "arctic_480b")
 FAMILY_TRAIN_STEPS = 3
+# Depths cut below the reckoning's to keep the whole script inside its
+# limit (the longest families first, at published width): 16 of
+# minicpm3-4b's 62 layers (100.1 s at 62 in the families_train phase) and
+# of hymba-1.5b's 32 (90.9 s), for the mesh phase's generic cells.
+FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 16, "hymba_1_5b": 16}
 # The depth reckoning plans for the card's memory less this reserve (the
 # CUDA context and loaded kernels, cuBLAS's workspaces, the caching
 # allocator's rounding): a depth that depends on the card, not on what
@@ -5748,7 +5778,10 @@ def _train_family(arch, args, device, gen, budget, timed=None):
         print(f"{tag}: not trained on one card (not one layer fits; its "
               f"training waits for a mesh, ROADMAP A10f)", flush=True)
         return None
-    changes = {"n_layers": depth}
+    changes = {"n_layers": min(depth, FAMILY_TRAIN_DEPTH_CAP.get(arch, depth))}
+    if changes["n_layers"] < depth:
+        print(f"{tag}: trained at {changes['n_layers']} layers "
+              f"(FAMILY_TRAIN_DEPTH_CAP)", flush=True)
     if args.families_train_layers:
         changes["n_layers"] = min(depth, args.families_train_layers)
         if full.enc_layers:
@@ -6242,6 +6275,282 @@ def _mesh_pagerank(mesh, n, graph, oracle, conn, supersteps, capture):
             "slab": ex.local_edge_cap}, site
 
 
+# The generic engine's cells of the mesh phase: the generic and rows
+# phases' programs and inputs on the same ranks, the row cells on forced
+# explicit exchanges.  The pipeline's PageRank phase runs
+# MESH_ROWS_PR_ITERS iterations (the rows phase's ROWS_PR_ITERS).
+MESH_ROWS_PR_ITERS = ROWS_PR_ITERS
+MESH_PIPELINE_EXCHANGES = ("bucket-a2a", "psum-scatter")
+# Each cell's single-device counterpart: the tag the generic or rows phase
+# recorded its warm ms per iteration under in the same run.
+MESH_SINGLE = {"dense tc": "generic tc semi_naive=True host driver",
+               "rows tc": "rows tc semi_naive=True host driver",
+               "rows cc": "rows cc semi-naive",
+               "pipeline bucket-a2a": "rows pagerank -> threshold -> reach",
+               "pipeline psum-scatter": "rows pagerank -> threshold -> reach"}
+
+
+def _chains(n):
+    """The rows phase's transitive-closure input: 2,048 (n / ROWS_CHAIN)
+    disjoint ROWS_CHAIN-vertex chains, and their closure, lex-sorted."""
+
+    import numpy as np
+
+    starts = np.arange(n // ROWS_CHAIN)[:, None] * ROWS_CHAIN
+    src = (starts + np.arange(ROWS_CHAIN - 1)).ravel()
+    i, j = np.triu_indices(ROWS_CHAIN, 1)
+    want = np.stack([(starts + i).ravel(), (starts + j).ravel()], 1)
+    return src, want[np.lexsort(want.T[::-1])]
+
+
+def _mesh_generic_inputs(args, d):
+    """Write the generic cells' inputs to ``d`` (the generic and rows
+    phases' own, made from the same seeds) and return their oracles."""
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = args.generic_domain
+    rng = np.random.default_rng(args.seed + 2)
+    src, dst = rng.integers(0, n, 2 * n), rng.integers(0, n, 2 * n)
+    np.save(d / "gen_src.npy", src)
+    np.save(d / "gen_dst.npy", dst)
+    want = {"dense tc": _tc_oracle(src, dst, n)}
+    rn = 1 << args.rows_log2_vertices
+    want["rows tc"] = _chains(rn)[1]
+    rng = np.random.default_rng(args.seed + 3)
+    a = rng.integers(0, rn, ROWS_CC_DEGREE * rn)
+    b = rng.integers(0, rn, ROWS_CC_DEGREE * rn)
+    s2, d2 = np.concatenate([a, b]), np.concatenate([b, a])
+    np.save(d / "rcc_src.npy", s2)
+    np.save(d / "rcc_dst.npy", d2)
+    k, labels = connected_components(
+        coo_matrix((np.ones(len(s2)), (s2, d2)), shape=(rn, rn)),
+        directed=False)
+    low = np.full(k, rn, np.int64)
+    np.minimum.at(low, labels, np.arange(rn))
+    want["rows cc"] = low[labels].astype(np.float32)
+    src, dst = _row_pagerank_edges(rn, ROWS_PR_DEGREE, rng)
+    np.save(d / "rpr_src.npy", src)
+    np.save(d / "rpr_dst.npy", dst)
+    want["pipeline"] = _pipeline_oracle(rn, src, dst, MESH_ROWS_PR_ITERS)
+    return want
+
+
+def _generic_cell(ex, mesh, iters, answer, site, keep, **run_kw):
+    """One generic cell on the mesh: a counted run (the kernel's and the
+    mesh's counts set to 0 just before it and read just after; B1's
+    launches by the executor function that made them; with ``keep`` the
+    first combine made at ``site``), then a second run, which must give
+    the same bits.  ``answer(result)`` is a tuple of numpy arrays."""
+
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import executor
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+
+    real, by_site, kept = executor.segment_combine_sorted, {}, []
+
+    def record(values, ids, num, op="sum", *, edge_active=None, **kw):
+        before = sc_kernel.launch_count
+        out = real(values, ids, num, op, edge_active=edge_active, **kw)
+        caller = sys._getframe(1).f_code.co_name
+        by_site[caller] = by_site.get(caller, 0) \
+            + sc_kernel.launch_count - before
+        if keep and caller == site and not kept:
+            kept.append((caller, 0, (values, ids, num, op, edge_active)))
+        return out
+
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    mesh.stats.reset()
+    sc_kernel.reset_launch_count()
+    with mock.patch.object(executor, "segment_combine_sorted", record):
+        res = ex.run(max_iters=iters, **run_kw)
+    launches = sc_kernel.launch_count
+    sent, staged = dict(mesh.stats.sent), mesh.stats.staged_bytes
+    again = ex.run(max_iters=iters, **run_kw)
+    got = answer(res)
+    same = all(np.array_equal(a, b) for a, b in zip(got, answer(again)))
+    it = res.iterations
+    return {"iterations": it, "phases": list(res.phase_iterations),
+            "ms": again.seconds / again.iterations * 1e3,
+            "first_ms": res.seconds / it * 1e3, "launches": launches,
+            "by_site": by_site, "staged": staged / it,
+            "sent": {k: v / it for k, v in sent.items()},
+            "fallback": bool(res.storage_fallback or again.storage_fallback),
+            "identical": same, "answer": got,
+            "digest": hashlib.sha256(b"".join(
+                np.ascontiguousarray(a).tobytes() for a in got)).hexdigest(),
+            "notes": [x for x in ex.plan.notes
+                      if x.startswith(("exchange(", "spmd("))]}, kept
+
+
+def _mesh_generic(mesh, cfg, rank):
+    """The generic engine on the mesh (``phase_mesh``'s generic cells):
+    dense transitive closure at the generic phase's domain, one block of
+    rows a rank; the rows phase's transitive closure, connected components
+    and PageRank pipeline at its domain on forced explicit exchanges.
+    Returns each cell's numbers (rank 0 also its answers and B1 at the
+    receivers' shapes)."""
+
+    import numpy as np
+
+    from repro_torch.core.executor import (
+        Relation,
+        RowRelation,
+        compile_program,
+    )
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.listings import (
+        connected_components_program,
+        pagerank_threshold_program,
+        transitive_closure_program,
+    )
+
+    d = Path(cfg["dir"])
+    on_card = mesh.device.type == "cuda"
+    out = {}
+
+    def cell(tag, ex, iters, answer, site=None, **run_kw):
+        c, kept = _generic_cell(ex, mesh, iters, answer, site,
+                                rank == 0 and on_card, **run_kw)
+        if kept:
+            out[f"site/{tag}"] = _row_site(f"{tag} {site}", kept[0],
+                                           c["by_site"][site], phase="mesh")
+        if rank:
+            c["answer"] = None
+        out[tag] = c
+
+    n = cfg["generic_n"]
+    edge = Relation.from_columns(n, np.load(d / "gen_src.npy"),
+                                 np.load(d / "gen_dst.npy"), device="cpu")
+    ex = compile_program(transitive_closure_program(), {"edge": edge},
+                         mesh=mesh, semi_naive=True, hw=H100_SXM)
+    _, state = ex.phase_step_fn()
+    out["dense tc blocks"] = {
+        "edge": list(ex.local_relations["edge"].present.shape),
+        "tc": list(state["tc"]["present"].shape),
+        "delta": list(state["tc"]["delta"].shape)}
+    del state
+    cell("dense tc", ex, 4 * n,
+         lambda r: (r.state["tc"].present.cpu().numpy(),))
+    del ex, edge
+
+    rn = cfg["rows_n"]
+    src, _ = _chains(rn)
+    ex = compile_program(
+        transitive_closure_program(),
+        {"edge": RowRelation.from_columns(rn, src, src + 1, device="cpu")},
+        mesh=mesh, semi_naive=True, exchange="bucket-a2a", hw=H100_SXM)
+    cell("rows tc", ex, 4 * ROWS_CHAIN, lambda r: (r.state["tc"].tuples(),))
+    del ex
+
+    rels = {"edge": RowRelation.from_columns(
+                rn, np.load(d / "rcc_src.npy"), np.load(d / "rcc_dst.npy"),
+                device="cpu"),
+            "node": Relation.from_columns(rn, np.arange(rn),
+                                          np.arange(rn, dtype=np.float32),
+                                          device="cpu")}
+    ex = compile_program(connected_components_program(), rels, mesh=mesh,
+                         semi_naive=True, storage="row-table",
+                         exchange="bucket-a2a", hw=H100_SXM)
+    cell("rows cc", ex, 4 * rn,
+         lambda r: (r.state["cc"].to_dense().present.cpu().numpy(),
+                    r.state["cc"].to_dense().values[1].cpu().numpy()),
+         site="_groupby_rows_exchange", on_device=True)
+    del ex, rels
+
+    rels = _row_pagerank_rels(rn, np.load(d / "rpr_src.npy"),
+                              np.load(d / "rpr_dst.npy"), "cpu")
+    for mode in MESH_PIPELINE_EXCHANGES:
+        ex = compile_program(
+            pagerank_threshold_program(tau=ROWS_PR_TAU / rn), dict(rels),
+            mesh=mesh, storage="row-table", exchange=mode, hw=H100_SXM)
+        cell(f"pipeline {mode}", ex, MESH_ROWS_PR_ITERS,
+             lambda r: _pipeline_sets(r, rn),
+             site="_groupby_rows_exchange", on_device=True)
+        del ex
+    return out
+
+
+def _check_mesh_generic(ranks, want, single, args):
+    """Print the generic cells and return the names of those that failed:
+    answers against the oracles (rank 0's, and every rank's digest equal
+    to it), two runs bit-identical, no dense fallback, B1 launched at the
+    receivers on every rank where the cell has a GroupBy."""
+
+    import numpy as np
+
+    failed = []
+    r0 = ranks[0]
+    blocks = [r["dense tc blocks"] for r in ranks]
+    m = args.generic_domain // MESH_RANKS
+    print(f"mesh: dense tc blocks a rank {blocks[0]}")
+    if any(b != {"edge": [m, args.generic_domain],
+                 "tc": [m, args.generic_domain],
+                 "delta": [m, args.generic_domain]} for b in blocks):
+        failed.append("dense tc blocks")
+    for tag in ("dense tc", "rows tc", "rows cc") + tuple(
+            f"pipeline {mode}" for mode in MESH_PIPELINE_EXCHANGES):
+        c = r0[tag]
+        got = c["answer"]
+        if tag == "dense tc":
+            ok = np.array_equal(got[0], want[tag])
+        elif tag == "rows tc":
+            ok = np.array_equal(got[0], want[tag])
+        elif tag == "rows cc":
+            ok = bool(got[0].all()) and np.array_equal(got[1], want[tag])
+        else:
+            r64, adj_t, margin = want["pipeline"]
+            rank, hot, reach = got
+            rel_l1 = float(np.abs(rank - r64).sum() / np.abs(r64).sum())
+            tau = ROWS_PR_TAU / (1 << args.rows_log2_vertices)
+            want_hot = np.where(margin, hot, r64 > tau)
+            # A run whose f32 ranks stop changing before the last iteration
+            # ends its PageRank phase there.
+            ok = (c["phases"][0] <= MESH_ROWS_PR_ITERS
+                  and rel_l1 <= PAGERANK_L1_TOL
+                  and np.array_equal(hot, want_hot)
+                  and np.array_equal(reach, _reach_closure(adj_t, want_hot)))
+            tag_l1 = f", rank rel L1 vs float64 {rel_l1:.3e} (tol " \
+                     f"{PAGERANK_L1_TOL}), {int(hot.sum())} hot, " \
+                     f"{int(reach.sum())} reached"
+        receivers = [r[tag]["by_site"].get("_groupby_rows_exchange", 0)
+                     for r in ranks]
+        one = single.get(MESH_SINGLE[tag])
+        print(f"mesh: generic {tag}: {c['iterations']} iterations "
+              f"{c['phases']}, {c['ms']:.3f} ms/iteration warm (first run "
+              f"{c['first_ms']:.3f}; ranks "
+              f"{[round(r[tag]['ms'], 3) for r in ranks]}; one device in "
+              f"this run: "
+              f"{'not measured' if one is None else f'{one:.3f}'}), B1 "
+              f"launches a rank {[r[tag]['launches'] for r in ranks]} "
+              f"(at the receivers {receivers}; by site "
+              f"{json.dumps(c['by_site'])}), bytes a rank an iteration "
+              f"{ {k: int(v) for k, v in c['sent'].items()} }, staged "
+              f"{int(c['staged'])}; equal to the oracle {ok}"
+              f"{tag_l1 if tag.startswith('pipeline') else ''}; every "
+              f"rank's answer equal to rank 0's "
+              f"{len({r[tag]['digest'] for r in ranks}) == 1}, two runs "
+              f"bit-identical {all(r[tag]['identical'] for r in ranks)}, "
+              f"storage_fallback {any(r[tag]['fallback'] for r in ranks)}; "
+              f"plan {c['notes']}")
+        if not (ok and len({r[tag]["digest"] for r in ranks}) == 1
+                and all(r[tag]["identical"] for r in ranks)
+                and not any(r[tag]["fallback"] for r in ranks)):
+            failed.append(f"generic {tag}")
+        if tag in ("rows cc",) + tuple(
+                f"pipeline {mode}" for mode in MESH_PIPELINE_EXCHANGES) \
+                and min(receivers) <= 0:
+            failed.append(f"generic {tag}: no B1 launch at the receivers")
+    return failed
+
+
 def _mesh_rank(rank, world, cfg):
     """One rank of the mesh phase: every cell, in the order of the
     phase's docstring; returns its numbers (rank 0 also the receiver's
@@ -6366,13 +6675,19 @@ def _mesh_rank(rank, world, cfg):
     del X, y, recs, imru
     if on_card:
         torch.cuda.empty_cache()
+    out.update(_mesh_generic(data, cfg, rank))
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
-def phase_mesh(args, device, report) -> None:
-    """Sharded Pregel and IMRU on MESH_RANKS ranks (the module docstring's
-    phase 16).  Inputs and oracles are made here and handed over in
-    files; every rank returns its numbers, which are checked here."""
+def phase_mesh(args, device, report, single=None) -> None:
+    """Sharded Pregel and IMRU, and the generic engine, on MESH_RANKS ranks
+    (the module docstring's phase 10b).  Inputs and oracles are made here
+    and handed over in files; every rank returns its numbers, which are
+    checked here.  ``single`` holds the generic and rows phases'
+    single-device times from the same run, printed beside the generic
+    cells."""
 
     import tempfile
 
@@ -6411,10 +6726,11 @@ def phase_mesh(args, device, report) -> None:
         del A, bfs
         g = graph_from_numpy(m, src, dst, np.zeros(m, np.float32),
                              device=device)
-        single = compile_pregel(_max_program(), g, device=device).run(
+        one = compile_pregel(_max_program(), g, device=device).run(
             max_iters=MESH_CC_SUPERSTEPS)
-        np.save(d / "max_single.npy", single.state[0].cpu().numpy())
-        del g, single, src, dst
+        np.save(d / "max_single.npy", one.state[0].cpu().numpy())
+        del g, one, src, dst
+        want_generic = _mesh_generic_inputs(args, d)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"mesh: inputs and oracles in {time.perf_counter() - t0:.1f}s;"
@@ -6424,7 +6740,9 @@ def phase_mesh(args, device, report) -> None:
         cfg = {"dir": tmp, "backend": backend, "device": device.type,
                "n": n, "m": m,
                "supersteps": args.supersteps, "source": source,
-               "records": 1 << args.imru_log2_records, "seed": args.seed}
+               "records": 1 << args.imru_log2_records, "seed": args.seed,
+               "generic_n": args.generic_domain,
+               "rows_n": 1 << args.rows_log2_vertices}
         ranks = launch_ranks(_mesh_rank, MESH_RANKS, cfg, store_dir=tmp,
                              backend=backend, timeout=MESH_TIMEOUT)
     r0 = ranks[0]
@@ -6488,10 +6806,10 @@ def phase_mesh(args, device, report) -> None:
             failed.append(f"imru/{k}")
         if k != "int8_ef" and c["vs_flat"] > MESH_SCHEDULE_RTOL:
             failed.append(f"imru/{k} vs flat")
+    failed += _check_mesh_generic(ranks, want_generic, single or {}, args)
     entry = next(e for e in report if e["name"] == "segment_combine") \
         if any(e["name"] == "segment_combine" for e in report) else None
-    sites = [r0[f"site/{c}"] for c in ("merging", "hash_sort")
-             if f"site/{c}" in r0]
+    sites = [v for k, v in r0.items() if k.startswith("site/")]
     if entry is not None:
         entry["mesh_sites"] = sites
     if failed:
@@ -6574,6 +6892,7 @@ def main(argv=None) -> int:
                 print(f"build: {name}: {line.strip()}")
     report = []
     timed = []
+    single = {}
     seconds = {}
     for name, run in (
             ("kernels", lambda: phase_kernels(device)),
@@ -6582,11 +6901,11 @@ def main(argv=None) -> int:
             ("imru", lambda: _freeing("imru",
                                       lambda: phase_imru(args, device))),
             ("generic", lambda: _freeing("generic",
-                                         lambda: phase_generic(args,
-                                                               device))),
+                                         lambda: phase_generic(args, device,
+                                                               single))),
             ("rows", lambda: _freeing("rows",
                                       lambda: phase_rows(args, device,
-                                                         report))),
+                                                         report, single))),
             ("ft", lambda: _freeing("ft", lambda: phase_ft(args, device))),
             ("chunks", lambda: _freeing("chunks",
                                         lambda: phase_chunks(args, device,
@@ -6596,7 +6915,7 @@ def main(argv=None) -> int:
                                                            report))),
             ("mesh", lambda: _freeing("mesh",
                                       lambda: phase_mesh(args, device,
-                                                         report))),
+                                                         report, single))),
             ("lm", lambda: phase_lm(args, device, report, timed)),
             ("families", lambda: _freeing(
                 "families",

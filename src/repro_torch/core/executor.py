@@ -1,6 +1,6 @@
-"""The unified logical-plan executor (Fig. 4), on one device.
+"""The unified logical-plan executor (Fig. 4), on one device or a mesh.
 
-The port of :mod:`repro.core.executor`'s single-device paths:
+The port of :mod:`repro.core.executor`:
 
 * :func:`compile_program` runs any XY-stratified program (transitive
   closure, connected components, same-generation, multi-stratum pipelines)
@@ -47,11 +47,28 @@ Online serving: ``run(params=)`` rebinds dense EDB relations for one
 run, and :meth:`GenericExecutable.run_batched` runs k parameterized
 queries through one fixpoint under ``torch.func.vmap`` (the segment
 combine batches through its operator's batching rule, one combine for the
-k queries).  Not ported yet, and raising ``NotImplementedError`` with the
-queue item: the generic engine's sharded layouts and explicit row
-exchanges (``mesh=``, ``exchange=``: A10b) and ``remesh`` (A10c).  The
-Listing-1/2 steps (``build_pregel_steps``, ``build_imru_step``) run on a
-mesh.
+k queries).
+
+On a mesh (``compile_program(mesh=)``, one process a rank under
+:mod:`repro_torch.launch.mesh`): torch has no GSPMD partitioner, so the
+reference's implicit layout is written out as owner-computes.  Where the
+``S`` ranks of the sharding axes divide the domain, each dense grid of a
+predicate with a key holds the rank's block of ``n / S`` leading rows,
+and a rule whose head is such a grid binds the head's first key to the
+block (``_Ctx.local``): grid axes of that variable are cut to the block,
+its ids are global, and an operand read off its owner axis is
+all-gathered once a firing.  Rules that cannot (a row-table operand, a
+segment-scan GroupBy, an operator that drops the variable) run whole and
+keep their block.  Row slabs are replicated; their GroupBy and Join sites
+run the planner's explicit exchanges (``bucket-a2a``: each rank's
+``1/S`` slice through the key-hash all-to-all and the owners' sorted
+combine; ``psum-scatter``: sorted partial combines and one ``psum``).
+The convergence flag and the overflow fallback are agreed by all ranks,
+and the result holds the global grids on every rank.  The Listing-1/2
+steps (``build_pregel_steps``, ``build_imru_step``) run on a mesh too.
+Not ported yet, raising ``NotImplementedError`` with the queue item:
+fault tolerance and ``remesh`` on a mesh (A10c), ``run(params=)`` and
+``run_batched`` on a mesh (A10d).
 """
 
 from __future__ import annotations
@@ -76,6 +93,7 @@ from repro_torch.core.fixpoint import (
     DriverConfig,
     FixpointResult,
     HostFixpointDriver,
+    agreed,
     device_fixpoint,
 )
 from repro_torch.core.hardware import MeshSpec, TPU_V5E, HardwareSpec
@@ -84,13 +102,16 @@ from repro_torch.core.physical import (
     compact_active_edges,
     dense_psum_exchange,
     difference_row_codes,
+    exchange_row_slabs,
     fused_got_exchange,
     grid_to_rows,
     hash_sort_exchange,
     join_row_codes,
     merging_exchange,
+    pack_words,
     reduce_tree,
     row_codes,
+    row_hash_exchange,
     row_linear_index,
     rows_to_grid,
     segment_combine_sorted,
@@ -98,6 +119,7 @@ from repro_torch.core.physical import (
     sparse_hash_sort_exchange,
     sparse_merging_exchange,
     unique_row_runs,
+    unpack_words,
 )
 from repro_torch.core.planner import GroupBySpec, plan_program
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -375,10 +397,29 @@ def _align(a: torch.Tensor, dims: Tuple[str, ...],
     return a.reshape(shape)
 
 
-def _dim_grid(n: int, out_dims: Tuple[str, ...], d: str, device):
+def _size(ctx: "_Ctx", d: str) -> int:
+    """The grid extent of variable ``d`` in this firing: this rank's block
+    for the owner variable, the domain for every other."""
+
+    loc = ctx.local
+    return loc[2] if loc is not None and d == loc[0] else ctx.n
+
+
+def _sizes(ctx: "_Ctx", dims: Tuple[str, ...]) -> Tuple[int, ...]:
+    return tuple(_size(ctx, d) for d in dims)
+
+
+def _dim_grid(ctx: "_Ctx", out_dims: Tuple[str, ...], d: str):
+    """The global ids along ``d``'s axis (the block offset plus the local
+    index for the owner variable)."""
+
     shape = [1] * len(out_dims)
-    shape[out_dims.index(d)] = n
-    return torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
+    size = _size(ctx, d)
+    shape[out_dims.index(d)] = size
+    loc = ctx.local
+    lo = loc[1] if loc is not None and d == loc[0] else 0
+    return torch.arange(lo, lo + size, dtype=torch.int32,
+                        device=ctx.device).reshape(shape)
 
 
 _CMP = {
@@ -437,6 +478,56 @@ class _Ctx:
     # their scans may only fire under a chunk overlay (``row_edb`` rebound
     # to one chunk inside the streaming loop).
     chunked: FrozenSet[str] = frozenset()
+    # On a mesh: the planner's explicit exchange of each row predicate and
+    # its receiver caps, the head predicate of the firing rule (the
+    # selection key), the mesh and its sharding axes.  ``sharded`` names
+    # the predicates whose dense grids hold this rank's block of leading
+    # rows; ``local`` is the firing's owner restriction ``(variable, lo,
+    # rows)``, or None when the rule runs whole; ``gathered`` holds the
+    # full grids this firing all-gathered, by the block's id.
+    exchanges: Mapping[str, str] = field(default_factory=dict)
+    exchange_caps: Mapping[str, int] = field(default_factory=dict)
+    exchange_target: str = ""
+    mesh: Optional[Any] = None
+    batch_axes: Tuple[str, ...] = ()
+    sharded: FrozenSet[str] = frozenset()
+    local: Optional[Tuple[str, int, int]] = None
+    gathered: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=dict)
+
+
+def _full_grid(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The global grid of a block of leading rows: an all-gather over the
+    sharding axes, blocks in rank order."""
+
+    with C.bind(mesh):
+        full = C.all_gather(t, axes)
+    return full.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def _grid_view(ctx: _Ctx, pred: str, grid: torch.Tensor,
+               dims: Tuple[str, ...]) -> torch.Tensor:
+    """A scanned grid of ``pred`` (axes ``dims``) as this firing reads it:
+    a block of a sharded predicate is used as it is when its leading axis
+    is the owner variable, and all-gathered (once a firing) otherwise;
+    then every axis bound to the owner variable is cut to the block."""
+
+    loc = ctx.local
+    start = 0
+    if pred in ctx.sharded and grid.dim() > 0:
+        if loc is not None and dims[0] == loc[0]:
+            start = 1
+        else:
+            hit = ctx.gathered.get(id(grid))
+            if hit is None or hit[0] is not grid:
+                hit = (grid, _full_grid(grid, ctx.mesh, ctx.batch_axes))
+                ctx.gathered[id(grid)] = hit
+            grid = hit[1]
+    if loc is not None:
+        for i in range(start, len(dims)):
+            if dims[i] == loc[0]:
+                grid = grid.narrow(i, loc[1], loc[2])
+    return grid
 
 
 def _read_pred(ctx: _Ctx, name: str) -> Dict[str, Any]:
@@ -452,12 +543,13 @@ def _read_pred(ctx: _Ctx, name: str) -> Dict[str, Any]:
     )
 
 
-def _scan_inter(columns, key_positions, present, values_by_pos) -> _Inter:
+def _scan_inter(ctx: _Ctx, pred: str, columns, key_positions, present,
+                values_by_pos) -> _Inter:
     dims = tuple(columns[p] for p in key_positions)
     cols = {}
     for p, grid in values_by_pos.items():
-        cols[columns[int(p)]] = grid
-    return _Inter(dims, present, cols)
+        cols[columns[int(p)]] = _grid_view(ctx, pred, grid, dims)
+    return _Inter(dims, _grid_view(ctx, pred, present, dims), cols)
 
 
 def _scan_rows(columns, key_positions, ids, valid, values_by_pos):
@@ -480,22 +572,21 @@ def _operand(inter: _Inter, x, ctx: _Ctx):
     if x in inter.cols:
         return inter.cols[x]
     if x in inter.dims:
-        return _dim_grid(ctx.n, inter.dims, x, ctx.device)
+        return _dim_grid(ctx, inter.dims, x)
     if x == "J":
         return ctx.j
     raise ExecutorError(f"unbound column {x!r} in comparison/UDF input")
 
 
 def _join(l: _Inter, r: _Inter, keys: Tuple[str, ...], ctx: _Ctx) -> _Inter:
-    n = ctx.n
     out_dims = l.dims + tuple(d for d in r.dims if d not in l.dims)
-    shape = (n,) * len(out_dims)
+    shape = _sizes(ctx, out_dims)
 
     def al(g, dims):
         return _align(g, dims, out_dims).broadcast_to(shape)
 
     def dim(key):
-        return _dim_grid(n, out_dims, key, ctx.device)
+        return _dim_grid(ctx, out_dims, key)
 
     present = al(l.present, l.dims) & al(r.present, r.dims)
     for key in keys:
@@ -590,29 +681,48 @@ def _inter_to_rows(inter: _Inter, ctx: _Ctx) -> _Rows:
     return _Rows(inter.dims, ids, valid, cols)
 
 
-def _rows_to_inter(rows: _Rows, ctx: _Ctx) -> _Inter:
+def _rows_to_inter(rows: _Rows, ctx: _Ctx,
+                   block: Optional[Tuple[str, int, int]] = None) -> _Inter:
     """``to_grid`` boundary converter: scatter a row table back onto the
     dense vertex-domain grid (only at dense-stored materialization sites,
-    where the planner already approved the grid size).  Invalid rows land
-    in a spill cell past the grid, which is sliced off."""
+    where the planner already approved the grid size).  With ``block =
+    (variable, lo, rows)`` only the block of that variable's axis is
+    written: a replicated slab onto a rank's block of a sharded grid.
+    Invalid rows, and rows outside the block, land in a spill cell past
+    the grid, which is sliced off."""
 
     n, k = ctx.n, len(rows.dims)
-    present = rows_to_grid(rows.ids, rows.valid, n)
     if k == 0:
         cols = {
             c: torch.where(rows.valid, g, torch.zeros_like(g)).sum()
             for c, g in rows.cols.items()
         }
-        return _Inter((), present, cols)
-    size = n ** k
+        return _Inter((), rows_to_grid(rows.ids, rows.valid, n), cols)
+    sizes = [n] * k
+    ids, valid = rows.ids.to(torch.int64), rows.valid
+    if block is not None:
+        var, lo, m = block
+        i = rows.dims.index(var)
+        col = ids[:, i]
+        valid = valid & (col >= lo) & (col < lo + m)
+        ids = torch.cat([ids[:, :i], (col - lo)[:, None], ids[:, i + 1:]],
+                        dim=1)
+        sizes[i] = m
+    size = math.prod(sizes)
+    code = torch.zeros(ids.shape[0], dtype=torch.int64, device=ids.device)
+    for i in range(k):
+        code = code * sizes[i] + ids[:, i]
+    lin = torch.where(valid, code, size)
+    flat = torch.zeros(size + 1, dtype=torch.bool, device=ctx.device)
+    flat[lin] = True
+    present = flat[:size].reshape(sizes)
     cap = rows.ids.shape[0]
-    lin = row_linear_index(rows.ids, rows.valid, n)
     cols = {}
     for c, g in rows.cols.items():
         g = torch.as_tensor(g, device=ctx.device).broadcast_to((cap,))
         grid = torch.zeros(size + 1, dtype=g.dtype, device=ctx.device)
         grid[lin] = g
-        cols[c] = grid[:size].reshape((n,) * k)
+        cols[c] = grid[:size].reshape(sizes)
     return _Inter(rows.dims, present, cols)
 
 
@@ -647,10 +757,232 @@ def _residual_valid(l: _Rows, r: _Rows, keys, li, ri, valid):
     return valid
 
 
+# ---------------------------------------------------------------------------
+# Explicit sharded row exchanges (planner-selected connectors)
+# ---------------------------------------------------------------------------
+
+
+def _exchange_site(ctx: _Ctx):
+    """The planner's explicit-exchange selection for the firing rule's head
+    predicate, resolved against the live mesh: ``(mode, axes, n_shards)``,
+    or ``None`` when the site keeps the replicated lowering (the
+    reference's implicit ``gspmd`` partitioning)."""
+
+    if ctx.mesh is None or not ctx.batch_axes:
+        return None
+    mode = ctx.exchanges.get(ctx.exchange_target)
+    if mode in (None, "gspmd"):
+        return None
+    n_shards = math.prod(ctx.mesh.shape[a] for a in ctx.batch_axes)
+    if n_shards <= 1:
+        return None
+    return mode, ctx.batch_axes, n_shards
+
+
+def _pad_lead(t: torch.Tensor, pad: int) -> torch.Tensor:
+    if pad == 0:
+        return t
+    return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+
+def _my_rows(ctx: _Ctx, n_shards: int, *slabs):
+    """This rank's ``1/S`` slice of replicated ``[cap, ...]`` slabs padded
+    to a multiple of ``S`` rows: the block that the reference's
+    ``in_specs=P(axes)`` hands the rank."""
+
+    cap = slabs[0].shape[0]
+    per = -(-cap // n_shards)
+    r = ctx.mesh.linear_index(ctx.batch_axes)
+    return [_pad_lead(t, per * n_shards - cap)[r * per:(r + 1) * per]
+            for t in slabs]
+
+
+def _bucket_cap(ecap: int, slices, n_shards: int) -> int:
+    """The rows a sender's bucket holds: the planner's receiver cap, or
+    twice the even share of the largest slice sent where that is more.
+    The reference sizes every side's buckets by the head's cap alone, and
+    a Join side larger than its head (connected components' edges against
+    its labels) then overflows on an even hash and falls back to dense
+    grids (ROADMAP C16).  A function of the shapes, so that every rank
+    sizes the all-to-all alike."""
+
+    share = max(-(-int(rows) // n_shards) for rows in slices)
+    return max(int(ecap), 1 << max(2 * share - 1, 0).bit_length())
+
+
+def _gather_rows(ctx: _Ctx, leaves, overflow: torch.Tensor):
+    """All-gather every rank's ``[cap, ...]`` result slabs into the
+    replicated ``[S * cap, ...]`` slabs, ranks in order, with the ranks'
+    overflow flags ORed: one call, the flag riding as an extra row of the
+    words (:func:`~repro_torch.core.physical.pack_words`)."""
+
+    words, layout = pack_words(leaves)
+    flag = torch.zeros((1, words.shape[1]), dtype=torch.int32,
+                       device=words.device)
+    flag[0, 0] = overflow.to(torch.int32)
+    with C.bind(ctx.mesh):
+        got = C.all_gather(torch.cat([words, flag]), ctx.batch_axes)
+    cap = words.shape[0]
+    out = unpack_words(got[:, :cap].reshape(-1, words.shape[1]), layout)
+    ctx.overflow.append((got[:, cap, 0] != 0).any())
+    return out
+
+
+def _groupby_rows_exchange(op: algebra.GroupBy, child: _Rows, ctx: _Ctx):
+    """Lower a row-table GroupBy onto the explicit sharded connectors
+    instead of reducing the replicated slab on every rank.
+
+    * ``bucket-a2a``: each rank takes its ``1/S`` slice of the input rows,
+      sends each row to the owner ``code % S`` of its group key through the
+      key-hash bucket all-to-all (:func:`row_hash_exchange`), and the owner
+      stably sorts its buckets by code and runs the sorted segment combine
+      (the segment-combine kernel on the card); the unique group rows
+      compact into the planner's receiver cap (overflow-flagged: the
+      lossless dense fallback) and one all-gather replicates the slab.
+    * ``psum-scatter`` (a ``sum`` on a group grid of at most 2^20 cells):
+      each rank sorts its slice by cell stably and combines its partial
+      grid with the sorted segment combine (invalid rows in a spill
+      segment, sliced off), then one ``psum`` adds the partials and the
+      integer counts that mark the present cells.
+
+    Returns ``None`` where the site keeps the replicated lowering.
+    """
+
+    site = _exchange_site(ctx)
+    if site is None or not op.keys:
+        return None
+    mode, axes, n_shards = site
+    cap = child.ids.shape[0]
+    if cap < n_shards:
+        return None
+    n = ctx.n
+    vals = torch.as_tensor(_operand_rows(child, op.agg_col, ctx),
+                           device=ctx.device).broadcast_to((cap,))
+    if not vals.dtype.is_floating_point:
+        vals = vals.to(torch.float32)
+    key_ids, vals, valid = _my_rows(
+        ctx, n_shards, _id_cols(child, tuple(op.keys)), vals, child.valid)
+    segments = n ** len(op.keys)
+    if mode == "psum-scatter" and (
+        _monoid_for(op.agg).kernel_op != "sum"
+        or not 0 < segments <= _GROUPBY_GRID_CELLS
+    ):
+        mode = "bucket-a2a"  # forced override outside the mode's envelope
+
+    if mode == "psum-scatter":
+        lin = row_linear_index(key_ids, valid, n)
+        order = torch.argsort(lin, stable=True)
+        part = segment_combine_sorted(vals[order], lin[order], segments + 1,
+                                      "sum")[:segments]
+        cnt = torch.zeros(segments + 1, dtype=torch.int32,
+                          device=ctx.device)
+        cnt.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
+        # One call: the counts ride as float32, exact below 2^24.
+        with C.bind(ctx.mesh):
+            tot = C.psum(torch.cat([part.to(torch.float32),
+                                    cnt[:segments].to(torch.float32)]),
+                         axes)
+        shape = (n,) * len(op.keys)
+        inter = _Inter(tuple(op.keys), (tot[segments:] > 0).reshape(shape),
+                       {op.out_col: tot[:segments].reshape(shape)})
+        return _inter_to_rows(inter, ctx)
+
+    ecap = int(ctx.exchange_caps.get(ctx.exchange_target, 0)) or cap
+    with C.bind(ctx.mesh):
+        shipped, valid_x, of1 = row_hash_exchange(
+            _codes(key_ids, n) % n_shards, {"ids": key_ids, "vals": vals},
+            valid, n_shards, _bucket_cap(ecap, [valid.shape[0]], n_shards),
+            axes)
+    rcap = valid_x.shape[0]
+    perm, skey, n_valid = sort_row_codes(_codes(shipped["ids"], n), valid_x)
+    is_new, seg = unique_row_runs(skey, n_valid)
+    in_valid = torch.arange(rcap, dtype=torch.int32,
+                            device=ctx.device) < n_valid
+    red = segment_combine_sorted(
+        shipped["vals"][perm], seg, rcap, op.agg, edge_active=in_valid
+    )
+    idx, u_valid = compact_active_edges(is_new, ecap)
+    of2 = is_new.sum(dtype=torch.int64) > ecap
+    take = torch.clamp(idx.to(torch.int64), max=rcap - 1)
+    g_ids, g_valid, g_val = _gather_rows(
+        ctx, [shipped["ids"][perm][take], u_valid, red[seg][take]],
+        of1 | of2)
+    return _Rows(tuple(op.keys), g_ids, g_valid, {op.out_col: g_val})
+
+
+def _join_rows_exchange(l: _Rows, r: _Rows, keys, ctx: _Ctx):
+    """Hash-partitioned sort-merge join: each rank takes its ``1/S`` slice
+    of both slabs, rows go to the owner ``code % S`` of their shared-dims
+    code (both sides' buckets in one all-to-all), each owner joins exactly
+    its key partition (disjoint and complete, so the gathered union is the
+    exact join) into ``1/S`` of the pair capacity, and one all-gather
+    replicates the result.  Returns ``None`` where the site keeps the
+    replicated lowering (no shared dims, the planner chose ``gspmd``, or
+    ``psum-scatter``, an aggregation-only connector)."""
+
+    site = _exchange_site(ctx)
+    if site is None:
+        return None
+    mode, axes, n_shards = site
+    shared = tuple(d for d in l.dims if d in r.dims)
+    if mode != "bucket-a2a" or not shared:
+        return None
+    lcap, rcap = l.ids.shape[0], r.ids.shape[0]
+    if lcap < n_shards or rcap < n_shards:
+        return None
+    n = ctx.n
+    out_dims = l.dims + tuple(d for d in r.dims if d not in l.dims)
+    ecap = int(ctx.exchange_caps.get(ctx.exchange_target, 0)) \
+        or max(lcap, rcap)
+    pair_cap = -(-max(ctx.row_cap, 1) // n_shards)
+
+    def side(rows: _Rows):
+        cap = rows.ids.shape[0]
+        names = list(rows.cols)
+        got = _my_rows(ctx, n_shards, rows.ids, rows.valid, *[
+            torch.as_tensor(rows.cols[c], device=ctx.device)
+            .broadcast_to((cap,)) for c in names])
+        ids, valid = got[0], got[1]
+        payload = {"ids": ids, "cols": dict(zip(names, got[2:]))}
+        return _codes(_id_cols(_Rows(rows.dims, ids, valid, {}), shared),
+                      n) % n_shards, payload, valid
+
+    sides = [side(l), side(r)]
+    with C.bind(ctx.mesh):
+        ((lx, lvx), (rx, rvx)), of_x = exchange_row_slabs(
+            sides, n_shards,
+            _bucket_cap(ecap, [v.shape[0] for _, _, v in sides], n_shards),
+            axes)
+    li, ri, valid, of_j = join_row_codes(
+        _codes(_id_cols(_Rows(l.dims, lx["ids"], lvx, {}), shared), n), lvx,
+        _codes(_id_cols(_Rows(r.dims, rx["ids"], rvx, {}), shared), n), rvx,
+        pair_cap,
+    )
+    l2 = _Rows(l.dims, lx["ids"], lvx, lx["cols"])
+    r2 = _Rows(r.dims, rx["ids"], rvx, rx["cols"])
+    valid = _residual_valid(l2, r2, keys, li, ri, valid)
+    ids = torch.cat([l2.ids[li], _id_cols(r2, out_dims[len(l.dims):])[ri]],
+                    dim=1)
+    cols: Dict[str, torch.Tensor] = {}
+    for c, g in l2.cols.items():
+        if c not in out_dims:
+            cols[c] = g[li]
+    for c, g in r2.cols.items():
+        if c not in cols and c not in out_dims:
+            cols[c] = g[ri]
+    names = list(cols)
+    got = _gather_rows(ctx, [ids, valid] + [cols[c] for c in names],
+                       of_x | of_j)
+    return _Rows(out_dims, got[0], got[1], dict(zip(names, got[2:])))
+
+
 def _join_rows(l: _Rows, r: _Rows, keys, ctx: _Ctx) -> _Rows:
     """Sort-merge equi-join on the shared dims' row codes; pairs expand
     into the plan's intermediate capacity (overflow-flagged)."""
 
+    out = _join_rows_exchange(l, r, keys, ctx)
+    if out is not None:
+        return out
     n = ctx.n
     shared = tuple(d for d in l.dims if d in r.dims)
     out_dims = l.dims + tuple(d for d in r.dims if d not in l.dims)
@@ -738,6 +1070,9 @@ def _groupby_rows(op: algebra.GroupBy, child: _Rows, ctx: _Ctx) -> _Rows:
             f"monoid {op.agg!r} carries a finalize step; the row-table "
             "backend only supports plain accumulator monoids"
         )
+    out = _groupby_rows_exchange(op, child, ctx)
+    if out is not None:
+        return out
     cells = float(n) ** len(child.dims)
     if 0 < cells <= _GROUPBY_GRID_CELLS:
         # Lower through the dense grid-reduce when the child's grid is
@@ -773,17 +1108,17 @@ def _groupby_rows(op: algebra.GroupBy, child: _Rows, ctx: _Ctx) -> _Rows:
 
 def _eval(op: algebra.LogicalOp, ctx: _Ctx) -> _Inter:
     if ctx.shared and id(op) in ctx.shared:
-        hit = ctx.memo.get(id(op))
+        key = (id(op), ctx.local)
+        hit = ctx.memo.get(key)
         if hit is None:
             hit = _eval_inner(op, ctx)
-            ctx.memo[id(op)] = hit
+            ctx.memo[key] = hit
         return hit
     return _eval_inner(op, ctx)
 
 
 def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx):
-    n = ctx.n
-    shape_of = lambda dims: (n,) * len(dims)  # noqa: E731
+    shape_of = lambda dims: _sizes(ctx, dims)  # noqa: E731
     if isinstance(op, algebra.ScanEDB):
         if op.relation == "__unit__":
             return _Inter((), torch.tensor(True, device=ctx.device), {})
@@ -805,8 +1140,8 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx):
                 "dense-grid storage (its grid is infeasible) — leave its "
                 "storage selection to the planner"
             )
-        return _scan_inter(op.columns, rel.key_positions, rel.present,
-                           rel.values)
+        return _scan_inter(ctx, op.relation, op.columns, rel.key_positions,
+                           rel.present, rel.values)
     if isinstance(op, algebra.Delta):
         entry = _read_pred(ctx, op.relation)
         keys, _ = ctx.sigs[op.relation]
@@ -814,15 +1149,16 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx):
         if "ids" in entry:
             return _scan_rows(op.columns, keys, entry["ids"], present,
                               entry["values"])
-        return _scan_inter(op.columns, keys, present, entry["values"])
+        return _scan_inter(ctx, op.relation, op.columns, keys, present,
+                           entry["values"])
     if isinstance(op, (algebra.ScanState, algebra.ScanView, algebra.Frontier)):
         entry = _read_pred(ctx, op.relation)
         keys, _ = ctx.sigs[op.relation]
         if "ids" in entry:
             return _scan_rows(op.columns, keys, entry["ids"],
                               entry["present"], entry["values"])
-        return _scan_inter(op.columns, keys, entry["present"],
-                           entry["values"])
+        return _scan_inter(ctx, op.relation, op.columns, keys,
+                           entry["present"], entry["values"])
     if isinstance(op, (algebra.Join, algebra.Cross)):
         keys = op.keys if isinstance(op, algebra.Join) else ()
         l, r, rowmode = _coerce_pair(
@@ -938,7 +1274,6 @@ def _eval_inner(op: algebra.LogicalOp, ctx: _Ctx):
 
 
 def _groupby(op: algebra.GroupBy, child: _Inter, ctx: _Ctx) -> _Inter:
-    n = ctx.n
     for k in op.keys:
         if k not in child.dims:
             raise ExecutorError(
@@ -962,7 +1297,7 @@ def _groupby(op: algebra.GroupBy, child: _Inter, ctx: _Ctx) -> _Inter:
     elim = tuple(d for d in child.dims if d not in op.keys)
     vals = _operand(child, op.agg_col, ctx)
     vals = torch.as_tensor(vals, device=ctx.device).broadcast_to(
-        (n,) * len(child.dims))
+        _sizes(ctx, child.dims))
     if not vals.dtype.is_floating_point:
         vals = vals.to(torch.float32)
     ident = torch.tensor(float(monoid.identity), dtype=vals.dtype,
@@ -982,7 +1317,7 @@ def _groupby(op: algebra.GroupBy, child: _Inter, ctx: _Ctx) -> _Inter:
     elif strategy == "dense-reduce" and monoid.kernel_op is not None:
         red = _DENSE_REDUCE[monoid.kernel_op](m, dim=ax)
     else:
-        segments = n ** len(op.keys)
+        segments = math.prod(_sizes(ctx, op.keys))
         rows = m.numel() // max(segments, 1)
         ids = torch.repeat_interleave(
             torch.arange(segments, dtype=torch.int32, device=ctx.device),
@@ -990,7 +1325,7 @@ def _groupby(op: algebra.GroupBy, child: _Inter, ctx: _Ctx) -> _Inter:
         )
         red = segment_combine_sorted(
             m.reshape(-1), ids, segments, op.agg,
-        ).reshape((n,) * len(op.keys))
+        ).reshape(_sizes(ctx, op.keys))
     pres = torch.any(p, dim=ax) if ax else p
     return _Inter(tuple(op.keys), pres, {op.out_col: red})
 
@@ -1278,6 +1613,18 @@ class GenericExecutable:
     # The vmapped stages of run_batched, built once an executable.
     _step_cache: Dict[Any, Callable] = field(default_factory=dict,
                                              repr=False)
+    # On a mesh (``repro_torch.launch.mesh.Mesh``; None on one device):
+    # the dense predicates whose grids hold this rank's block of leading
+    # rows ``[lo, lo + rows)`` (``block``; every other tensor is
+    # replicated), the owner variable of each dataflow that runs one
+    # block a rank (by the dataflow's id; absent: it runs whole), and the
+    # EDB as the interpreter reads it (sharded grids cut to the block).
+    mesh: Any = None
+    sharded: FrozenSet[str] = frozenset()
+    block: Optional[Tuple[int, int]] = None
+    owners: Dict[int, str] = field(default_factory=dict, repr=False)
+    local_relations: Optional[Dict[str, Any]] = field(default=None,
+                                                      repr=False)
 
     # -- state plumbing -----------------------------------------------------
 
@@ -1300,12 +1647,20 @@ class GenericExecutable:
                 "values": {p: torch.zeros(cap, dtype=torch.float32,
                                           device=dev) for p in vals},
             }
-        shape = (self.domain,) * len(keys)
+        shape = self._grid_shape(pred, len(keys))
         return {
             "present": torch.zeros(shape, dtype=torch.bool, device=dev),
             "values": {p: torch.zeros(shape, dtype=torch.float32,
                                       device=dev) for p in vals},
         }
+
+    def _grid_shape(self, pred: str, k: int) -> Tuple[int, ...]:
+        """The grid of ``pred`` this rank holds: its block of leading rows
+        when ``pred`` is sharded, else the whole ``[n]^k``."""
+
+        if pred in self.sharded:
+            return (self.block[1],) + (self.domain,) * (k - 1)
+        return (self.domain,) * k
 
     def _empty_entry(self, pred: str) -> Dict[str, Any]:
         entry = self._init_entry(self._empty_out(pred))
@@ -1336,7 +1691,8 @@ class GenericExecutable:
             n=self.domain,
             device=self.device,
             sigs=self.sigs,
-            relations=self.relations if relations is None else relations,
+            relations=(self.local_relations or self.relations)
+            if relations is None else relations,
             state=state,
             views=views,
             materialized=materialized,
@@ -1347,7 +1703,60 @@ class GenericExecutable:
             row_cap=self.row_cap,
             row_edb=self.row_edb,
             chunked=frozenset(self.chunked_edb),
+            exchanges=dict(self.plan.exchanges or {}),
+            exchange_caps=dict(self.plan.exchange_caps or {}),
+            mesh=self.mesh,
+            batch_axes=() if self.mesh is None else self.mesh.batch_axes,
+            sharded=self.sharded,
         )
+
+    def _enter(self, ctx: _Ctx, df) -> None:
+        """Point ``ctx`` at rule ``df``: its label (the planner's GroupBy
+        strategy key), its head (the exchange selection key) and, on a
+        mesh, its owner restriction."""
+
+        ctx.label = df.label
+        ctx.exchange_target = df.target
+        var = self.owners.get(id(df))
+        ctx.local = None if var is None else (var,) + self.block
+
+    def _owner_var(self, df) -> Optional[str]:
+        """The variable a rule is evaluated one block a rank over, or None
+        when the rule runs whole (and a sharded head keeps its block of the
+        whole result).  A rule runs one block a rank when its head is a
+        sharded grid, its body reads no row table, every GroupBy in it is a
+        masked dense reduction, and no operator drops the head's first key
+        variable once it is bound (a drop would leave a partial answer)."""
+
+        if df.target not in self.sharded:
+            return None
+        keys, _ = self.sigs[df.target]
+        var = df.op.schema()[keys[0]]
+        rels = self.relations
+
+        def is_key(op):
+            return _op_types(op, self.sigs, rels).get(var) == "k"
+
+        def ok(op) -> bool:
+            if isinstance(op, algebra.ScanEDB):
+                if op.relation == "__unit__":
+                    return True
+                return not (op.relation in self.row_edb
+                            or op.relation in self.chunked_edb
+                            or isinstance(rels[op.relation], RowRelation))
+            if isinstance(op, (algebra.ScanState, algebra.ScanView,
+                               algebra.Frontier, algebra.Delta)):
+                return not self._is_row(op.relation)
+            if isinstance(op, algebra.GroupBy):
+                monoid = _monoid_for(op.agg)
+                if monoid.kernel_op is None or self.plan.connectors.get(
+                        df.label, "dense-reduce") != "dense-reduce":
+                    return False
+            if not is_key(op) and any(is_key(c) for c in op.children()):
+                return False
+            return all(ok(c) for c in op.children())
+
+        return var if is_key(df.op) and ok(df.op) else None
 
     def _materialize(self, df, inter, ctx: _Ctx) -> Dict[str, Any]:
         """Lower a rule-body intermediate into the head predicate's storage
@@ -1360,11 +1769,14 @@ class GenericExecutable:
             rows = inter if isinstance(inter, _Rows) \
                 else _inter_to_rows(inter, ctx)
             return self._materialize_rows(df, rows, ctx)
-        if isinstance(inter, _Rows):
-            inter = _rows_to_inter(inter, ctx)
         schema = df.op.schema()
         keys, vals = self.sigs[df.target]
         key_dims = tuple(schema[p] for p in keys)
+        sharded = df.target in self.sharded
+        if isinstance(inter, _Rows):
+            inter = _rows_to_inter(
+                inter, ctx, (key_dims[0],) + self.block
+                if sharded and key_dims[0] in inter.dims else None)
         for d in key_dims:
             if d not in inter.dims:
                 raise ExecutorError(
@@ -1372,8 +1784,17 @@ class GenericExecutable:
                     "not a grid dimension of the rule body"
                 )
         perm = tuple(inter.dims.index(d) for d in key_dims)
-        shape = (self.domain,) * len(key_dims)
-        present = inter.present.permute(perm).broadcast_to(shape)
+        shape = self._grid_shape(df.target, len(key_dims))
+
+        def lay(g):
+            # A whole rule's full grid keeps this rank's block of a sharded
+            # head (an owner rule's grid is the block already).
+            g = g.permute(perm)
+            if sharded and g.shape[0] == self.domain:
+                g = g.narrow(0, *self.block)
+            return g.broadcast_to(shape)
+
+        present = lay(inter.present)
         values = {}
         for p in vals:
             col = schema[p]
@@ -1381,8 +1802,7 @@ class GenericExecutable:
                 raise ExecutorError(
                     f"rule {df.label}: value column {col!r} missing"
                 )
-            g = inter.cols[col].permute(perm)
-            values[p] = g.to(torch.float32).broadcast_to(shape)
+            values[p] = lay(inter.cols[col].to(torch.float32))
         return {"present": present, "values": values}
 
     def _materialize_rows(self, df, rows: _Rows, ctx: _Ctx) -> Dict[str, Any]:
@@ -1557,7 +1977,7 @@ class GenericExecutable:
 
         views = ctx.views
         for df in dataflows:
-            ctx.label = df.label
+            self._enter(ctx, df)
             out = self._materialize(df, _eval(df.op, ctx), ctx)
             if df.next_state:
                 acc.setdefault(df.target, []).append(out)
@@ -1610,15 +2030,24 @@ class GenericExecutable:
                         prev[pred], new[pred]["present"], new[pred]["values"]
                     )
                     same = same & ~torch.any(diff)
+            if self.mesh is not None:
+                # Every rank stops at the same iteration.
+                same = agreed(same, self.mesh, self.mesh.batch_axes)
             return same
 
         return conv
 
-    @staticmethod
-    def _raise_on_overflow(flags) -> None:
-        """Host-side overflow check: one read of the ORed flags."""
+    def _raise_on_overflow(self, flags) -> None:
+        """Host-side overflow check: one read of the ORed flags (on a
+        mesh, ORed over the ranks, so that every rank takes the same dense
+        fallback)."""
 
-        if flags and bool(functools.reduce(torch.logical_or, flags)):
+        if not flags:
+            return
+        flag = functools.reduce(torch.logical_or, flags)
+        if self.mesh is not None:
+            flag = ~agreed(~flag, self.mesh, self.mesh.batch_axes)
+        if bool(flag):
             raise _RowCapacityOverflow()
 
     def _run_rules_once(self, dataflows, state, materialized, j,
@@ -1633,7 +2062,7 @@ class GenericExecutable:
         ctx = self._ctx(state, views, materialized, j, relations=relations)
         base_edb = ctx.row_edb
         for df in dataflows:
-            ctx.label = df.label
+            self._enter(ctx, df)
             refs = self._chunk_refs(df)
             if refs:
                 # Out-of-core scan in a once-fired rule group: copy the
@@ -1704,7 +2133,7 @@ class GenericExecutable:
                 ctx.row_cap = max(256, 1 << max(per - 1, 0).bit_length())
             out_acc = dict(acc)
             for df in dfs:
-                ctx.label = df.label
+                self._enter(ctx, df)
                 out = self._materialize(df, _eval(df.op, ctx), ctx)
                 out_acc[df.target] = self._merge(
                     df.target, [out_acc[df.target], out], ctx
@@ -2005,6 +2434,11 @@ class GenericExecutable:
         dispatch (``repro_torch.core.planner.serving_admission``).
         """
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "run_batched on a mesh is not ported yet: ROADMAP A10d "
+                "(serving on a mesh)"
+            )
         if not param_sets:
             raise ExecutorError("run_batched needs at least one param set")
         if self._any_row or self.row_edb or self.chunked_edb:
@@ -2123,8 +2557,23 @@ class GenericExecutable:
         it, and once after each group of rules fired outside the loop.
         The fallback run does not checkpoint: its tree structure differs
         from the row run's.
+
+        On a mesh every rank calls ``run`` and gets the same global
+        result; fault tolerance there is ROADMAP A10c and ``params`` A10d,
+        and both raise ``NotImplementedError``.
         """
 
+        if self.mesh is not None:
+            if checkpoint_dir is not None or injector is not None or resume:
+                raise NotImplementedError(
+                    "fault tolerance on a mesh is not ported yet: ROADMAP "
+                    "A10c (checkpoints, restores and remesh on a mesh)"
+                )
+            if params:
+                raise NotImplementedError(
+                    "run(params=) on a mesh is not ported yet: ROADMAP A10d "
+                    "(serving on a mesh)"
+                )
         relations = self._bind_params(self._param_grids(params))
         try:
             return self._run_phases(
@@ -2149,8 +2598,9 @@ class GenericExecutable:
                     "compile_program(row_cap=) instead"
                 )
         dense = compile_program(
-            self.program, self.relations, semi_naive=self.semi_naive,
-            domain=self.domain, storage="dense-grid", device=self.device,
+            self.program, self.relations, mesh=self.mesh,
+            semi_naive=self.semi_naive, domain=self.domain,
+            storage="dense-grid", device=self.device,
             **self._compile_kwargs,
         )
         res = dense.run(max_iters, on_device, params=params)
@@ -2333,11 +2783,18 @@ class GenericExecutable:
             if self._is_row(pred):
                 out[pred] = self._rows_to_relation(pred, entry)
             else:
+                present, values = entry["present"], dict(entry["values"])
+                if pred in self.sharded:
+                    # Every rank returns the global grids.
+                    axes = self.mesh.batch_axes
+                    present = _full_grid(present, self.mesh, axes)
+                    values = {p: _full_grid(v, self.mesh, axes)
+                              for p, v in values.items()}
                 out[pred] = Relation(
                     n=self.domain,
                     key_positions=keys,
-                    present=entry["present"],
-                    values=dict(entry["values"]),
+                    present=present,
+                    values=values,
                 )
         return FixpointResult(
             state=out,
@@ -2422,20 +2879,30 @@ def compile_program(
     :func:`_check_chunk_soundness` refuses a program whose rules do not
     decompose over chunks.  A chunked EDB's :class:`RowRelation` may lie on
     the CPU when the executable is on the card: its rows never need to be
-    on the device at once.  ``mesh=`` and ``exchange=`` raise (A10b).
+    on the device at once.
+
+    ``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh`; every rank calls
+    this with the same global relations, on the CPU or the mesh's device)
+    runs the program on the mesh's device over its ``pod``/``data`` axes,
+    planned on :func:`~repro_torch.launch.mesh.mesh_spec_of` it, so the
+    notes are the reference's for that mesh shape.  A dense grid of a
+    predicate with a key holds this rank's block of ``n / S`` leading rows
+    when ``S`` divides the domain, and the rules whose head is such a grid
+    run one block a rank (:meth:`GenericExecutable._owner_var`); row slabs
+    are replicated.  ``exchange=`` overrides the planner's explicit
+    exchange for the row-table GroupBy/Join sites (``"bucket-a2a"``,
+    ``"psum-scatter"`` or ``"gspmd"``, the replicated lowering; a string
+    for every row predicate or a mapping by head predicate), recorded as
+    ``exchange(<pred>: ...)`` notes.  Listing 1/2 programs go to
+    ``compile_pregel`` / ``compile_imru`` with the mesh.
     """
 
-    if mesh is not None or exchange is not None:
-        raise NotImplementedError(
-            "mesh= and exchange= are not ported yet: ROADMAP A10b "
-            "(the generic engine's row exchanges)"
-        )
     shape = _listing_shape(program)
     if shape == "pregel" and binding is not None:
         from repro_torch.core.pregel import compile_pregel
 
         return compile_pregel(
-            binding, relations["data"], semi_naive=semi_naive,
+            binding, relations["data"], mesh=mesh, semi_naive=semi_naive,
             force_connector=force_connector, hw=hw, device=device,
             **frontend_kwargs,
         )
@@ -2443,8 +2910,8 @@ def compile_program(
         from repro_torch.core.imru import compile_imru
 
         return compile_imru(
-            binding, relations["training_data"], hw=hw, device=device,
-            **frontend_kwargs,
+            binding, relations["training_data"], mesh=mesh, hw=hw,
+            device=device, **frontend_kwargs,
         )
     if shape is not None:
         raise ExecutorError(
@@ -2453,6 +2920,12 @@ def compile_program(
             "binding=IMRUTask(...)): its set-valued message slabs have no "
             "dense-grid encoding"
         )
+    if mesh is not None:
+        if device is not None and torch.device(device).type \
+                != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
 
     program.validate()
@@ -2470,7 +2943,9 @@ def compile_program(
         rel = _as_relation(name, value, domain, device)
         lead = rel.rows if isinstance(rel, RowRelation) else rel.present
         for t in [lead] + list(rel.values.values()):
-            if t.device.type == device.type:
+            # On a mesh the global relations may lie anywhere: each rank
+            # moves what it holds to the mesh's device.
+            if t.device.type == device.type or mesh is not None:
                 continue
             if isinstance(rel, RowRelation) and t.device.type == "cpu":
                 host_rows[name] = t.device
@@ -2647,12 +3122,18 @@ def compile_program(
             except MonoidError:
                 exchange_ops[pred] = None
 
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_spec_of
+
+        mesh_spec = mesh_spec_of(mesh)
+    else:
+        mesh_spec = MeshSpec((("data", 1),))
     plan = plan_program(
         tuple(tuple(sorted(g)) for g in phase_groups),
-        tuple(specs), domain, MeshSpec((("data", 1),)), hw,
+        tuple(specs), domain, mesh_spec, hw,
         semi_naive=semi_naive, extra_notes=sn_notes + rw_notes,
         predicates=predicates, storage=forced or None, row_cap=row_cap,
-        exchange_ops=exchange_ops,
+        exchange=exchange, exchange_ops=exchange_ops,
         edb=tuple(sorted(rels)),
         hbm_budget=hbm_budget, chunks=chunks,
         row_value_cols={
@@ -2676,10 +3157,12 @@ def compile_program(
         merge_monoids=merge_monoids,
         shared_ids=shared_ids,
         _compile_kwargs={"hw": hw, "force_connector": force_connector,
-                         "rewrite": rewrite},
+                         "rewrite": rewrite, "exchange": exchange,
+                         "hbm_budget": hbm_budget},
         storage=dict(plan.storage),
         row_caps=dict(plan.row_caps),
         row_cap=plan.row_cap,
+        mesh=mesh,
     )
     # Row-table EDB slabs (loop-invariant caching, sparse storage): the
     # tuples compacted once, padded to the planned capacity, on the device.
@@ -2716,7 +3199,56 @@ def compile_program(
         ex.row_edb[name] = {"ids": ids, "valid": valid, "values": values}
     if ex.chunked_edb:
         _check_chunk_soundness(ex)
+    if mesh is not None:
+        _shard(ex)
     return ex
+
+
+def _shard(ex: GenericExecutable) -> None:
+    """Lay a mesh executable out: with ``S`` ranks over the sharding axes
+    and ``S`` dividing the domain, every dense grid of a predicate with a
+    key (EDB, carried state, delta, views) holds this rank's block of
+    ``n / S`` leading rows, and each rule whose head is such a grid gets
+    its owner variable.  The EDB the interpreter reads is moved to the
+    mesh's device, a sharded grid as a copy of its block."""
+
+    mesh, device, n = ex.mesh, ex.device, ex.domain
+    axes = mesh.batch_axes
+    S = math.prod(mesh.shape[a] for a in axes)
+    local: Dict[str, Any] = {}
+    sharded = set()
+    split = S > 1 and n % S == 0
+    m = n // S if split else n
+    lo = mesh.linear_index(axes) * m if split else 0
+    for name, rel in ex.relations.items():
+        dense = isinstance(rel, Relation) and name not in ex.row_edb \
+            and name not in ex.chunked_edb
+        if dense and split and rel.key_positions:
+            sharded.add(name)
+            local[name] = Relation(
+                n=rel.n, key_positions=rel.key_positions,
+                present=rel.present.narrow(0, lo, m).to(device, copy=True),
+                values={p: g.narrow(0, lo, m).to(device, copy=True)
+                        for p, g in rel.values.items()})
+        elif dense:
+            local[name] = Relation(
+                n=rel.n, key_positions=rel.key_positions,
+                present=rel.present.to(device),
+                values={p: g.to(device) for p, g in rel.values.items()})
+        else:
+            local[name] = rel
+    if split:
+        sharded |= {p for p, (keys, _) in ex.sigs.items()
+                    if keys and not ex._is_row(p)}
+    ex.local_relations = local
+    ex.sharded = frozenset(sharded)
+    ex.block = (lo, m)
+    for df in ex.prelude + tuple(
+            d for ph in ex.phases
+            for d in ph.init + ph.body + ph.finals + ph.post):
+        var = ex._owner_var(df)
+        if var is not None:
+            ex.owners[id(df)] = var
 
 
 def _wrong_device(name: str, where, device: torch.device) -> None:

@@ -9,7 +9,9 @@ of the semi-naive supersteps; the three Pregel connectors and their sparse
 variants, on one device and sharded over the mesh axes the executor binds
 (:mod:`repro_torch.parallel.collectives`); and the row-table primitives of
 the generic executor's sparse storage (row codes, sort-merge join,
-set-difference, grid <-> row converters).
+set-difference, grid <-> row converters) and their key-hash bucket
+all-to-all (:func:`row_hash_exchange`), which the generic executor's
+sharded GroupBy and Join sites run on a mesh.
 
 Every fast-path combine on a CUDA tensor with an f32/bf16 payload runs the
 hand-written segment-combine kernel, which adds in a fixed order: the
@@ -37,7 +39,7 @@ from repro_torch.core.monoid import (
     get_monoid,
 )
 from repro_torch.core.planner import ReduceSchedule
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.segment_combine.kernel import segment_combine_cuda
 from repro_torch.kernels.segment_combine.ops import kernel_eligible
 from repro_torch.parallel import collectives as C
@@ -71,6 +73,10 @@ __all__ = [
     "grid_to_rows",
     "row_linear_index",
     "rows_to_grid",
+    "row_hash_exchange",
+    "exchange_row_slabs",
+    "pack_words",
+    "unpack_words",
 ]
 
 
@@ -933,3 +939,140 @@ def rows_to_grid(ids: torch.Tensor, valid: torch.Tensor,
     flat = torch.zeros(size + 1, dtype=torch.bool, device=ids.device)
     flat[row_linear_index(ids, valid, n)] = True
     return flat[:size].reshape((n,) * k)
+
+
+# ---------------------------------------------------------------------------
+# The row slabs' key-hash exchange (the generic engine on a mesh)
+# ---------------------------------------------------------------------------
+
+
+def pack_words(leaves) -> Tuple[torch.Tensor, list]:
+    """Lay ``[rows, ...]`` tensors side by side as int32 words ``[rows,
+    W]``, bit for bit, so that one collective call carries them all.  A
+    4- or 8-byte element is viewed as one or two words; a narrower one
+    (bool, int8, int16, bf16) is widened to a word by value.  Returns the
+    words and the layout :func:`unpack_words` reads them back with."""
+
+    cols, layout = [], []
+    for leaf in leaves:
+        rows = leaf.shape[0]
+        flat = leaf.contiguous().reshape(rows, -1)
+        size = flat.element_size()
+        if leaf.dtype == torch.bool:
+            w = flat.to(torch.int32)
+        elif size >= 4:
+            w = flat.view(torch.int32)
+        else:
+            w = flat.view(torch.int8 if size == 1 else torch.int16) \
+                .to(torch.int32)
+        cols.append(w)
+        layout.append((leaf.dtype, tuple(leaf.shape[1:]), w.shape[1]))
+    return torch.cat(cols, dim=1), layout
+
+
+def unpack_words(words: torch.Tensor, layout) -> list:
+    """The tensors :func:`pack_words` laid out, from ``words[rows, W]``
+    (any leading row count)."""
+
+    rows, out, at = words.shape[0], [], 0
+    for dtype, shape, width in layout:
+        w = words[:, at:at + width]
+        at += width
+        size = torch.empty((), dtype=dtype).element_size()
+        if dtype == torch.bool:
+            t = w != 0
+        elif size >= 4:
+            t = w.contiguous().view(dtype)
+        else:
+            t = w.to(torch.int8 if size == 1 else torch.int16).view(dtype)
+        out.append(t.reshape((rows,) + shape))
+    return out
+
+
+def _tree_unflatten(like, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def row_hash_exchange(
+    owner: torch.Tensor,
+    payload,
+    valid: torch.Tensor,
+    n_shards: int,
+    bucket_cap: int,
+    axes: Tuple[str, ...],
+):
+    """Key-hash bucket all-to-all for generic row slabs (the explicit
+    sharded connector of the row-table GroupBy/Join lowering).
+
+    Each valid row carries a destination shard ``owner`` (its key hash mod
+    ``n_shards``, chosen by the caller); rows are packed into
+    ``bucket_cap``-row buckets, one an owner, and bucket ``o`` goes to the
+    rank whose index over ``axes`` taken together is ``o``.  ``payload``
+    is a tree of ``[cap, ...]`` tensors.
+
+    Returns ``(payload_x, valid_x, overflow)``: the received flat
+    ``[n_shards * bucket_cap, ...]`` payload tree (the senders' buckets
+    in rank order), its validity mask, and a device flag set when a valid
+    row found its bucket full: such rows are dropped in transit, and the
+    caller must honor the flag (the executor's lossless dense fallback).
+
+    The owner sort is stable on an int64 key, so a bucket holds its rows
+    in slab order (ROADMAP C2).  Invalid rows take the owner ``n_shards``
+    and sort after every real row; they and the rows past a full bucket
+    are written to a spill slot past the buckets, which is sliced off, not
+    out of range (C1).  Every leaf and the validity travel as int32 words
+    of one buffer (:func:`pack_words`): one ``all_to_all`` an exchange.
+    The reference runs one tiled ``all_to_all`` a leaf and an axis, so on
+    a mesh of several sharding axes its buckets reach other ranks.
+    """
+
+    ((out, valid_x),), overflow = exchange_row_slabs(
+        [(owner, payload, valid)], n_shards, bucket_cap, axes)
+    return out, valid_x, overflow
+
+
+def exchange_row_slabs(sides, n_shards: int, bucket_cap: int,
+                       axes: Tuple[str, ...]):
+    """:func:`row_hash_exchange` of several slabs at once: ``sides`` is a
+    list of ``(owner, payload, valid)``, each packed into its own
+    ``[n_shards, bucket_cap]`` buckets; the buckets of every side travel
+    side by side in one ``all_to_all``.  Returns ``[(payload_x, valid_x),
+    ...]`` in the order of ``sides`` and the ORed overflow flag."""
+
+    axes = _axes_present(axes)
+    spill = n_shards * bucket_cap
+    bufs, layouts, flags = [], [], []
+    for owner, payload, valid in sides:
+        cap = owner.shape[0]
+        dev = owner.device
+        owner = torch.where(valid, owner.to(torch.int64), n_shards)
+        order = torch.argsort(owner, stable=True)
+        owner_s = owner[order]
+        pos = torch.arange(cap, dtype=torch.int64, device=dev)
+        rank = pos - torch.searchsorted(owner_s, owner_s, side="left")
+        real = owner_s < n_shards
+        keep = rank < bucket_cap
+        flags.append((real & ~keep).any())
+        slot = torch.where(keep & real, owner_s * bucket_cap + rank, spill)
+        words, layout = pack_words(
+            tree_leaves(payload)
+            + [torch.ones(cap, dtype=torch.bool, device=dev)])
+        buf = torch.zeros((spill + 1, words.shape[1]), dtype=torch.int32,
+                          device=dev)
+        buf[slot] = words[order]
+        bufs.append(buf[:spill].reshape(n_shards, bucket_cap, -1))
+        layouts.append(layout)
+    buf = torch.cat(bufs, dim=2) if len(bufs) > 1 else bufs[0]
+    if axes:
+        buf = C.all_to_all(buf, axes)
+    buf = buf.reshape(spill, -1)
+    out, at = [], 0
+    for (_, payload, _), b, layout in zip(sides, bufs, layouts):
+        got = unpack_words(buf[:, at:at + b.shape[2]], layout)
+        at += b.shape[2]
+        out.append((_tree_unflatten(payload, got[:-1]), got[-1]))
+    overflow = flags[0]
+    for f in flags[1:]:
+        overflow = overflow | f
+    return out, overflow

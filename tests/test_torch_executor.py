@@ -11,10 +11,12 @@ taken in another order).  Listing 1 through ``compile_program(binding=)``
 matches the port's ``compile_pregel`` to <= 1e-8 (the same operators).
 The fail-closed errors raise the same exception types with the same
 messages (up to the package name in a module path), and every option of
-a later queue item raises ``NotImplementedError`` naming it.  Per-query
+a later queue item raises ``NotImplementedError`` naming it (on a mesh,
+fault tolerance A10c and serving A10d).  Per-query
 parameters and query batching are held in ``tests/test_torch_serving.py``.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -29,6 +31,7 @@ from repro_torch.core import listings as TL
 from repro_torch.core.datalog import Aggregate
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.pregel import VertexProgram, compile_pregel
+from repro_torch.ft import FailureInjector
 
 CONNECTORS = ("dense_psum", "merging", "hash_sort")
 N = 32
@@ -453,15 +456,47 @@ def _tc(**kw):
                               device="cpu", **kw)
 
 
+@contextlib.contextmanager
+def _one_rank_mesh(tmp_path):
+    """A ``(1,)`` data mesh over a one-rank gloo process group."""
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield make_data_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"storage": {"tc": "row-table"}, "mesh": object()}, "A10"),
-    ({"row_cap": 64, "exchange": "bucket-a2a"}, "A10"),
-    ({"mesh": object()}, "A10"),
-    ({"exchange": "bucket-a2a"}, "A10"),
+    pytest.param({"storage": {"tc": "row-table"},
+                  "checkpoint_dir": "ckpt"}, "A10c", id="kw0-A10"),
+    pytest.param({"row_cap": 64, "exchange": "bucket-a2a",
+                  "injector": FailureInjector()}, "A10c", id="kw1-A10"),
+    pytest.param({"params": {"edge": TE.Relation.from_columns(
+        N, *_edges(), device="cpu")}}, "A10d", id="kw2-A10"),
+    pytest.param({"exchange": "bucket-a2a", "batched": True}, "A10d",
+                 id="kw3-A10"),
 ])
-def test_unported_compile_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _tc(**kw)
+def test_unported_compile_options_raise(kw, item, tmp_path):
+    """``mesh=`` and ``exchange=`` compile (A10b); on a mesh, fault
+    tolerance (A10c) and per-query parameters and batches (A10d) raise
+    naming their item."""
+
+    compile_kw = {k: kw.pop(k) for k in ("storage", "row_cap", "exchange")
+                  if k in kw}
+    with _one_rank_mesh(tmp_path) as mesh:
+        ex = _tc(mesh=mesh, **compile_kw)
+        assert ex.run(max_iters=64).converged
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            if kw.pop("batched", False):
+                ex.run_batched([{}], max_iters=4)
+            else:
+                ex.run(max_iters=4, **kw)
 
 
 def test_forced_dense_storage_runs():
