@@ -30,7 +30,8 @@ Phases, each of which exits nonzero on failure:
    the planner's own plan (``dense_psum`` on one device) on a power-law
    graph of 2^25 vertices with the Yahoo webmap's mean out-degree (5.7)
    and web-graph degree exponents (see ``power_law_graph``), made from
-   ``--seed`` with numpy, checked against a scipy.sparse float64 oracle;
+   ``--seed`` with numpy, checked against a float64 oracle
+   (``pagerank_oracle``);
    the kernel's launch count must rise by at least 2 a superstep.  At the
    main path's shapes the kernel is timed in turns with the parent's
    decomposition (one block per tile, the C entry point with no split),
@@ -133,12 +134,15 @@ Phases, each of which exits nonzero on failure:
    staged).  Every rank builds the same global graph from files this
    script writes.  PageRank at the pagerank phase's size and supersteps
    on the planner's connector (``dense_psum``) within ``PAGERANK_L1_TOL``
-   of the phase's scipy float64 oracle; ``merging`` and ``hash_sort`` at
+   of the phase's float64 oracle; ``merging`` and ``hash_sort`` at
    the sssp phase's size (their buckets hold a whole slab) likewise, in
    ``MESH_BUCKET_SUPERSTEPS`` supersteps, and
    the max combine (``_max_program``) bit-equal to the single-device run;
-   each PageRank run twice bit-identical, and with rank 1's sends dropped
-   for one superstep outside the bar.  Semi-naive SSSP at the sssp
+   each PageRank run twice bit-identical (at 2^25 the second run is
+   A10c's crash below, with checkpoints), and a run of
+   ``MESH_FAULT_SUPERSTEPS`` with rank 1's sends dropped at the one before
+   its last outside the bar of its own float64 oracle.  Semi-naive SSSP
+   at the sssp
    phase's size on all three connectors equal to BFS, at least one sparse
    superstep each, modes printed.  IMRU BGD on a (2, 2) pod x data mesh,
    each rank its quarter of ``--imru-log2-records`` x 1280 records made
@@ -165,7 +169,26 @@ Phases, each of which exits nonzero on failure:
    each collective an iteration and the bytes staged, B1 launches a rank
    by executor site (at least one at every GroupBy's receivers), and B1 at
    the receivers' shapes held to its plain version and timed beside
-   ``torch.segment_reduce``.  Any rank's failure fails it.
+   ``torch.segment_reduce``.  Fault tolerance on the same ranks
+   (ROADMAP A10c): right after the 2^25 PageRank cell, on its executable
+   (``_mesh_ft_pagerank``), PageRank at the pagerank phase's size
+   with a checkpoint every ``FT_EVERY`` supersteps (one save timed: the
+   gather, the writer's copy and its I/O; the checkpoint's bytes), a
+   crash on rank 1 only (every rank restarts once, bit-equal to the
+   uninterrupted run), then a run crashed past its restarts, remeshed
+   onto ranks 2-3 (rank 0, the writer, lost) and resumed from disk within
+   ``PAGERANK_L1_TOL`` of float64; last (``_mesh_ft``), IMRU on the
+   (2, 2) mesh crashed
+   (bit-equal, or within the bar with the reason printed) and with rank 1
+   straggling ``MESH_FT_SLOWDOWN`` times its iteration (every rank falls
+   back to ``kary_tree`` at the same iteration, within the bar); the
+   ``psum-scatter`` row pipeline crashed in phase 1 on rank 3 only
+   (bit-equal), then crashed at phase 2's first step with no restarts
+   left, remeshed onto ranks 2-3 and resumed through the phase cursor
+   (``hot`` and ``reach`` exact, ranks within the rows phase's bar).
+   Restarts and straggler events are printed for every rank, with the
+   remesh notes and ms a superstep on 4 and on 2 ranks.  Any rank's
+   failure fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -801,6 +824,8 @@ def power_law_graph(n: int, mean_degree: float, seed: int):
     of IN_DEGREE_EXPONENT / OUT_DEGREE_EXPONENT.  Self-loops and repeated
     edges are kept."""
 
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -813,11 +838,19 @@ def power_law_graph(n: int, mean_degree: float, seed: int):
         span = (n + 1.0) ** b - 1.0
         out = np.empty(e, np.int32)
         step = 1 << 24
-        for lo in range(0, e, step):
-            u = rng.random(min(step, e - lo))
+
+        def fill(lo, u):
             x = np.power(1.0 + u * span, 1.0 / b)
             rank = np.minimum(x.astype(np.int64) - 1, n - 1)
             out[lo:lo + u.shape[0]] = order[rank]
+
+        # The draws stay one stream, taken in order; each slice's
+        # arithmetic runs in a thread (numpy releases the interpreter lock
+        # in it), so the graph is the same as one thread makes.
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            for done in [pool.submit(fill, lo, rng.random(min(step, e - lo)))
+                         for lo in range(0, e, step)]:
+                done.result()
         return out
 
     src = endpoints(rng.permutation(n).astype(np.int32), OUT_DEGREE_EXPONENT)
@@ -857,46 +890,43 @@ def pagerank_program(n: int):
 
 
 @functools.lru_cache(maxsize=1)
-def _webgraph_oracle(n: int, seed: int, iters: int):
+def _webgraph_oracle(n: int, seed: int, iters: int, device: str):
     """``pagerank_oracle`` of ``_webgraph(n, seed)``, computed once for the
-    pagerank phase and the mesh phase (65 s at 2^25 vertices)."""
+    pagerank phase and the mesh phase."""
 
-    return pagerank_oracle(*_webgraph(n, seed), n, iters)
+    return pagerank_oracle(*_webgraph(n, seed), n, iters, device)
 
 
-def pagerank_oracle(src, dst, n: int, iters: int):
+def pagerank_oracle(src, dst, n: int, iters: int, device="cpu"):
     """float64 PageRank with the Pregel semantics of the program above: a
     vertex that gets no message from an active source keeps its rank and
-    halts; halted sources send nothing.  The products run on row blocks in
-    threads (scipy releases the interpreter lock in them)."""
+    halts; halted sources send nothing.  Plain float64 gathers and
+    ``index_add_`` on ``device``, sharing no code with the port; on the
+    card the sums' order varies from run to run, at float64's rounding
+    (a relative 1e-16 of each rank, far below the 1e-5 bar)."""
 
-    from concurrent.futures import ThreadPoolExecutor
+    import torch
 
-    import numpy as np
-    import scipy.sparse as sp
-
-    outdeg = np.maximum(np.bincount(src, minlength=n), 1).astype(np.float64)
-    A = sp.csr_matrix(
-        (np.ones(src.shape[0], np.float64), (dst, src)), shape=(n, n))
-    bounds = np.linspace(0, n, 9).astype(np.int64)
-    blocks = [A[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
-    del A
-    r = np.full(n, 1.0 / n)
-    active = np.ones(n, np.float64)
-    got, got_of = None, None
-    with ThreadPoolExecutor(len(blocks)) as pool:
-        def matvec(x):
-            return np.concatenate(list(pool.map(lambda b: b @ x, blocks)))
-
-        for _ in range(iters):
-            inbox = matvec(active * r / outdeg)
-            # got depends on the active set alone: recompute it only when
-            # the active set changed.
-            if got_of is None or not np.array_equal(got_of, active):
-                got, got_of = matvec(active) > 0, active
-            r = np.where(got, 0.15 / n + 0.85 * inbox, r)
-            active = got.astype(np.float64)
-    return r
+    s = torch.from_numpy(src).to(device=device, dtype=torch.int64)
+    d = torch.from_numpy(dst).to(device=device, dtype=torch.int64)
+    outdeg = torch.bincount(s, minlength=n).clamp_(min=1).double()
+    r = torch.full((n,), 1.0 / n, dtype=torch.float64, device=device)
+    active = torch.ones(n, dtype=torch.bool, device=device)
+    got = got_of = None
+    for _ in range(iters):
+        x = torch.where(active, r / outdeg, 0.0)
+        inbox = torch.zeros(n, dtype=torch.float64, device=device)
+        inbox.index_add_(0, d, x[s])
+        # got depends on the active set alone: recompute it only when the
+        # active set changed.
+        if got_of is None or not torch.equal(got_of, active):
+            got = torch.zeros(n, dtype=torch.bool, device=device)
+            got[d[active[s]]] = True
+            got_of = active
+        r = torch.where(got, 0.15 / n + 0.85 * inbox, r)
+        active = got
+        del x, inbox
+    return r.cpu().numpy()
 
 
 def _profile_supersteps(ex, carry, steps: int = 2) -> None:
@@ -970,12 +1000,12 @@ def phase_pagerank(args, device, report) -> None:
         raise AssertionError(f"kernel launched {launches} times in "
                              f"{args.supersteps} supersteps")
     t1 = time.perf_counter()
-    oracle = _webgraph_oracle(n, args.seed, args.supersteps)
+    oracle = _webgraph_oracle(n, args.seed, args.supersteps, device.type)
     rel_l1 = float(np.abs(rank - oracle).sum() / np.abs(oracle).sum())
     print(f"pagerank: {res.iterations} supersteps in {res.seconds:.3f}s "
           f"({res.seconds / res.iterations * 1e3:.2f} ms/superstep), "
           f"plan {ex.plan.notes}, kernel launches {launches}; "
-          f"rel L1 vs scipy float64 {rel_l1:.3e} (tol {PAGERANK_L1_TOL}, "
+          f"rel L1 vs float64 {rel_l1:.3e} (tol {PAGERANK_L1_TOL}, "
           f"oracle {time.perf_counter() - t1:.1f}s)")
     if not (np.isfinite(rank).all() and rel_l1 <= PAGERANK_L1_TOL):
         raise AssertionError("PageRank disagrees with the oracle")
@@ -6154,6 +6184,9 @@ MESH_CC_SUPERSTEPS = 8
 # phase's count at 2^25): their slab-sized buckets cost 0.33-0.35 s a
 # superstep on one card, three runs a connector.
 MESH_BUCKET_SUPERSTEPS = 10
+# Supersteps of a PageRank cell's planted-fault run (rank 1's sends dropped
+# at the one before the last), held to its own float64 oracle.
+MESH_FAULT_SUPERSTEPS = 4
 MESH_IMRU_ITERATIONS = 5
 MESH_SCHEDULES = ("flat", "hierarchical", "kary_tree", "scatter")
 MESH_SCHEDULE_RTOL = 1e-6
@@ -6228,10 +6261,14 @@ def _dropped_sends(rank, call):
         k: wrap(v) for k, v in executor._EXCHANGES.items()})
 
 
-def _mesh_pagerank(mesh, n, graph, oracle, conn, supersteps, capture):
-    """PageRank on the mesh: the counted run, a second run (bit-identical),
-    and one with rank 1's sends dropped at superstep ``supersteps - 2``,
-    which must break the bar."""
+def _mesh_pagerank(mesh, n, graph, oracles, conn, supersteps, capture,
+                   again=True):
+    """PageRank on the mesh: the counted run, with ``again`` a second run
+    (bit-identical), and one of MESH_FAULT_SUPERSTEPS supersteps with rank
+    1's sends dropped at the one before its last, which must break the bar
+    against its own oracle.  ``oracles`` are the float64 ranks after
+    ``supersteps`` and after MESH_FAULT_SUPERSTEPS.  Returns the cell, the
+    captured receiver site and the executable."""
 
     import numpy as np
     import torch
@@ -6252,27 +6289,31 @@ def _mesh_pagerank(mesh, n, graph, oracle, conn, supersteps, capture):
     with mock.patch.object(physical, "segment_combine_sorted",
                            keep if capture else real):
         res, launches, sent, staged = _counted_run(ex, mesh, supersteps)
-    again = ex.run(max_iters=supersteps)
-    same = bool(torch.equal(res.state[0], again.state[0]))
-    del again
+    digest = _digest(res.state[0])
+    same = None
+    if again:
+        same = bool(torch.equal(res.state[0],
+                                ex.run(max_iters=supersteps).state[0]))
 
-    def rel(r):
+    def rel(r, oracle):
         rank = r.state[0][:, 0].double().cpu().numpy()
         ok = bool(np.isfinite(rank).all())
         return float(np.abs(rank - oracle).sum() / np.abs(oracle).sum()) \
             if ok else float("inf")
 
-    with _dropped_sends(1, 2 * (supersteps - 2)):
+    steps = MESH_FAULT_SUPERSTEPS
+    with _dropped_sends(1, 2 * (steps - 2)):
         bad = compile_pregel(prog, graph, mesh=mesh, force_connector=conn)
-    fault = rel(bad.run(max_iters=supersteps))
+    fault = rel(bad.run(max_iters=steps), oracles[1])
+    del bad
     it = res.iterations
     return {"connector": ex.plan.connector, "notes": list(ex.plan.notes),
             "iterations": it, "ms": res.seconds / it * 1e3,
-            "launches": launches, "rel_l1": rel(res), "identical": same,
-            "fault_rel_l1": fault,
+            "launches": launches, "rel_l1": rel(res, oracles[0]),
+            "identical": same, "fault_rel_l1": fault, "digest": digest,
             "sent_per_superstep": {k: v / it for k, v in sent.items()},
             "staged_per_superstep": staged / it,
-            "slab": ex.local_edge_cap}, site
+            "slab": ex.local_edge_cap}, site, ex
 
 
 # The generic engine's cells of the mesh phase: the generic and rows
@@ -6345,8 +6386,6 @@ def _generic_cell(ex, mesh, iters, answer, site, keep, **run_kw):
     first combine made at ``site``), then a second run, which must give
     the same bits.  ``answer(result)`` is a tuple of numpy arrays."""
 
-    import hashlib
-
     import numpy as np
     import torch
 
@@ -6383,9 +6422,7 @@ def _generic_cell(ex, mesh, iters, answer, site, keep, **run_kw):
             "by_site": by_site, "staged": staged / it,
             "sent": {k: v / it for k, v in sent.items()},
             "fallback": bool(res.storage_fallback or again.storage_fallback),
-            "identical": same, "answer": got,
-            "digest": hashlib.sha256(b"".join(
-                np.ascontiguousarray(a).tobytes() for a in got)).hexdigest(),
+            "identical": same, "answer": got, "digest": _digest(*got),
             "notes": [x for x in ex.plan.notes
                       if x.startswith(("exchange(", "spmd("))]}, kept
 
@@ -6478,6 +6515,175 @@ def _mesh_generic(mesh, cfg, rank):
     return out
 
 
+def _pipeline_ok(got, phases, want, args):
+    """(the row pipeline's answer within its bars, its rank rel L1): rank
+    within PAGERANK_L1_TOL of float64, hot and reach exact where the
+    threshold is not within the tolerance of a rank."""
+
+    import numpy as np
+
+    r64, adj_t, margin = want
+    rank, hot, reach = got
+    rel_l1 = float(np.abs(rank - r64).sum() / np.abs(r64).sum())
+    tau = ROWS_PR_TAU / (1 << args.rows_log2_vertices)
+    want_hot = np.where(margin, hot, r64 > tau)
+    # A run whose f32 ranks stop changing before the last iteration ends
+    # its PageRank phase there.
+    ok = (phases[0] <= MESH_ROWS_PR_ITERS and rel_l1 <= PAGERANK_L1_TOL
+          and np.array_equal(hot, want_hot)
+          and np.array_equal(reach, _reach_closure(adj_t, want_hot)))
+    return ok, rel_l1
+
+
+def _check_mesh_ft(ranks, want, args):
+    """Print the A10c cells and return the names of those that failed."""
+
+    failed = []
+    r0 = ranks[0]
+    every = list(range(MESH_RANKS))
+    two = list(MESH_FT_SURVIVORS)
+    # B1 on the restored and remeshed supersteps (on the card only).
+    least = 1 if r0["ft/on_card"] else 0
+    if [r["ft/in_two"] for r in ranks] != [k in two for k in every]:
+        failed.append("ft: the 2-rank mesh")
+    note = f"remesh({MESH_RANKS}->2: data=2)"
+
+    pr = r0["ft/pagerank"]
+    crash = [r["ft/pagerank"]["crash"] for r in ranks]
+    print(f"mesh: ft pagerank n={1 << args.log2_vertices}: a checkpoint "
+          f"{pr['bytes']} B; a save's gather "
+          f"{', '.join(f'{t:.3f}' for t in pr['gather_ms'])} ms, the "
+          f"writer's save (gather and copy to the host) "
+          f"{', '.join(f'{t:.3f}' for t in pr['save_ms'])} ms and I/O "
+          f"{', '.join(f'{t:.3f}' for t in pr['write_ms'])} ms")
+    ok = (all(c["digest"] == r0["pagerank"]["digest"] for c in crash)
+          and [c["restarts"] for c in crash] == [1] * MESH_RANKS
+          and [c["fired"] for c in crash]
+          == [int(k == MESH_FT_LONE_RANK) for k in every]
+          and min(c["launches"] for c in crash) >= least)
+    print(f"mesh: ft pagerank, a crash at superstep {FT_CRASHES[0]} on rank "
+          f"{MESH_FT_LONE_RANK} only, a checkpoint every {FT_EVERY}: "
+          f"{pr['crash']['ms']:.3f} ms/superstep on {MESH_RANKS} ranks "
+          f"({pr['crash']['supersteps_run']} supersteps run; ranks "
+          f"{[round(c['ms'], 3) for c in crash]}; uninterrupted without "
+          f"checkpoints {r0['pagerank']['ms']:.3f}); restarts a rank "
+          f"{[c['restarts'] for c in crash]}, straggler_events "
+          f"{[c['stragglers'] for c in crash]}, injector fired "
+          f"{[c['fired'] for c in crash]}, B1 launches a rank "
+          f"{[c['launches'] for c in crash]}; bit-equal to the uninterrupted "
+          f"{MESH_RANKS}-rank run on every rank {ok}")
+    if not ok:
+        failed.append("ft pagerank crash")
+    rem = [ranks[k]["ft/pagerank"].get("remesh") for k in every]
+    got = rem[two[0]]
+    ok = (all(r["ft/pagerank"]["raised"] for r in ranks)
+          and all(rem[k] is None for k in every if k not in two)
+          and all(rem[k] is not None and rem[k]["rel_l1"] == got["rel_l1"]
+                  for k in two)
+          and got["rel_l1"] <= PAGERANK_L1_TOL and got["note"] == note
+          and got["events"] == [note]
+          and min(rem[k]["launches"] for k in two) >= least
+          and got["iterations"] == args.supersteps - pr["out_step"])
+    print(f"mesh: ft pagerank crashed out at supersteps {MESH_FT_OUT} "
+          f"(max_restarts=1; raised on every rank "
+          f"{all(r['ft/pagerank']['raised'] for r in ranks)}), remeshed "
+          f"onto ranks {two} ({got['connector']}; note {got['note']!r}, "
+          f"remesh_events {got['events']}) and resumed from superstep "
+          f"{pr['out_step']} for {got['iterations']}: "
+          f"{got['ms']:.3f} ms/superstep on 2 ranks with checkpoints "
+          f"(ranks {[round(rem[k]['ms'], 3) for k in two]}), restarts "
+          f"{[rem[k]['restarts'] for k in two]}, straggler_events "
+          f"{[rem[k]['stragglers'] for k in two]}, B1 launches a rank "
+          f"{[rem[k]['launches'] for k in two]}; rel L1 vs float64 "
+          f"{got['rel_l1']:.3e} (tol {PAGERANK_L1_TOL}); {ok}")
+    if not ok:
+        failed.append("ft pagerank remesh")
+
+    im = [r["ft/imru"] for r in ranks]
+    c = im[0]
+    bar = c["bar"]
+    if all(x["crash_equal"] for x in im):
+        verdict = "bit-equal to the uninterrupted run"
+        ok = True
+    else:
+        verdict = (f"not bit-equal (cuBLAS is not run-to-run reproducible "
+                   f"here): ||m - m64|| {c['crash_err']:.4e}, "
+                   f"uninterrupted {c['clean_err']:.4e}, bar {bar:.4e}")
+        ok = max(x["crash_err"] for x in im) <= bar
+    ok = ok and [x["crash_restarts"] for x in im] == [1] * MESH_RANKS
+    print(f"mesh: ft imru {1 << args.imru_log2_records} x {IMRU_FEATURES} "
+          f"on (2, 2) flat, a crash at iteration {MESH_FT_IMRU_CRASH}: "
+          f"restarts a rank {[x['crash_restarts'] for x in im]}, {verdict}; "
+          f"{c['crash_ms']:.3f} ms/iteration with a checkpoint every 2 "
+          f"(uninterrupted host driver {c['ms']:.3f}); {ok}")
+    if not ok:
+        failed.append("ft imru crash")
+    ok = (all(x["fallbacks"] == c["fallbacks"] and x["note"] == c["note"]
+              and x["stragglers"] == c["stragglers"] for x in im)
+          and len(c["fallbacks"]) == 1 and c["reduce"] == "kary_tree"
+          and c["fallbacks"][0] == "straggler-fallback(kary_tree @ "
+          f"iteration {MESH_FT_STRAGGLE})"
+          and [x["fired"] for x in im]
+          == [int(k == MESH_FT_LONE_RANK) for k in every]
+          and all(x["straggle_finite"] and x["straggle_err"] <= bar
+                  for x in im))
+    print(f"mesh: ft imru, rank {MESH_FT_LONE_RANK} straggling "
+          f"{MESH_FT_SLOWDOWN:g}x its iteration at iteration "
+          f"{MESH_FT_STRAGGLE}: straggler_events a rank "
+          f"{[x['stragglers'] for x in im]}, fallbacks "
+          f"{[x['fallbacks'] for x in im]}; ||m - m64|| "
+          f"{c['straggle_err']:.4e} (bar {bar:.4e}); {ok}")
+    if not ok:
+        failed.append("ft imru straggler")
+
+    rows = [r["ft/rows"] for r in ranks]
+    c = rows[0]
+    ok = (all(x["crash"]["digest"] == c["clean"]["digest"]
+              and x["clean"]["digest"] == c["clean"]["digest"] for x in rows)
+          and [x["crash"]["restarts"] for x in rows] == [1] * MESH_RANKS
+          and [x["crash"]["fired"] for x in rows]
+          == [int(k == 3) for k in every]
+          and all(x["crash"]["phases"] == c["clean"]["phases"]
+                  for x in rows))
+    print(f"mesh: ft rows pipeline n={1 << args.rows_log2_vertices} on "
+          f"psum-scatter, phases {c['clean']['phases']}: a crash at step "
+          f"{FT_ROWS_CRASH} on rank 3 only, restarts a rank "
+          f"{[x['crash']['restarts'] for x in rows]}, straggler_events "
+          f"{[x['crash']['stragglers'] for x in rows]}; "
+          f"{c['crash']['ms']:.3f} ms/iteration with checkpoints "
+          f"(uninterrupted {c['clean']['ms']:.3f}); bit-equal to the "
+          f"uninterrupted run on every rank {ok}")
+    if not ok:
+        failed.append("ft rows crash")
+    rem = [rows[k].get("remesh") for k in every]
+    got = rem[two[0]]
+    good, rel_l1 = _pipeline_ok(got["answer"], c["clean"]["phases"],
+                                want["pipeline"], args)
+    ok = (good and all(x["raised"] for x in rows)
+          and all(rem[k] is None for k in every if k not in two)
+          and all(rem[k] is not None and rem[k]["phases"]
+                  == c["clean"]["phases"] for k in two)
+          and all(_digest(*rem[k]["answer"]) == _digest(*got["answer"])
+                  for k in two)
+          and got["note"] == note and got["events"] == [note]
+          and not any(rem[k]["fallback"] or rem[k]["trap_fired"]
+                      for k in two))
+    print(f"mesh: ft rows pipeline crashed out at phase 2's first step "
+          f"(raised on every rank {all(x['raised'] for x in rows)}), "
+          f"remeshed onto ranks {two} (note {got['note']!r}) and resumed "
+          f"through the phase cursor: {got['iterations']} iteration(s) of "
+          f"phase 2 run (phases {got['phases']}, the phase-1 trap fired "
+          f"{[rem[k]['trap_fired'] for k in two]}), {got['ms']:.3f} "
+          f"ms/iteration on 2 ranks, B1 launches a rank "
+          f"{[rem[k]['launches'] for k in two]}; rank rel L1 vs float64 "
+          f"{rel_l1:.3e} "
+          f"(tol {PAGERANK_L1_TOL}), {int(got['answer'][1].sum())} hot, "
+          f"{int(got['answer'][2].sum())} reached; {ok}")
+    if not ok:
+        failed.append("ft rows remesh")
+    return failed
+
+
 def _check_mesh_generic(ranks, want, single, args):
     """Print the generic cells and return the names of those that failed:
     answers against the oracles (rank 0's, and every rank's digest equal
@@ -6506,17 +6712,9 @@ def _check_mesh_generic(ranks, want, single, args):
         elif tag == "rows cc":
             ok = bool(got[0].all()) and np.array_equal(got[1], want[tag])
         else:
-            r64, adj_t, margin = want["pipeline"]
-            rank, hot, reach = got
-            rel_l1 = float(np.abs(rank - r64).sum() / np.abs(r64).sum())
-            tau = ROWS_PR_TAU / (1 << args.rows_log2_vertices)
-            want_hot = np.where(margin, hot, r64 > tau)
-            # A run whose f32 ranks stop changing before the last iteration
-            # ends its PageRank phase there.
-            ok = (c["phases"][0] <= MESH_ROWS_PR_ITERS
-                  and rel_l1 <= PAGERANK_L1_TOL
-                  and np.array_equal(hot, want_hot)
-                  and np.array_equal(reach, _reach_closure(adj_t, want_hot)))
+            ok, rel_l1 = _pipeline_ok(got, c["phases"], want["pipeline"],
+                                      args)
+            hot, reach = got[1], got[2]
             tag_l1 = f", rank rel L1 vs float64 {rel_l1:.3e} (tol " \
                      f"{PAGERANK_L1_TOL}), {int(hot.sum())} hot, " \
                      f"{int(reach.sum())} reached"
@@ -6551,6 +6749,314 @@ def _check_mesh_generic(ranks, want, single, args):
     return failed
 
 
+def _mesh_imru_records(mesh, cfg):
+    """This rank's quarter of the IMRU records on ``mesh`` (pod x data),
+    made on its device from the seed: the same records at every call."""
+
+    import torch
+
+    shard = mesh.linear_index(mesh.batch_axes)
+    rows, dim = cfg["records"] // MESH_RANKS, IMRU_FEATURES
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(cfg["seed"])
+    w_true = torch.randn(dim, generator=gen, device=mesh.device)
+    gen.manual_seed((cfg["seed"] << 8) + 1 + shard)
+    X = torch.empty((rows, dim), device=mesh.device)
+    y = torch.empty(rows, device=mesh.device)
+    for s in range(0, rows, 1 << 20):
+        e = min(s + (1 << 20), rows)
+        X[s:e].normal_(generator=gen)
+        y[s:e] = X[s:e] @ w_true
+    return X, y
+
+
+def _digest(*arrays) -> str:
+    """sha256 of tensors' or arrays' bytes (bit-equality across ranks)."""
+
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+# A10c, fault tolerance on the mesh (the mesh phase's last cells).
+MESH_FT_LONE_RANK = 1          # the rank whose own injector fires alone
+MESH_FT_OUT = (10, 11)         # crashes past max_restarts=1: the run stops
+MESH_FT_SURVIVORS = (2, 3)     # the ranks a remesh keeps (the writer, rank
+#                                0, is among the lost ones)
+MESH_FT_IMRU_CRASH = 4
+MESH_FT_STRAGGLE = 3           # the IMRU iteration rank 1 straggles at,
+MESH_FT_SLOWDOWN = 5.0         # for this many times its iteration's time
+
+
+def _ft_sync(on_card):
+    import torch
+
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def _ft_counted(run, on_card):
+    """(run(), B1 launches it made): the count set to 0 just before."""
+
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+
+    _ft_sync(on_card)
+    sc_kernel.reset_launch_count()
+    out = run()
+    return out, sc_kernel.launch_count
+
+
+def _ft_release(on_card):
+    # A crashed-out run's traceback holds its executable in a cycle.
+    import gc
+
+    import torch
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def _ft_drop(rank, path):
+    """Remove a checkpoint directory once every rank is done with it (rank
+    0 writes and removes)."""
+
+    import shutil
+
+    import torch.distributed as dist
+
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _mesh_ft_pagerank(cfg, rank, data, two, box):
+    """PageRank's A10c cells, on the executable of the mesh phase's 2^25
+    PageRank cell (``box`` holds it, and is emptied): one save timed, a
+    crash on rank 1 only with a checkpoint every FT_EVERY supersteps,
+    then a run crashed past its restarts, remeshed onto ranks 2-3 (the
+    ``two`` mesh; None on the other ranks) and resumed from disk.
+    Returns the cells' numbers; ranks 2-3 also the remeshed run's."""
+
+    import numpy as np
+
+    from repro_torch.checkpoint import MeshCheckpointStore, latest_step
+    from repro_torch.ft import FailureInjector
+
+    d = Path(cfg["dir"])
+    on_card = data.device.type == "cuda"
+    n, steps = cfg["n"], cfg["supersteps"]
+    ex = box.pop()
+    pr = {}
+    carry = ex.init()
+    store = MeshCheckpointStore(str(d / "pr_save"), keep=1, mesh=data,
+                                to_global=ex.gather)
+    pr["gather_ms"], pr["save_ms"], pr["write_ms"] = [], [], []
+    for k in range(2):
+        _ft_sync(on_card)
+        t0 = time.perf_counter()
+        full = ex.gather(carry)
+        _ft_sync(on_card)
+        pr["gather_ms"].append((time.perf_counter() - t0) * 1e3)
+        del full
+        t0 = time.perf_counter()
+        store.save(k, carry)
+        t1 = time.perf_counter()
+        store.wait()
+        pr["save_ms"].append((t1 - t0) * 1e3)
+        pr["write_ms"].append((time.perf_counter() - t1) * 1e3)
+    if rank == 0:
+        pr["bytes"] = _tree_bytes(d / "pr_save" / "step_00000001")
+    del carry, store
+    _ft_drop(rank, d / "pr_save")
+    lone = FailureInjector(
+        crashes=FT_CRASHES[:1] if rank == MESH_FT_LONE_RANK else ())
+    res, launches = _ft_counted(lambda: ex.run(
+        max_iters=steps, checkpoint_dir=str(d / "pr_crash"),
+        checkpoint_every=FT_EVERY, injector=lone), on_card)
+    replayed = FT_CRASHES[0] % FT_EVERY
+    pr["crash"] = {"digest": _digest(res.state[0]), "launches": launches,
+                   "restarts": res.restarts,
+                   "stragglers": res.straggler_events,
+                   "fired": len(lone.fired), "iterations": res.iterations,
+                   "ms": res.seconds / (res.iterations + replayed) * 1e3,
+                   "supersteps_run": res.iterations + replayed}
+    del res
+    _ft_drop(rank, d / "pr_crash")
+    try:
+        ex.run(max_iters=steps, checkpoint_dir=str(d / "pr_out"),
+               checkpoint_every=FT_EVERY,
+               injector=FailureInjector(crashes=MESH_FT_OUT), max_restarts=1)
+        pr["raised"] = None
+    except RuntimeError as err:
+        pr["raised"] = str(err)
+    if rank == 0:
+        pr["out_step"] = latest_step(str(d / "pr_out"))
+    if two is not None:
+        ex2 = ex.remesh(two)
+        del ex
+        res, launches = _ft_counted(lambda: ex2.run(
+            max_iters=steps, checkpoint_dir=str(d / "pr_out"),
+            checkpoint_every=FT_EVERY, resume=True), on_card)
+        r = res.state[0][:, 0].double().cpu().numpy()
+        oracle = np.load(d / "pr_oracle.npy")
+        pr["remesh"] = {
+            "rel_l1": float(np.abs(r - oracle).sum() / np.abs(oracle).sum())
+            if np.isfinite(r).all() else float("inf"),
+            "iterations": res.iterations,
+            "ms": res.seconds / res.iterations * 1e3,
+            "events": list(res.remesh_events),
+            "note": ex2.plan.notes[-1], "connector": ex2.plan.connector,
+            "restarts": res.restarts, "stragglers": res.straggler_events,
+            "launches": launches}
+        del ex2, res
+    else:
+        del ex
+    _ft_release(on_card)
+    _ft_drop(rank, d / "pr_out")
+    return pr
+
+
+def _mesh_ft(cfg, rank, data, pod, imru_ref, two):
+    """The other A10c cells, the mesh phase's last: IMRU BGD on the (2, 2)
+    mesh crashed, and straggling on rank 1; the rows pipeline on
+    ``psum-scatter`` crashed in phase 1 on rank 3 only, then crashed at
+    phase 2's first step with no restarts left, remeshed onto ranks 2-3
+    (the ``two`` mesh; None on the other ranks) and resumed through the
+    phase cursor.  Returns each cell's numbers; ranks 2-3 also the
+    remeshed run's."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.executor import compile_program
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.imru import compile_imru
+    from repro_torch.core.listings import pagerank_threshold_program
+    from repro_torch.ft import FailureInjector
+
+    d = Path(cfg["dir"])
+    on_card = data.device.type == "cuda"
+
+    # IMRU BGD on (2, 2), flat: a crash, and a straggler on rank 1.
+    X, y = _mesh_imru_records(pod, cfg)
+    recs = {"x": X, "y": y}
+    w64, bar = imru_ref
+    task = _bgd_task(IMRU_FEATURES, IMRU_LR_SCALE / cfg["records"],
+                     pod.device)
+    imru = {"bar": bar}
+
+    def bgd():
+        return compile_imru(task, recs, mesh=pod, hw=H100_SXM,
+                            force_reduce="flat")
+
+    ex = bgd()
+    clean = ex.run(max_iters=MESH_IMRU_ITERATIONS, on_device=False,
+                   straggler_fallback=False)
+    crash = ex.run(max_iters=MESH_IMRU_ITERATIONS,
+                   checkpoint_dir=str(d / "imru_crash"), checkpoint_every=2,
+                   injector=FailureInjector(crashes=[MESH_FT_IMRU_CRASH]),
+                   straggler_fallback=False)
+    it_s = clean.seconds / clean.iterations
+    imru.update({
+        "ms": it_s * 1e3,
+        "crash_ms": crash.seconds / crash.iterations * 1e3,
+        "crash_equal": bool(torch.equal(crash.state, clean.state)),
+        "crash_err": float((crash.state.double() - w64).norm()),
+        "clean_err": float((clean.state.double() - w64).norm()),
+        "crash_restarts": crash.restarts})
+    del ex, clean, crash
+    _ft_drop(rank, d / "imru_crash")
+    ex = bgd()
+    slow = FailureInjector(
+        straggles=[(MESH_FT_STRAGGLE, MESH_FT_SLOWDOWN * it_s)]
+        if rank == MESH_FT_LONE_RANK else [])
+    res = ex.run(max_iters=MESH_IMRU_ITERATIONS, on_device=False,
+                 injector=slow)
+    imru.update({
+        "straggle_err": float((res.state.double() - w64).norm()),
+        "straggle_finite": bool(torch.isfinite(res.state).all()),
+        "stragglers": res.straggler_events, "fired": len(slow.fired),
+        "fallbacks": list(ex.straggler_fallbacks),
+        "reduce": ex.plan.reduce.kind, "note": ex.plan.notes[-1]})
+    del ex, res, X, y, recs
+    _ft_release(on_card)
+
+    # The rows pipeline on psum-scatter: a crash in phase 1 on rank 3, a
+    # crash-out at phase 2's first step, a remesh, the phase cursor.
+    rn = cfg["rows_n"]
+    rels = _row_pagerank_rels(rn, np.load(d / "rpr_src.npy"),
+                              np.load(d / "rpr_dst.npy"), "cpu")
+    ex = compile_program(pagerank_threshold_program(tau=ROWS_PR_TAU / rn),
+                         dict(rels), mesh=data, storage="row-table",
+                         exchange="psum-scatter", hw=H100_SXM)
+    rows = {}
+    clean = ex.run(max_iters=MESH_ROWS_PR_ITERS)
+    lone = FailureInjector(crashes=[FT_ROWS_CRASH] if rank == 3 else [])
+    res = ex.run(max_iters=MESH_ROWS_PR_ITERS,
+                 checkpoint_dir=str(d / "rows_crash"),
+                 checkpoint_every=FT_EVERY, injector=lone)
+    rows["clean"] = {"digest": _digest(*_pipeline_sets(clean, rn)),
+                     "phases": list(clean.phase_iterations),
+                     "ms": clean.seconds / clean.iterations * 1e3}
+    rows["crash"] = {"digest": _digest(*_pipeline_sets(res, rn)),
+                     "phases": list(res.phase_iterations),
+                     "restarts": res.restarts, "fired": len(lone.fired),
+                     "stragglers": res.straggler_events,
+                     "ms": res.seconds / res.iterations * 1e3}
+    rank_iters = clean.phase_iterations[0]
+    del clean, res
+    _ft_drop(rank, d / "rows_crash")
+    try:
+        ex.run(max_iters=MESH_ROWS_PR_ITERS,
+               checkpoint_dir=str(d / "rows_out"), checkpoint_every=FT_EVERY,
+               injector=FailureInjector(crashes=[rank_iters]),
+               max_restarts=0)
+        rows["raised"] = None
+    except RuntimeError as err:
+        rows["raised"] = str(err)
+    if two is not None:
+        ex2 = ex.remesh(two)
+        trap = FailureInjector(crashes=[FT_ROWS_CRASH])
+        res, launches = _ft_counted(lambda: ex2.run(
+            max_iters=MESH_ROWS_PR_ITERS, checkpoint_dir=str(d / "rows_out"),
+            checkpoint_every=FT_EVERY, resume=True, injector=trap), on_card)
+        # The resumed run's iterations count the completed phases too.
+        ran = res.iterations - sum(res.phase_iterations[:-1])
+        rows["remesh"] = {"answer": _pipeline_sets(res, rn),
+                          "phases": list(res.phase_iterations),
+                          "iterations": ran,
+                          "ms": res.seconds / max(ran, 1) * 1e3,
+                          "events": list(res.remesh_events),
+                          "note": ex2.plan.notes[-1],
+                          "fallback": bool(res.storage_fallback),
+                          "trap_fired": len(trap.fired),
+                          "launches": launches}
+        del ex2, res
+    del ex, rels
+    _ft_release(on_card)
+    _ft_drop(rank, d / "rows_out")
+    return {"ft/imru": imru, "ft/rows": rows}
+
+
+def _mesh_graph(d, tag, n):
+    """The global graph ``tag`` the phase wrote to ``d``, on the CPU."""
+
+    import numpy as np
+
+    from repro_torch.carry import graph_from_numpy
+
+    src, dst = np.load(d / f"{tag}_src.npy"), np.load(d / f"{tag}_dst.npy")
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    return graph_from_numpy(n, src, dst, outdeg, device="cpu")
+
+
 def _mesh_rank(rank, world, cfg):
     """One rank of the mesh phase: every cell, in the order of the
     phase's docstring; returns its numbers (rank 0 also the receiver's
@@ -6559,7 +7065,6 @@ def _mesh_rank(rank, world, cfg):
     import numpy as np
     import torch
 
-    from repro_torch.carry import graph_from_numpy
     from repro_torch.core.hardware import H100_SXM
     from repro_torch.core.imru import compile_imru
     from repro_torch.core.pregel import compile_pregel
@@ -6571,29 +7076,44 @@ def _mesh_rank(rank, world, cfg):
     data = make_data_mesh(device=cfg["device"], backend=cfg["backend"])
     out = {"device": str(data.device), "transport": data.transport,
            "world": world}
+    seconds = {}
+    t0 = time.perf_counter()
 
-    def graph(tag, n):
-        src, dst = np.load(d / f"{tag}_src.npy"), np.load(d / f"{tag}_dst.npy")
-        outdeg = np.bincount(src, minlength=n).astype(np.float32)
-        return graph_from_numpy(n, src, dst, outdeg, device="cpu")
+    def lap(name):
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
 
-    # PageRank at the pagerank phase's size, the planner's connector.
+    # PageRank at the pagerank phase's size, the planner's connector; its
+    # second run is A10c's crash on one rank, bit-equal to the first.
     n = cfg["n"]
-    g = graph("pr", n)
-    out["pagerank"], _ = _mesh_pagerank(
-        data, n, g, np.load(d / "pr_oracle.npy"), None, cfg["supersteps"],
-        False)
-    del g
+    g = _mesh_graph(d, "pr", n)
+    out["pagerank"], _, ex = _mesh_pagerank(
+        data, n, g, (np.load(d / "pr_oracle.npy"),
+                     np.load(d / "pr_fault_oracle.npy")),
+        None, cfg["supersteps"], False, again=False)
+    lap("pagerank")
+    two = make_data_mesh(2, ranks=MESH_FT_SURVIVORS, device=cfg["device"],
+                         backend=cfg["backend"])
+    box = [ex]
+    del ex, g
+    out["ft/pagerank"] = _mesh_ft_pagerank(cfg, rank, data, two, box)
+    out["ft/in_two"], out["ft/on_card"] = two is not None, on_card
+    out["pagerank"]["identical"] = (
+        out["ft/pagerank"]["crash"]["digest"] == out["pagerank"]["digest"])
+    lap("ft pagerank")
     # merging and hash_sort at the sssp phase's size: PageRank, and the max
     # combine against the single-device run.
     m = cfg["m"]
-    g = graph("sssp", m)
-    oracle = np.load(d / "sssp_pr_oracle.npy")
+    g = _mesh_graph(d, "sssp", m)
+    oracles = (np.load(d / "sssp_pr_oracle.npy"),
+               np.load(d / "sssp_pr_fault_oracle.npy"))
     want_max = np.load(d / "max_single.npy")
     for conn in ("merging", "hash_sort"):
-        cell, site = _mesh_pagerank(data, m, g, oracle, conn,
-                                    MESH_BUCKET_SUPERSTEPS,
-                                    rank == 0 and on_card)
+        cell, site, ex = _mesh_pagerank(data, m, g, oracles, conn,
+                                        MESH_BUCKET_SUPERSTEPS,
+                                        rank == 0 and on_card)
+        del ex
         if site:
             out[f"site/{conn}"] = _row_site(
                 f"{conn} receiver", ("mesh", cell["launches"], site[0]),
@@ -6607,6 +7127,7 @@ def _mesh_rank(rank, world, cfg):
             "equal": bool(np.array_equal(res.state[0].cpu().numpy(),
                                          want_max)),
             "ms": res.seconds / res.iterations * 1e3, "launches": launches}
+    lap("merging, hash_sort")
     # Semi-naive SSSP on all three connectors against BFS.
     want = np.load(d / "bfs.npy")
     for conn in ("dense_psum", "merging", "hash_sort"):
@@ -6620,24 +7141,15 @@ def _mesh_rank(rank, world, cfg):
             "ms": res.seconds / res.iterations * 1e3, "launches": launches,
             "sent": sent, "staged": staged}
     del g
+    lap("sssp")
     if on_card:
         torch.cuda.empty_cache()
 
     # IMRU BGD on (2, 2) pod x data: this rank's quarter of the records.
     mesh = make_mesh((2, 2), ("pod", "data"), device=cfg["device"],
                      backend=cfg["backend"])
-    shard = mesh.linear_index(mesh.batch_axes)
-    rows, dim = cfg["records"] // MESH_RANKS, IMRU_FEATURES
-    gen = torch.Generator(device=mesh.device)
-    gen.manual_seed(cfg["seed"])
-    w_true = torch.randn(dim, generator=gen, device=mesh.device)
-    gen.manual_seed((cfg["seed"] << 8) + 1 + shard)
-    X = torch.empty((rows, dim), device=mesh.device)
-    y = torch.empty(rows, device=mesh.device)
-    for s in range(0, rows, 1 << 20):
-        e = min(s + (1 << 20), rows)
-        X[s:e].normal_(generator=gen)
-        y[s:e] = X[s:e] @ w_true
+    X, y = _mesh_imru_records(mesh, cfg)
+    rows, dim = X.shape
     lr = IMRU_LR_SCALE / cfg["records"]
     lr32 = float(torch.tensor(lr, dtype=torch.float32))
     recs = {"x": X, "y": y}
@@ -6672,12 +7184,20 @@ def _mesh_rank(rank, world, cfg):
     out["imru_bar"], out["imru_int8_bar"] = bar, bar + quant
     out["imru_microbatches"] = imru["flat"][3]
     out["staged_total"] = data.stats.staged_bytes + mesh.stats.staged_bytes
-    del X, y, recs, imru
+    # The last executable holds the records too.
+    del X, y, recs, imru, ex, res
     if on_card:
         torch.cuda.empty_cache()
+    lap("imru")
     out.update(_mesh_generic(data, cfg, rank))
     if on_card:
         torch.cuda.empty_cache()
+    lap("generic")
+    out.update(_mesh_ft(cfg, rank, data, mesh, (w64, bar), two))
+    if on_card:
+        torch.cuda.empty_cache()
+    lap("ft imru, rows")
+    out["seconds"] = seconds
     return out
 
 
@@ -6712,12 +7232,16 @@ def phase_mesh(args, device, report, single=None) -> None:
         np.save(d / "pr_src.npy", src)
         np.save(d / "pr_dst.npy", dst)
         np.save(d / "pr_oracle.npy",
-                _webgraph_oracle(n, args.seed, args.supersteps))
+                _webgraph_oracle(n, args.seed, args.supersteps, device.type))
+        np.save(d / "pr_fault_oracle.npy",
+                pagerank_oracle(src, dst, n, MESH_FAULT_SUPERSTEPS, device))
         src, dst = power_law_graph(m, WEBMAP_MEAN_OUT_DEGREE, args.seed + 1)
         np.save(d / "sssp_src.npy", src)
         np.save(d / "sssp_dst.npy", dst)
         np.save(d / "sssp_pr_oracle.npy",
-                pagerank_oracle(src, dst, m, MESH_BUCKET_SUPERSTEPS))
+                pagerank_oracle(src, dst, m, MESH_BUCKET_SUPERSTEPS, device))
+        np.save(d / "sssp_pr_fault_oracle.npy",
+                pagerank_oracle(src, dst, m, MESH_FAULT_SUPERSTEPS, device))
         source = int(np.bincount(src, minlength=m).argmax())
         A = sp.csr_matrix((np.ones(src.shape[0]), (src, dst)), shape=(m, m))
         bfs = csgraph.shortest_path(A, directed=True, unweighted=True,
@@ -6751,6 +7275,10 @@ def phase_mesh(args, device, report, single=None) -> None:
           f"{r0['transport']}, {per_gpu:g} rank(s) a GPU, ranks ran in "
           f"{time.perf_counter() - t1:.1f}s; bytes staged a rank "
           f"{[r['staged_total'] for r in ranks]}")
+    slowest = max((r["seconds"] for r in ranks),
+                  key=lambda x: sum(x.values()))
+    print(f"mesh: rank 0's cells in s {json.dumps(r0['seconds'])}; the "
+          f"slowest rank's {json.dumps(slowest)}")
     failed = []
     cells = [("pagerank", n, args.supersteps)] + [
         (f"pagerank/{c}", m, MESH_BUCKET_SUPERSTEPS)
@@ -6758,18 +7286,22 @@ def phase_mesh(args, device, report, single=None) -> None:
     for key, size, steps in cells:
         c = r0[key]
         launches = [r[key]["launches"] for r in ranks]
+        second = " (the second: A10c's crash on rank 1)" \
+            if key == "pagerank" else ""
         print(f"mesh: {key} n={size}, {steps} supersteps, {c['connector']} (plan "
               f"{c['notes'][-1]}), slab {c['slab']} edges a rank: "
               f"{c['ms']:.3f} ms/superstep (ranks "
               f"{[round(r[key]['ms'], 3) for r in ranks]}), B1 launches a "
               f"rank {launches}, bytes a rank a superstep "
               f"{ {k: int(v) for k, v in c['sent_per_superstep'].items()} }"
-              f", staged {int(c['staged_per_superstep'])}; rel L1 vs scipy "
+              f", staged {int(c['staged_per_superstep'])}; rel L1 vs "
               f"float64 {c['rel_l1']:.3e} (tol {PAGERANK_L1_TOL}), two runs "
-              f"bit-identical {c['identical']}, rank 1's sends dropped at "
-              f"superstep {steps - 2}: rel L1 "
-              f"{c['fault_rel_l1']:.3e}")
-        if not (c["rel_l1"] <= PAGERANK_L1_TOL and c["identical"]
+              f"bit-identical {c['identical']}{second}, rank 1's sends "
+              f"dropped at superstep "
+              f"{MESH_FAULT_SUPERSTEPS - 2} of {MESH_FAULT_SUPERSTEPS}: rel "
+              f"L1 {c['fault_rel_l1']:.3e}")
+        if not (c["rel_l1"] <= PAGERANK_L1_TOL
+                and all(r[key]["identical"] for r in ranks)
                 and c["fault_rel_l1"] > PAGERANK_L1_TOL
                 and min(launches) > 0
                 and all(r[key]["rel_l1"] == c["rel_l1"] for r in ranks)):
@@ -6807,6 +7339,7 @@ def phase_mesh(args, device, report, single=None) -> None:
         if k != "int8_ef" and c["vs_flat"] > MESH_SCHEDULE_RTOL:
             failed.append(f"imru/{k} vs flat")
     failed += _check_mesh_generic(ranks, want_generic, single or {}, args)
+    failed += _check_mesh_ft(ranks, want_generic, args)
     entry = next(e for e in report if e["name"] == "segment_combine") \
         if any(e["name"] == "segment_combine" for e in report) else None
     sites = [v for k, v in r0.items() if k.startswith("site/")]
@@ -6926,6 +7459,9 @@ def main(argv=None) -> int:
                 lambda: phase_families_train(args, device, report, timed))),
             ("census", lambda: _freeing(
                 "census", lambda: phase_census(args, device, timed)))):
+        free, total = torch.cuda.mem_get_info()
+        print(f"phase {name}: starts with {free} of {total} B free on the "
+              f"card", flush=True)
         t0 = time.perf_counter()
         run()
         seconds[name] = round(time.perf_counter() - t0, 1)

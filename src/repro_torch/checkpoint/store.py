@@ -23,7 +23,11 @@ renamed, and only then is LATEST updated, so a crash mid-write never
 corrupts the restore point.  :class:`CheckpointStore` copies the tree to
 host memory on the caller's thread (a consistent snapshot; for card
 tensors the synchronous device-to-host copy, into pinned memory) and does
-the file I/O on a writer thread.
+the file I/O on a writer thread.  :class:`MeshCheckpointStore` is the
+store every rank of a mesh drives in lockstep: the ranks' shards are
+gathered into the same global tree, one rank writes it, and every rank
+cuts its own shard from it on a restore, so a checkpoint written on one
+mesh restores on another, on one device, or in the other package.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["save_pytree", "restore_pytree", "latest_step", "CheckpointStore"]
+__all__ = ["save_pytree", "restore_pytree", "latest_step", "CheckpointStore",
+           "MeshCheckpointStore"]
 
 # dtype name -> (torch dtype, numpy view on disk, torch view of the same
 # width that numpy can hold)
@@ -304,3 +309,111 @@ class CheckpointStore:
                 os.path.join(self.directory, f"step_{s:08d}"),
                 ignore_errors=True,
             )
+
+
+class MeshCheckpointStore:
+    """A :class:`CheckpointStore` that every rank of a mesh drives in
+    lockstep (on one device, ``mesh=None``, it is that store).
+
+    Checkpoints keep the unsharded layout above.  ``save`` hands the
+    rank's tree to ``to_global`` (a collective: the gather of the shards)
+    and exactly one rank, the mesh's linear index 0, writes the step
+    directory and ``LATEST``.  ``restore`` reads the agreed step on every
+    rank into ``like`` (the global template) and hands it to ``to_local``,
+    which cuts the rank's shard.  The writer's state is agreed before any
+    rank reads or saves: the writer drains its writer thread, and one
+    all-reduce over the mesh carries the step it committed last and
+    whether its last save failed, so every rank reads the same step and a
+    failed save raises on every rank at once (one rank raising alone would
+    leave the others waiting in their next collective).  Every rank calls
+    ``save``, ``latest``, ``restore`` and ``wait`` at the same point of
+    the same program, as SPMD code does; ``quiesce`` is local unless
+    every rank abandons the run together.
+    """
+
+    def __init__(self, directory: str, keep: int = 3, mesh: Any = None,
+                 to_global: Any = None, to_local: Any = None) -> None:
+        self.directory = directory
+        self.mesh = mesh
+        self.to_global = to_global or (lambda tree: tree)
+        self.to_local = to_local or (lambda tree: tree)
+        self.writer = mesh is None or \
+            mesh.linear_index(mesh.axis_names) == 0
+        self.store = CheckpointStore(directory, keep) if self.writer \
+            else None
+
+    def _drained(self) -> Optional[BaseException]:
+        """The writer's last save's failure, after its thread ended."""
+
+        if self.store is None:
+            return None
+        try:
+            self.store.wait()
+        except BaseException as exc:  # agreed below, then re-raised
+            return exc
+        return None
+
+    def _agree(self, value: int, error: Optional[BaseException]) -> int:
+        """The writer's ``value`` on every rank; a writer's ``error``
+        raises on every rank."""
+
+        if self.mesh is not None and self.mesh.wide_axes:
+            from repro_torch.parallel import collectives as C
+
+            t = torch.tensor([float(value), 1.0 if error else 0.0],
+                             dtype=torch.float64, device=self.mesh.device)
+            with C.bind(self.mesh):
+                t = C.pmax(t, self.mesh.wide_axes).cpu()
+            value = int(t[0])
+            if t[1] > 0 and error is None:
+                raise RuntimeError(
+                    f"the checkpoint writer of this mesh failed to save "
+                    f"under {self.directory} (its rank raised the error)")
+        if error is not None:
+            raise error
+        return value
+
+    def save(self, step: int, tree: Any,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        self.wait()
+        tree = self.to_global(tree)
+        if self.store is not None:
+            self.store.save(step, tree, extra)
+
+    def wait(self) -> None:
+        self._agree(-1, self._drained())
+
+    def quiesce(self, agreed: bool = False) -> None:
+        """Join the writer thread without surfacing its error (a failure is
+        already propagating).  ``agreed``: every rank is abandoning the run
+        at once, and one collective tells every rank that the writer is
+        drained, so that no rank starts a successor run (a resume on the
+        survivors' mesh) while the old writer still replaces a step."""
+
+        if self.store is not None:
+            self.store.quiesce()
+        if agreed:
+            self._agree(-1, None)
+
+    def latest(self) -> Optional[int]:
+        """The last committed step, the same on every rank (None: no
+        checkpoint yet)."""
+
+        error, step = self._drained(), -1
+        if self.store is not None and error is None:
+            found = latest_step(self.directory)
+            step = -1 if found is None else found
+        step = self._agree(step, error)
+        return None if step < 0 else step
+
+    def restore(self, like: Any, step: Optional[int] = None):
+        """``(this rank's tree, step, extra)`` of ``step`` (default: the
+        agreed latest), read into the global template ``like``."""
+
+        if step is None:
+            step = self.latest()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under "
+                                        f"{self.directory}")
+        tree, step, extra = restore_pytree(self.directory, like, step)
+        return self.to_local(tree), step, extra

@@ -66,9 +66,12 @@ combine; ``psum-scatter``: sorted partial combines and one ``psum``).
 The convergence flag and the overflow fallback are agreed by all ranks,
 and the result holds the global grids on every rank.  The Listing-1/2
 steps (``build_pregel_steps``, ``build_imru_step``) run on a mesh too.
-Not ported yet, raising ``NotImplementedError`` with the queue item:
-fault tolerance and ``remesh`` on a mesh (A10c), ``run(params=)`` and
-``run_batched`` on a mesh (A10d).
+Fault tolerance runs there as on one device: checkpoints hold the global
+grids (a rank's blocks gathered on save, written by the mesh's first
+rank, cut again on restore), and :meth:`GenericExecutable.remesh` moves a
+program onto the surviving ranks, or onto one device, to resume from
+disk.  Not ported yet, raising ``NotImplementedError`` with the queue
+item: ``run(params=)`` and ``run_batched`` on a mesh (A10d).
 """
 
 from __future__ import annotations
@@ -90,6 +93,7 @@ import torch
 from repro_torch.core import algebra, stratify
 from repro_torch.core.datalog import Const, Program
 from repro_torch.core.fixpoint import (
+    AgreedFailure,
     DriverConfig,
     FixpointResult,
     HostFixpointDriver,
@@ -1625,6 +1629,9 @@ class GenericExecutable:
     owners: Dict[int, str] = field(default_factory=dict, repr=False)
     local_relations: Optional[Dict[str, Any]] = field(default=None,
                                                       repr=False)
+    # One note per remesh in this executable's lineage
+    # (``FixpointResult.remesh_events``).
+    remesh_events: Tuple[str, ...] = ()
 
     # -- state plumbing -----------------------------------------------------
 
@@ -1635,7 +1642,10 @@ class GenericExecutable:
     def _is_row(self, pred: str) -> bool:
         return self.storage.get(pred) == "row-table"
 
-    def _empty_out(self, pred: str) -> Dict[str, Any]:
+    def _empty_out(self, pred: str, whole: bool = False) -> Dict[str, Any]:
+        """Zeros of ``pred``'s storage; ``whole`` gives a sharded grid's
+        global shape instead of this rank's block."""
+
         keys, vals = self.sigs[pred]
         dev = self.device
         if self._is_row(pred):
@@ -1647,7 +1657,8 @@ class GenericExecutable:
                 "values": {p: torch.zeros(cap, dtype=torch.float32,
                                           device=dev) for p in vals},
             }
-        shape = self._grid_shape(pred, len(keys))
+        shape = (self.domain,) * len(keys) if whole \
+            else self._grid_shape(pred, len(keys))
         return {
             "present": torch.zeros(shape, dtype=torch.bool, device=dev),
             "values": {p: torch.zeros(shape, dtype=torch.float32,
@@ -1662,8 +1673,8 @@ class GenericExecutable:
             return (self.block[1],) + (self.domain,) * (k - 1)
         return (self.domain,) * k
 
-    def _empty_entry(self, pred: str) -> Dict[str, Any]:
-        entry = self._init_entry(self._empty_out(pred))
+    def _empty_entry(self, pred: str, whole: bool = False) -> Dict[str, Any]:
+        entry = self._init_entry(self._empty_out(pred, whole))
         entry["delta"] = torch.zeros_like(entry["present"])
         return entry
 
@@ -2259,16 +2270,18 @@ class GenericExecutable:
                     order.append(df.target)
         return tuple(order)
 
-    def _ckpt_tree(self, state, materialized) -> Dict[str, Any]:
+    def _ckpt_tree(self, state, materialized,
+                   whole: bool = False) -> Dict[str, Any]:
         """The durable snapshot of an in-flight run: all carried state plus
         every materialized view (zero-padded for targets not yet computed),
-        in the JAX package's checkpoint layout."""
+        in the JAX package's checkpoint layout.  On a mesh it holds this
+        rank's blocks (``whole``: zero padding of the global shape)."""
 
         mat = {
             t: (
                 dict(e, values=dict(e["values"]))
                 if (e := materialized.get(t)) is not None
-                else self._empty_out(t)
+                else self._empty_out(t, whole)
             )
             for t in self._mat_targets()
         }
@@ -2276,20 +2289,70 @@ class GenericExecutable:
                 "mat": mat}
 
     def _ckpt_like(self) -> Dict[str, Any]:
-        """A zero template of :meth:`_ckpt_tree`'s structure on this
-        executable's device (the ``like`` of a restore, which puts the
-        restored leaves there)."""
+        """A zero template of :meth:`_ckpt_tree`'s global structure on
+        this executable's device (the ``like`` of a restore, which puts
+        the restored leaves there)."""
 
         state = {
-            pred: self._empty_entry(pred)
+            pred: self._empty_entry(pred, whole=True)
             for ph in self.phases for pred in ph.carried
         }
-        return self._ckpt_tree(state, {})
+        return self._ckpt_tree(state, {}, whole=True)
+
+    def _ckpt_blocks(self, tree, fn) -> Dict[str, Any]:
+        """``tree`` (a :meth:`_ckpt_tree`) with ``fn`` applied to every
+        grid of a sharded predicate (the overflow flag stays)."""
+
+        def entry(pred, e):
+            if pred not in self.sharded:
+                return e
+            return {k: v if k == "overflow" else tree_map(fn, v)
+                    for k, v in e.items()}
+
+        return {part: {p: entry(p, e) for p, e in tree[part].items()}
+                for part in tree}
+
+    def _ckpt_global(self, tree) -> Dict[str, Any]:
+        """The global checkpoint tree of this rank's blocks (a collective:
+        one all-gather a sharded grid)."""
+
+        return self._ckpt_blocks(
+            tree, lambda g: _full_grid(g, self.mesh, self.mesh.batch_axes))
+
+    def _ckpt_local(self, tree) -> Dict[str, Any]:
+        """This rank's blocks of a restored global checkpoint tree."""
+
+        return self._ckpt_blocks(
+            tree,
+            lambda g: g.narrow(0, *self.block).to(self.device, copy=True))
 
     def remesh(self, mesh) -> "GenericExecutable":
-        raise NotImplementedError(
-            "remesh is not ported yet: ROADMAP A10c (elastic meshes)"
+        """Recompile this program onto ``mesh`` (the surviving ranks,
+        :func:`~repro_torch.launch.mesh.make_mesh` with ``ranks=``; every
+        rank of it calls this) or onto one device (``None``, on this
+        executable's device): the same global relations and program, the
+        same ``exchange=``, storage and other compile options, the plan
+        re-derived for the new topology.  The remesh is recorded in
+        ``plan.notes`` and carried into ``FixpointResult.remesh_events``.
+        Checkpoints written by the old executable restore into the new
+        one: they hold the global grids."""
+
+        from repro_torch.launch.mesh import remesh_note
+
+        relations, device = dict(self.relations), None
+        if mesh is None:
+            device = self.device
+            relations = {name: rel if name in self.chunked_edb
+                         else _relation_to(rel, device)
+                         for name, rel in relations.items()}
+        new = compile_program(
+            self.program, relations, mesh=mesh, semi_naive=self.semi_naive,
+            domain=self.domain, device=device, **self._compile_kwargs,
         )
+        note = remesh_note(self.mesh, mesh)
+        new.plan = replace(new.plan, notes=new.plan.notes + (note,))
+        new.remesh_events = self.remesh_events + (note,)
+        return new
 
     # -- parameterized query bindings (online serving) ----------------------
 
@@ -2559,16 +2622,15 @@ class GenericExecutable:
         from the row run's.
 
         On a mesh every rank calls ``run`` and gets the same global
-        result; fault tolerance there is ROADMAP A10c and ``params`` A10d,
-        and both raise ``NotImplementedError``.
+        result.  Fault tolerance runs there too (every rank passes the same
+        options; an injector may fire on one rank only, and the driver
+        agrees the crash): the checkpoint holds the global grids, gathered
+        on save, written by the mesh's first rank, and cut to each rank's
+        blocks on restore.  ``params`` on a mesh is ROADMAP A10d and raises
+        ``NotImplementedError``.
         """
 
         if self.mesh is not None:
-            if checkpoint_dir is not None or injector is not None or resume:
-                raise NotImplementedError(
-                    "fault tolerance on a mesh is not ported yet: ROADMAP "
-                    "A10c (checkpoints, restores and remesh on a mesh)"
-                )
             if params:
                 raise NotImplementedError(
                     "run(params=) on a mesh is not ported yet: ROADMAP A10d "
@@ -2597,12 +2659,16 @@ class GenericExecutable:
                     "RowRelation whose dense grid is infeasible — raise "
                     "compile_program(row_cap=) instead"
                 )
+        kwargs = {k: v for k, v in self._compile_kwargs.items()
+                  if k not in ("storage", "row_cap", "chunks")}
         dense = compile_program(
             self.program, self.relations, mesh=self.mesh,
             semi_naive=self.semi_naive, domain=self.domain,
-            storage="dense-grid", device=self.device,
-            **self._compile_kwargs,
+            storage="dense-grid", device=self.device, **kwargs,
         )
+        # The fallback executable is this one's lineage: remesh events
+        # accumulated before the overflow stay on the result.
+        dense.remesh_events = self.remesh_events
         res = dense.run(max_iters, on_device, params=params)
         return replace(res, storage_fallback=True)
 
@@ -2628,9 +2694,11 @@ class GenericExecutable:
             raise ExecutorError("resume=True needs checkpoint_dir=")
         store = None
         if checkpoint_dir is not None:
-            from repro_torch.checkpoint import CheckpointStore, latest_step
+            from repro_torch.checkpoint import MeshCheckpointStore
 
-            store = CheckpointStore(checkpoint_dir, keep=keep_checkpoints)
+            store = MeshCheckpointStore(
+                checkpoint_dir, keep=keep_checkpoints, mesh=self.mesh,
+                to_global=self._ckpt_global, to_local=self._ckpt_local)
             if checkpoint_every <= 0:
                 checkpoint_every = 8
 
@@ -2643,10 +2711,10 @@ class GenericExecutable:
         start_phase, start_iter = 1, 0
         done_iters: List[int] = []
         restored_from_disk = False
-        if store is not None and resume and \
-                latest_step(checkpoint_dir) is not None:
+        step = store.latest() if store is not None and resume else None
+        if step is not None:
             restored_from_disk = True
-            tree, _, extra = store.restore(self._ckpt_like())
+            tree, _, extra = store.restore(self._ckpt_like(), step)
             state = tree["state"]
             start_phase = int(extra.get("phase", 1))
             start_iter = int(extra.get("iteration", 0))
@@ -2737,17 +2805,19 @@ class GenericExecutable:
                     save=save_hook,
                     restore=restore_hook,
                     injector=shifted,
+                    mesh=self.mesh,
                 )
                 try:
                     res = driver.run(
                         state, start_iter=start_iter if resumed else 0
                     )
-                except BaseException:
+                except BaseException as exc:
                     # The failure is already propagating: drain the async
                     # writer so it cannot race a successor run (or resume)
                     # over the same checkpoint directory.
                     if store is not None:
-                        store.quiesce()
+                        store.quiesce(
+                            agreed=isinstance(exc, AgreedFailure))
                     raise
                 restarts += res.restarts
                 stragglers += res.straggler_events
@@ -2804,6 +2874,7 @@ class GenericExecutable:
             restarts=restarts,
             phase_iterations=tuple(phase_iters),
             straggler_events=stragglers,
+            remesh_events=self.remesh_events,
         )
 
 
@@ -3157,8 +3228,9 @@ def compile_program(
         merge_monoids=merge_monoids,
         shared_ids=shared_ids,
         _compile_kwargs={"hw": hw, "force_connector": force_connector,
-                         "rewrite": rewrite, "exchange": exchange,
-                         "hbm_budget": hbm_budget},
+                         "rewrite": rewrite, "storage": storage,
+                         "row_cap": row_cap, "exchange": exchange,
+                         "hbm_budget": hbm_budget, "chunks": chunks},
         storage=dict(plan.storage),
         row_caps=dict(plan.row_caps),
         row_cap=plan.row_cap,
@@ -3249,6 +3321,16 @@ def _shard(ex: GenericExecutable) -> None:
         var = ex._owner_var(df)
         if var is not None:
             ex.owners[id(df)] = var
+
+
+def _relation_to(rel, device: torch.device):
+    """``rel`` with its tensors on ``device``."""
+
+    if isinstance(rel, RowRelation):
+        return RowRelation(rel.n, rel.key_positions, rel.rows.to(device),
+                           {p: v.to(device) for p, v in rel.values.items()})
+    return Relation(rel.n, rel.key_positions, rel.present.to(device),
+                    {p: v.to(device) for p, v in rel.values.items()})
 
 
 def _wrong_device(name: str, where, device: torch.device) -> None:

@@ -15,7 +15,10 @@ derives no new facts (``converged(prev, new)``).  On a mesh every rank runs
 its own driver over its shard, and both drivers read the one flag a
 superstep that :func:`agreed` all-reduces, so that every rank stops at the
 same iteration: a rank that stopped alone would leave the others waiting
-in the next collective.
+in the next collective.  For the same reason the host driver agrees its
+fault-tolerance decisions on a mesh (a crash at the step boundary, a
+straggler), and its checkpoints go through
+:class:`~repro_torch.checkpoint.MeshCheckpointStore`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.parallel import collectives as C
 
 __all__ = [
+    "AgreedFailure",
     "FixpointResult",
     "device_fixpoint",
     "HostFixpointDriver",
@@ -58,9 +62,19 @@ class FixpointResult:
     # Iterations of each fixpoint phase of a multi-phase generic program.
     phase_iterations: Tuple[int, ...] = ()
     straggler_events: int = 0
+    # One note per elastic remesh the executable went through
+    # ("remesh(8->4: data=4)").
+    remesh_events: Tuple[str, ...] = ()
     # The generic executor re-ran the program on dense-grid storage after a
     # row-table slab overflowed its capacity (the lossless fallback).
     storage_fallback: bool = False
+
+
+class AgreedFailure(RuntimeError):
+    """A failure every rank of a mesh agreed on and gives up on together
+    (past ``max_restarts``, or with no restore hook): each rank raises it
+    at the same iteration, the rank whose own check failed with that
+    failure as its cause.  Handlers may make one more collective."""
 
 
 def _synchronize(state: Any) -> None:
@@ -148,6 +162,25 @@ class HostFixpointDriver:
     Only a host exception is recoverable: a device-side assert on the card
     leaves the CUDA context broken for the rest of the process, and every
     later call on it fails, the restore's included.
+
+    On a ``mesh`` (every rank runs its own driver in lockstep) a driver
+    with fault tolerance or a straggler hook (``restore``, ``injector``,
+    ``fail_at`` or ``on_straggler``; the same on every rank) agrees its
+    decisions: each rank runs its boundary checks (``fail_at``,
+    ``maybe_fail(j)``) locally, and one all-reduce (max) over every axis of
+    the mesh, before the step, carries this boundary's failure flag and the
+    previous iteration's straggler flag and time.  A crash on any one rank
+    makes every rank count one restart and restore together (the restore
+    hook is collective); a straggler on any rank makes every rank count it
+    and call ``on_straggler`` for that iteration, before the next step
+    runs, as one device does.  The last iteration's straggler flag is
+    agreed after the loop.  A mesh driver without these makes no extra
+    collective and counts its own stragglers.  A failure inside a step on
+    a mesh propagates (ROADMAP C17, a deliberate departure from the
+    reference's one controller): the other ranks are already inside the
+    step's collectives, so no in-process restore can reach them; recovery
+    is a new run that resumes from disk, on the same mesh or after a
+    ``remesh``.
     """
 
     def __init__(
@@ -163,6 +196,7 @@ class HostFixpointDriver:
         ] = None,
         injector: Optional[Any] = None,
         on_straggler: Optional[Callable[[int, float], None]] = None,
+        mesh: Optional[Any] = None,
     ) -> None:
         self.step = step
         self.converged = converged
@@ -175,6 +209,7 @@ class HostFixpointDriver:
         self.injector = injector
         self.on_straggler = on_straggler
         self.select_step = select_step
+        self.mesh = mesh
         self.mode_history: list[str] = []
         self.iter_times: list[float] = []
         self.straggler_events = 0
@@ -188,33 +223,105 @@ class HostFixpointDriver:
         self.fail_at: Optional[int] = None
         self._failed_once = False
 
+    def _boundary(self, j: int) -> Optional[Exception]:
+        """This rank's failure at the step boundary of iteration ``j``."""
+
+        try:
+            if self.fail_at is not None and j == self.fail_at \
+                    and not self._failed_once:
+                self._failed_once = True
+                raise RuntimeError(f"injected failure at iteration {j}")
+            if self.injector is not None:
+                self.injector.maybe_fail(j)
+        except Exception as exc:  # noqa: BLE001 — FT boundary
+            return exc
+        return None
+
+    def _straggled(self, dt: float) -> bool:
+        """Whether an iteration of ``dt`` s (just appended to
+        ``iter_times``) is slower than ``straggler_factor`` times the
+        trailing mean of the last ten since the last restore."""
+
+        window = self.iter_times[self._window_start:]
+        if len(window) <= 3:
+            return False
+        recent = window[-11:-1]
+        return dt > self.config.straggler_factor * sum(recent) / len(recent)
+
+    def _straggler(self, j: int, dt: float) -> None:
+        self.straggler_events += 1
+        window = self.iter_times[self._window_start:]
+        recent = window[-11:-1] or [dt]
+        trailing = sum(recent) / len(recent)
+        logger.warning(
+            "straggler: iteration %d took %.3fs (%.1fx trailing mean %.3fs)",
+            j, dt, dt / max(trailing, 1e-12), trailing,
+        )
+        if self.on_straggler is not None:
+            self.on_straggler(j, dt)
+
+    def _agreed_flags(self, failure, late) -> Tuple[bool, Optional[Tuple]]:
+        """One all-reduce (max) over the mesh of this rank's boundary
+        failure and its last iteration's ``late = (j, dt, straggled)``:
+        (a failure on any rank, the last iteration as every rank takes it
+        (``straggled`` on any rank, the slowest ``dt``) or None)."""
+
+        j, dt, slow = late if late is not None else (-1, 0.0, False)
+        t = torch.tensor([1.0 if failure is not None else 0.0,
+                          1.0 if slow else 0.0, dt, float(j)],
+                         dtype=torch.float64, device=self.mesh.device)
+        with C.bind(self.mesh):
+            t = C.pmax(t, self.mesh.wide_axes).cpu()
+        late = None if t[3] < 0 else (int(t[3]), float(t[2]), bool(t[1] > 0))
+        return bool(t[0] > 0), late
+
     def run(self, init_state: Any, start_iter: int = 0) -> FixpointResult:
         state, j = init_state, start_iter
         cfg = self.config
         t_start = time.perf_counter()
         done = False
+        lockstep = self.mesh is not None and bool(self.mesh.wide_axes)
+        agree = lockstep and (
+            self.restore is not None or self.injector is not None
+            or self.fail_at is not None or self.on_straggler is not None)
+        late = None  # the last iteration, awaiting the agreement
         while j < cfg.max_iters and not done:
             t0 = time.perf_counter()
-            try:
-                if self.fail_at is not None and j == self.fail_at \
-                        and not self._failed_once:
-                    self._failed_once = True
-                    raise RuntimeError(f"injected failure at iteration {j}")
-                if self.injector is not None:
-                    self.injector.maybe_fail(j)
-                step_fn = self.step
-                if self.select_step is not None:
-                    step_fn, mode = self.select_step(state, j)
-                    self.mode_history.append(mode)
-                new_state = step_fn(state, j)
-                _synchronize(new_state)
-            except Exception as exc:  # noqa: BLE001 — FT boundary
+            failure = self._boundary(j)
+            failed = failure is not None
+            if agree:
+                failed, late = self._agreed_flags(failure, late)
+                if late is not None and late[2]:
+                    self._straggler(late[0], late[1])
+                late = None
+            if not failed:
+                try:
+                    step_fn = self.step
+                    if self.select_step is not None:
+                        step_fn, mode = self.select_step(state, j)
+                        self.mode_history.append(mode)
+                    new_state = step_fn(state, j)
+                    _synchronize(new_state)
+                except Exception as exc:  # noqa: BLE001 — FT boundary
+                    if lockstep:
+                        raise  # C17: the other ranks are inside the step
+                    failure, failed = exc, True
+            if failed:
                 self.restarts += 1
                 if self.restarts > cfg.max_restarts or self.restore is None:
-                    raise
+                    if agree:
+                        raise AgreedFailure(
+                            f"a rank of the mesh failed at iteration {j} "
+                            f"(restart {self.restarts} of at most "
+                            f"{cfg.max_restarts})"
+                            + ("" if failure is None else f": {failure}")
+                        ) from failure
+                    raise failure
                 logger.warning(
                     "iteration %d failed (%s); restoring from checkpoint "
-                    "(restart %d/%d)", j, exc, self.restarts, cfg.max_restarts
+                    "(restart %d/%d)", j,
+                    failure if failure is not None else "on another rank",
+                    self.restarts, cfg.max_restarts
                 )
                 state, j = self.restore()
                 self._window_start = len(self.iter_times)
@@ -226,18 +333,10 @@ class HostFixpointDriver:
 
             dt = time.perf_counter() - t0
             self.iter_times.append(dt)
-            window = self.iter_times[self._window_start:]
-            if len(window) > 3:
-                recent = window[-11:-1]
-                trailing = sum(recent) / len(recent)
-                if dt > cfg.straggler_factor * trailing:
-                    self.straggler_events += 1
-                    logger.warning(
-                        "straggler: iteration %d took %.3fs (%.1fx trailing "
-                        "mean %.3fs)", j, dt, dt / trailing, trailing,
-                    )
-                    if self.on_straggler is not None:
-                        self.on_straggler(j, dt)
+            if agree:
+                late = (j, dt, self._straggled(dt))
+            elif self._straggled(dt):
+                self._straggler(j, dt)
 
             done = bool(self.converged(state, new_state))
             state = new_state
@@ -250,6 +349,10 @@ class HostFixpointDriver:
             if j % LOG_EVERY == 0:
                 logger.info("iteration %d done in %.3fs", j, dt)
 
+        if agree and late is not None:
+            _, late = self._agreed_flags(None, late)
+            if late[2]:
+                self._straggler(late[0], late[1])
         if self.save is not None and cfg.checkpoint_every:
             self.save(state, j)
         return FixpointResult(
@@ -274,36 +377,46 @@ def checkpointed_run(
     resume: bool = False,
     max_restarts: int = 3,
     keep_checkpoints: int = 3,
+    mesh: Optional[Any] = None,
+    to_global: Optional[Callable[[Any], Any]] = None,
+    to_local: Optional[Callable[[Any], Any]] = None,
 ) -> FixpointResult:
     """Run a single-loop fixpoint on the host driver with checkpoints.
 
     ``make_driver(config, save, restore)`` builds the driver from a
     :class:`DriverConfig` and the save/restore hooks (``None`` without a
     ``checkpoint_dir``).  With one, the state is checkpointed through a
-    :class:`~repro_torch.checkpoint.CheckpointStore` every
+    :class:`~repro_torch.checkpoint.MeshCheckpointStore` every
     ``checkpoint_every`` iterations (default 8) and at entry, a failure
     restores from the last one, and ``resume=True`` starts from the
     directory's latest.  ``like()`` gives the restore template: restored
-    leaves land on its device."""
+    leaves land on its device.  On a ``mesh`` every rank calls this in
+    lockstep: ``to_global`` gathers a rank's state into the global tree
+    the checkpoint holds, ``like()`` is that global tree, and ``to_local``
+    cuts a restored one to the rank's shard."""
 
     store, start_iter = None, 0
     save = restore = None
     if checkpoint_dir is not None:
-        from repro_torch.checkpoint import CheckpointStore, latest_step
+        from repro_torch.checkpoint import MeshCheckpointStore
 
-        store = CheckpointStore(checkpoint_dir, keep=keep_checkpoints)
+        store = MeshCheckpointStore(checkpoint_dir, keep=keep_checkpoints,
+                                    mesh=mesh, to_global=to_global,
+                                    to_local=to_local)
         if checkpoint_every <= 0:
             checkpoint_every = 8
 
         def save(state, j):
             store.save(j, state, extra={"iteration": j})
 
-        def restore():
-            state, j, _ = store.restore(like=like())
+        def restore(step=None):
+            state, j, _ = store.restore(like=like(), step=step)
             return state, int(j)
 
-        if resume and latest_step(checkpoint_dir) is not None:
-            init, start_iter = restore()
+        if resume:
+            step = store.latest()
+            if step is not None:
+                init, start_iter = restore(step)
     driver = make_driver(
         DriverConfig(max_iters=max_iters,
                      checkpoint_every=checkpoint_every if store else 0,
@@ -316,11 +429,12 @@ def checkpointed_run(
         save(init, 0)
     try:
         res = driver.run(init, start_iter=start_iter)
-    except BaseException:
+    except BaseException as exc:
         # Drain the writer before the failure propagates, so it cannot
-        # race a successor run over the same checkpoint directory.
+        # race a successor run over the same checkpoint directory (on a
+        # mesh, one that other ranks start at once).
         if store is not None:
-            store.quiesce()
+            store.quiesce(agreed=isinstance(exc, AgreedFailure))
         raise
     if store is not None:
         store.wait()  # surface any pending async-save failure

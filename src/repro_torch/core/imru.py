@@ -155,15 +155,14 @@ class IMRUExecutable:
         ``resume=True`` continues from disk.  A detected straggler switches
         the reduce to the planner's k-ary aggregation tree when
         ``straggler_fallback`` is on; fallbacks taken are recorded in
-        ``straggler_fallbacks`` and ``plan.notes``.  On a mesh fault
-        tolerance is ROADMAP A10c, and the straggler fallback is off: one
-        rank that swapped its schedule alone would leave the lockstep."""
+        ``straggler_fallbacks`` and ``plan.notes``.  On a mesh the model
+        is replicated: the mesh's first rank writes it, every rank reads
+        it back, and the driver agrees a crash or a straggler on any rank
+        (:class:`~repro_torch.core.fixpoint.HostFixpointDriver`), so every
+        rank restores, or swaps in the k-ary tree, at the same
+        iteration."""
 
         ft = checkpoint_dir is not None or injector is not None
-        if ft and self.mesh is not None:
-            raise NotImplementedError(
-                "fault tolerance on a mesh is not ported yet: ROADMAP A10c"
-            )
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir=")
         model = self.init()
@@ -174,7 +173,7 @@ class IMRUExecutable:
         def make_driver(config, save, restore):
             driver = self.driver(config, save=save, restore=restore,
                                  injector=injector)
-            if straggler_fallback and self.mesh is None:
+            if straggler_fallback:
                 driver.on_straggler = self._kary_fallback(driver)
             return driver
 
@@ -182,14 +181,17 @@ class IMRUExecutable:
             make_driver, model, self.init, max_iters,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             resume=resume, max_restarts=max_restarts,
-            keep_checkpoints=keep_checkpoints,
+            keep_checkpoints=keep_checkpoints, mesh=self.mesh,
         )
 
     def _kary_fallback(self, driver: HostFixpointDriver) -> Callable:
         """Straggler response: re-plan the reduce as the k-ary aggregation
         tree (a straggling participant delays one tree edge, not the whole
         synchronous ring), rebuild the step, and swap it into the live
-        driver — the remaining iterations run the new schedule.
+        driver — the remaining iterations run the new schedule.  On a mesh
+        the driver calls this on every rank at the same iteration (the
+        straggler is agreed), and each rebuilds the same step over the
+        mesh.
         """
 
         def on_straggler(j: int, dt: float) -> None:
@@ -201,8 +203,8 @@ class IMRUExecutable:
                 codec=self.plan.reduce.codec,
                 microbatches=self.plan.microbatches,
             )
-            step, _ = build_imru_step(self.task, self.records, new_plan, None,
-                                      self.mesh_spec)
+            step, _ = build_imru_step(self.task, self.records, new_plan,
+                                      self.mesh, self.mesh_spec)
             note = f"straggler-fallback(kary_tree @ iteration {j})"
             self.plan = replace(new_plan, notes=new_plan.notes + (note,))
             self.step = step
@@ -216,6 +218,7 @@ class IMRUExecutable:
             step=lambda m, j: self.step(m, j),
             converged=self.converged,
             config=config,
+            mesh=self.mesh,
             **hooks,
         )
 

@@ -23,12 +23,15 @@ and the edges whose source it owns.  The carry holds the shard's rows;
 each decision the host takes between supersteps (converged, dense /
 sparse / halt, the sparse capacity) comes from collectively reduced
 values, so every rank runs the same superstep; the result's state is
-gathered to the global arrays after the loop.
+gathered to the global arrays after the loop.  Checkpoints hold the
+global carry (gathered on save, written by one rank, cut to each rank's
+rows on restore), so :meth:`PregelExecutable.remesh` can move a run onto
+the surviving ranks, or onto one device, and resume it from disk.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -56,7 +59,7 @@ from repro_torch.core.planner import (
 )
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import mesh_spec_of
+from repro_torch.launch.mesh import mesh_spec_of, remesh_note
 from repro_torch.parallel import collectives as C
 
 __all__ = ["Graph", "VertexProgram", "PregelExecutable", "compile_pregel"]
@@ -136,6 +139,11 @@ class PregelExecutable:
     shard_count_fn: Optional[Callable] = field(default=None, repr=False)
     _sparse_steps: Dict[int, Callable] = field(default_factory=dict,
                                                repr=False)
+    # One note per remesh in this executable's lineage, and the compile
+    # options :meth:`remesh` recompiles with.
+    remesh_events: Tuple[str, ...] = ()
+    _compile_kwargs: Dict[str, Any] = field(default_factory=dict,
+                                            repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -155,7 +163,11 @@ class PregelExecutable:
                                 for a in self.batch_axes]))
         rows = self.graph.n_vertices // n_shards
         lo = self.mesh.linear_index(self.batch_axes) * rows
-        return tree_map(lambda t: t[lo:lo + rows].to(self.device), tree)
+        # A copy: a shard cut from a restored global carry must not keep
+        # the global tensor alive.
+        return tree_map(
+            lambda t: t.narrow(0, lo, rows).to(self.device, copy=True),
+            tree)
 
     def gather(self, tree: Any) -> Any:
         """The global per-vertex tensors from every rank's rows (a
@@ -168,10 +180,11 @@ class PregelExecutable:
                 lambda t: C.all_gather(t, self.batch_axes).reshape(
                     (-1,) + tuple(t.shape[1:])), tree)
 
-    def init(self) -> Tuple[Any, torch.Tensor]:
-        """The initial carry: ``init_vertex`` over the global ids and
-        vertex data (UDFs may close over global arrays, as the JAX
-        package's see the global state), then this rank's rows."""
+    def global_init(self) -> Tuple[Any, torch.Tensor]:
+        """The initial global carry: ``init_vertex`` over the global ids
+        and vertex data (UDFs may close over global arrays, as the JAX
+        package's see the global state).  It is also the template a
+        checkpoint restores into: checkpoints hold the global carry."""
 
         n = self.graph.n_vertices
         device = self.device
@@ -179,7 +192,12 @@ class PregelExecutable:
         vdata = tree_map(lambda t: t.to(device), self.graph.vertex_data)
         state = self.prog.init_vertex(ids, vdata)
         active = torch.ones(n, dtype=torch.bool, device=device)
-        return self.to_shard((state, active))
+        return state, active
+
+    def init(self) -> Tuple[Any, torch.Tensor]:
+        """The initial carry: :meth:`global_init`'s rows of this rank."""
+
+        return self.to_shard(self.global_init())
 
     def converged(self, prev, new) -> torch.Tensor:
         """No vertex active on any shard: one all-reduced flag."""
@@ -265,14 +283,19 @@ class PregelExecutable:
         exclude each other.  On a mesh the result's state is the global
         state, gathered after the loop (``seconds`` leaves the gather out).
 
-        Fault tolerance (host driver only, one device only: on a mesh it
-        is ROADMAP A10c): ``checkpoint_dir`` checkpoints the ``(state,
-        active)`` carry host-side every ``checkpoint_every`` supersteps
-        (default 8) through a :class:`~repro_torch.checkpoint.
-        CheckpointStore`; a crash restores and replays, and ``resume=True``
-        continues a run from disk.  ``injector`` overrides the
-        compile-time :class:`~repro_torch.ft.FailureInjector` at the step
-        boundary.  A restored carry lands on the graph's device."""
+        Fault tolerance (host driver only): ``checkpoint_dir``
+        checkpoints the ``(state, active)`` carry host-side every
+        ``checkpoint_every`` supersteps (default 8) through a
+        :class:`~repro_torch.checkpoint.MeshCheckpointStore`; a crash
+        restores and replays, and ``resume=True`` continues a run from
+        disk, also one written on another mesh (after :meth:`remesh`) or
+        by the JAX package.  ``injector`` overrides the compile-time
+        :class:`~repro_torch.ft.FailureInjector` at the step boundary.  A
+        restored carry lands on the executable's device.  On a mesh
+        every rank passes the same options (an injector may fire on one
+        rank only: the driver agrees the crash): the checkpoint holds the
+        global carry, gathered on save and written by the mesh's first
+        rank, and each rank restores its own rows."""
 
         if on_device and adaptive:
             raise ValueError(
@@ -285,10 +308,6 @@ class PregelExecutable:
             raise ValueError(
                 "fault tolerance (checkpoint_dir/injector) needs the host "
                 "driver: pass on_device=False"
-            )
-        if ft and self.mesh is not None:
-            raise NotImplementedError(
-                "fault tolerance on a mesh is not ported yet: ROADMAP A10c"
             )
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir=")
@@ -306,13 +325,17 @@ class PregelExecutable:
                 lambda config, save, restore: self.driver(
                     config, adaptive=adaptive, save=save, restore=restore,
                     injector=injector),
-                init, self.init, max_iters, checkpoint_dir=checkpoint_dir,
+                init, self.global_init, max_iters,
+                checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every, resume=resume,
                 max_restarts=max_restarts,
-                keep_checkpoints=keep_checkpoints,
+                keep_checkpoints=keep_checkpoints, mesh=self.mesh,
+                to_global=self.gather, to_local=self.to_shard,
             )
         if self.batch_axes:
             res.state = self.gather(res.state)
+        if self.remesh_events:
+            res = replace(res, remesh_events=self.remesh_events)
         return res
 
     def driver(
@@ -329,13 +352,32 @@ class PregelExecutable:
             converged=self.converged,
             config=config,
             select_step=self.adaptive_select_step if adaptive else None,
+            mesh=self.mesh,
             **hooks,
         )
 
     def remesh(self, mesh) -> "PregelExecutable":
-        raise NotImplementedError(
-            "remesh is not ported yet: ROADMAP A10c (elastic meshes)"
-        )
+        """Recompile this vertex program onto ``mesh`` (the surviving
+        ranks, :func:`~repro_torch.launch.mesh.make_mesh` with ``ranks=``;
+        every rank of it calls this) or onto one device (``None``, on this
+        executable's device): the same global graph and program, the
+        stored compile options, the plan re-derived for the new topology.
+        The remesh is recorded in ``plan.notes`` and carried into
+        ``FixpointResult.remesh_events``.  Checkpoints written by the old
+        executable restore into the new one: they hold the global
+        carry."""
+
+        graph, kw = self.graph, dict(self._compile_kwargs)
+        if mesh is None:
+            graph = _graph_to(graph, self.device)
+            kw["device"] = self.device
+        new = compile_pregel(self.prog, graph, mesh=mesh,
+                             semi_naive=self.semi_naive,
+                             injector=self.injector, **kw)
+        note = remesh_note(self.mesh, mesh)
+        new.plan = replace(new.plan, notes=new.plan.notes + (note,))
+        new.remesh_events = self.remesh_events + (note,)
+        return new
 
 
 def _meta_like(t: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
@@ -482,6 +524,8 @@ def compile_pregel(
         injector=bundle.injector,
         mesh=mesh,
         shard_count_fn=bundle.shard_count_fn,
+        _compile_kwargs={"hw": hw, "force_connector": force_connector,
+                         "payload_bytes": payload_bytes},
     )
 
 

@@ -12,8 +12,10 @@ bounded-staleness aggregation (the port of :mod:`repro.ft.elastic`).
   recovery from it means a new process that resumes from disk
   (``resume=True``).
 * **Elastic re-planning.**  :class:`ElasticPlanner` maps a shrunken device
-  set to the nearest valid mesh description; moving state onto that mesh
-  (``remesh``) is the multi-GPU work of ROADMAP A10c.
+  set to the nearest valid mesh description; the executables'
+  ``remesh(mesh)`` recompiles onto the surviving ranks
+  (:func:`repro_torch.launch.mesh.make_mesh` with ``ranks=``) and resumes
+  from the unsharded checkpoints.
 * **Straggler mitigation.**  :func:`stale_aggregate` reduces over the
   shards that arrived and carries the late ones into the next step, under
   any monoid for which a late application is sound.

@@ -8,7 +8,9 @@ collectives (:mod:`repro_torch.parallel.collectives`) find the process
 group of each axis.
 
 * :func:`make_mesh` / :func:`make_data_mesh` build the mesh over the
-  default process group (``init_device_mesh``); :func:`mesh_spec_of`
+  default process group (``init_device_mesh``), or over a listed subset
+  of its ranks (``ranks=``: the survivors an elastic ``remesh`` moves
+  onto; a rank outside gets ``None`` and has left); :func:`mesh_spec_of`
   describes it to the planner.
 * :func:`launch_ranks` runs ``fn(rank, world, *args)`` on ``world``
   spawned processes that meet through a ``FileStore`` in a directory the
@@ -23,6 +25,7 @@ buffers (counted in ``Mesh.stats.staged_bytes``).  The production meshes
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import queue
@@ -31,17 +34,18 @@ import traceback
 from collections import defaultdict
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.core.hardware import MeshSpec
 from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "CollectiveStats", "make_mesh", "make_data_mesh",
-           "mesh_spec_of", "launch_ranks", "BATCH_AXES"]
+           "mesh_spec_of", "remesh_note", "launch_ranks", "BATCH_AXES"]
 
 # The axes records and vertices are sharded over; ``model`` replicates.
 BATCH_AXES = ("pod", "data")
@@ -95,6 +99,17 @@ class Mesh:
 
         return tuple(a for a in BATCH_AXES if self.shape.get(a, 1) > 1)
 
+    @property
+    def wide_axes(self) -> Tuple[str, ...]:
+        """Every axis of more than one rank, in mesh order: a decision
+        agreed over them reaches every rank of the mesh."""
+
+        return tuple(a for a, s in zip(self.axis_names, self.sizes) if s > 1)
+
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.sizes)
+
     def coordinate(self, axis: str) -> int:
         return int(self.device_mesh.get_coordinate()[
             self.axis_names.index(axis)])
@@ -120,33 +135,50 @@ class Mesh:
         if len(axes) == 1:
             return self.device_mesh.get_group(axes[0])
         if axes not in self._groups:
-            ranks = self.device_mesh.mesh
-            rest = [d for d in range(len(self.sizes)) if d not in order]
-            rows = ranks.permute(rest + order).reshape(
-                -1, math.prod(self.sizes[d] for d in order))
-            me = dist.get_rank()
-            for row in rows.tolist():
-                g = dist.new_group(row)
-                if me in row:
-                    self._groups[axes] = g
+            self._make_group(axes)
         return self._groups[axes]
+
+    def _make_group(self, axes: Tuple[str, ...]) -> None:
+        """Make the groups of ``axes`` taken together: every rank of the
+        default group calls ``new_group`` for each of them (a mesh over a
+        subset of the world makes them all in :func:`make_mesh`, while
+        every rank is still there)."""
+
+        order = [self.axis_names.index(a) for a in axes]
+        ranks = self.device_mesh.mesh
+        rest = [d for d in range(len(self.sizes)) if d not in order]
+        rows = ranks.permute(rest + order).reshape(
+            -1, math.prod(self.sizes[d] for d in order))
+        me = dist.get_rank()
+        for row in rows.tolist():
+            g = dist.new_group(row)
+            if me in row:
+                self._groups[axes] = g
 
 
 def make_mesh(
     shape: Tuple[int, ...],
     axes: Tuple[str, ...],
     *,
+    ranks: Optional[Sequence[int]] = None,
     device: Optional[Union[str, torch.device]] = None,
     backend: Optional[str] = None,
-) -> Mesh:
+) -> Optional[Mesh]:
     """The mesh of ``shape`` named ``axes`` over the default process group
     (started by :func:`launch_ranks` or ``init_process_group``), the
     counterpart of ``make_compat_mesh``.
 
+    ``ranks`` (default: the whole world) lists the default group's ranks
+    the mesh spans, ascending, row-major over ``shape``: the surviving
+    ranks an elastic ``remesh`` moves onto.  Every rank of the world calls
+    this, because making a process group is collective; a rank outside
+    ``ranks`` gets ``None`` and has left the mesh.  Nothing takes a subset
+    of the world unless ``ranks`` names it.
+
     ``device`` (default: the card) is where this rank's shards live.  On
-    the card ``backend`` defaults to ``nccl``, one GPU a rank; ``gloo``
-    there must be named and stages each collective through pinned host
-    buffers.  The backend must be the default process group's.
+    the card ``backend`` defaults to ``nccl``, one GPU a rank of the mesh;
+    ``gloo`` there must be named and stages each collective through pinned
+    host buffers.  The backend must be the default process group's.
     """
 
     if not dist.is_initialized():
@@ -157,9 +189,23 @@ def make_mesh(
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in length")
     world = dist.get_world_size()
-    if math.prod(shape) != world:
-        raise ValueError(f"a mesh of shape {shape} needs {math.prod(shape)} "
-                         f"ranks, the process group has {world}")
+    if ranks is None:
+        if math.prod(shape) != world:
+            raise ValueError(
+                f"a mesh of shape {shape} needs {math.prod(shape)} ranks, "
+                f"the process group has {world}: name the ranks it spans "
+                "(ranks=)")
+        members = list(range(world))
+    else:
+        members = [int(r) for r in ranks]
+        # Ascending: torch orders a group's members by their global rank,
+        # and a collective's blocks must come in the mesh's order.
+        if len(members) != math.prod(shape) or members != sorted(set(
+                members)) or not all(0 <= r < world for r in members):
+            raise ValueError(
+                f"ranks {members} are not {math.prod(shape)} distinct ranks "
+                f"of the world of {world} in ascending order, for a mesh of "
+                f"shape {shape}")
     device = resolve_device(device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
@@ -173,30 +219,57 @@ def make_mesh(
     staged = False
     if device.type == "cuda":
         n_gpus = torch.cuda.device_count()
-        if backend == "nccl" and world > n_gpus:
+        if backend == "nccl" and len({r % n_gpus for r in members}) \
+                < len(members):
             raise ValueError(
-                f"nccl needs one GPU a rank: {world} ranks, {n_gpus} GPU(s) "
-                "(NCCL refuses two ranks on one GPU); name backend='gloo' "
-                "to stage the collectives through host memory")
+                f"nccl needs one GPU a rank: {len(members)} ranks, "
+                f"{n_gpus} GPU(s) (NCCL refuses two ranks on one GPU); name "
+                "backend='gloo' to stage the collectives through host "
+                "memory")
         device = torch.device("cuda", dist.get_rank() % n_gpus)
         torch.cuda.set_device(device)
         staged = backend == "gloo"
-    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
-                          mesh_dim_names=axes)
-    return Mesh(dm, axes, shape, device, backend, staged)
+    kind = "cuda" if backend == "nccl" else "cpu"
+    if ranks is None:
+        dm = init_device_mesh(kind, shape, mesh_dim_names=axes)
+    else:
+        dm = DeviceMesh(kind, torch.tensor(members).reshape(shape),
+                        mesh_dim_names=axes)
+    mesh = Mesh(dm, axes, shape, device, backend, staged)
+    if ranks is not None:
+        # The groups of several axes, made now while every rank is here.
+        for k in range(2, len(axes) + 1):
+            for combo in itertools.combinations(axes, k):
+                mesh._make_group(combo)
+    if dist.get_rank() not in members:
+        return None
+    return mesh
 
 
-def make_data_mesh(n_data: int = 0, **kwargs) -> Mesh:
+def make_data_mesh(n_data: int = 0, ranks: Optional[Sequence[int]] = None,
+                   **kwargs) -> Optional[Mesh]:
     """A pure data-parallel mesh ``(("data", n),)``; ``n_data=0`` takes
-    every rank."""
+    every rank of the world, or of ``ranks``."""
 
     if n_data <= 0:
-        n_data = dist.get_world_size()
-    return make_mesh((n_data,), ("data",), **kwargs)
+        n_data = dist.get_world_size() if ranks is None else len(ranks)
+    return make_mesh((n_data,), ("data",), ranks=ranks, **kwargs)
 
 
 def mesh_spec_of(mesh: Mesh) -> MeshSpec:
     return MeshSpec(tuple(zip(mesh.axis_names, mesh.sizes)))
+
+
+def remesh_note(old: Optional[Mesh], new: Optional[Mesh]) -> str:
+    """The plan note of an elastic remesh from ``old`` to ``new`` (None:
+    one device), in the reference's words: ``remesh(8->4: data=4)``,
+    ``remesh(4->1: 1 device)``."""
+
+    old_n = 1 if old is None else old.n_ranks
+    if new is None:
+        return f"remesh({old_n}->1: 1 device)"
+    shape = "x".join(f"{a}={s}" for a, s in zip(new.axis_names, new.sizes))
+    return f"remesh({old_n}->{new.n_ranks}: {shape})"
 
 
 # ---------------------------------------------------------------------------

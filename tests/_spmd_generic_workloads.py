@@ -450,7 +450,15 @@ def blocks(mesh, data):
 
 
 def refusals(mesh, data):
-    """The options a mesh still refuses, each naming its queue item."""
+    """The options a mesh still refuses, each naming its queue item, and
+    fault tolerance, which runs (A10c): checkpoints, a crash injected on
+    rank 3 only (every rank restarts once) and a remesh onto the same
+    ranks, each against the plain run's closure."""
+
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
 
     from repro_torch.core import listings
     from repro_torch.core.executor import Relation, compile_program
@@ -460,15 +468,35 @@ def refusals(mesh, data):
                          _port_relations(data, "edge"), mesh=mesh)
     n, cols = data["edge"]
     param = {"edge": Relation.from_columns(n, *cols["edge"], device="cpu")}
+    want = _grids(ex.run(max_iters=100).state["tc"])[0]
+    out = {}
+    # One directory for every rank: rank 0 writes, every rank restores.
+    made = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(made, src=0)
+    d = made[0]
+    ported = {
+        "checkpoint_dir": lambda: ex.run(
+            max_iters=100, checkpoint_dir=os.path.join(d, "a"),
+            checkpoint_every=2),
+        "injector": lambda: ex.run(
+            max_iters=100, checkpoint_dir=os.path.join(d, "b"),
+            checkpoint_every=2, injector=FailureInjector(
+                crashes=[2] if dist.get_rank() == 3 else [])),
+        "remesh": lambda: ex.remesh(mesh).run(max_iters=100),
+    }
+    for name, call in ported.items():
+        res = call()
+        out[name] = {"equal": bool(np.array_equal(
+                         _grids(res.state["tc"])[0], want)),
+                     "restarts": res.restarts,
+                     "events": list(res.remesh_events)}
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(d)
     calls = {
-        "checkpoint_dir": lambda: ex.run(max_iters=4, checkpoint_dir="x"),
-        "injector": lambda: ex.run(max_iters=4,
-                                   injector=FailureInjector()),
-        "remesh": lambda: ex.remesh(mesh),
         "params": lambda: ex.run(max_iters=4, params=param),
         "run_batched": lambda: ex.run_batched([param], max_iters=4),
     }
-    out = {}
     for name, call in calls.items():
         try:
             call()

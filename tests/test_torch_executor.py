@@ -12,7 +12,7 @@ matches the port's ``compile_pregel`` to <= 1e-8 (the same operators).
 The fail-closed errors raise the same exception types with the same
 messages (up to the package name in a module path), and every option of
 a later queue item raises ``NotImplementedError`` naming it (on a mesh,
-fault tolerance A10c and serving A10d).  Per-query
+serving A10d; fault tolerance there, A10c, runs).  Per-query
 parameters and query batching are held in ``tests/test_torch_serving.py``.
 """
 
@@ -484,14 +484,24 @@ def _one_rank_mesh(tmp_path):
 ])
 def test_unported_compile_options_raise(kw, item, tmp_path):
     """``mesh=`` and ``exchange=`` compile (A10b); on a mesh, fault
-    tolerance (A10c) and per-query parameters and batches (A10d) raise
-    naming their item."""
+    tolerance runs (A10c: checkpoints and an injector, the closure of the
+    plain run), and per-query parameters and batches (A10d) raise naming
+    their item."""
 
     compile_kw = {k: kw.pop(k) for k in ("storage", "row_cap", "exchange")
                   if k in kw}
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
     with _one_rank_mesh(tmp_path) as mesh:
         ex = _tc(mesh=mesh, **compile_kw)
-        assert ex.run(max_iters=64).converged
+        plain = ex.run(max_iters=64)
+        assert plain.converged
+        if item == "A10c":
+            res = ex.run(max_iters=64, **kw)
+            assert res.converged and res.restarts == 0
+            np.testing.assert_array_equal(res.state["tc"].tuples(),
+                                          plain.state["tc"].tuples())
+            return
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             if kw.pop("batched", False):
                 ex.run_batched([{}], max_iters=4)
@@ -521,12 +531,21 @@ def test_run_with_empty_params_equals_run():
 
 
 def test_remesh_and_run_batched_raise():
+    """``remesh(None)`` runs (A10c): the JAX package's plan and note, and
+    the plain run's closure; a batch without parameterized bindings
+    raises the reference's error."""
+
     ex = _tc()
-    with pytest.raises(NotImplementedError, match="A10"):
-        ex.remesh(None)
     src, dst = _edges()
     j = JE.compile_program(JL.transitive_closure_program(),
                            {"edge": JE.Relation.from_columns(N, src, dst)})
+    one, j_one = ex.remesh(None), j.remesh(None)
+    assert one.plan.notes == tuple(j_one.plan.notes)
+    assert one.plan.notes[-1] == "remesh(1->1: 1 device)"
+    res = one.run(max_iters=64)
+    assert res.remesh_events == tuple(j_one.run(max_iters=64).remesh_events)
+    np.testing.assert_array_equal(res.state["tc"].tuples(),
+                                  ex.run(max_iters=64).state["tc"].tuples())
     err = _raises_like(lambda: j.run_batched([{}], max_iters=4),
                        lambda: ex.run_batched([{}], max_iters=4))
     assert isinstance(err, TE.ExecutorError) \

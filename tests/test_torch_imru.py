@@ -304,16 +304,22 @@ def _one_rank_mesh(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """A mesh runs (tests/test_torch_spmd.py); fault tolerance on it is
-    still to port (A10c)."""
+    """A mesh runs (tests/test_torch_spmd.py); fault tolerance on it runs
+    too (A10c, on 8 ranks in tests/test_torch_spmd_ft.py): a checkpointed
+    run on a one-rank mesh, crashed and restored, equals the plain run."""
+
+    from repro_torch.ft import FailureInjector
 
     X, y, _ = _data(64, 4)
     _, task = _tasks(4, 1e-4)
     recs = _records(X, y)[1]
     with _one_rank_mesh(tmp_path) as mesh:
         ex = compile_imru(task, recs, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="A10"):
-            ex.run(max_iters=4, checkpoint_dir=str(tmp_path / "ckpt"))
+        plain = ex.run(max_iters=4)
+        res = ex.run(max_iters=4, checkpoint_dir=str(tmp_path / "ckpt"),
+                     injector=FailureInjector(crashes=[2]))
+    assert res.restarts == 1 and res.iterations == plain.iterations
+    assert torch.equal(res.state, plain.state)
 
 
 def test_compile_imru_without_device_needs_a_card():

@@ -199,17 +199,26 @@ def _one_rank_mesh(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     """A mesh runs (tests/test_torch_spmd.py); fault tolerance on it and
-    ``remesh`` are still to port (A10c)."""
+    ``remesh`` run too (A10c, on 8 ranks in tests/test_torch_spmd_ft.py):
+    a checkpointed run on a one-rank mesh, and a remesh onto one device
+    resumed from its checkpoint, land on the plain run's state."""
 
     (_, torch_prog), _, tg = _case("sssp")
+    plain = compile_pregel(torch_prog, tg, device="cpu").run(max_iters=40)
     with _one_rank_mesh(tmp_path) as mesh:
         ex = compile_pregel(torch_prog, tg, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="A10"):
-            ex.run(max_iters=4, on_device=False,
-                   checkpoint_dir=str(tmp_path / "ckpt"))
-    ex = compile_pregel(torch_prog, tg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ex.remesh(None)
+        res = ex.run(max_iters=4, on_device=False,
+                     checkpoint_dir=str(tmp_path / "ckpt"))
+        assert res.iterations == 4 and res.restarts == 0
+        one = ex.remesh(None)
+    assert one.mesh is None and one.remesh_events == (
+        "remesh(1->1: 1 device)",)
+    assert one.plan.notes[-1] == "remesh(1->1: 1 device)"
+    resumed = one.run(max_iters=40, checkpoint_dir=str(tmp_path / "ckpt"),
+                      resume=True)
+    assert resumed.remesh_events == ("remesh(1->1: 1 device)",)
+    assert torch.equal(resumed.state[0], plain.state[0])
+    assert resumed.iterations + 4 == plain.iterations
 
 
 def _argmin_sssp():
