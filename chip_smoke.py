@@ -187,8 +187,23 @@ Phases, each of which exits nonzero on failure:
    left, remeshed onto ranks 2-3 and resumed through the phase cursor
    (``hot`` and ``reach`` exact, ranks within the rows phase's bar).
    Restarts and straggler events are printed for every rank, with the
-   remesh notes and ms a superstep on 4 and on 2 ranks.  Any rank's
-   failure fails it.
+   remesh notes and ms a superstep on 4 and on 2 ranks.  Serving on the
+   same ranks last (ROADMAP A10d, ``_mesh_serve``): ``FixpointServer(
+   mesh=)`` with personalized PageRank on the serve phase's dense grids at
+   4 x ``--generic-domain`` and its 16 seed sets batched (4 also one by
+   one), each query within 1e-5 relative L1 of float64, batched within
+   1e-8 of one by one and of the serve phase's one-device answers, the
+   collective calls of a batched iteration those of one query's; 64
+   reachability probes at ``--generic-domain`` equal to scipy's BFS,
+   batched bit-equal to one by one; the 4-vertex segment-scan programs'
+   16 queries, B1 launched once a GroupBy firing for the batch and held to
+   its plain version there (sums within ``kernel.sum_depth``'s bar of one
+   by one, max/min bit-equal); 64 mixed requests through
+   ``serve_request_loop`` (``max_batch=16``) in arrival order, each within
+   1e-5 of float64 or equal to BFS; every rank's answers equal.  Printed:
+   ms a query batched and one by one, collective calls and MB staged a
+   batched iteration, the cold and warm request times, each rank's peak
+   memory, B1's time and launches.  Any rank's failure fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -280,7 +295,7 @@ Phases, each of which exits nonzero on failure:
    depth whose params, AdamW state, f32 gradient accumulator and
    activations fit the card's free memory (``_train_reckoning``, printed;
    arctic-480b fits not one layer and is not trained), minicpm3-4b and
-   hymba-1.5b cut to 16 layers (``FAMILY_TRAIN_DEPTH_CAP``): the whole
+   hymba-1.5b cut to 4 layers (``FAMILY_TRAIN_DEPTH_CAP``): the whole
    path at 2 layers and one sequence, kernel path against the plain attention
    within ``LM_NOISE_FACTOR`` times the bf16 bound measured in the run
    (expert choices replayed), with one planted backward fault a family
@@ -2665,6 +2680,39 @@ def _capture_sorted_combines(run):
     return out, calls
 
 
+SERVE_SPREAD = (
+    "M1: hi(0, X, L)        :- lab(X, L).\n"
+    "M2: hi(J+1, X, max<L>) :- hi(J, Y, L), edge(Y, X).\n"
+    "M3: hi(J+1, X, L)      :- hi(J, X, L).\n"
+    "M4: lo(0, X, L)        :- lab(X, L).\n"
+    "M5: lo(J+1, X, min<L>) :- lo(J, Y, L), edge(Y, X).\n"
+    "M6: lo(J+1, X, L)      :- lo(J, X, L).\n")
+SERVE_SCAN_SRC = (0, 0, 1, 2, 2, 3)
+SERVE_SCAN_DST = (1, 2, 2, 0, 3, 1)
+
+
+def _serve_graph(n, src, dst):
+    """The shared ``edge`` and ``deg`` relations of ``src -> dst``, on the
+    host."""
+
+    import numpy as np
+
+    from repro_torch.core.executor import Relation
+
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    return {"edge": Relation.from_columns(n, src, dst, device="cpu"),
+            "deg": Relation.from_columns(n, np.arange(n), deg,
+                                         device="cpu")}
+
+
+def _spread_program():
+    from repro_torch.core.monoid import get_monoid
+    from repro_torch.core.parser import parse
+
+    return parse(SERVE_SPREAD, aggregates={
+        a: get_monoid(a).as_aggregate() for a in ("max", "min")})
+
+
 def _ppr_oracle64(src, dst, n, seed_sets, iters, damping=SERVE_DAMPING):
     """Float64 personalized PageRank of each seed set (the reference test's
     ``_ppr_oracle``: a vertex's rank counts once a walk from the seeds has
@@ -2779,7 +2827,7 @@ def _batched_step(exe, params):
     return lambda j: step(state, mat, stacked, j)
 
 
-def phase_serve(args, device, report) -> None:
+def phase_serve(args, device, report, single=None) -> None:
     """Online fixpoint serving through ``FixpointServer`` (``hw=H100_SXM``)
     over graphs made from ``--seed`` and handed over on the host:
 
@@ -2808,7 +2856,9 @@ def phase_serve(args, device, report) -> None:
 
     then 256 requests in runs of PageRank and reachability through
     ``serve_request_loop`` (``max_batch=16``): answers in arrival order,
-    equal to one-by-one dispatch; requests/s."""
+    equal to one-by-one dispatch; requests/s.  ``single`` (when given)
+    gets (b)'s graph, seed sets and batched ranks under ``"serve grid"``,
+    which the mesh phase serves again on its ranks."""
 
     import numpy as np
     import torch
@@ -2817,8 +2867,6 @@ def phase_serve(args, device, report) -> None:
 
     from repro_torch.core.executor import ExecutorError, Relation, RowRelation
     from repro_torch.core.hardware import H100_SXM
-    from repro_torch.core.monoid import get_monoid
-    from repro_torch.core.parser import parse
     from repro_torch.core.serving import (
         FixpointServer,
         personalized_pagerank_program,
@@ -2834,12 +2882,6 @@ def phase_serve(args, device, report) -> None:
     reach_prog = point_reachability_program()
     sites, launch_counts, stats = [], {}, {}
 
-    def host_graph(n_, src, dst):
-        deg = np.bincount(src, minlength=n_).astype(np.float32)
-        return {"edge": Relation.from_columns(n_, src, dst, device="cpu"),
-                "deg": Relation.from_columns(n_, np.arange(n_), deg,
-                                             device="cpu")}
-
     def sum_bar(n_, iters):
         # Any-order f32 sums of at most n_ terms (gamma_n relative to the
         # terms' magnitudes) in each of the two runs, each iteration; the
@@ -2849,7 +2891,7 @@ def phase_serve(args, device, report) -> None:
 
     # (a) batched dense personalized PageRank --------------------------------
     src, dst = _distinct_out_edges(n, SERVE_DEGREE, rng)
-    shared = host_graph(n, src, dst)
+    shared = _serve_graph(n, src, dst)
     server = FixpointServer(shared, device=device, hw=H100_SXM)
     edge_bytes = n * n                         # the edge grid, bool
     seed_bytes = 5 * n                         # a seed grid: bool and f32
@@ -3041,7 +3083,7 @@ def phase_serve(args, device, report) -> None:
     # (b) dense grids at 4n ------------------------------------------------
     n_b = SERVE_GRID_FACTOR * n
     src_b, dst_b = _distinct_out_edges(n_b, SERVE_DEGREE, rng)
-    server = FixpointServer(host_graph(n_b, src_b, dst_b), device=device,
+    server = FixpointServer(_serve_graph(n_b, src_b, dst_b), device=device,
                             hw=H100_SXM, storage="dense-grid")
     sets_b = _seed_sets(rng, n_b, SERVE_GRID_K)
     want_b, pres_b = _ppr_oracle64(src_b, dst_b, n_b, sets_b, SERVE_ITERS)
@@ -3057,6 +3099,10 @@ def phase_serve(args, device, report) -> None:
                            on_device=True, force=force)
         out[force] = (res, torch.cuda.max_memory_allocated() - base)
     (b, peak_b), (sq, peak_s) = out["batched"], out["sequential"]
+    if single is not None:
+        single["serve grid"] = {
+            "src": src_b, "dst": dst_b, "sets": sets_b,
+            "ranks": np.stack([_rank_of(a, n_b)[0] for a in b.answers])}
     bar_b = sum_bar(n_b, SERVE_ITERS)
     rel = max(_ppr_check(b, n_b, want_b, pres_b, "(b) batched"),
               _ppr_check(sq, n_b, want_b, pres_b, "(b) sequential"))
@@ -3143,17 +3189,10 @@ def phase_serve(args, device, report) -> None:
 
     # (e) segment scans under vmap: one launch a GroupBy firing ------------
     m = SERVE_SCAN_N
-    src_e = np.array([0, 0, 1, 2, 2, 3])
-    dst_e = np.array([1, 2, 2, 0, 3, 1])
-    spread = parse(
-        "M1: hi(0, X, L)        :- lab(X, L).\n"
-        "M2: hi(J+1, X, max<L>) :- hi(J, Y, L), edge(Y, X).\n"
-        "M3: hi(J+1, X, L)      :- hi(J, X, L).\n"
-        "M4: lo(0, X, L)        :- lab(X, L).\n"
-        "M5: lo(J+1, X, min<L>) :- lo(J, Y, L), edge(Y, X).\n"
-        "M6: lo(J+1, X, L)      :- lo(J, X, L).\n",
-        aggregates={a: get_monoid(a).as_aggregate() for a in ("max", "min")})
-    server = FixpointServer(host_graph(m, src_e, dst_e), device=device,
+    src_e = np.array(SERVE_SCAN_SRC)
+    dst_e = np.array(SERVE_SCAN_DST)
+    spread = _spread_program()
+    server = FixpointServer(_serve_graph(m, src_e, dst_e), device=device,
                             hw=H100_SXM)
     seed_e = _seed_params(m, [np.sort(rng.choice(m, int(rng.integers(1, 3)),
                                                  replace=False))
@@ -5278,10 +5317,11 @@ FAMILY_TRAIN_ARCHS = ("minicpm3_4b", "whisper_medium", "mamba2_130m",
                       "hymba_1_5b", "mixtral_8x22b", "arctic_480b")
 FAMILY_TRAIN_STEPS = 3
 # Depths cut below the reckoning's to keep the whole script inside its
-# limit (the longest families first, at published width): 16 of
-# minicpm3-4b's 62 layers (100.1 s at 62 in the families_train phase) and
-# of hymba-1.5b's 32 (90.9 s), for the mesh phase's generic cells.
-FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 16, "hymba_1_5b": 16}
+# limit (the longest families first, at published width): 4 of
+# minicpm3-4b's 62 layers (100.1 s at 62 in the families_train phase, 27.8
+# at 16, 10.0 at 4) and of hymba-1.5b's 32 (90.9 s at 32, 52.8 at 16,
+# 16.8 at 4), for the mesh phase's generic and serving cells.
+FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 4, "hymba_1_5b": 4}
 # The depth reckoning plans for the card's memory less this reserve (the
 # CUDA context and loaded kernels, cuBLAS's workspaces, the caching
 # allocator's rounding): a depth that depends on the card, not on what
@@ -7045,6 +7085,426 @@ def _mesh_ft(cfg, rank, data, pod, imru_ref, two):
     return {"ft/imru": imru, "ft/rows": rows}
 
 
+# A10d, serving on the mesh (the mesh phase's last cells).
+MESH_SERVE_SEQUENTIAL = 4      # (a)'s seed sets also served one by one
+MESH_SERVE_REQUESTS = 64       # (d): mixed requests through the loop
+MESH_SERVE_TOL = 1e-8          # (a): batched vs sequential and one device
+
+
+def _mesh_serve_inputs(args, d, single):
+    """Write the serving cells' inputs to ``d`` and return their oracles.
+    (a) is the serve phase's (b): its dense-grid graph at 4 x
+    ``--generic-domain`` and its 16 seed sets, with that phase's
+    one-device batched ranks when it ran in this process (else a graph of
+    the same shape from the seed, and the one-device ranks not measured);
+    (b) and (d) a graph at ``--generic-domain`` with 64 probes and 64 mixed
+    requests; (c) the serve phase's 4-vertex program's 16 queries."""
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+
+    rng = np.random.default_rng(args.seed + 17)
+    n = args.generic_domain
+    n_a = SERVE_GRID_FACTOR * n
+    grid = (single or {}).get("serve grid")
+    if grid is None:
+        src, dst = _distinct_out_edges(n_a, SERVE_DEGREE, rng)
+        sets = _seed_sets(rng, n_a, SERVE_GRID_K)
+    else:
+        src, dst, sets = grid["src"], grid["dst"], grid["sets"]
+    np.save(d / "serve_a_src.npy", src)
+    np.save(d / "serve_a_dst.npy", dst)
+    want = {"a": _ppr_oracle64(src, dst, n_a, sets, SERVE_ITERS),
+            "single": None if grid is None else grid["ranks"]}
+    src, dst = _distinct_out_edges(n, SERVE_DEGREE, rng)
+    np.save(d / "serve_b_src.npy", src)
+    np.save(d / "serve_b_dst.npy", dst)
+    adj = coo_matrix((np.ones(src.shape[0]), (src, dst)),
+                     shape=(n, n)).tocsr()
+
+    def closure(a):
+        out = np.zeros(n, bool)
+        out[breadth_first_order(adj, a, return_predecessors=False)] = True
+        return out
+
+    probes = rng.integers(0, n, (SERVE_PROBES, 2))
+    closures = np.stack([closure(a) for a, _ in probes])
+    hits = np.zeros_like(closures)
+    hits[np.arange(SERVE_PROBES), probes[:, 1]] = \
+        closures[np.arange(SERVE_PROBES), probes[:, 1]]
+    want["b"] = (closures, hits)
+    scan_sets = [np.sort(rng.choice(SERVE_SCAN_N, int(rng.integers(1, 3)),
+                                    replace=False))
+                 for _ in range(SERVE_SCAN_K)]
+    labels = rng.normal(size=(SERVE_SCAN_K, SERVE_SCAN_N)).astype(
+        np.float32)
+    # (c)'s oracles: float64 PageRank, and the largest and smallest label
+    # among the vertices that reach each vertex (itself included).
+    reach = np.eye(SERVE_SCAN_N, dtype=bool)      # reach[y, x]: y -> x
+    for _ in range(SERVE_SCAN_N):
+        for a, c in zip(SERVE_SCAN_SRC, SERVE_SCAN_DST):
+            reach[:, c] |= reach[:, a]
+    by_source = labels[:, :, None]
+    want["c"] = {
+        "sum": _ppr_oracle64(np.array(SERVE_SCAN_SRC),
+                             np.array(SERVE_SCAN_DST), SERVE_SCAN_N,
+                             scan_sets, SERVE_ITERS),
+        "hi": np.where(reach, by_source, -np.inf).max(axis=1),
+        "lo": np.where(reach, by_source, np.inf).min(axis=1)}
+    # (d): runs of 1 to 16 requests, PageRank and reachability in turn.
+    requests, kinds = [], itertools.cycle(("ppr", "reach"))
+    while len(requests) < MESH_SERVE_REQUESTS:
+        run, kind = int(rng.integers(1, 17)), next(kinds)
+        for _ in range(min(run, MESH_SERVE_REQUESTS - len(requests))):
+            cols = _seed_sets(rng, n, 1)[0] if kind == "ppr" \
+                else rng.integers(0, n, 2)
+            requests.append((kind, cols.tolist()))
+    ppr_sets = [np.array(c) for k, c in requests if k == "ppr"]
+    want["d"] = (_ppr_oracle64(src, dst, n, ppr_sets, SERVE_ITERS),
+                 [closure(c[0]) for k, c in requests if k == "reach"])
+    (d / "serve.json").write_text(json.dumps({
+        "a_sets": [s.tolist() for s in sets], "probes": probes.tolist(),
+        "scan_sets": [s.tolist() for s in scan_sets],
+        "labels": labels.tolist(), "requests": requests}))
+    want["requests"] = requests
+    return want
+
+
+def _mesh_serve(mesh, cfg, rank):
+    """Serving on the mesh (ROADMAP A10d, ``phase_mesh``'s serving cells):
+    ``FixpointServer(mesh=)`` on every rank over the global graphs the
+    phase wrote.  (a) personalized PageRank on dense grids at 4 x the
+    generic domain, 16 seed sets batched (one collective a call site for
+    the 16) and 4 of them one by one, the cold and warm requests timed;
+    (b) 64 reachability probes batched and one by one; (c) the 4-vertex
+    segment-scan programs, 16 queries batched, B1 launched once a GroupBy
+    firing for the batch and (rank 0, on the card) held to its plain
+    version there; (d) the mixed requests through ``serve_request_loop``.
+    Returns each cell's numbers (rank 0 also its answers)."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.executor import Relation
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.serving import (
+        FixpointServer,
+        personalized_pagerank_program,
+        point_reachability_program,
+    )
+    from repro_torch.kernels.segment_combine import kernel as sc_kernel
+    from repro_torch.launch.query_serve import QueryRequest, serve_request_loop
+
+    d = Path(cfg["dir"])
+    spec = json.loads((d / "serve.json").read_text())
+    on_card = mesh.device.type == "cuda"
+    ppr = personalized_pagerank_program(SERVE_DAMPING)
+    reach = point_reachability_program()
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(run):
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        return res, time.perf_counter() - t0
+
+    def unary(n_, v):
+        return Relation.from_columns(n_, np.array([v]), device="cpu")
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    # (a) batched personalized PageRank on dense grids ---------------------
+    n_a = SERVE_GRID_FACTOR * cfg["generic_n"]
+    server = FixpointServer(
+        _serve_graph(n_a, np.load(d / "serve_a_src.npy"),
+                     np.load(d / "serve_a_dst.npy")),
+        mesh=mesh, hw=H100_SXM, storage="dense-grid")
+    params = _seed_params(n_a, [np.array(s) for s in spec["a_sets"]])
+    k = len(params)
+    cold, cold_s = timed(lambda: server.query(
+        ppr, params[:1], max_iters=SERVE_ITERS, on_device=True))
+    warm, warm_s = timed(lambda: server.query(
+        ppr, params[1:2], max_iters=SERVE_ITERS, on_device=True))
+    server.query(ppr, params, max_iters=SERVE_ITERS, on_device=True,
+                 force="batched")
+    sync()
+    mesh.stats.reset()
+    if on_card:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    b, _ = timed(lambda: server.query(ppr, params, max_iters=SERVE_ITERS,
+                                      on_device=True, force="batched"))
+    it = b.iterations
+    calls = {c: v / it for c, v in mesh.stats.calls.items()}
+    staged = mesh.stats.staged_bytes / it
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    # One by one: the first query's collective calls an iteration.
+    seq = []
+    for q in range(MESH_SERVE_SEQUENTIAL):
+        mesh.stats.reset()
+        seq.append(server.query(ppr, params[q:q + 1], max_iters=SERVE_ITERS,
+                                on_device=True, force="sequential"))
+        if q == 0:
+            calls_one = {c: v / seq[0].iterations
+                         for c, v in mesh.stats.calls.items()}
+    ranks_b = [_rank_of(a, n_a) for a in b.answers]
+    ranks_s = [_rank_of(r.answers[0], n_a)[0] for r in seq]
+    out["serve a"] = {
+        "n": n_a, "k": k, "iterations": it, "batched": b.batched,
+        "batched_ms": b.execute_seconds / k * 1e3,
+        "sequential_ms": sum(r.execute_seconds for r in seq) / len(seq)
+        * 1e3,
+        "calls": calls, "calls_one": calls_one,
+        "staged_mb": staged / 1e6, "peak": peak,
+        "cold_s": cold_s, "cold_compile_s": cold.compile_seconds,
+        "warm_s": warm_s,
+        "warm_hit": warm.cache_hit and warm.compile_seconds == 0.0,
+        "gap": max(float(np.abs(x[0] - y).max())
+                   for x, y in zip(ranks_b, ranks_s)),
+        "note": b.notes[-1],
+        "digest": _digest(*[x[0] for x in ranks_b]),
+        "answers": ranks_b if rank == 0 else None}
+    del server, params, cold, warm, b, seq, ranks_b, ranks_s
+    lap("a")
+
+    # (b) reachability probes -----------------------------------------------
+    n = cfg["generic_n"]
+    server = FixpointServer(
+        _serve_graph(n, np.load(d / "serve_b_src.npy"),
+                     np.load(d / "serve_b_dst.npy")),
+        mesh=mesh, hw=H100_SXM)
+    probes = [{"src": unary(n, a), "dst": unary(n, t)}
+              for a, t in spec["probes"]]
+    rb, _ = timed(lambda: server.query(reach, probes, max_iters=n,
+                                       on_device=True, force="batched"))
+    rs, _ = timed(lambda: server.query(reach, probes, max_iters=n,
+                                       on_device=True, force="sequential"))
+    got = {p: np.stack([a[p].present.cpu().numpy() for a in rb.answers])
+           for p in ("reach", "hit")}
+    out["serve b"] = {
+        "n": n, "k": len(probes), "iterations": rb.iterations,
+        "batched_ms": rb.execute_seconds / len(probes) * 1e3,
+        "sequential_ms": rs.execute_seconds / len(probes) * 1e3,
+        "equal": all(torch.equal(x[p].present, y[p].present)
+                     for x, y in zip(rb.answers, rs.answers)
+                     for p in ("reach", "hit")),
+        "digest": _digest(got["reach"], got["hit"]),
+        "answers": got if rank == 0 else None}
+    del rb, rs
+    lap("b")
+
+    # (d) the request loop, on (b)'s server ---------------------------------
+    requests = []
+    for i, (kind, cols) in enumerate(spec["requests"]):
+        if kind == "ppr":
+            requests.append(QueryRequest(
+                ppr, _seed_params(n, [np.array(cols)])[0],
+                max_iters=SERVE_ITERS, tag=f"ppr{i}"))
+        else:
+            requests.append(QueryRequest(
+                reach, {"src": unary(n, cols[0]), "dst": unary(n, cols[1])},
+                max_iters=n, tag=f"reach{i}"))
+    # The PageRank plan of this graph, compiled before the loop is timed.
+    server.query(ppr, _seed_params(n, [np.array([0])])[0],
+                 max_iters=SERVE_ITERS, on_device=True)
+    responses, loop_s = timed(lambda: serve_request_loop(
+        server, requests, max_batch=SERVE_MAX_BATCH, on_device=True))
+    answers = [_rank_of(r.answers, n)[0] if "rank" in r.answers
+               else r.answers["hit"].present.cpu().numpy()
+               for r in responses]
+    out["serve d"] = {
+        "requests": len(requests), "seconds": loop_s,
+        "requests_per_s": len(requests) / loop_s,
+        "dispatches": sum(1 for i, r in enumerate(responses)
+                          if i == 0 or r.result is not responses[i - 1].result),
+        "largest": max(r.result.batch for r in responses),
+        "in_order": [r.request.tag for r in responses]
+        == [r.tag for r in requests],
+        "digest": _digest(*answers),
+        "answers": answers if rank == 0 else None}
+    del server, requests, responses
+    lap("d")
+
+    # (c) the segment-scan programs under vmap ------------------------------
+    m = SERVE_SCAN_N
+    server = FixpointServer(
+        _serve_graph(m, np.array(SERVE_SCAN_SRC), np.array(SERVE_SCAN_DST)),
+        mesh=mesh, hw=H100_SXM)
+    seeds = _seed_params(m, [np.array(v) for v in spec["scan_sets"]])
+    labs = [{"lab": Relation.from_columns(
+        m, np.arange(m), np.array(row, np.float32), device="cpu")}
+        for row in spec["labels"]]
+    for tag, prog, batch, preds in (
+            ("sum", ppr, seeds, ("rank",)),
+            ("max/min", _spread_program(), labs, ("hi", "lo"))):
+        server.query(prog, batch[:2], max_iters=SERVE_ITERS, force="batched")
+        exe = server.plan_cache.get(server.plan_key(prog, list(batch[0])))
+        sync()
+        sc_kernel.reset_launch_count()
+        b, calls_b = _capture_sorted_combines(lambda: server.query(
+            prog, batch, max_iters=SERVE_ITERS, on_device=True,
+            force="batched"))
+        sync()
+        lb = sc_kernel.launch_count
+        got = {p: np.stack([torch.where(a[p].present, a[p].values[1], 0.0)
+                            .double().cpu().numpy() for a in b.answers])
+               for p in preds}
+        pres = {p: np.stack([a[p].present.cpu().numpy() for a in b.answers])
+                for p in preds}
+        cell = {"connectors": sorted(set(exe.plan.connectors.values())),
+                "launches": lb, "calls": len(calls_b),
+                "iterations": b.iterations,
+                "one_a_firing": all(c[0] == int(on_card) for c in calls_b),
+                "widths": sorted({int(c[1][0].shape[1]) for c in calls_b}),
+                "digest": _digest(*got.values(), *pres.values()),
+                "answers": (got, pres) if rank == 0 else None}
+        if rank == 0 and on_card:
+            site = _row_site(f"serve segment scan {tag}",
+                             (None, lb, calls_b[-1][1]), lb, phase="mesh")
+            site["batch"] = SERVE_SCAN_K
+            out[f"site/serve scan {tag}"] = site
+        out[f"serve c {tag}"] = cell
+        del b, calls_b, exe
+    lap("c")
+    out["serve seconds"] = seconds
+    return out
+
+
+def _check_mesh_serve(ranks, want):
+    """Print the serving cells and return the names of those that failed:
+    (a) every query within SERVE_PPR_L1_TOL of float64, batched within
+    MESH_SERVE_TOL of sequential and of the serve phase's one-device
+    ranks, the collective calls of a batched iteration those of one
+    query's; (b) equal to scipy's BFS, batched bit-equal to sequential;
+    (c) B1 once a GroupBy firing for the batch, PageRank within
+    SERVE_PPR_L1_TOL of float64 and max/min equal to their oracle; (d) in
+    arrival order and right; every rank's answers equal to rank 0's."""
+
+    import numpy as np
+
+    failed = []
+    r0 = ranks[0]
+    on_card = "site/serve scan sum" in r0
+    for key in ("serve a", "serve b", "serve d", "serve c sum",
+                "serve c max/min"):
+        if len({r[key]["digest"] for r in ranks}) != 1:
+            failed.append(f"{key}: the ranks' answers differ")
+
+    a = r0["serve a"]
+    r64, p64 = want["a"]
+    worst = 0.0
+    for q, (got, pres) in enumerate(a["answers"]):
+        rel = float(np.abs(got - r64[:, q]).sum() / np.abs(r64[:, q]).sum())
+        worst = max(worst, rel)
+        if not (np.array_equal(pres, p64[:, q]) and rel <= SERVE_PPR_L1_TOL):
+            failed.append(f"serve a query {q}: rel L1 {rel:.3e}")
+    one = want["single"]
+    vs_one = None if one is None else max(
+        float(np.abs(got - one[q]).max())
+        for q, (got, _) in enumerate(a["answers"]))
+    print(f"mesh: serve (a) personalized PageRank n={a['n']} dense grids, "
+          f"{a['iterations']} iterations, k={a['k']} batched: per query "
+          f"{a['batched_ms']:.3f} ms batched (ranks "
+          f"{[round(r['serve a']['batched_ms'], 3) for r in ranks]}), "
+          f"{a['sequential_ms']:.3f} ms one by one ({MESH_SERVE_SEQUENTIAL} "
+          f"queries); collective calls a batched iteration "
+          f"{json.dumps(a['calls'])} (one query's {json.dumps(a['calls_one'])}"
+          f"), staged {a['staged_mb']:.3f} MB a batched iteration; cold "
+          f"request {a['cold_s']:.3f} s (compile {a['cold_compile_s']:.3f} "
+          f"s), warm {a['warm_s']:.3f} s (plan hit, no compile "
+          f"{a['warm_hit']}); peak memory a rank above its start "
+          f"{[r['serve a']['peak'] for r in ranks]} B; rel L1 vs float64 "
+          f"{worst:.3e} (tol {SERVE_PPR_L1_TOL}); batched vs one by one max "
+          f"abs {a['gap']:.3e}, vs the serve phase's one-device batched "
+          f"ranks {'not measured' if vs_one is None else f'{vs_one:.3e}'} "
+          f"(tol {MESH_SERVE_TOL}); {a['note']}")
+    if not (a["batched"] and all(r["serve a"]["warm_hit"] for r in ranks)
+            and a["calls"] == a["calls_one"]
+            and max(r["serve a"]["gap"] for r in ranks) <= MESH_SERVE_TOL
+            and (vs_one is None or vs_one <= MESH_SERVE_TOL)):
+        failed.append("serve a")
+
+    b = r0["serve b"]
+    ok = np.array_equal(b["answers"]["reach"], want["b"][0]) \
+        and np.array_equal(b["answers"]["hit"], want["b"][1])
+    print(f"mesh: serve (b) {b['k']} reachability probes n={b['n']}, "
+          f"{b['iterations']} iterations: per probe {b['batched_ms']:.3f} ms "
+          f"batched, {b['sequential_ms']:.3f} ms one by one; equal to "
+          f"scipy's BFS {ok}, batched bit-equal to one by one "
+          f"{all(r['serve b']['equal'] for r in ranks)}")
+    if not (ok and all(r["serve b"]["equal"] for r in ranks)):
+        failed.append("serve b")
+
+    for tag in ("sum", "max/min"):
+        c = r0[f"serve c {tag}"]
+        got, pres = c["answers"]
+        if tag == "sum":
+            r64, p64 = want["c"]["sum"]
+            err = max(float(np.abs(got["rank"][q] - r64[:, q]).sum()
+                            / np.abs(r64[:, q]).sum())
+                      for q in range(SERVE_SCAN_K))
+            ok = np.array_equal(pres["rank"], p64.T) \
+                and err <= SERVE_PPR_L1_TOL
+            right = f"rel L1 vs float64 {err:.3e} (tol {SERVE_PPR_L1_TOL})"
+        else:
+            ok = all(pres[p].all() and np.array_equal(got[p], want["c"][p])
+                     for p in ("hi", "lo"))
+            right = f"hi and lo equal to the oracle {ok}"
+        launches = [r[f"serve c {tag}"]["launches"] for r in ranks]
+        site = r0.get(f"site/serve scan {tag}")
+        b1 = "not measured" if site is None else \
+            f"{site['ms']:.3f} ms (plain {site['plain_ms']:.3f} ms)"
+        print(f"mesh: serve (c) segment scan {tag} on {SERVE_SCAN_N} "
+              f"vertices, k={SERVE_SCAN_K} batched: B1 launches a rank "
+              f"{launches} in {c['iterations']} iterations (one a GroupBy "
+              f"firing "
+              f"{all(r[f'serve c {tag}']['one_a_firing'] for r in ranks)}, "
+              f"payload widths {c['widths']}); {right}; B1 there {b1}")
+        if not (ok and c["connectors"] == ["segment-scan"]
+                and all(r[f"serve c {tag}"]["one_a_firing"]
+                        and r[f"serve c {tag}"]["calls"]
+                        == r[f"serve c {tag}"]["iterations"]
+                        for r in ranks)
+                and c["widths"] == [SERVE_SCAN_K]
+                and (not on_card or min(launches) == c["iterations"])):
+            failed.append(f"serve c {tag}")
+
+    dd = r0["serve d"]
+    (w64, wp), closures = want["d"]
+    ok, pi, ri = True, 0, 0
+    for (kind, cols), got in zip(want["requests"], dd["answers"]):
+        if kind == "ppr":
+            rel = float(np.abs(got - w64[:, pi]).sum()
+                        / np.abs(w64[:, pi]).sum())
+            ok &= rel <= SERVE_PPR_L1_TOL
+            pi += 1
+        else:
+            hit = np.zeros_like(closures[ri])
+            hit[cols[1]] = closures[ri][cols[1]]
+            ok &= np.array_equal(got, hit)
+            ri += 1
+    print(f"mesh: serve (d) request loop: {dd['requests']} requests in "
+          f"{dd['dispatches']} dispatches (largest batch {dd['largest']}) "
+          f"in {dd['seconds']:.3f} s, {dd['requests_per_s']:.1f} "
+          f"requests/s; in arrival order on every rank "
+          f"{all(r['serve d']['in_order'] for r in ranks)}, right {ok}")
+    if not (ok and all(r["serve d"]["in_order"] for r in ranks)):
+        failed.append("serve d")
+    print(f"mesh: serve cells on rank 0 in s {json.dumps(r0['serve seconds'])}")
+    return failed
+
+
 def _mesh_graph(d, tag, n):
     """The global graph ``tag`` the phase wrote to ``d``, on the CPU."""
 
@@ -7197,17 +7657,22 @@ def _mesh_rank(rank, world, cfg):
     if on_card:
         torch.cuda.empty_cache()
     lap("ft imru, rows")
+    out.update(_mesh_serve(data, cfg, rank))
+    if on_card:
+        torch.cuda.empty_cache()
+    lap("serve")
     out["seconds"] = seconds
     return out
 
 
 def phase_mesh(args, device, report, single=None) -> None:
-    """Sharded Pregel and IMRU, and the generic engine, on MESH_RANKS ranks
-    (the module docstring's phase 10b).  Inputs and oracles are made here
-    and handed over in files; every rank returns its numbers, which are
-    checked here.  ``single`` holds the generic and rows phases'
-    single-device times from the same run, printed beside the generic
-    cells."""
+    """Sharded Pregel and IMRU, the generic engine and serving, on
+    MESH_RANKS ranks (the module docstring's phase 10b).  Inputs and
+    oracles are made here and handed over in files; every rank returns its
+    numbers, which are checked here.  ``single`` holds the generic and rows
+    phases' single-device times from the same run, printed beside the
+    generic cells, and the serve phase's dense-grid graph and answers,
+    served again on the ranks."""
 
     import tempfile
 
@@ -7255,6 +7720,7 @@ def phase_mesh(args, device, report, single=None) -> None:
         np.save(d / "max_single.npy", one.state[0].cpu().numpy())
         del g, one, src, dst
         want_generic = _mesh_generic_inputs(args, d)
+        want_serve = _mesh_serve_inputs(args, d, single)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"mesh: inputs and oracles in {time.perf_counter() - t0:.1f}s;"
@@ -7340,6 +7806,7 @@ def phase_mesh(args, device, report, single=None) -> None:
             failed.append(f"imru/{k} vs flat")
     failed += _check_mesh_generic(ranks, want_generic, single or {}, args)
     failed += _check_mesh_ft(ranks, want_generic, args)
+    failed += _check_mesh_serve(ranks, want_serve)
     entry = next(e for e in report if e["name"] == "segment_combine") \
         if any(e["name"] == "segment_combine" for e in report) else None
     sites = [v for k, v in r0.items() if k.startswith("site/")]
@@ -7445,7 +7912,7 @@ def main(argv=None) -> int:
                                                              report))),
             ("serve", lambda: _freeing("serve",
                                        lambda: phase_serve(args, device,
-                                                           report))),
+                                                           report, single))),
             ("mesh", lambda: _freeing("mesh",
                                       lambda: phase_mesh(args, device,
                                                          report, single))),

@@ -70,8 +70,11 @@ Fault tolerance runs there as on one device: checkpoints hold the global
 grids (a rank's blocks gathered on save, written by the mesh's first
 rank, cut again on restore), and :meth:`GenericExecutable.remesh` moves a
 program onto the surviving ranks, or onto one device, to resume from
-disk.  Not ported yet, raising ``NotImplementedError`` with the queue
-item: ``run(params=)`` and ``run_batched`` on a mesh (A10d).
+disk.  Serving runs there too: ``run(params=)`` cuts a sharded parameter
+relation to the rank's block, and ``run_batched`` vmaps the mesh step,
+whose collectives batch (:mod:`repro_torch.parallel.collectives`): k
+queries issue one collective a call site and agree their k convergence
+flags in one all-reduce a superstep.
 """
 
 from __future__ import annotations
@@ -2358,9 +2361,16 @@ class GenericExecutable:
 
     def _param_grids(self, params) -> Dict[str, Dict[str, Any]]:
         """Validate a per-query parameter binding ``{name: Relation}`` and
-        lower it to its grids on this executable's device.  Fail closed: a
+        lower it to its grids on this executable's device: on a mesh, the
+        rank's block of leading rows of a sharded relation (``_shard``'s
+        rule), the whole grid of a replicated one.  Fail closed: a
         parameter may only rebind a dense EDB relation of the compiled
         program, on the same signature."""
+
+        def cut(g, name):
+            if name in self.sharded:
+                g = g.narrow(0, *self.block)
+            return g.to(self.device)
 
         grids: Dict[str, Dict[str, Any]] = {}
         for name, rel in (params or {}).items():
@@ -2388,19 +2398,19 @@ class GenericExecutable:
                     "relation signature (key/value positions differ)"
                 )
             grids[name] = {
-                "present": rel.present.to(self.device),
-                "values": {p: g.to(self.device)
-                           for p, g in rel.values.items()},
+                "present": cut(rel.present, name),
+                "values": {p: cut(g, name) for p, g in rel.values.items()},
             }
         return grids
 
     def _bind_params(self, grids) -> Optional[Dict[str, Relation]]:
         """An EDB view with the parameter grids swapped in (the shared
-        graph relations stay the compile-time grids on the device)."""
+        graph relations stay the compile-time grids on the device, a
+        rank's blocks on a mesh)."""
 
         if not grids:
             return None
-        rels = dict(self.relations)
+        rels = dict(self.local_relations or self.relations)
         for name, entry in grids.items():
             rels[name] = Relation(
                 n=self.domain,
@@ -2491,17 +2501,18 @@ class GenericExecutable:
         ``run(..., params=...)`` calls' up to the sum order of the segment
         combine at the batched width.
 
+        On a mesh every rank calls this with the same global bindings and
+        gets every query's global grids, as ``run`` does.  The stages run
+        the mesh step under vmap: each collective of a superstep carries
+        the k queries at once, and the k convergence flags are agreed in
+        one all-reduce.
+
         Fail closed: batching needs all-dense storage (row-table slabs
         carry overflow flags the host reads, and chunked EDBs stream
         through a host loop); admission routes such plans to sequential
         dispatch (``repro_torch.core.planner.serving_admission``).
         """
 
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "run_batched on a mesh is not ported yet: ROADMAP A10d "
-                "(serving on a mesh)"
-            )
         if not param_sets:
             raise ExecutorError("run_batched needs at least one param set")
         if self._any_row or self.row_edb or self.chunked_edb:
@@ -2542,6 +2553,7 @@ class GenericExecutable:
                 res = HostFixpointDriver(
                     step=body, converged=bconv,
                     config=DriverConfig(max_iters=max_iters),
+                    mesh=self.mesh,
                 ).run(state_b)
             state_b = res.state
             total += res.iterations
@@ -2551,10 +2563,20 @@ class GenericExecutable:
                 state_b, mat_b, stacked, res.iterations
             )
 
-        seconds = time.perf_counter() - t0
         entries = list(mat_b.items()) + [
             (p, state_b[p]) for ph in self.phases for p in ph.carried
         ]
+        if self.sharded:
+            # Every rank returns the global grids: one gather a tensor for
+            # the k queries.
+            axes = self.mesh.batch_axes
+            full = torch.func.vmap(lambda t: _full_grid(t, self.mesh, axes))
+            entries = [(pred, {"present": full(e["present"]),
+                               "values": {p: full(v)
+                                          for p, v in e["values"].items()}})
+                       if pred in self.sharded else (pred, e)
+                       for pred, e in entries]
+        seconds = time.perf_counter() - t0
         results: List[FixpointResult] = []
         for q in range(k):
             out: Dict[str, Any] = {}
@@ -2600,7 +2622,9 @@ class GenericExecutable:
 
         ``params`` rebinds dense EDB relations for THIS run only (online
         serving: per-query seed/source/target bindings), moved to this
-        executable's device; the compiled plan is reused as it is.
+        executable's device (on a mesh, every rank passes the global
+        relation and keeps its block); the compiled plan is reused as it
+        is.
 
         Fault tolerance (host driver only): ``checkpoint_dir`` plugs a
         :class:`~repro_torch.checkpoint.CheckpointStore` into the driver's
@@ -2626,16 +2650,9 @@ class GenericExecutable:
         options; an injector may fire on one rank only, and the driver
         agrees the crash): the checkpoint holds the global grids, gathered
         on save, written by the mesh's first rank, and cut to each rank's
-        blocks on restore.  ``params`` on a mesh is ROADMAP A10d and raises
-        ``NotImplementedError``.
+        blocks on restore.
         """
 
-        if self.mesh is not None:
-            if params:
-                raise NotImplementedError(
-                    "run(params=) on a mesh is not ported yet: ROADMAP A10d "
-                    "(serving on a mesh)"
-                )
         relations = self._bind_params(self._param_grids(params))
         try:
             return self._run_phases(
@@ -2911,6 +2928,7 @@ def compile_program(
     hbm_budget: Optional[int] = None,
     chunks: Any = None,
     device: Optional[Union[str, torch.device]] = None,
+    placed: Optional[Mapping[str, Relation]] = None,
     **frontend_kwargs,
 ):
     """Compile ANY XY-stratified program onto the unified executor, on
@@ -2965,7 +2983,11 @@ def compile_program(
     ``"psum-scatter"`` or ``"gspmd"``, the replicated lowering; a string
     for every row predicate or a mapping by head predicate), recorded as
     ``exchange(<pred>: ...)`` notes.  Listing 1/2 programs go to
-    ``compile_pregel`` / ``compile_imru`` with the mesh.
+    ``compile_pregel`` / ``compile_imru`` with the mesh.  ``placed=`` maps
+    dense EDB names to this rank's layout of them, already on the mesh's
+    device (a sharded relation's block, a replicated one's whole grid: the
+    serving EDB cache's entries), which the executable reads as they are
+    instead of cutting ``relations`` again; ``relations`` still plans.
     """
 
     shape = _listing_shape(program)
@@ -3272,17 +3294,18 @@ def compile_program(
     if ex.chunked_edb:
         _check_chunk_soundness(ex)
     if mesh is not None:
-        _shard(ex)
+        _shard(ex, placed or {})
     return ex
 
 
-def _shard(ex: GenericExecutable) -> None:
+def _shard(ex: GenericExecutable, placed: Mapping[str, Relation]) -> None:
     """Lay a mesh executable out: with ``S`` ranks over the sharding axes
     and ``S`` dividing the domain, every dense grid of a predicate with a
     key (EDB, carried state, delta, views) holds this rank's block of
     ``n / S`` leading rows, and each rule whose head is such a grid gets
     its owner variable.  The EDB the interpreter reads is moved to the
-    mesh's device, a sharded grid as a copy of its block."""
+    mesh's device, a sharded grid as a copy of its block, unless
+    ``placed`` holds that layout already."""
 
     mesh, device, n = ex.mesh, ex.device, ex.domain
     axes = mesh.batch_axes
@@ -3295,8 +3318,22 @@ def _shard(ex: GenericExecutable) -> None:
     for name, rel in ex.relations.items():
         dense = isinstance(rel, Relation) and name not in ex.row_edb \
             and name not in ex.chunked_edb
-        if dense and split and rel.key_positions:
+        cut = dense and split and bool(rel.key_positions)
+        if cut:
             sharded.add(name)
+        mine = placed.get(name) if dense else None
+        if mine is not None:
+            want = tuple(rel.present.shape)
+            if cut:
+                want = (m,) + want[1:]
+            if tuple(mine.present.shape) != want \
+                    or mine.present.device != device:
+                raise ExecutorError(
+                    f"placed relation {name!r} holds "
+                    f"{tuple(mine.present.shape)} on {mine.present.device}, "
+                    f"this rank reads {want} on {device}")
+            local[name] = mine
+        elif cut:
             local[name] = Relation(
                 n=rel.n, key_positions=rel.key_positions,
                 present=rel.present.narrow(0, lo, m).to(device, copy=True),

@@ -89,7 +89,11 @@ def _synchronize(state: Any) -> None:
 def agreed(done: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``done`` on every rank of ``axes`` (a one-element bool tensor that
     holds only where each rank's holds): an all-reduce MAX of the ranks'
-    ``not done``.  Without a mesh or axes, ``done`` itself."""
+    ``not done``.  Without a mesh or axes, ``done`` itself.  Under
+    ``torch.func.vmap`` (a batched run: one flag a query) the k flags
+    travel in one all-reduce (the collective's batching rule), so a
+    batched phase agrees once a superstep and stops when every query's
+    flag holds on every rank."""
 
     if mesh is None or not axes:
         return done

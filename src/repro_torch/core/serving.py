@@ -1,6 +1,7 @@
 """Online fixpoint serving: plan cache + EDB cache + vmap query batching.
 
-The port of :mod:`repro.core.serving` on one device.  The executor makes
+The port of :mod:`repro.core.serving`, on one device or on a mesh of
+``torch.distributed`` ranks.  The executor makes
 ``compile_program`` run figures; this module makes it serve traffic.
 Three mechanisms, each measurable on its own:
 
@@ -28,12 +29,19 @@ Three mechanisms, each measurable on its own:
   flags are read on the host) and dispatches one query at a time, each
   compiled with its bindings.
 
-``mesh=`` raises ``NotImplementedError`` naming ROADMAP A10d.
+On a mesh (``FixpointServer(mesh=)``; every rank builds the server over
+the same global relations and makes the same requests in the same order)
+the plan key holds the mesh's topology, the EDB cache holds each rank's
+layout of a relation (the block of leading rows of a sharded grid, the
+whole of a replicated one), and a batched request runs the mesh step
+under vmap, its collectives shared by the k queries.  Each rank gets
+every query's global answers.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -143,6 +151,17 @@ def relation_signature(name: str, rel: Any) -> Tuple[Any, ...]:
             tuple(sorted(rel.values)))
 
 
+def _mesh_topology(mesh: Any) -> Tuple[Any, ...]:
+    """``((axis, size), ...)`` of a :class:`~repro_torch.launch.mesh.Mesh`
+    in mesh order, as the reference's reads its JAX mesh; ``()`` on one
+    device."""
+
+    if mesh is None:
+        return ()
+    return tuple((str(a), int(s)) for a, s in zip(mesh.axis_names,
+                                                  mesh.sizes))
+
+
 def plan_cache_key(
     program: Union[Program, str],
     relations: Mapping[str, Any],
@@ -163,12 +182,9 @@ def plan_cache_key(
     (``storage=``, ``rewrite=``, ``row_cap=``, ...).  Anything that changes
     the compiled artifact must be in the key; anything that only changes
     *data* must not be (that is the EDB cache's job).  Byte for byte the
-    reference's key: the same inputs give the same hex digest."""
+    reference's key: the same inputs, and a mesh of the same axes and
+    sizes, give the same hex digest."""
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP A10d (serving on a mesh)"
-        )
     prog = parse(program) if isinstance(program, str) else program
     h = hashlib.sha256()
     h.update(prog.to_text().encode())
@@ -179,7 +195,7 @@ def plan_cache_key(
         for name, rel in sorted(relations.items())
     )).encode())
     h.update(repr(tuple(sorted(param_names))).encode())
-    h.update(repr(()).encode())  # the mesh topology of one device
+    h.update(repr(_mesh_topology(mesh)).encode())
     h.update(repr(int(epoch)).encode())
     h.update(repr(tuple(sorted(
         (k, repr(v)) for k, v in overrides.items() if v is not None
@@ -242,16 +258,40 @@ class PlanCache:
 # ---------------------------------------------------------------------------
 
 
-def _on_device(rel: Relation, device: torch.device) -> Relation:
+def _on_device(rel: Relation, device: torch.device,
+               mesh: Any = None) -> Relation:
     """``rel`` with its tensors on ``device`` (a tensor already there is
-    not copied)."""
+    not copied), laid out for this rank of ``mesh`` when one is given
+    (:func:`_place_grid`)."""
+
+    def place(g):
+        return _place_grid(g, mesh, rel.n, device)
 
     return Relation(
         n=rel.n,
         key_positions=tuple(rel.key_positions),
-        present=rel.present.to(device),
-        values={p: g.to(device) for p, g in rel.values.items()},
+        present=place(rel.present),
+        values={p: place(g) for p, g in rel.values.items()},
     )
+
+
+def _place_grid(a: torch.Tensor, mesh: Any, domain: int,
+                device: torch.device) -> torch.Tensor:
+    """This rank's layout of a grid, as the executable lays out its EDB
+    (``executor._shard``, the reference's ``_place_grid``): a grid whose
+    leading axis is the domain holds the rank's block of ``n / S`` rows
+    when the ``S`` ranks of the sharding axes divide the domain (a copy:
+    the entry keeps nothing of the whole); anything else is whole."""
+
+    if mesh is not None:
+        axes = mesh.batch_axes
+        S = math.prod(mesh.shape[ax] for ax in axes)
+        if S > 1 and a.dim() >= 1 and a.shape[0] == domain \
+                and domain % S == 0:
+            m = domain // S
+            return a.narrow(0, mesh.linear_index(axes) * m, m).to(
+                device, copy=True)
+    return a.to(device)
 
 
 class EDBCache:
@@ -262,9 +302,11 @@ class EDBCache:
     across *requests*: the first placement of relation ``name`` copies a
     relation the caller gave on the host to the device once, later
     requests reuse the placed :class:`Relation` (a tensor already on the
-    device is not copied).  Entries are guarded by the source object's
-    identity — rebinding a name to a new relation replaces the cached
-    copy.
+    device is not copied).  On a mesh an entry holds this rank's layout
+    (:func:`_place_grid`) and is keyed by the mesh's topology too; an
+    executable compiled against it reads it as it is.  Entries are
+    guarded by the source object's identity — rebinding a name to a new
+    relation replaces the cached copy.
     """
 
     def __init__(self):
@@ -273,21 +315,23 @@ class EDBCache:
         self.misses = 0
 
     def place(self, name: str, rel: Relation,
-              device: Union[str, torch.device]) -> Relation:
-        """The twin of ``rel`` on ``device`` (dense relations only;
+              device: Union[str, torch.device], mesh: Any = None
+              ) -> Relation:
+        """The twin of ``rel`` on ``device``, laid out for this rank of
+        ``mesh`` when one is given (dense relations only;
         :class:`RowRelation` EDB is packed by ``compile_program`` and
         passes through untouched)."""
 
         if isinstance(rel, RowRelation):
             return rel
         device = torch.device(device)
-        key = (name, str(device))
+        key = (name, _mesh_topology(mesh), str(device))
         entry = self._entries.get(key)
         if entry is not None and entry[0] is rel:
             self.hits += 1
             return entry[1]
         self.misses += 1
-        placed = _on_device(rel, device)
+        placed = _on_device(rel, device, mesh)
         self._entries[key] = (rel, placed)
         return placed
 
@@ -354,7 +398,8 @@ def _state_bytes(exe: GenericExecutable) -> int:
 
 class FixpointServer:
     """Serve parameterized Datalog queries against a shared EDB, on
-    ``device`` (default: the card; with none present this raises).
+    ``device`` (default: the card; with none present this raises), or on
+    every rank of ``mesh`` (its device), each rank making the same calls.
 
     Construction binds the shared relations (the graph); each
     :meth:`query` call takes a program plus per-query parameter bindings,
@@ -387,11 +432,13 @@ class FixpointServer:
         **compile_overrides: Any,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "FixpointServer(mesh=) is not ported yet: ROADMAP A10d "
-                "(multi-GPU)"
-            )
+            if device is not None and torch.device(device).type \
+                    != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.relations: Dict[str, Any] = dict(relations)
         if domain is None:
             domains = {rel.n for rel in self.relations.values()}
@@ -437,14 +484,17 @@ class FixpointServer:
         return plan_cache_key(
             prog, self.relations,
             param_names=tuple(sorted(param_names)),
-            epoch=self.epoch,
+            mesh=self.mesh, epoch=self.epoch,
             **self.compile_overrides,
         )
 
     def _compile(
         self, program: Program, first_params: Mapping[str, Relation]
     ) -> GenericExecutable:
+        # On a mesh the executable plans on the global relations and reads
+        # this rank's layout of the shared ones from the EDB cache.
         bindings: Dict[str, Any] = {}
+        placed: Dict[str, Relation] = {}
         for name in program.edb:
             if name in first_params:
                 # Placeholder binding: parameter relations are rebound per
@@ -453,19 +503,25 @@ class FixpointServer:
                 # with its own bindings.)
                 rel = first_params[name]
                 bindings[name] = rel if isinstance(rel, RowRelation) \
+                    or self.mesh is not None \
                     else _on_device(rel, self.device)
             elif name in self.relations:
-                bindings[name] = self.edb_cache.place(
-                    name, self.relations[name], self.device
-                )
+                rel = self.relations[name]
+                here = self.edb_cache.place(name, rel, self.device,
+                                            mesh=self.mesh)
+                if self.mesh is None:
+                    bindings[name] = here
+                else:
+                    bindings[name], placed[name] = rel, here
             else:
                 raise ExecutorError(
                     f"EDB relation {name!r} is neither a shared server "
                     "relation nor a query parameter"
                 )
         return compile_program(
-            program, bindings, domain=self.domain, hw=self.hw,
-            device=self.device, **self.compile_overrides,
+            program, bindings, mesh=self.mesh, domain=self.domain,
+            hw=self.hw, device=self.device, placed=placed or None,
+            **self.compile_overrides,
         )
 
     def query(

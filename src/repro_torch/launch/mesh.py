@@ -53,15 +53,18 @@ BATCH_AXES = ("pod", "data")
 
 @dataclass
 class CollectiveStats:
-    """Bytes this rank handed to each collective (its payload, once a
-    call) and, with staged ``gloo`` on the card, the bytes copied between
-    the card and the pinned host buffers, both ways."""
+    """The calls this rank made of each collective, the bytes it handed to
+    each (its payload, once a call) and, with staged ``gloo`` on the card,
+    the bytes copied between the card and the pinned host buffers, both
+    ways.  A batched call (k queries under vmap) counts once."""
 
     sent: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     staged_bytes: int = 0
+    calls: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
 
     def reset(self) -> None:
         self.sent.clear()
+        self.calls.clear()
         self.staged_bytes = 0
 
 

@@ -1,6 +1,8 @@
 """Request loop for online fixpoint serving (the executor's serve path).
 
-The port of :mod:`repro.launch.query_serve` on one device.
+The port of :mod:`repro.launch.query_serve`, on one device or on a mesh
+(every rank runs the same loop over the same requests and gets the same
+responses).
 ``launch/serve.py`` serves the LM: prefill (one expensive pass that builds
 the reusable state) then decode (cheap steps amortizing it).  This module
 is the same shape for Datalog fixpoints: the *cold compile* of a query
@@ -68,7 +70,7 @@ def build_query_server(
     EDB on ``device`` (default: the card) — the serving analogue of
     ``build_prefill_step``/``build_decode_step`` (kwargs forward:
     ``plan_cache_capacity=``, ``hw=``, admission knobs, compile
-    overrides).  A ``mesh`` raises (ROADMAP A10d)."""
+    overrides), or over every rank of ``mesh`` (on its device)."""
 
     return FixpointServer(relations, mesh=mesh, device=device, **kwargs)
 

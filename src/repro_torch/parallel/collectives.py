@@ -20,7 +20,15 @@ ranks in row-major order of the axes (which must be in the mesh's order).
 Bool payloads travel as uint8.  With staged ``gloo`` on the card every
 payload is copied to a pinned host buffer and back here, in
 :func:`_on_wire`, the one place that stages; the mesh's ``stats`` count
-each op's bytes and the staged bytes.
+each op's calls and bytes and the staged bytes.
+
+Under ``torch.func.vmap`` (a batched serving run: k queries through one
+fixpoint) :func:`psum`, :func:`pmax`, :func:`psum_scatter`,
+:func:`all_gather` and :func:`all_to_all` go through one operator,
+``repro_torch::collective``, whose batching rule folds the query axis
+into the payload: k queries issue ONE collective a call site, as GSPMD's
+batched collectives do in the reference.  c10d's own ops have no batching
+rule.  Outside vmap they call the same code directly.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Callable, Iterator, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._C._functorch import is_batchedtensor
 
 __all__ = ["bind", "bound_mesh", "axes_present", "axis_index", "axis_size",
            "psum", "pmax", "psum_scatter", "all_gather", "all_to_all",
@@ -104,6 +113,7 @@ def _on_wire(mesh, name: str, send: torch.Tensor, recv_shape,
     send = send.contiguous().view(wire) if dtype == torch.bool \
         else send.contiguous()
     nbytes = send.numel() * send.element_size()
+    mesh.stats.calls[name] += 1
     mesh.stats.sent[name] += nbytes
     if mesh.staged and send.is_cuda:
         host = torch.empty(send.shape, dtype=wire, pin_memory=True)
@@ -134,17 +144,47 @@ def _all_reduce(x: torch.Tensor, axes, op, name: str) -> torch.Tensor:
 
 
 def psum(x: torch.Tensor, axes) -> torch.Tensor:
-    return _all_reduce(x, axes, dist.ReduceOp.SUM, "psum")
+    if not _axes(axes):
+        return x
+    return _dispatch("psum", x, axes)
 
 
 def pmax(x: torch.Tensor, axes) -> torch.Tensor:
-    return _all_reduce(x, axes, dist.ReduceOp.MAX, "pmax")
+    if not _axes(axes):
+        return x
+    return _dispatch("pmax", x, axes)
 
 
 def psum_scatter(x: torch.Tensor, axes) -> torch.Tensor:
     """``lax.psum_scatter(x, axes, scatter_dimension=0, tiled=False)``:
     ``x[n, ...]`` summed over the group, row ``axis_index`` of the sum."""
 
+    return _dispatch("psum_scatter", x, axes)
+
+
+def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
+    """``lax.all_gather(x, axes, tiled=False)``: ``[n, ...]``, row i from
+    the group's rank i."""
+
+    return _dispatch("all_gather", x, axes)
+
+
+def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
+    """``lax.all_to_all(x, axes, 0, 0, tiled=True)``: block i of dim 0 goes
+    to the group's rank i; the received blocks, in sender order."""
+
+    return _dispatch("all_to_all", x, axes)
+
+
+def _psum(x: torch.Tensor, axes) -> torch.Tensor:
+    return _all_reduce(x, axes, dist.ReduceOp.SUM, "psum")
+
+
+def _pmax(x: torch.Tensor, axes) -> torch.Tensor:
+    return _all_reduce(x, axes, dist.ReduceOp.MAX, "pmax")
+
+
+def _psum_scatter(x: torch.Tensor, axes) -> torch.Tensor:
     axes = _axes(axes)
     mesh = _mesh()
     group = mesh.group(axes)
@@ -153,10 +193,7 @@ def psum_scatter(x: torch.Tensor, axes) -> torch.Tensor:
                                                  group=group))
 
 
-def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
-    """``lax.all_gather(x, axes, tiled=False)``: ``[n, ...]``, row i from
-    the group's rank i."""
-
+def _all_gather_impl(x: torch.Tensor, axes) -> torch.Tensor:
     axes = _axes(axes)
     mesh = _mesh()
     group = mesh.group(axes)
@@ -166,16 +203,60 @@ def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
                                              group=group))
 
 
-def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
-    """``lax.all_to_all(x, axes, 0, 0, tiled=True)``: block i of dim 0 goes
-    to the group's rank i; the received blocks, in sender order."""
-
+def _all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
     axes = _axes(axes)
     mesh = _mesh()
     group = mesh.group(axes)
     return _on_wire(mesh, "all_to_all", x, x.shape,
                     lambda s, r: dist.all_to_all_single(
                         r.view(-1), s.view(-1), group=group))
+
+
+_IMPLS = {"psum": _psum, "pmax": _pmax, "psum_scatter": _psum_scatter,
+          "all_gather": _all_gather_impl, "all_to_all": _all_to_all}
+
+
+def _dispatch(kind: str, x: torch.Tensor, axes) -> torch.Tensor:
+    """A batched payload (under vmap) goes through the operator and its
+    batching rule; any other calls the collective directly."""
+
+    if is_batchedtensor(x):
+        return _collective(x, kind, ",".join(_axes(axes)))
+    return _IMPLS[kind](x, axes)
+
+
+@torch.library.custom_op("repro_torch::collective", mutates_args=())
+def _collective(x: torch.Tensor, kind: str, axes: str) -> torch.Tensor:
+    """The named-axis collective ``kind`` of ``x`` over ``axes`` (names
+    joined by commas) of the bound mesh, as one operator, so that
+    ``torch.func.vmap`` reaches it through :func:`_collective_vmap`."""
+
+    return _IMPLS[kind](x, tuple(axes.split(",")))
+
+
+def _collective_vmap(info, in_dims, x, kind, axes):
+    """Batching rule of :func:`_collective`: k queries, one collective.
+
+    The reductions are elementwise, so the batched payload goes as it is.
+    The others act on the payload's leading dimension: the query axis
+    moves right behind it (``[k, n, ...] -> [n, k, ...]``), so that each
+    rank's block of a tiled exchange, or its gathered row, carries all k
+    queries, and the output's query axis is dimension 1 (``all_gather``,
+    ``all_to_all``) or 0 (``psum_scatter``)."""
+
+    d = in_dims[0]
+    if d is None:
+        return _collective(x, kind, axes), None
+    if kind in ("psum", "pmax"):
+        return _collective(x, kind, axes), d
+    x = x.movedim(d, 0)
+    if kind == "all_gather":
+        return _collective(x, kind, axes), 1
+    x = x.movedim(0, 1)
+    return _collective(x, kind, axes), 1 if kind == "all_to_all" else 0
+
+
+torch.library.register_vmap(_collective, _collective_vmap)
 
 
 def ppermute(x: torch.Tensor, axis: str,

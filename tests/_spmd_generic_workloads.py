@@ -450,10 +450,13 @@ def blocks(mesh, data):
 
 
 def refusals(mesh, data):
-    """The options a mesh still refuses, each naming its queue item, and
-    fault tolerance, which runs (A10c): checkpoints, a crash injected on
-    rank 3 only (every rank restarts once) and a remesh onto the same
-    ranks, each against the plain run's closure."""
+    """The options that once refused on a mesh, each of which runs now:
+    fault tolerance (A10c: checkpoints, a crash injected on rank 3 only
+    (every rank restarts once) and a remesh onto the same ranks, each
+    against the plain run's closure), and serving (A10d: ``run(params=)``
+    and ``run_batched`` over the edge relation and its reverse, each
+    against the single-device executable's answers to the same bindings).
+    """
 
     import shutil
     import tempfile
@@ -467,7 +470,9 @@ def refusals(mesh, data):
     ex = compile_program(listings.transitive_closure_program(),
                          _port_relations(data, "edge"), mesh=mesh)
     n, cols = data["edge"]
-    param = {"edge": Relation.from_columns(n, *cols["edge"], device="cpu")}
+    src, dst = cols["edge"]
+    params = [{"edge": Relation.from_columns(n, a, b, device="cpu")}
+              for a, b in ((src, dst), (dst, src))]
     want = _grids(ex.run(max_iters=100).state["tc"])[0]
     out = {}
     # One directory for every rank: rank 0 writes, every rank restores.
@@ -493,16 +498,22 @@ def refusals(mesh, data):
     dist.barrier()
     if dist.get_rank() == 0:
         shutil.rmtree(d)
-    calls = {
-        "params": lambda: ex.run(max_iters=4, params=param),
-        "run_batched": lambda: ex.run_batched([param], max_iters=4),
+    one = compile_program(listings.transitive_closure_program(),
+                          _port_relations(data, "edge"), device="cpu")
+    served = {
+        "params": lambda x: [x.run(max_iters=100, params=ps)
+                             for ps in params],
+        "run_batched": lambda x: x.run_batched(params, max_iters=100),
     }
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = None
-        except NotImplementedError as err:
-            out[name] = str(err)
+    for name, call in served.items():
+        got, single = call(ex), call(one)
+        out[name] = {"equal": all(
+                         np.array_equal(_grids(g.state["tc"])[0],
+                                        _grids(w.state["tc"])[0])
+                         and g.iterations == w.iterations
+                         for g, w in zip(got, single)),
+                     "restarts": sum(g.restarts for g in got),
+                     "events": [e for g in got for e in g.remesh_events]}
     return out
 
 

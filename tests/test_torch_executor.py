@@ -10,10 +10,10 @@ numpy oracle; f32 values within 1e-6 relative of the reference's (sums
 taken in another order).  Listing 1 through ``compile_program(binding=)``
 matches the port's ``compile_pregel`` to <= 1e-8 (the same operators).
 The fail-closed errors raise the same exception types with the same
-messages (up to the package name in a module path), and every option of
-a later queue item raises ``NotImplementedError`` naming it (on a mesh,
-serving A10d; fault tolerance there, A10c, runs).  Per-query
-parameters and query batching are held in ``tests/test_torch_serving.py``.
+messages (up to the package name in a module path).  On a one-rank mesh
+fault tolerance (A10c) and per-query parameters and batches (A10d) run
+and equal the unmeshed answers.  Per-query parameters and query batching
+are held in ``tests/test_torch_serving.py``.
 """
 
 import contextlib
@@ -485,8 +485,8 @@ def _one_rank_mesh(tmp_path):
 def test_unported_compile_options_raise(kw, item, tmp_path):
     """``mesh=`` and ``exchange=`` compile (A10b); on a mesh, fault
     tolerance runs (A10c: checkpoints and an injector, the closure of the
-    plain run), and per-query parameters and batches (A10d) raise naming
-    their item."""
+    plain run), and so do per-query parameters and batches (A10d), equal
+    to the unmeshed executable's answers."""
 
     compile_kw = {k: kw.pop(k) for k in ("storage", "row_cap", "exchange")
                   if k in kw}
@@ -502,11 +502,20 @@ def test_unported_compile_options_raise(kw, item, tmp_path):
             np.testing.assert_array_equal(res.state["tc"].tuples(),
                                           plain.state["tc"].tuples())
             return
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            if kw.pop("batched", False):
-                ex.run_batched([{}], max_iters=4)
-            else:
-                ex.run(max_iters=4, **kw)
+        one = _tc(**compile_kw)
+        if kw.pop("batched", False):
+            src, dst = _edges()
+            params = [{"edge": TE.Relation.from_columns(
+                N, a, b, device="cpu")} for a, b in ((src, dst), (dst, src))]
+            got = ex.run_batched(params, max_iters=64)
+            want = one.run_batched(params, max_iters=64)
+        else:
+            got = [ex.run(max_iters=64, **kw)]
+            want = [one.run(max_iters=64, **kw)]
+        for g, w in zip(got, want):
+            assert g.converged and g.iterations == w.iterations
+            np.testing.assert_array_equal(g.state["tc"].tuples(),
+                                          w.state["tc"].tuples())
 
 
 def test_forced_dense_storage_runs():

@@ -443,13 +443,46 @@ def test_server_refusals_match_the_reference(case):
                  lambda: SERVER_FAIL_CASES[case](T, T.server()))
 
 
-def test_mesh_raises_naming_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        T.server(mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        TS.plan_cache_key(T.reach(), T.shared(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        TQ.build_query_server(T.shared(), mesh=object(), device="cpu")
+def test_mesh_raises_naming_a10(tmp_path):
+    """``mesh=`` runs (A10d): the plan key of a mesh is the reference's
+    digest for a mesh of the same axes and sizes (its ``_mesh_topology``
+    reads ``axis_names`` and the ``devices`` array's shape), and the
+    server and the request loop's front door take a one-rank mesh."""
+
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    def digests(shape, axes):
+        port = types.SimpleNamespace(axis_names=axes, sizes=shape)
+        ref = types.SimpleNamespace(axis_names=axes,
+                                    devices=np.empty(shape, object))
+        return (TS.plan_cache_key(T.ppr(), T.shared(), param_names=("seed",),
+                                  mesh=port),
+                JS.plan_cache_key(J.ppr(), J.shared(), param_names=("seed",),
+                                  mesh=ref))
+
+    keys = set()
+    for shape, axes in (((8,), ("data",)), ((2, 4), ("pod", "data")),
+                        ((1,), ("data",))):
+        got, want = digests(shape, axes)
+        assert got == want
+        keys.add(got)
+    keys.add(TS.plan_cache_key(T.ppr(), T.shared(), param_names=("seed",)))
+    assert len(keys) == 4
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_data_mesh(device="cpu")
+        for server in (T.server(mesh=mesh),
+                       TQ.build_query_server(T.shared(), mesh=mesh)):
+            assert server.mesh is mesh and server.device == mesh.device
+            assert server.plan_key(T.ppr(), ("seed",)) \
+                == digests((1,), ("data",))[1]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_server_defaults_to_the_card():

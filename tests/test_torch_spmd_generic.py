@@ -19,8 +19,8 @@ converters and the sharded dense rules hand to torch lies in range, under
 the audit mode of ``test_torch_spmd.py``); buckets too small set the
 overflow flag on some ranks, and every rank falls back to dense grids
 with the right answer; each rank holds ``n / 8`` leading rows of every
-sharded grid; the options a mesh still refuses name their queue items,
-and fault tolerance (A10c) runs there.
+sharded grid; fault tolerance (A10c) and serving's ``run(params=)`` and
+``run_batched`` (A10d) run there.
 Connected components over a wide edge set (C16): the reference's
 buckets overflow and it reruns on dense grids, the port's keep the row
 tables, with the same labels.  In process: C2 (``row_hash_exchange``
@@ -210,21 +210,17 @@ def test_each_rank_holds_a_block(runs):
     ("params", "A10d"), ("run_batched", "A10d"),
 ])
 def test_mesh_refusals_name_their_item(runs, name, item):
-    """A10d's options still refuse, naming their item; A10c's run on every
-    rank: the closure of the plain run, one restart on every rank after a
-    crash on rank 3 only, and the remesh recorded."""
+    """The options that once refused on a mesh run on every rank. A10c's:
+    the closure of the plain run, one restart on every rank after a crash
+    on rank 3 only, and the remesh recorded.  A10d's: ``run(params=)`` and
+    ``run_batched`` over two edge bindings equal the single-device
+    executable's closures and iteration counts."""
 
     ranks, _ = runs
     for r in ranks:
-        got = r["refusals"][name]
-        if item == "A10c":
-            assert got == {
-                "equal": True, "restarts": int(name == "injector"),
-                "events": ["remesh(8->8: data=8)"] if name == "remesh"
-                else []}
-            continue
-        assert got is not None and f"ROADMAP {item}" in got
-        assert "A10b" not in got
+        assert r["refusals"][name] == {
+            "equal": True, "restarts": int(name == "injector"),
+            "events": ["remesh(8->8: data=8)"] if name == "remesh" else []}
 
 
 # ---------------------------------------------------------------------------
