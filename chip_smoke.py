@@ -203,7 +203,27 @@ Phases, each of which exits nonzero on failure:
    1e-5 of float64 or equal to BFS; every rank's answers equal.  Printed:
    ms a query batched and one by one, collective calls and MB staged a
    batched iteration, the cold and warm request times, each rank's peak
-   memory, B1's time and launches.  Any rank's failure fails it.
+   memory, B1's time and launches.  The LM train step on the same ranks
+   last (ROADMAP A10e-1, ``_mesh_train``): phi4-mini-3.8b at published
+   width, depth cut to ``MESH_TRAIN_LAYERS`` (2), random weights from
+   ``--seed``, on a (data 2, model 2) mesh (tensor parallel over
+   ``model``), a batch of 4 x 2048 tokens in 2 microbatches:
+   ``MESH_TRAIN_STEPS`` (2) AdamW steps under the planner's ZeRO-1 plan
+   (``plan_lm`` on ``H100_SXM``), one step with layer 0's row-parallel
+   MLP psum skipped (the planted fault) and one under ZeRO-3 (the plan's
+   ``rules.fsdp``), each from the seed's weights.  Before the ranks start
+   the phase runs the port's one-device step on the same weights and
+   batch (the yardstick), measures the bf16 bound as the train phase does
+   (the plain path against the same model in f32, 1 x 2048 tokens) and
+   holds B2-B4 to their plain versions at a rank's local shape (H 12, KH
+   4, S 2048, D 128, bf16), timed.  Bars: every step's loss and grad norm
+   within ``LM_NOISE_FACTOR`` x the bf16 bound (capped at 0.1) of the
+   one-device step, the fault outside it; every rank's loss equal; the
+   data replicas' gathered parameters bit-equal after each step; B2-B4's
+   launches a rank a step exact, all on the ``wgmma`` route.  Printed: s
+   a step per rank, tokens/s, calls and MB a rank hands each collective,
+   MB staged, peak memory a rank, the collectives by phase of the step.
+   Any rank's failure fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -229,11 +249,12 @@ Phases, each of which exits nonzero on failure:
    attention shape.
 12. ``families``: the other families' serving path, ``launch/serve.py``,
    at published width with seeded random bf16 weights drawn in bf16:
-   minicpm3-4b (MLA, 62 layers), whisper-medium (encoder-decoder, 24 + 24
-   layers, 4 x 1500 frame embeddings), mixtral-8x22b (MoE, 8 of 56
+   minicpm3-4b (MLA, 62 layers), whisper-medium (encoder-decoder, 24 +
+   24 layers, 4 x 1500 frame embeddings), mixtral-8x22b (MoE, 8 of 56
    layers), arctic-480b (MoE with a dense residual, 2 of 35 layers),
    mamba2-130m (SSM, 24 layers) and hymba-1.5b (attention beside SSM
-   heads, 32 layers, a 1024-slot SWA ring), one after another, each freed
+   heads, 8 of 32 layers, a 1024-slot SWA ring; the cuts in
+   ``FAMILY_LAYERS``), one after another, each freed
    before the next: 4 requests of ``--lm-prompt`` tokens, then 32 greedy
    decode steps; prefill s and tokens/s, decode ms a step, peak memory,
    the MoE's pairs dropped a decode step at its own capacity factor, one
@@ -295,7 +316,8 @@ Phases, each of which exits nonzero on failure:
    depth whose params, AdamW state, f32 gradient accumulator and
    activations fit the card's free memory (``_train_reckoning``, printed;
    arctic-480b fits not one layer and is not trained), minicpm3-4b and
-   hymba-1.5b cut to 4 layers (``FAMILY_TRAIN_DEPTH_CAP``): the whole
+   hymba-1.5b cut to 4 layers, mamba2-130m and whisper-medium (decoder and
+   encoder) to 8 (``FAMILY_TRAIN_DEPTH_CAP``): the whole
    path at 2 layers and one sequence, kernel path against the plain attention
    within ``LM_NOISE_FACTOR`` times the bf16 bound measured in the run
    (expert choices replayed), with one planted backward fault a family
@@ -339,6 +361,7 @@ phase runs and is checked, but neither of those two lines is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -3880,8 +3903,13 @@ FAMILY_ARCHS = ("minicpm3_4b", "whisper_medium", "mixtral_8x22b",
                 "arctic_480b", "mamba2_130m", "hymba_1_5b")
 # Depth cuts the card forces: the bf16 weights of mixtral-8x22b take about
 # 5.0 GB a layer (8 of 56 layers: 41 GB), arctic-480b's 27.2 GB (2 of 35:
-# 55 GB).  Every other configuration is served whole.
-FAMILY_LAYERS = {"mixtral_8x22b": 8, "arctic_480b": 2}
+# 55 GB).  And a cut that keeps the whole script inside its limit, for
+# the mesh phase's LM train cells: hymba-1.5b served at 8 of 32 layers
+# (21.9 s at 32, 5.0 at 8 on an NVIDIA H100 80GB HBM3 at 700.00 W).
+# (minicpm3-4b at 16 of 62 took 8.3 s against 29.9 there, but its census
+# peak estimate, which holds ~6 GB the card's path does not, then passed
+# 2x the measured peak.)  Every other configuration is served whole.
+FAMILY_LAYERS = {"mixtral_8x22b": 8, "arctic_480b": 2, "hymba_1_5b": 8}
 # whisper-medium's decoder holds 448 positions (max_target_positions in
 # its published config, hf:openai/whisper-medium) and takes a prompt of at
 # most 224 tokens: it is served a 224-token prompt decoded to 448.
@@ -5320,8 +5348,12 @@ FAMILY_TRAIN_STEPS = 3
 # limit (the longest families first, at published width): 4 of
 # minicpm3-4b's 62 layers (100.1 s at 62 in the families_train phase, 27.8
 # at 16, 10.0 at 4) and of hymba-1.5b's 32 (90.9 s at 32, 52.8 at 16,
-# 16.8 at 4), for the mesh phase's generic and serving cells.
-FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 4, "hymba_1_5b": 4}
+# 16.8 at 4), for the mesh phase's generic and serving cells; 8 of
+# mamba2-130m's 24 (50.4 s at 24) and 8 of whisper-medium's 24 decoder and
+# 24 encoder layers (34.6 s at 24 + 24), for its LM train cells (times on
+# an NVIDIA H100 80GB HBM3 at 700.00 W).
+FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 4, "hymba_1_5b": 4,
+                          "mamba2_130m": 8, "whisper_medium": 8}
 # The depth reckoning plans for the card's memory less this reserve (the
 # CUDA context and loaded kernels, cuBLAS's workspaces, the caching
 # allocator's rounding): a depth that depends on the card, not on what
@@ -5849,6 +5881,9 @@ def _train_family(arch, args, device, gen, budget, timed=None):
               f"training waits for a mesh, ROADMAP A10f)", flush=True)
         return None
     changes = {"n_layers": min(depth, FAMILY_TRAIN_DEPTH_CAP.get(arch, depth))}
+    if full.enc_layers and arch in FAMILY_TRAIN_DEPTH_CAP:
+        changes["enc_layers"] = min(full.enc_layers,
+                                    FAMILY_TRAIN_DEPTH_CAP[arch])
     if changes["n_layers"] < depth:
         print(f"{tag}: trained at {changes['n_layers']} layers "
               f"(FAMILY_TRAIN_DEPTH_CAP)", flush=True)
@@ -6230,6 +6265,19 @@ MESH_FAULT_SUPERSTEPS = 4
 MESH_IMRU_ITERATIONS = 5
 MESH_SCHEDULES = ("flat", "hierarchical", "kary_tree", "scatter")
 MESH_SCHEDULE_RTOL = 1e-6
+# The LM train step on a mesh (ROADMAP A10e-1): phi4-mini at published
+# width, depth cut to MESH_TRAIN_LAYERS, on a (data 2, model 2) mesh; a
+# batch of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens in
+# MESH_TRAIN_MICROBATCHES microbatches; MESH_TRAIN_STEPS AdamW steps under
+# the planner's ZeRO-1 plan, one with a row-parallel psum skipped (the
+# planted fault), one under ZeRO-3.
+MESH_TRAIN_SHAPE = ((2, 2), ("data", "model"))
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_BATCH = 4
+MESH_TRAIN_SEQ = 2048
+MESH_TRAIN_MICROBATCHES = 2
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_FAULT_LAYER = 0
 
 
 def _max_program():
@@ -7661,8 +7709,300 @@ def _mesh_rank(rank, world, cfg):
     if on_card:
         torch.cuda.empty_cache()
     lap("serve")
+    out.update(_mesh_train(cfg))
+    if on_card:
+        torch.cuda.empty_cache()
+    lap("train")
     out["seconds"] = seconds
     return out
+
+
+def _mesh_train_plans():
+    """(the planner's plan for phi4-mini's train_4k cell on the (data 2,
+    model 2) mesh of H100s, at MESH_TRAIN_LAYERS layers and
+    MESH_TRAIN_MICROBATCHES microbatches; the same overridden to ZeRO-3)."""
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.models.registry import get_config
+
+    shape, axes = MESH_TRAIN_SHAPE
+    plan = plan_lm(get_config(LM_ARCH), "train_4k",
+                   MeshSpec(tuple(zip(axes, shape))), hw=H100_SXM)
+    plan = dataclasses.replace(
+        plan, cfg=dataclasses.replace(plan.cfg, n_layers=MESH_TRAIN_LAYERS),
+        microbatches=MESH_TRAIN_MICROBATCHES)
+    zero3 = dataclasses.replace(
+        plan, zero="zero3", rules=dataclasses.replace(plan.rules, fsdp=True))
+    return plan, zero3
+
+
+def _mesh_train_inputs(args, d, device):
+    """The mesh train cells' batch (written to ``d``), the bar and the
+    yardstick, made before the ranks start: the bf16 bound (the plain
+    path's loss and gradients at 1 x MESH_TRAIN_SEQ against the same
+    model in f32, as the train phase measures it), the port's one-device
+    step at the cells' weights and batch for MESH_TRAIN_STEPS steps, and
+    B2-B4 held to their plain versions at a rank's local shape and
+    timed."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.train import build_train_step, make_optimizer
+    from repro_torch.models import lm
+
+    plan, _ = _mesh_train_plans()
+    cfg = plan.cfg
+    tokens = np.random.default_rng(args.seed + 7).integers(
+        0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)).astype(np.int32)
+    np.save(d / "train_tokens.npy", tokens)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = lm.init_params(cfg, gen, device=device)
+    one = torch.as_tensor(tokens[:1], device=device)
+    loss_r, g_r = _grads_of(params, cfg, one, "ref")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    loss_f, g_f = _grads_of(tree_map(lambda t: t.float(), params), cfg32,
+                            one, "ref")
+    floor = _tree_rel_l2(g_r, g_f)
+    loss_floor = abs(loss_r - loss_f) / abs(loss_f)
+    del g_r, g_f
+    if floor > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"mesh: the bf16 plain path is {floor} off f32")
+    opt = make_optimizer(plan, lr=TRAIN_LR)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    del params
+    step_fn, _, _ = build_train_step(plan, None, optimizer=opt, device=device)
+    steps = []
+    for _ in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        steps.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                      time.perf_counter() - t0))
+    del state, step_fn, opt
+    torch.cuda.empty_cache()
+    H, KH = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    rows = MESH_TRAIN_BATCH // MESH_TRAIN_MICROBATCHES // 2
+    tag = "a mesh train rank's local shape"
+    fwd = _flash_at(rows, H, KH, MESH_TRAIN_SEQ, MESH_TRAIN_SEQ, cfg.hd, True,
+                    None, gen, device, tag)
+    bwd = _bwd_at(rows, H, KH, MESH_TRAIN_SEQ, MESH_TRAIN_SEQ, cfg.hd, True,
+                  None, gen, device, tag)
+    torch.cuda.empty_cache()
+    bar = LM_NOISE_FACTOR * max(loss_floor, floor)
+    print(f"mesh: train yardstick {cfg.name} {cfg.n_layers} layers, "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens in "
+          f"{MESH_TRAIN_MICROBATCHES} microbatches on one device: (loss, "
+          f"grad_norm, s) {[tuple(round(x, 6) for x in r) for r in steps]}; "
+          f"bf16 bound: gradients rel L2 {floor:.3e}, loss rel "
+          f"{loss_floor:.3e}; bar {LM_NOISE_FACTOR} x {max(loss_floor, floor):.3e}"
+          f" = {bar:.3e}", flush=True)
+    return {"steps": steps, "bar": bar, "floor": floor,
+            "loss_floor": loss_floor, "fwd": fwd, "bwd": bwd}
+
+
+def _bits_fingerprint(t) -> tuple:
+    """An exact fingerprint of a tensor's bits (two integer sums, wrapping
+    mod 2^64, so any order gives the same)."""
+
+    import torch
+
+    bits = t.detach().reshape(-1).view(
+        torch.int32 if t.element_size() == 4 else torch.int16)
+    a = b = 0
+    for lo in range(0, bits.numel(), 1 << 24):
+        c = bits[lo:lo + (1 << 24)].to(torch.int64)
+        w = torch.arange(lo, lo + c.numel(), device=c.device) % 65521 + 1
+        a += int(c.sum())
+        b += int((c * w).sum())
+    return a % (1 << 64), b % (1 << 64)
+
+
+def _replica_fingerprint(params, specs, mesh):
+    """The fingerprint of this rank's parameters gathered over the batch
+    axes (its model block of the whole): equal on every data replica."""
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.parallel.sharding import P, join_blocks, spec_axes
+
+    out = []
+    for x, spec in zip(tree_leaves(params), tree_leaves(specs)):
+        data_only = P(*[e if "model" not in spec_axes(e) else None
+                        for e in spec])
+        out.append(_bits_fingerprint(join_blocks(x, data_only, mesh)))
+    return out
+
+
+@contextlib.contextmanager
+def _skipped_row_psum(layer):
+    """The planted fault: layer ``layer``'s MLP output is not summed over
+    ``model`` (its row-parallel psum skipped on every rank, in the forward
+    and in the recompute), so each rank carries its own part of it."""
+
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel import collectives as C
+
+    real_layer, real_mlp = lm._layer, blocks.mlp_apply
+    at = {"i": None}
+
+    def seen_layer(params, i, key="layers"):
+        at["i"] = i
+        return real_layer(params, i, key)
+
+    def mlp(p, x, cfg):
+        if at["i"] != layer:
+            return real_mlp(p, x, cfg)
+        with mock.patch.object(C, "reduce_from", lambda y, axes: y):
+            return real_mlp(p, x, cfg)
+
+    with mock.patch.object(lm, "_layer", seen_layer), \
+            mock.patch.object(blocks, "mlp_apply", mlp):
+        yield
+
+
+def _mesh_train(cfg):
+    """The LM train step on a (data 2, model 2) mesh of this phase's ranks
+    (ROADMAP A10e-1): MESH_TRAIN_STEPS steps under the planner's ZeRO-1
+    plan, one step with the planted fault, one under ZeRO-3, each from the
+    seed's weights; per step the loss, grad norm, seconds, flash launches
+    by route, collectives by op and phase, MB staged, peak memory and the
+    data replicas' parameter fingerprints."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.carry import shard_state, sharded_zeros
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_train_step, make_optimizer
+    from repro_torch.models import lm
+
+    mesh = make_mesh(*MESH_TRAIN_SHAPE, device=cfg["device"],
+                     backend=cfg["backend"])
+    on_card = mesh.device.type == "cuda"
+    tokens = np.load(Path(cfg["dir"]) / "train_tokens.npy")
+    zero1, zero3 = _mesh_train_plans()
+    out = {"train/model": mesh.coordinate("model"),
+           "train/data": mesh.coordinate("data")}
+    # The fault's step takes the batch in one microbatch: the same loss
+    # and gradient as the yardstick's step 0 (the microbatches' token
+    # counts are equal), at one gradient reduction instead of two.
+    fault = dataclasses.replace(zero1, microbatches=1)
+    for tag, plan, steps, fault in (
+            ("zero1", zero1, MESH_TRAIN_STEPS, None),
+            ("fault", fault, 1, MESH_TRAIN_FAULT_LAYER),
+            ("zero3", zero3, 1, None)):
+        opt = make_optimizer(plan, lr=TRAIN_LR)
+        step_fn, specs, batch_fn = build_train_step(plan, mesh, optimizer=opt)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(cfg["seed"])
+        params = lm.init_params(plan.cfg, gen, device=mesh.device)
+        state = {"params": shard_state(params, specs["params"], mesh),
+                 "opt": sharded_zeros(opt.init(lm.abstract_params(plan.cfg)),
+                                      specs["opt"], mesh),
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=mesh.device)}
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        rows = batch_fn({"tokens": tokens})
+        cell = []
+        with (contextlib.nullcontext() if fault is None
+              else _skipped_row_psum(fault)):
+            for _ in range(steps):
+                K.reset_launch_count()
+                mesh.stats.reset()
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, rows)
+                loss = float(metrics["loss"])
+                gnorm = float(metrics["grad_norm"])
+                if on_card:
+                    torch.cuda.synchronize()
+                cell.append({
+                    "loss": loss, "grad_norm": gnorm,
+                    "microbatches": plan.microbatches,
+                    "s": time.perf_counter() - t0,
+                    "launches": _train_counts(K),
+                    "calls": dict(mesh.stats.calls),
+                    "sent": dict(mesh.stats.sent),
+                    "staged": mesh.stats.staged_bytes,
+                    "phases": step_fn.phases,
+                    "peak": torch.cuda.max_memory_allocated()
+                    if on_card else 0,
+                    "replica": _replica_fingerprint(
+                        state["params"], specs["params"], mesh)})
+        out[f"train/{tag}"] = cell
+        del state, step_fn, rows
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _check_mesh_train(ranks, want):
+    """The mesh train cells' checks and lines; returns the failures."""
+
+    failed = []
+    bar = want["bar"]
+    steps = want["steps"]
+    r0 = ranks[0]
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    cfg = _mesh_train_plans()[0].cfg
+    per_step = _train_want(K, cfg, MESH_TRAIN_MICROBATCHES)
+    tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+    for tag in ("zero1", "zero3", "fault"):
+        for i, c in enumerate(r0[f"train/{tag}"]):
+            ref_loss, ref_gn, ref_s = steps[i]
+            off = max(abs(c["loss"] - ref_loss) / abs(ref_loss),
+                      abs(c["grad_norm"] - ref_gn) / abs(ref_gn))
+            cells = [r[f"train/{tag}"][i] for r in ranks]
+            same_loss = len({x["loss"] for x in cells}) == 1
+            groups = {}
+            for r, x in zip(ranks, cells):
+                groups.setdefault(r["train/model"], set()).add(
+                    tuple(map(tuple, x["replica"])))
+            replicas = all(len(g) == 1 for g in groups.values())
+            secs = [round(x["s"], 3) for x in cells]
+            mb = {k: round(v / 1e6, 1) for k, v in c["sent"].items()}
+            print(f"mesh: train {tag} step {i} ({cfg.name} {cfg.n_layers} "
+                  f"layers, {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens, "
+                  f"{c['microbatches']} microbatch(es), mesh "
+                  f"{MESH_TRAIN_SHAPE}): loss {c['loss']:.6f} grad_norm "
+                  f"{c['grad_norm']:.6f} vs one device {ref_loss:.6f} "
+                  f"{ref_gn:.6f}: rel {off:.3e} (bar {bar:.3e}); s a step "
+                  f"per rank {secs} = {tokens / max(secs):.1f} tokens/s (one "
+                  f"device {ref_s:.3f} s); calls a rank {c['calls']}, MB "
+                  f"handed {mb}, MB staged {c['staged'] / 1e6:.1f}; peak "
+                  f"memory a rank GB "
+                  f"{[round(x['peak'] / 1e9, 2) for x in cells]}; flash "
+                  f"launches a rank {TRAIN_COUNTS} "
+                  f"{[x['launches'] for x in cells]}; every rank's loss "
+                  f"equal {same_loss}, data replicas' parameters bit-equal "
+                  f"{replicas}", flush=True)
+            if tag == "fault":
+                if off <= bar:
+                    failed.append("train: the bar passes a skipped "
+                                  "row-parallel psum")
+                continue
+            if off > bar:
+                failed.append(f"train {tag} step {i}: {off} > {bar}")
+            if not (same_loss and replicas):
+                failed.append(f"train {tag} step {i}: ranks disagree")
+            if any(x["launches"] != per_step for x in cells):
+                failed.append(f"train {tag} step {i}: flash launches "
+                              f"{[x['launches'] for x in cells]}, want "
+                              f"{per_step}")
+    for p in r0["train/zero1"][0]["phases"].items():
+        print(f"mesh: train zero1 step 0 rank 0 collectives, {p[0]}: "
+              f"{json.dumps(p[1])}")
+    return failed
 
 
 def phase_mesh(args, device, report, single=None) -> None:
@@ -7721,6 +8061,7 @@ def phase_mesh(args, device, report, single=None) -> None:
         del g, one, src, dst
         want_generic = _mesh_generic_inputs(args, d)
         want_serve = _mesh_serve_inputs(args, d, single)
+        want_train = _mesh_train_inputs(args, d, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"mesh: inputs and oracles in {time.perf_counter() - t0:.1f}s;"
@@ -7807,6 +8148,11 @@ def phase_mesh(args, device, report, single=None) -> None:
     failed += _check_mesh_generic(ranks, want_generic, single or {}, args)
     failed += _check_mesh_ft(ranks, want_generic, args)
     failed += _check_mesh_serve(ranks, want_serve)
+    failed += _check_mesh_train(ranks, want_train)
+    if single is not None:
+        single["mesh_train"] = {
+            "launches_per_rank_step": r0["train/zero1"][0]["launches"],
+            "fwd": want_train["fwd"], "bwd": want_train["bwd"]}
     entry = next(e for e in report if e["name"] == "segment_combine") \
         if any(e["name"] == "segment_combine" for e in report) else None
     sites = [v for k, v in r0.items() if k.startswith("site/")]
@@ -7815,6 +8161,28 @@ def phase_mesh(args, device, report, single=None) -> None:
     if failed:
         raise AssertionError("mesh: " + "; ".join(failed))
 
+
+
+def _attach_mesh_train(report, single) -> None:
+    """B2-B4's launches a rank a step in the mesh train cell and their
+    check and times at a rank's local shape, on their report entries."""
+
+    got = single.get("mesh_train")
+    if got is None:
+        return
+    fwd, dq, dkv = got["launches_per_rank_step"][:3]
+    for e in report:
+        if e["name"] == "flash_attention_fwd":
+            e["mesh_train_launches_per_rank_step"] = fwd
+            e["mesh_train_local_shape"] = got["fwd"]
+        elif e["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
+            key = e["name"][10:]
+            e["mesh_train_launches_per_rank_step"] = dq if key == "dq" \
+                else dkv
+            e["mesh_train_local_shape"] = {
+                "shape": got["bwd"]["shape"], **got["bwd"][key],
+                "max_abs_err": got["bwd"]["max_abs_err"],
+                "library_ms": got["bwd"]["library_ms"]}
 
 
 def _freeing(name, run) -> None:
@@ -7933,6 +8301,7 @@ def main(argv=None) -> int:
         run()
         seconds[name] = round(time.perf_counter() - t0, 1)
         print(f"phase {name}: {seconds[name]}s", flush=True)
+    _attach_mesh_train(report, single)
     print(f"phases: {json.dumps(seconds)}")
     # again at the end, where a cut log's tail keeps it beside the numbers
     print(_card_line(), flush=True)

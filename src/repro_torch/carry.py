@@ -12,6 +12,11 @@ objects) into the port's.
   "step"}`` likewise: the params as above, the optimizer state (AdamW's m
   and v, SGD's momentum, or none) leaf for leaf with dtypes kept, the step
   as an int32 scalar tensor.
+* :func:`shard_state` / :func:`gather_state`: a training state (or any
+  tree) cut into this rank's blocks by the mesh train step's
+  ``state_specs``, and joined back into the global tree on every rank;
+  :func:`sharded_zeros`: zeros at a tree's blocks (an optimizer state made
+  on the ranks without its global tree).
 * :func:`relation_from_numpy`: a dense-grid relation (the reference
   ``Relation``'s ``present`` and value grids) into the port's
   :class:`~repro_torch.core.executor.Relation`.
@@ -39,7 +44,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import ArchConfig
 
 __all__ = ["graph_from_numpy", "lm_params_from_numpy",
-           "train_state_from_numpy", "relation_from_numpy",
+           "train_state_from_numpy", "shard_state", "gather_state",
+           "sharded_zeros",
+           "relation_from_numpy",
            "row_relation_from_numpy", "imru_records_from_numpy"]
 
 
@@ -163,6 +170,40 @@ def train_state_from_numpy(
         "step": torch.tensor(int(np.asarray(state["step"])),
                              dtype=torch.int32, device=device),
     }
+
+
+def shard_state(state: Any, state_specs: Any, mesh) -> Any:
+    """This rank's blocks of the global ``state`` (a tree parallel to
+    ``state_specs``, e.g. ``train_state_from_numpy``'s), as contiguous
+    tensors on the mesh's device."""
+
+    from repro_torch.parallel.sharding import local_block
+
+    return tree_map(lambda x, spec: local_block(x, spec, mesh).to(
+        mesh.device, memory_format=torch.contiguous_format, copy=True),
+        state, state_specs)
+
+
+def sharded_zeros(like: Any, specs: Any, mesh) -> Any:
+    """Zeros at this rank's block of every leaf of ``like`` (tensors of
+    the global shapes, e.g. on the ``meta`` device), dtypes kept, on the
+    mesh's device."""
+
+    from repro_torch.parallel.sharding import local_shape
+
+    return tree_map(lambda x, spec: torch.zeros(
+        local_shape(tuple(x.shape), spec, mesh), dtype=x.dtype,
+        device=mesh.device), like, specs)
+
+
+def gather_state(state: Any, state_specs: Any, mesh) -> Any:
+    """The global tree from every rank's blocks ``state`` (every rank of
+    the mesh calls it and gets the whole)."""
+
+    from repro_torch.parallel.sharding import join_blocks
+
+    return tree_map(lambda x, spec: join_blocks(x, spec, mesh), state,
+                    state_specs)
 
 
 def relation_from_numpy(

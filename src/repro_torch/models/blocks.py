@@ -12,11 +12,36 @@ Each family provides, for :mod:`repro_torch.models.lm`:
 
 Mixers keep softmax and scan statistics in f32 and matmuls in the config's
 compute dtype (``x.to(dt) @ w.to(dt)``, as the JAX package; a weight
-already in the compute dtype is used as it is).  On one device the JAX
-package's ``shard(...)`` annotations are no-ops and are dropped,
-``_maybe_repeat_kv`` is the identity (tp = 1) and the MoE dispatch runs on
-one data shard (dp = 1).  Decode writes the cache in place: slices for
-the KV and latent caches, ``copy_`` for the SSM state it replaces.
+already in the compute dtype is used as it is).  Decode writes the cache
+in place: slices for the KV and latent caches, ``copy_`` for the SSM
+state it replaces.
+
+The JAX package's ``shard(...)`` annotations are dropped: on one device
+they are no-ops, and on a mesh GSPMD turns them into collectives, which
+the port places itself.  Inside a ``sharding.placement`` (the train step
+on a mesh, ROADMAP A10e-1) a layer reads its parameters' *local* shapes:
+where a weight is cut over ``model`` the layer is Megatron tensor
+parallel, :func:`~repro_torch.parallel.collectives.copy_to` at its input
+(identity forward, ``psum`` backward) and
+:func:`~repro_torch.parallel.collectives.reduce_from` at its output
+(``psum`` forward):
+
+* the MLP: ``w_gate``/``w_up`` (and ``b_up``) column-parallel, ``w_down``
+  row-parallel, ``b_down`` added once after the ``psum``;
+* GQA attention: q, k, v heads column-parallel (the rank's heads are
+  contiguous, and GQA's grouping is contiguous too, so rank r's q heads
+  read exactly rank r's kv heads), ``wo`` row-parallel; ``q_norm`` and
+  ``k_norm`` pass through ``copy_to``, since each rank normalises only its
+  heads; where the plan keeps ``qkv`` whole the attention is replicated;
+* the MoE: the router replicated (through ``copy_to``: a rank's gates see
+  only its experts' outputs), each rank runs its X/tp experts (EP) or its
+  ffn columns of every expert (``expert_ffn`` over ``model``), and the
+  weighted contributions are ``psum``'d.  The capacity is the reference's
+  per data shard: the rank's tokens are its data group's.
+
+Outside a placement every one of these is the identity: one device, as
+before.  The JAX package's ``_maybe_repeat_kv`` (kv heads that do not
+divide ``model``) is not ported: the mesh step refuses it (ROADMAP A10h).
 """
 
 from __future__ import annotations
@@ -28,6 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.census import vmem_region
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 from repro_torch.models.common import (
     ArchConfig,
     apply_rope,
@@ -88,6 +115,14 @@ def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
+def _tp_cut(local: int, whole: int) -> Tuple[str, ...]:
+    """The ``model`` axes a layer whose weight dim holds ``local`` of
+    ``whole`` entries on this rank is tensor parallel over (``()``: the
+    dim is whole, the layer replicated)."""
+
+    return sharding.tp_axes() if local < whole else ()
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
@@ -115,12 +150,14 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
               cfg: ArchConfig) -> torch.Tensor:
     dt = _cdt(cfg)
     x = x.to(dt)
+    tp = _tp_cut(p["w_up"].shape[-1], cfg.d_ff)
+    x = C.copy_to(x, tp)
     if cfg.mlp_type == "swiglu":
         h = F.silu(_mm(x, p["w_gate"], dt)) * _mm(x, p["w_up"], dt)
-        return _mm(h, p["w_down"], dt)
+        return C.reduce_from(_mm(h, p["w_down"], dt), tp)
     # jax.nn.gelu defaults to the tanh approximation.
     h = F.gelu(_mm(x, p["w_up"], dt) + p["b_up"].to(dt), approximate="tanh")
-    return _mm(h, p["w_down"], dt) + p["b_down"].to(dt)
+    return C.reduce_from(_mm(h, p["w_down"], dt), tp) + p["b_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -144,16 +181,20 @@ def attention_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _qkv(p, x, cfg, rope_tabs):
+def _qkv(p, x, cfg, rope_tabs, tp=()):
+    """q, k, v at the rank's local head counts (the weights' local
+    widths); ``tp``: the ``model`` axes the heads are cut over."""
+
     dt = _cdt(cfg)
     B, S, _ = x.shape
-    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    D = cfg.hd
+    H, KH = p["wq"].shape[-1] // D, p["wk"].shape[-1] // D
     q = _mm(x, p["wq"], dt).reshape(B, S, H, D)
     k = _mm(x, p["wk"], dt).reshape(B, S, KH, D)
     v = _mm(x, p["wv"], dt).reshape(B, S, KH, D)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, C.copy_to(p["q_norm"], tp))
+        k = rms_norm(k, C.copy_to(p["k_norm"], tp))
     if rope_tabs[0] is not None:
         sin, cos = rope_tabs
         q = apply_rope(q, sin, cos)
@@ -195,7 +236,9 @@ def attention_mixer(
     cfg = ctx.cfg
     dt = _cdt(cfg)
     B, S, _ = x.shape
-    H, D = cfg.n_heads, cfg.hd
+    H, D = p["wq"].shape[-1] // cfg.hd, cfg.hd
+    tp = _tp_cut(H, cfg.n_heads)
+    x = C.copy_to(x, tp)
 
     if ctx.mode == "decode":
         q, k_new, v_new = _qkv(p, x, cfg, (ctx.sin, ctx.cos))
@@ -216,7 +259,7 @@ def attention_mixer(
         out = decode_attention(q, k_c, v_c, valid)
         new_cache = cache
     else:
-        q, k, v = _qkv(p, x, cfg, (ctx.sin, ctx.cos))
+        q, k, v = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp)
         out = chunked_attention(q, k, v, causal=ctx.causal,
                                 window=cfg.window, impl=ctx.attention)
         new_cache = None
@@ -234,7 +277,7 @@ def attention_mixer(
                 v_keep = F.pad(v, (0, 0, 0, 0, 0, pad))
             new_cache = {"k": k_keep, "v": v_keep}
     out = out.reshape(B, S, H * D)
-    y = _mm(out, p["wo"], dt)
+    y = C.reduce_from(_mm(out, p["wo"], dt), tp)
     return y, new_cache
 
 
@@ -434,6 +477,17 @@ def _route(xf, w_router, cfg: ArchConfig, cap: int):
     return order, e_s, w_s, rank, rank < cap
 
 
+def _local_slots(e_s, rank, keep, x0: int, n_local: int, cap: int):
+    """Each sorted pair's row in the dispatch buffer of the experts
+    ``[x0, x0 + n_local)`` this rank holds (``n_local * cap`` rows, then a
+    spill row) and whether it is kept here: a pair past its expert's
+    capacity, or of another ``model`` rank's expert under EP, goes to the
+    spill row, which is sliced off (ROADMAP C1, C11)."""
+
+    mine = keep & (e_s >= x0) & (e_s < x0 + n_local)
+    return torch.where(mine, (e_s - x0) * cap + rank, n_local * cap), mine
+
+
 def moe_apply(p, x, cfg: ArchConfig) -> torch.Tensor:
     """Top-k MoE with static-capacity sort-based dispatch on one data shard.
 
@@ -457,16 +511,21 @@ def moe_apply(p, x, cfg: ArchConfig) -> torch.Tensor:
     X, k = cfg.n_experts, cfg.top_k
     T = B * S
     cap = moe_capacity(cfg, T)
-    xf = x.reshape(T, E).to(dt)
-    order, e_s, w_s, rank, keep = _route(xf, p["router"], cfg, cap)
+    xl, fl = p["w_gate"].shape[0], p["w_gate"].shape[-1]
+    tp = _tp_cut(xl * fl, X * (cfg.moe_d_ff or cfg.d_ff))
+    xf = C.copy_to(x.reshape(T, E).to(dt), tp)
+    order, e_s, w_s, rank, keep = _route(xf, C.copy_to(p["router"], tp),
+                                         cfg, cap)
     t_s = torch.div(order, k, rounding_mode="floor")
-    slot = torch.where(keep, e_s * cap + rank, X * cap)  # the spill row
-    buf = xf.new_zeros((X * cap + 1, E))
+    x0 = C.axis_index("model") * xl if xl < X else 0
+    slot, keep = _local_slots(e_s, rank, keep, x0, xl, cap)
+    buf = xf.new_zeros((xl * cap + 1, E))
     buf[slot] = xf[t_s]
-    y = _experts(buf[:X * cap].view(X, cap, E), p, dt).reshape(X * cap, E)
+    y = _experts(buf[:xl * cap].view(xl, cap, E), p, dt).reshape(
+        xl * cap, E)
     y = torch.cat([y, y.new_zeros((1, E))])              # the spill row
     out = _combine(y, slot, torch.where(keep, w_s, 0.0), order, k)
-    out = out.to(dt).reshape(B, S, E)
+    out = C.reduce_from(out, tp).to(dt).reshape(B, S, E)
 
     if cfg.dense_residual:
         res = {kk[4:]: vv for kk, vv in p.items() if kk.startswith("res_")}

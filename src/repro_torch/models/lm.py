@@ -22,11 +22,19 @@ The JAX package's ``models/lm.py``, every family, on one device:
 * whisper (``encdec``) runs the encoder stack (bidirectional) over the
   frame embeddings ``enc_input`` and wires its output into each decoder
   layer's cross-attention; at serve time the cross K/V is computed once at
-  prefill and carried in ``cache["cross"]``.
+  prefill and carried in ``cache["cross"]``;
+* inside a :func:`~repro_torch.parallel.sharding.placement` (the train
+  step on a mesh, ROADMAP A10e-1) the parameters are this rank's blocks:
+  the embedding and the loss are vocab-parallel over ``model`` (each rank
+  looks up and scores its own vocab range, ``psum``/``pmax`` join them),
+  the loss is the mean over the global microbatch (its sums ``psum``'d
+  over the batch axes), and under ZeRO-3 each layer's parameters and the
+  head are gathered over ``data`` at use (``sharding.at_use``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
 from math import prod
@@ -43,6 +51,8 @@ from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LayerCtx, ParamSpec
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 from repro_torch.models.common import (
     ArchConfig,
     chunked_attention,
@@ -57,6 +67,7 @@ __all__ = [
     "param_count",
     "init_params",
     "abstract_params",
+    "param_axes",
     "serving_params",
     "forward",
     "hidden_forward",
@@ -189,6 +200,17 @@ def abstract_params(cfg: ArchConfig) -> Dict[str, Any]:
     return params
 
 
+def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The logical-axes tree parallel to the params tree, a tuple a leaf
+    ("stack" prepended for layer-stacked leaves)."""
+
+    out: Dict[str, Any] = {}
+    for k, sub in model_specs(cfg).items():
+        pre = ("stack",) if n_stack(cfg, k) else ()
+        out[k] = _spec_map(lambda s: pre + tuple(s.axes), sub)
+    return out
+
+
 def serving_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """A copy of ``params`` with every leaf that the model only reads cast
     to the compute dtype (``x.to(dt) @ w.to(dt)``, ``take(tok).to(dt)``)
@@ -224,14 +246,33 @@ def _layer(params: Dict[str, Any], i: int,
            key: str = "layers") -> Dict[str, Any]:
     layers = params[key]
     if isinstance(layers, (list, tuple)):
-        return layers[i]
-    return tree_map(lambda a: a[i], layers)
+        layer = layers[i]
+    else:
+        layer = tree_map(lambda a: a[i], layers)
+    return sharding.at_use(layer, key, stacked=True)
+
+
+def _vocab_local(ids: torch.Tensor, n: int):
+    """``ids`` in this ``model`` rank's vocab block of ``n`` rows: the
+    local row (clamped into ``[0, n)``, ROADMAP C1) and whether the id
+    lies in the block."""
+
+    local = ids.long() - C.axis_index("model") * n
+    inside = (local >= 0) & (local < n)
+    return torch.clamp(local, 0, n - 1), inside
 
 
 def _embed_tokens(params, tokens, cfg):
     dt = dtype_of(cfg.compute_dtype)
-    emb = params["embed"]["tok"]
-    return emb[tokens.long()].to(dt)
+    emb = sharding.at_use(params["embed"]["tok"], "embed", "tok")
+    tp = sharding.tp_axes()
+    if not tp or emb.shape[0] == cfg.padded_vocab:
+        return emb[tokens.long()].to(dt)
+    # Vocab-parallel: each rank's rows for the ids in its block, zeros for
+    # the rest, summed over the ranks.
+    local, inside = _vocab_local(tokens, emb.shape[0])
+    x = torch.where(inside[..., None], emb[local], 0.0)
+    return C.reduce_from(x, tp).to(dt)
 
 
 def _lm_head(params, x, cfg):
@@ -342,6 +383,18 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _checkpoint(fn, *args, **kwargs):
+    """``torch.utils.checkpoint`` of ``fn``, which runs, in the forward and
+    when the backward recomputes it, in a copy of the caller's context
+    variables: on the card autograd recomputes in its device thread, where
+    the mesh a step binds (``collectives.bind``, ``sharding.placement``)
+    would be unset."""
+
+    ctx = contextvars.copy_context()
+    return checkpoint(lambda *a: ctx.run(fn, *a), *args,
+                      use_reentrant=False, **kwargs)
+
+
 def _remat(fn, policy: str):
     """``fn`` under the remat ``policy`` ("none", "full" or "dots")."""
 
@@ -350,10 +403,9 @@ def _remat(fn, policy: str):
     if policy == "dots":
         context = functools.partial(create_selective_checkpoint_contexts,
                                     _save_dots)
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                     context_fn=context)
+        return lambda *a: _checkpoint(fn, *a, context_fn=context)
     if policy == "full":
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+        return lambda *a: _checkpoint(fn, *a)
     raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, got "
                      f"{policy!r}")
 
@@ -378,7 +430,7 @@ def _scan_layers(body, x, params, n_layers: int, policy: str,
                 return h
 
             for start in range(0, n_layers, G):
-                x = checkpoint(group_body, x, start, use_reentrant=False)
+                x = _checkpoint(group_body, x, start)
             return x
         policy = "full"
     step = _remat(lambda h, i: body(h, _layer(params, i, key)), policy)
@@ -416,30 +468,61 @@ def chunked_xent(params, hidden: torch.Tensor, labels: torch.Tensor,
     """Cross entropy with sequence-chunked logits: each chunk's logits are
     computed, reduced to (lse, picked) and recomputed in the backward (a
     checkpointed body), so the (B, S, V) logits slab never materialises.
-    Labels < 0 are ignored."""
+    Labels < 0 are ignored.
+
+    In a placement the head's vocab columns are this ``model`` rank's
+    block (the padded columns lie in the last rank's): the row max is
+    ``pmax``'d, the sum of exponentials and the label's logit ``psum``'d
+    over ``model``; the loss and the label count are summed over the
+    batch axes before the division, the mean over the global microbatch.
+    Under ZeRO-3 the head is gathered once here, not once a chunk."""
 
     dt = dtype_of(cfg.compute_dtype)
     B, S, E = hidden.shape
     head = (
-        params["embed"]["tok"].T if cfg.tie_embeddings
-        else params["embed"]["head"]
+        sharding.at_use(params["embed"]["tok"], "embed", "tok").T
+        if cfg.tie_embeddings
+        else sharding.at_use(params["embed"]["head"], "embed", "head")
     ).to(dt)
-    out_norm = params["embed"]["out_norm"]
+    out_norm = sharding.at_use(params["embed"]["out_norm"], "embed",
+                               "out_norm")
     chunk = min(chunk, S)
-    col = torch.arange(cfg.padded_vocab, device=hidden.device)
+    tp = sharding.tp_axes()
+    n_cols = head.shape[-1]
+    split = bool(tp) and n_cols < cfg.padded_vocab
+    col = torch.arange(n_cols, device=hidden.device)
+    if split:
+        col = col + C.axis_index("model") * n_cols
     padded = col >= cfg.vocab
 
     def body(xc, lc):
-        logits = (rms_norm(xc, out_norm).to(dt) @ head).to(torch.float32)
+        xn = rms_norm(xc, out_norm).to(dt)
+        if split:
+            xn = C.copy_to(xn, tp)
+        logits = (xn @ head).to(torch.float32)
         logits = logits.masked_fill(padded, -1e30)
-        m = torch.amax(logits, dim=-1)
-        lse = torch.log(torch.sum(torch.exp(logits - m[..., None]),
-                                  dim=-1)) + m
         valid = lc >= 0
-        # the label's logit (a select, as the JAX package's sum over
-        # where(col == label)); ignored labels read column 0, masked below
-        picked = torch.gather(logits, -1,
-                              torch.clamp(lc, min=0)[..., None].long())[..., 0]
+        if split:
+            # The row max cancels in the loss's gradient: it carries none.
+            m = C.pmax(torch.amax(logits.detach(), dim=-1), tp)
+            local, inside = _vocab_local(lc, n_cols)
+            picked = torch.where(
+                inside, torch.gather(logits, -1, local[..., None])[..., 0],
+                0.0)
+            sums = C.reduce_from(torch.stack([
+                torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                picked]), tp)
+            lse = torch.log(sums[0]) + m
+            picked = sums[1]
+        else:
+            m = torch.amax(logits, dim=-1)
+            lse = torch.log(torch.sum(torch.exp(logits - m[..., None]),
+                                      dim=-1)) + m
+            # the label's logit (a select, as the JAX package's sum over
+            # where(col == label)); ignored labels read column 0, masked
+            # below
+            picked = torch.gather(
+                logits, -1, torch.clamp(lc, min=0)[..., None].long())[..., 0]
         nll = torch.where(valid, lse - picked, 0.0)
         return torch.sum(nll), torch.sum(valid.to(torch.float32))
 
@@ -448,11 +531,14 @@ def chunked_xent(params, hidden: torch.Tensor, labels: torch.Tensor,
     for c0 in range(0, S, chunk):
         xc, lc = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            part, n = checkpoint(body, xc, lc, use_reentrant=False)
+            part, n = _checkpoint(body, xc, lc)
         else:
             part, n = body(xc, lc)
         loss_sum = loss_sum + part
         count = count + n
+    dp = sharding.batch_axes()
+    if dp:
+        loss_sum, count = C.reduce_from(torch.stack([loss_sum, count]), dp)
     return loss_sum / torch.clamp(count, min=1.0)
 
 

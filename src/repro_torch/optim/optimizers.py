@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple, Tuple, Union
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -82,21 +83,40 @@ def _elementwise(rule):
     return update
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, axes: Optional[Sequence[Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
+    """The f32 L2 norm over every leaf of ``grads``.
+
+    On a mesh each leaf is this rank's block and ``axes`` lists, leaf by
+    leaf in ``tree_leaves`` order, the mesh axes that cut it: the local
+    sums of squares of the leaves cut alike are added, and that sum is
+    ``psum``'d over exactly those axes (under ``collectives.bind``), so a
+    leaf replicated over an axis counts once, not once a rank."""
+
     leaves = tree_leaves(grads)
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in leaves))
+    if axes is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                              for g in leaves))
+    from repro_torch.parallel import collectives as C
+
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, ax in zip(leaves, axes, strict=True):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        groups[ax] = groups[ax] + sq if ax in groups else sq
+    return torch.sqrt(sum(C.psum(groups[ax], ax) for ax in sorted(groups)))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float,
+                        axes: Optional[Sequence[Tuple[str, ...]]] = None):
     """``(grads, global norm)``: every leaf scaled in place by min(1,
-    max_norm / norm) in f32 and cast back to its dtype."""
+    max_norm / norm) in f32 and cast back to its dtype.  ``axes``: as
+    :func:`global_norm`'s, for a tree of blocks on a mesh."""
 
-    gn = global_norm(grads)
+    gn = global_norm(grads, axes)
     scale = _clip_scale(gn, max_norm)
     for g in tree_leaves(grads):
         for (gs,) in _slices(g):

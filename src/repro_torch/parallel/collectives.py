@@ -22,6 +22,19 @@ payload is copied to a pinned host buffer and back here, in
 :func:`_on_wire`, the one place that stages; the mesh's ``stats`` count
 each op's calls and bytes and the staged bytes.
 
+The LM's layers on a mesh (ROADMAP A10e-1) need collectives that autograd
+sees, the JAX package getting them from GSPMD's transpose rules:
+
+* :func:`copy_to` — identity forward, ``psum`` backward: the input of a
+  column-parallel layer (Megatron's *f*);
+* :func:`reduce_from` — ``psum`` forward, identity backward: the output of
+  a row-parallel layer (Megatron's *g*);
+* :func:`gather_dim` — ``all_gather`` of a dim forward, ``psum_scatter``
+  of it backward: a ZeRO-3 parameter at use.
+
+:func:`all_gather_dim` and :func:`psum_scatter_dim` are the same exchanges
+tiled along any dim, outside autograd.
+
 Under ``torch.func.vmap`` (a batched serving run: k queries through one
 fixpoint) :func:`psum`, :func:`pmax`, :func:`psum_scatter`,
 :func:`all_gather` and :func:`all_to_all` go through one operator,
@@ -44,7 +57,8 @@ from torch._C._functorch import is_batchedtensor
 
 __all__ = ["bind", "bound_mesh", "axes_present", "axis_index", "axis_size",
            "psum", "pmax", "psum_scatter", "all_gather", "all_to_all",
-           "ppermute"]
+           "ppermute", "all_gather_dim", "psum_scatter_dim", "copy_to",
+           "reduce_from", "gather_dim"]
 
 _BOUND: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_bound_mesh", default=None)
@@ -290,3 +304,99 @@ def ppermute(x: torch.Tensor, axis: str,
                 req.wait()
 
     return _on_wire(mesh, "ppermute", x, x.shape, call)
+
+
+# ---------------------------------------------------------------------------
+# Tiled exchanges along a dim, and the collectives autograd sees
+# ---------------------------------------------------------------------------
+
+
+def all_gather_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """``x`` gathered over ``axes`` along ``dim``, rank i's block i-th
+    (``lax.all_gather(..., axis=dim, tiled=True)``)."""
+
+    g = all_gather(x, axes)
+    shape = list(x.shape)
+    shape[dim] *= g.shape[0]
+    return g.movedim(0, dim).reshape(shape)
+
+
+def psum_scatter_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """``x`` summed over ``axes``, this rank's block of ``dim``
+    (``lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``)."""
+
+    n = math.prod(axis_size(a) for a in _axes(axes))
+    shape = list(x.shape)
+    shape[dim:dim + 1] = [n, shape[dim] // n]
+    return psum_scatter(x.reshape(shape).movedim(dim, 0).contiguous(), axes)
+
+
+def _psum_f32(x: torch.Tensor, axes) -> torch.Tensor:
+    """``psum`` accumulated in f32 (a bf16 payload is summed at f32 and
+    rounded once)."""
+
+    if x.dtype in (torch.float32, torch.float64):
+        return psum(x, axes)
+    return psum(x.to(torch.float32), axes).to(x.dtype)
+
+
+# The backward of these runs where autograd runs it (on the card, its
+# device thread, outside the caller's ``bind``): each binds the mesh its
+# forward saw.
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes, ctx.mesh = axes, _mesh()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with bind(ctx.mesh):
+            return _psum_f32(g, ctx.axes), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return _psum_f32(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, _mesh()
+        return all_gather_dim(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with bind(ctx.mesh):
+            return psum_scatter_dim(g, ctx.axes, ctx.dim), None, None
+
+
+def copy_to(x: torch.Tensor, axes) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``axes`` backward."""
+
+    axes = _axes(axes)
+    return _CopyTo.apply(x, axes) if axes else x
+
+
+def reduce_from(x: torch.Tensor, axes) -> torch.Tensor:
+    """``x`` summed over ``axes`` forward; the gradient as it is
+    backward (every rank of ``axes`` holds the same one)."""
+
+    axes = _axes(axes)
+    return _ReduceFrom.apply(x, axes) if axes else x
+
+
+def gather_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """``x`` gathered over ``axes`` along ``dim`` forward; the gradient
+    summed over ``axes`` and this rank's block of ``dim`` kept backward."""
+
+    axes = _axes(axes)
+    return _GatherDim.apply(x, axes, dim) if axes else x

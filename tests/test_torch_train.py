@@ -371,10 +371,53 @@ def test_data_stream_is_pure_and_resumes(task):
                           device="cpu").load_state_dict(saved)
 
 
-def test_mesh_raises():
-    _, _, _, tplan = _train_pair(1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        train.build_train_step(tplan, mesh=object(), device="cpu")
+def test_mesh_raises(tmp_path):
+    """On a one-rank mesh the step is the unmeshed step bit for bit; the
+    families not ported to a mesh refuse it, naming ROADMAP A10h, before
+    any collective."""
+
+    import torch.distributed as dist
+
+    from repro_torch.carry import gather_state, shard_state
+    from repro_torch.launch.mesh import make_mesh
+
+    _, tc, _, tplan = _train_pair(2)
+    params = lm.init_params(tc, torch.Generator().manual_seed(0),
+                            device="cpu")
+    opt = train.make_optimizer(tplan)
+    one = {"params": params, "opt": opt.init(params),
+           "step": torch.tensor(0, dtype=torch.int32)}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), device="cpu")
+        mstep, specs, batch_fn = train.build_train_step(tplan, mesh,
+                                                        optimizer=opt)
+        meshed = shard_state(one, specs, mesh)
+        tstep, _, _ = train.build_train_step(tplan, optimizer=opt,
+                                             device="cpu")
+        rng = np.random.default_rng(4)
+        for _ in range(2):
+            batch = {"tokens": rng.integers(0, tc.vocab, (4, 16)).astype(
+                np.int32)}
+            one, want = tstep(one, batch)
+            meshed, got = mstep(meshed, batch_fn(batch))
+            for k in ("loss", "grad_norm"):
+                assert torch.equal(got[k], want[k])
+        full = gather_state(meshed, specs, mesh)
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(full), tree_leaves(one)))
+        for arch in ("minicpm3_4b", "mamba2_130m", "hymba_1_5b",
+                     "whisper_medium"):
+            cfg = reduced_config(get_config(arch))
+            plan = dataclasses.replace(
+                plan_lm(cfg, "train_4k", MeshSpec((("data", 1),))), cfg=cfg)
+            calls = dict(mesh.stats.calls)
+            with pytest.raises(NotImplementedError, match="A10h"):
+                train.build_train_step(plan, mesh, device="cpu")
+            assert dict(mesh.stats.calls) == calls
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_state_from_numpy_keeps_bf16_moments():
