@@ -223,7 +223,27 @@ Phases, each of which exits nonzero on failure:
    launches a rank a step exact, all on the ``wgmma`` route.  Printed: s
    a step per rank, tokens/s, calls and MB a rank hands each collective,
    MB staged, peak memory a rank, the collectives by phase of the step.
-   Any rank's failure fails it.
+   Then LM serving on the same (data 2, model 2) mesh (ROADMAP A10e-2,
+   ``_mesh_serve_lm``): the same model, seeded weights in bf16, the
+   planner's ``prefill_32k`` / ``decode_32k`` plans, 4 x 2048-token
+   prompts prefilled into a cache of 2080 slots cut over ``model`` (1040
+   a rank), ``MESH_SERVE_LM_FED`` (24) decode steps fed the one device's
+   greedy tokens, then ``MESH_SERVE_LM_FREE`` (8) free greedy steps
+   sampled vocab-parallel.  Before the ranks start the phase serves the
+   same prompts on one device (the yardstick), measures the bf16 bound as
+   the lm phase does (the plain path against the same model in f32,
+   prefill and ``TF_STEPS`` fed steps) and holds B2 to its plain version
+   at a rank's local shape (B 2, H 12, KH 4, S 2048, D 128), timed.  Bars:
+   prefill's and every fed step's logits within ``LM_NOISE_FACTOR`` x the
+   bf16 bound (capped at 0.1) of the one device's, and the planted fault
+   (the decode's split softmax left unjoined over ``model``) outside it;
+   every rank's joined logits and tokens equal; the padded vocab columns
+   -1e30 on the last ``model`` rank and never sampled; B2's launches a
+   rank a prefill one a layer, all ``wgmma``.  Printed: prefill s and
+   decode ms a step per rank, tokens/s, collective calls, MB handed and
+   MB staged per prefill and per decode step, peak memory a rank, the
+   free steps' tokens that agree with one device.  Any rank's failure
+   fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -315,9 +335,9 @@ Phases, each of which exits nonzero on failure:
    at published width with the planner's train dtypes, each at the largest
    depth whose params, AdamW state, f32 gradient accumulator and
    activations fit the card's free memory (``_train_reckoning``, printed;
-   arctic-480b fits not one layer and is not trained), minicpm3-4b and
-   hymba-1.5b cut to 4 layers, mamba2-130m and whisper-medium (decoder and
-   encoder) to 8 (``FAMILY_TRAIN_DEPTH_CAP``): the whole
+   arctic-480b fits not one layer and is not trained), minicpm3-4b,
+   hymba-1.5b, mamba2-130m and whisper-medium (decoder and encoder) cut
+   to 4 layers (``FAMILY_TRAIN_DEPTH_CAP``): the whole
    path at 2 layers and one sequence, kernel path against the plain attention
    within ``LM_NOISE_FACTOR`` times the bf16 bound measured in the run
    (expert choices replayed), with one planted backward fault a family
@@ -4093,10 +4113,12 @@ def _b2_launches(cfg):
 
 
 def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
-           after_prefill=None):
+           after_prefill=None, sample=None):
     """Prefill ``batch``, then ``steps`` decode steps fed the greedy tokens
-    (or ``feed``'s); ``after_prefill(logits, cache)`` may read or edit the
-    prefill's output before decode starts.  Returns a dict: ``logits`` per
+    (or, for the first ``feed.shape[1]`` steps, ``feed``'s);
+    ``after_prefill(logits, cache)`` may read or edit the prefill's output
+    before decode starts; ``sample(logits)`` takes the greedy tokens
+    (``greedy_sample`` where ``None``).  Returns a dict: ``logits`` per
     step [steps+1, B, V] f32, ``tokens`` [B, steps+1], ``prefill_s``,
     ``decode_s``, ``prefill_peak`` (``max_memory_allocated`` after the
     prefill: its peak where the caller reset the statistics before), and
@@ -4109,6 +4131,7 @@ def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch.serve import greedy_sample
 
+    sample = sample or greedy_sample
     fa_kernel.reset_launch_count()
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -4119,17 +4142,17 @@ def _serve(prefill_fn, decode_fn, params, batch, steps, feed=None,
         prefill_peak = torch.cuda.max_memory_allocated()
         n_prefill = fa_kernel.launch_count
         n_wgmma = fa_kernel.fwd_wgmma_launch_count
+        out, token = [logits[:, -1].float()], sample(logits)
         if after_prefill is not None:
             after_prefill(logits, cache)
-        out, token = [logits[:, -1].float()], greedy_sample(logits)
         toks = [token]
         t0 = time.perf_counter()
         for i in range(steps):
-            if feed is not None:
+            if feed is not None and i < feed.shape[1]:
                 token = feed[:, i:i + 1]
             logits, cache = decode_fn(params, cache, token, pos + i)
             out.append(logits[:, -1].float())
-            token = greedy_sample(logits)
+            token = sample(logits)
             toks.append(token)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
@@ -5348,12 +5371,13 @@ FAMILY_TRAIN_STEPS = 3
 # limit (the longest families first, at published width): 4 of
 # minicpm3-4b's 62 layers (100.1 s at 62 in the families_train phase, 27.8
 # at 16, 10.0 at 4) and of hymba-1.5b's 32 (90.9 s at 32, 52.8 at 16,
-# 16.8 at 4), for the mesh phase's generic and serving cells; 8 of
-# mamba2-130m's 24 (50.4 s at 24) and 8 of whisper-medium's 24 decoder and
-# 24 encoder layers (34.6 s at 24 + 24), for its LM train cells (times on
-# an NVIDIA H100 80GB HBM3 at 700.00 W).
+# 16.8 at 4), for the mesh phase's generic and serving cells; 4 of
+# mamba2-130m's 24 (50.4 s at 24, 11.3 at 8) and 4 of whisper-medium's 24
+# decoder and 24 encoder layers (34.6 s at 24 + 24, 8.1 at 8 + 8), for its
+# LM train and serve cells (times on an NVIDIA H100 80GB HBM3 at 700.00
+# W).
 FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 4, "hymba_1_5b": 4,
-                          "mamba2_130m": 8, "whisper_medium": 8}
+                          "mamba2_130m": 4, "whisper_medium": 4}
 # The depth reckoning plans for the card's memory less this reserve (the
 # CUDA context and loaded kernels, cuBLAS's workspaces, the caching
 # allocator's rounding): a depth that depends on the card, not on what
@@ -6278,6 +6302,19 @@ MESH_TRAIN_SEQ = 2048
 MESH_TRAIN_MICROBATCHES = 2
 MESH_TRAIN_STEPS = 2
 MESH_TRAIN_FAULT_LAYER = 0
+# LM serving on the same mesh (ROADMAP A10e-2): the same model and depth,
+# MESH_SERVE_LM_BATCH x MESH_SERVE_LM_PROMPT prompts into a cache of
+# MESH_SERVE_LM_CACHE slots (cut over model), MESH_SERVE_LM_FED decode
+# steps fed the one device's greedy tokens, then MESH_SERVE_LM_FREE free
+# greedy steps; the planted fault runs MESH_SERVE_LM_FAULT_STEPS fed steps
+# from the prefill's cache.
+MESH_SERVE_LM_BATCH = 4
+MESH_SERVE_LM_PROMPT = 2048
+MESH_SERVE_LM_FED = 24
+MESH_SERVE_LM_FREE = 8
+MESH_SERVE_LM_CACHE = MESH_SERVE_LM_PROMPT + MESH_SERVE_LM_FED \
+    + MESH_SERVE_LM_FREE
+MESH_SERVE_LM_FAULT_STEPS = 2
 
 
 def _max_program():
@@ -7713,6 +7750,8 @@ def _mesh_rank(rank, world, cfg):
     if on_card:
         torch.cuda.empty_cache()
     lap("train")
+    out.update(_mesh_serve_lm(cfg))
+    lap("serve lm")
     out["seconds"] = seconds
     return out
 
@@ -8005,6 +8044,291 @@ def _check_mesh_train(ranks, want):
     return failed
 
 
+def _mesh_serve_lm_plans():
+    """The planner's ``prefill_32k`` and ``decode_32k`` plans for phi4-mini
+    on the (data 2, model 2) mesh of H100s, at MESH_TRAIN_LAYERS layers."""
+
+    from repro_torch.core.hardware import H100_SXM, MeshSpec
+    from repro_torch.core.lm_planner import plan_lm
+    from repro_torch.models.registry import get_config
+
+    shape, axes = MESH_TRAIN_SHAPE
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_TRAIN_LAYERS)
+    return tuple(plan_lm(cfg, kind, MeshSpec(tuple(zip(axes, shape))),
+                         hw=H100_SXM)
+                 for kind in ("prefill_32k", "decode_32k"))
+
+
+def _mesh_serve_lm_params(cfg, seed, device):
+    """The seed's weights, served in the compute dtype
+    (``lm.serving_params``; the f32 master dropped)."""
+
+    import torch
+
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    master = lm.init_params(cfg, gen, device=device)
+    params = lm.serving_params(cfg, master)
+    del master
+    return params
+
+
+def _mesh_serve_lm_inputs(args, d, device):
+    """The mesh serve cell's prompts (written to ``d``), its yardstick and
+    bar, made before the ranks start: the port's one-device prefill and
+    MESH_SERVE_LM_FED + MESH_SERVE_LM_FREE greedy steps on the same
+    weights and prompts (their logits and tokens written to ``d``), the
+    bf16 bound (the plain path against the same model in f32, prefill and
+    TF_STEPS steps fed the one device's tokens, as the lm phase measures
+    it), and B2 held to its plain version at a rank's local shape and
+    timed."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import build_decode_step, build_prefill_step
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    pplan, dplan = _mesh_serve_lm_plans()
+    cfg = pplan.cfg
+    B, S, L = MESH_SERVE_LM_BATCH, MESH_SERVE_LM_PROMPT, MESH_SERVE_LM_CACHE
+    steps = MESH_SERVE_LM_FED + MESH_SERVE_LM_FREE
+    prompts = np.random.default_rng(args.seed + 11).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    np.save(d / "serve_lm_prompts.npy", prompts)
+    params = _mesh_serve_lm_params(cfg, args.seed, device)
+    batch = {"tokens": torch.from_numpy(prompts).to(device)}
+    prefill_fn, _ = build_prefill_step(pplan, None, L, device)
+    decode_fn, _, _ = build_decode_step(dplan, None, device)
+    with torch.inference_mode():
+        lm.prefill(params, batch["tokens"][:1, :128], cfg, 160)
+    run = _serve(prefill_fn, decode_fn, params, batch, steps)
+    np.save(d / "serve_lm_logits.npy",
+            run["logits"][:MESH_SERVE_LM_FED + 1].cpu().numpy())
+    one = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+           "tokens": run["tokens"].cpu().numpy()}
+    np.save(d / "serve_lm_tokens.npy", one["tokens"])
+    ref_prefill_fn, _ = build_prefill_step(pplan, None, L, device,
+                                           attention="ref")
+    ref = _serve(ref_prefill_fn, decode_fn, params, batch, TF_STEPS,
+                 feed=run["tokens"])["logits"]
+
+    def f32(plan):
+        return dataclasses.replace(plan, cfg=dataclasses.replace(
+            plan.cfg, compute_dtype="float32"))
+
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    f32_prefill_fn, _ = build_prefill_step(f32(pplan), None, L, device,
+                                           attention="ref")
+    f32_decode_fn, _, _ = build_decode_step(f32(dplan), None, device)
+    full = _serve(f32_prefill_fn, f32_decode_fn, params32, batch, TF_STEPS,
+                  feed=run["tokens"])["logits"]
+    del params32, run
+    torch.cuda.empty_cache()
+    floor = max(_rel_l2(ref[i], full[i], cfg.vocab)
+                for i in range(TF_STEPS + 1))
+    if floor > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"mesh: the bf16 plain serve path is {floor} "
+                             f"off f32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    fwd = _flash_at(B // 2, cfg.n_heads // 2, cfg.n_kv_heads // 2, S, S,
+                    cfg.hd, True, None, gen, device,
+                    "a mesh serve rank's local shape")
+    torch.cuda.empty_cache()
+    bar = LM_NOISE_FACTOR * floor
+    print(f"mesh: serve yardstick {cfg.name} {cfg.n_layers} layers on one "
+          f"device: prefill {B} x {S} {one['prefill_s']:.4f}s, decode "
+          f"{one['decode_s'] / steps * 1e3:.3f} ms/step; bf16 bound: logits "
+          f"rel L2 {floor:.3e} (prefill and {TF_STEPS} fed steps); bar "
+          f"{LM_NOISE_FACTOR} x {floor:.3e} = {bar:.3e}; made in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"bar": bar, "floor": floor, "fwd": fwd, **one}
+
+
+@contextlib.contextmanager
+def _unjoined_decode():
+    """The planted fault: the decode's split softmax is not joined over
+    ``model``: each rank normalises its own block of the slots."""
+
+    from repro_torch.models import blocks
+
+    real = blocks.decode_attention_join
+    with mock.patch.object(blocks, "decode_attention_join",
+                           lambda o, m, l, axes, dtype: real(o, m, l, (),
+                                                             dtype)):
+        yield
+
+
+def _mesh_serve_lm(cfg):
+    """LM serving on a (data 2, model 2) mesh of this phase's ranks
+    (ROADMAP A10e-2): prefill, MESH_SERVE_LM_FED steps fed the one
+    device's tokens and MESH_SERVE_LM_FREE free steps, then the planted
+    fault's steps from the prefill's cache.  Returns the logits' rel L2
+    against one device by step, the fault's, the joined logits' and
+    tokens' fingerprints, the padded columns, the tokens, the times,
+    B2's launches, the collectives of the prefill and of the decode, and
+    the peak memory."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.carry import shard_state
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import (batch_rows, build_decode_step,
+                                          build_prefill_step, greedy_sample)
+    from repro_torch.launch.train import _delta, _snapshot
+    from repro_torch.models import lm
+    from repro_torch.models.common import dtype_of
+    from repro_torch.parallel.sharding import join_blocks, logical_to_spec
+
+    mesh = make_mesh(*MESH_TRAIN_SHAPE, device=cfg["device"],
+                     backend=cfg["backend"])
+    on_card = mesh.device.type == "cuda"
+    d = Path(cfg["dir"])
+    pplan, dplan = _mesh_serve_lm_plans()
+    lcfg, rules = pplan.cfg, pplan.rules
+    B, S, L = MESH_SERVE_LM_BATCH, MESH_SERVE_LM_PROMPT, MESH_SERVE_LM_CACHE
+    fed, steps = MESH_SERVE_LM_FED, MESH_SERVE_LM_FED + MESH_SERVE_LM_FREE
+    prefill_fn, p_specs = build_prefill_step(pplan, mesh, L)
+    decode_fn, d_specs, _ = build_decode_step(dplan, mesh, cache_len=L)
+    if d_specs != p_specs:
+        raise AssertionError("mesh: the prefill and decode plans lay the "
+                             "parameters out differently")
+    params = shard_state(_mesh_serve_lm_params(lcfg, cfg["seed"],
+                                               mesh.device), p_specs, mesh)
+    if on_card:
+        torch.cuda.empty_cache()
+    rows = batch_rows({"tokens": np.load(d / "serve_lm_prompts.npy"),
+                       "feed": np.load(d / "serve_lm_tokens.npy")},
+                      mesh, rules)
+    feed = rows.pop("feed")
+
+    def sample(logits):
+        return greedy_sample(logits, lcfg, mesh)
+
+    box = {}
+
+    def after_prefill(logits, cache):
+        box["prefill"] = _snapshot(mesh.stats)
+        box["cache"] = tree_map(torch.clone, cache)
+
+    mesh.stats.reset()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    run = _serve(prefill_fn, decode_fn, params, rows, steps,
+                 feed=feed[:, :fed], after_prefill=after_prefill,
+                 sample=sample)
+    decode = _delta(_snapshot(mesh.stats), box["prefill"])
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    times = {k: run[k] for k in ("prefill_s", "decode_s", "prefill_launches",
+                                 "prefill_wgmma", "decode_launches")}
+    local = run["logits"]                        # [steps + 1, B / 2, V / 2]
+    first = mesh.coordinate("model") * local.shape[-1]
+    pad = local[..., max(lcfg.vocab - first, 0):]
+    masked = torch.tensor(-1e30, dtype=dtype_of(lcfg.compute_dtype)).item()
+    padded = (int(pad.shape[-1]), bool((pad == masked).all()))
+
+    def joined(x):
+        return lm.gather_logits(x.transpose(0, 1), lcfg, mesh, rules,
+                                B).transpose(0, 1)
+
+    full = joined(local)
+    one = torch.from_numpy(np.load(d / "serve_lm_logits.npy")).to(
+        mesh.device)
+    rel = [_rel_l2(full[i], one[i], lcfg.vocab) for i in range(fed + 1)]
+    tokens = join_blocks(run["tokens"], logical_to_spec(
+        rules, ("batch", None), shape=(B, steps + 1), mesh=mesh), mesh)
+    fingerprint = [_bits_fingerprint(full), _bits_fingerprint(tokens)]
+    del full, local, run
+    fault = []
+    with _unjoined_decode(), torch.inference_mode():
+        cache = box.pop("cache")
+        for i in range(MESH_SERVE_LM_FAULT_STEPS):
+            logits, cache = decode_fn(params, cache, feed[:, i:i + 1], S + i)
+            fault.append(_rel_l2(joined(logits.float().transpose(0, 1))[0],
+                                 one[i + 1], lcfg.vocab))
+    del cache, one, params
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"serve_lm": {
+        "rel": rel, "fault": fault, "fingerprint": fingerprint,
+        "padded": padded, "model": mesh.coordinate("model"),
+        "tokens": tokens.cpu().numpy().tolist(), "peak": peak,
+        "prefill_calls": box["prefill"], "decode_calls": decode, **times}}
+
+
+def _check_mesh_serve_lm(ranks, want):
+    """The mesh serve cell's checks and lines; returns the failures."""
+
+    import numpy as np
+
+    failed = []
+    cfg = _mesh_serve_lm_plans()[0].cfg
+    cells = [r["serve_lm"] for r in ranks]
+    c = cells[0]
+    bar, fed = want["bar"], MESH_SERVE_LM_FED
+    B, S = MESH_SERVE_LM_BATCH, MESH_SERVE_LM_PROMPT
+    steps = fed + MESH_SERVE_LM_FREE
+    one = np.asarray(want["tokens"])
+    tokens = np.asarray(c["tokens"])
+    same_fed = tokens[:, 1:fed + 1] == one[:, 1:fed + 1]
+    free = tokens[:, fed + 1:] == one[:, fed + 1:]
+    prefill_s = [round(x["prefill_s"], 4) for x in cells]
+    decode_ms = [round(x["decode_s"] / steps * 1e3, 3) for x in cells]
+
+    def per(calls, n=1):
+        return ({k: round(v / n, 2) for k, v in calls["calls"].items()},
+                {k: round(v / n / 1e6, 3) for k, v in calls["sent"].items()},
+                round(calls["staged"] / n / 1e6, 3))
+
+    pc, pm, ps = per(c["prefill_calls"])
+    dc, dm, ds = per(c["decode_calls"], steps)
+    launches = [(x["prefill_launches"], x["prefill_wgmma"],
+                 x["decode_launches"]) for x in cells]
+    same = all(x["fingerprint"] == c["fingerprint"] for x in cells)
+    padded = {x["model"]: x["padded"] for x in cells}
+    print(f"mesh: serve {cfg.name} {cfg.n_layers} layers, {B} x {S} prompts, "
+          f"cache {MESH_SERVE_LM_CACHE} ({MESH_SERVE_LM_CACHE // 2} slots a "
+          f"model rank), mesh {MESH_TRAIN_SHAPE}: prefill s per rank "
+          f"{prefill_s} = {B * S / max(prefill_s):.1f} tokens/s (one device "
+          f"{want['prefill_s']:.4f} s), decode ms a step per rank "
+          f"{decode_ms} = {B * 1e3 / max(decode_ms):.1f} tokens/s (one "
+          f"device {want['decode_s'] / steps * 1e3:.3f}); a prefill: calls "
+          f"{pc}, MB handed {pm}, MB staged {ps}; a decode step: calls {dc}, "
+          f"MB handed {dm}, MB staged {ds}; peak memory a rank GB "
+          f"{[round(x['peak'] / 1e9, 2) for x in cells]}; B2 launches a rank "
+          f"(prefill, of them wgmma, decode) {launches}", flush=True)
+    rels = ", ".join(f"{x:.2e}" for x in c["rel"])
+    print(f"mesh: serve logits vs one device, rel L2, prefill then {fed} fed "
+          f"steps: max {max(c['rel']):.3e} ({rels}); "
+          f"bar {bar:.3e}; the planted fault (split softmax unjoined over "
+          f"model) {', '.join(f'{x:.3e}' for x in c['fault'])}; every "
+          f"rank's joined logits and tokens equal {same}; padded columns a "
+          f"model rank (count, all -1e30) {padded}; greedy tokens equal to "
+          f"one device's: of the fed steps {int(same_fed.sum())} of "
+          f"{same_fed.size}, of the free steps {int(free.sum())} of "
+          f"{free.size}", flush=True)
+    if max(c["rel"]) > bar:
+        failed.append(f"serve lm: logits {max(c['rel'])} > {bar}")
+    if min(c["fault"]) <= bar:
+        failed.append("serve lm: the bar passes an unjoined split softmax")
+    if not same:
+        failed.append("serve lm: ranks disagree")
+    if tokens.max() >= cfg.vocab or not all(p[1] for p in padded.values()) \
+            or padded.get(1, (0,))[0] != cfg.padded_vocab - cfg.vocab:
+        failed.append(f"serve lm: padded columns {padded}")
+    if any(x != (cfg.n_layers, cfg.n_layers, 0) for x in launches):
+        failed.append(f"serve lm: B2 launches {launches}")
+    return failed
+
+
 def phase_mesh(args, device, report, single=None) -> None:
     """Sharded Pregel and IMRU, the generic engine and serving, on
     MESH_RANKS ranks (the module docstring's phase 10b).  Inputs and
@@ -8062,6 +8386,7 @@ def phase_mesh(args, device, report, single=None) -> None:
         want_generic = _mesh_generic_inputs(args, d)
         want_serve = _mesh_serve_inputs(args, d, single)
         want_train = _mesh_train_inputs(args, d, device)
+        want_serve_lm = _mesh_serve_lm_inputs(args, d, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"mesh: inputs and oracles in {time.perf_counter() - t0:.1f}s;"
@@ -8149,10 +8474,14 @@ def phase_mesh(args, device, report, single=None) -> None:
     failed += _check_mesh_ft(ranks, want_generic, args)
     failed += _check_mesh_serve(ranks, want_serve)
     failed += _check_mesh_train(ranks, want_train)
+    failed += _check_mesh_serve_lm(ranks, want_serve_lm)
     if single is not None:
         single["mesh_train"] = {
             "launches_per_rank_step": r0["train/zero1"][0]["launches"],
             "fwd": want_train["fwd"], "bwd": want_train["bwd"]}
+        single["mesh_serve_lm"] = {
+            "launches_per_rank_prefill": r0["serve_lm"]["prefill_launches"],
+            "fwd": want_serve_lm["fwd"]}
     entry = next(e for e in report if e["name"] == "segment_combine") \
         if any(e["name"] == "segment_combine" for e in report) else None
     sites = [v for k, v in r0.items() if k.startswith("site/")]
@@ -8163,10 +8492,18 @@ def phase_mesh(args, device, report, single=None) -> None:
 
 
 
-def _attach_mesh_train(report, single) -> None:
-    """B2-B4's launches a rank a step in the mesh train cell and their
-    check and times at a rank's local shape, on their report entries."""
+def _attach_mesh_lm(report, single) -> None:
+    """B2-B4's launches a rank a step in the mesh train cell, B2's a rank
+    a prefill in the mesh serve cell, and their checks and times at a
+    rank's local shapes, on their report entries."""
 
+    served = single.get("mesh_serve_lm")
+    if served is not None:
+        for e in report:
+            if e["name"] == "flash_attention_fwd":
+                e["mesh_serve_launches_per_rank_prefill"] = \
+                    served["launches_per_rank_prefill"]
+                e["mesh_serve_local_shape"] = served["fwd"]
     got = single.get("mesh_train")
     if got is None:
         return
@@ -8301,7 +8638,7 @@ def main(argv=None) -> int:
         run()
         seconds[name] = round(time.perf_counter() - t0, 1)
         print(f"phase {name}: {seconds[name]}s", flush=True)
-    _attach_mesh_train(report, single)
+    _attach_mesh_lm(report, single)
     print(f"phases: {json.dumps(seconds)}")
     # again at the end, where a cut log's tail keeps it beside the numbers
     print(_card_line(), flush=True)

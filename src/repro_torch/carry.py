@@ -17,6 +17,9 @@ objects) into the port's.
   ``state_specs``, and joined back into the global tree on every rank;
   :func:`sharded_zeros`: zeros at a tree's blocks (an optimizer state made
   on the ranks without its global tree).
+* :func:`shard_cache` / :func:`gather_cache`: a decode cache given as
+  numpy arrays (the JAX package's) cut into this rank's blocks by the
+  mesh decode step's cache specs, and joined back into numpy arrays.
 * :func:`relation_from_numpy`: a dense-grid relation (the reference
   ``Relation``'s ``present`` and value grids) into the port's
   :class:`~repro_torch.core.executor.Relation`.
@@ -45,7 +48,7 @@ from repro_torch.models.common import ArchConfig
 
 __all__ = ["graph_from_numpy", "lm_params_from_numpy",
            "train_state_from_numpy", "shard_state", "gather_state",
-           "sharded_zeros",
+           "sharded_zeros", "shard_cache", "gather_cache",
            "relation_from_numpy",
            "row_relation_from_numpy", "imru_records_from_numpy"]
 
@@ -204,6 +207,30 @@ def gather_state(state: Any, state_specs: Any, mesh) -> Any:
 
     return tree_map(lambda x, spec: join_blocks(x, spec, mesh), state,
                     state_specs)
+
+
+def shard_cache(tree: Any, cache_specs: Any, mesh) -> Any:
+    """This rank's blocks of a decode cache given as numpy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, cache)``), dtypes kept (bf16 via
+    float32), cut by ``cache_specs`` (``launch.serve.cache_specs_on``), as
+    contiguous tensors on the mesh's device."""
+
+    cpu = torch.device("cpu")
+    return shard_state(tree_map(lambda a: _leaf_from_numpy(a, cpu), tree),
+                       cache_specs, mesh)
+
+
+def gather_cache(cache: Any, cache_specs: Any, mesh) -> Any:
+    """The global cache as numpy arrays from every rank's blocks (every
+    rank of the mesh calls it and gets the whole); bf16 leaves come back
+    as float32, which holds them exactly."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    return tree_map(host, gather_state(cache, cache_specs, mesh))
 
 
 def relation_from_numpy(

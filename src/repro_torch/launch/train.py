@@ -257,12 +257,13 @@ def _moment_specs(p_specs, like, mesh, zero: str, fsdp: bool):
         if zero == "zero1" and not fsdp else spec, like, p_specs)
 
 
-def _refuse_unported(cfg, mesh, p_specs) -> None:
-    """The paths not ported to a mesh raise before any collective."""
+def _refuse_unported(cfg, mesh, p_specs, doing: str = "training") -> None:
+    """The paths not ported to a mesh raise before any collective
+    (``doing``: "training" or "serving")."""
 
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) on a mesh is not "
+            f"{doing} the {cfg.family} family ({cfg.name}) on a mesh is not "
             f"ported yet (ROADMAP A10h); the mesh step takes "
             f"{MESH_FAMILIES}")
     tp = mesh.shape.get("model", 1)
@@ -411,7 +412,8 @@ class _MeshStep:
         rows = batch["tokens"].shape[0] // n_mb
         losses: List[torch.Tensor] = []
         self.phases = {}
-        with C.bind(mesh), sharding.placement(mesh, self.p_specs):
+        with C.bind(mesh), sharding.placement(mesh, self.p_specs,
+                                              plan.rules):
             for i in range(n_mb):
                 sub = {k: v[i * rows:(i + 1) * rows] if v.ndim >= 1 else v
                        for k, v in batch.items()}

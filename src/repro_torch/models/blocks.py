@@ -19,7 +19,8 @@ state it replaces.
 The JAX package's ``shard(...)`` annotations are dropped: on one device
 they are no-ops, and on a mesh GSPMD turns them into collectives, which
 the port places itself.  Inside a ``sharding.placement`` (the train step
-on a mesh, ROADMAP A10e-1) a layer reads its parameters' *local* shapes:
+on a mesh, ROADMAP A10e-1, and prefill and decode on a mesh, A10e-2) a
+layer reads its parameters' *local* shapes:
 where a weight is cut over ``model`` the layer is Megatron tensor
 parallel, :func:`~repro_torch.parallel.collectives.copy_to` at its input
 (identity forward, ``psum`` backward) and
@@ -37,7 +38,13 @@ parallel, :func:`~repro_torch.parallel.collectives.copy_to` at its input
   only its experts' outputs), each rank runs its X/tp experts (EP) or its
   ffn columns of every expert (``expert_ffn`` over ``model``), and the
   weighted contributions are ``psum``'d.  The capacity is the reference's
-  per data shard: the rank's tokens are its data group's.
+  per data shard: the rank's tokens are its data group's;
+* the decode cache: its slots cut over ``model`` (``kv_seq``; whole where
+  ``model`` does not divide them) with every kv head, as the reference's
+  ``attention_cache_specs`` lays it out.  Prefill re-cuts its kept K/V
+  from heads to slots with one all-to-all (``_cache_layout``); decode
+  attends each rank's slots for every head and joins the softmax
+  statistics over ``model`` (``_decode_attention``).
 
 Outside a placement every one of these is the identity: one device, as
 before.  The JAX package's ``_maybe_repeat_kv`` (kv heads that do not
@@ -60,6 +67,8 @@ from repro_torch.models.common import (
     apply_rope,
     chunked_attention,
     decode_attention,
+    decode_attention_join,
+    decode_attention_partial,
     dtype_of,
     rms_norm,
 )
@@ -102,9 +111,10 @@ class LayerCtx:
     sin: Optional[torch.Tensor] = None  # rope tables for current positions
     cos: Optional[torch.Tensor] = None
     pos: Optional[int] = None    # absolute position (decode)
-    cache_len: int = 0
+    cache_len: int = 0           # the cache's global slots (0: the cache's)
     causal: bool = True
     attention: str = "auto"      # chunked_attention's impl: auto | ref
+    kv_axes: Tuple[str, ...] = ()  # the mesh axes cutting the cache's slots
 
 
 def _cdt(cfg):
@@ -213,14 +223,93 @@ def _check_cache_len(cache_len: int, S: int) -> None:
                          f"window must hold the prompt (ROADMAP C13)")
 
 
-def _ring_valid(pos: int, L: int, window: int, device) -> torch.Tensor:
-    """Ring cache: slot i holds absolute position p = the largest p <= pos
-    with p % L == i.  Visible iff p exists and lies in the window
+def _slot_valid(pos: int, L: int, window: Optional[int],
+                slots: torch.Tensor) -> torch.Tensor:
+    """Which of the slots ``slots`` (global ids: a rank's block of a cut
+    cache) of a cache of ``L`` slots are live at ``pos``.  In a ring
+    (``window``) slot i holds absolute position p = the largest p <= pos
+    with p % L == i, visible iff p exists and lies in the window
     (pos - window, pos]."""
 
-    slots = torch.arange(L, device=device)
+    if window is None:
+        return slots <= pos
     p_abs = pos - torch.remainder(pos - slots, L)
     return (p_abs >= 0) & (p_abs > pos - window)
+
+
+def _local_slot(slot: int, first: int, n: int) -> Optional[int]:
+    """The global cache slot ``slot`` in the block of ``n`` slots from
+    ``first`` that this rank holds, or ``None`` where another rank's block
+    holds it (that rank writes it)."""
+
+    return slot - first if first <= slot < first + n else None
+
+
+def _cache_layout(t: torch.Tensor, tp, kv) -> torch.Tensor:
+    """Prefill's kept K or V ``(B, Lc, KH_local, D)``, its heads cut over
+    ``tp``, laid out as the cache's spec: the slots cut over ``kv`` (one
+    all-to-all from a cut by heads to a cut by slots, or this rank's block
+    of slots where the heads are whole), or whole (the heads
+    all-gathered)."""
+
+    if kv and tp:
+        return C.all_to_all_dim(t, tp, 1, 2)
+    if kv:
+        n = t.shape[1] // C.axis_size(kv[0])
+        return t.narrow(1, C.axis_index(kv) * n, n).contiguous()
+    if tp:
+        return C.all_gather_dim(t, tp, 2)
+    return t
+
+
+def _decode_attention(q, k_new, v_new, cache, ctx: LayerCtx, tp):
+    """Write the new token's K/V into ``cache`` in place and attend over
+    it.  ``q``, ``k_new``, ``v_new`` at the rank's heads (cut over ``tp``);
+    returns the attention at the same heads.
+
+    On a mesh (ROADMAP A10e-2) the cache holds every kv head, so the new
+    token's K/V are all-gathered over ``tp``.  Where its slots are cut over
+    ``ctx.kv_axes`` only the rank that owns the written slot writes it, at
+    its local slot (guarded, never clamped: ROADMAP C1), every head's q
+    attends the rank's slots, masked by their global ids, and the blocks'
+    softmax statistics are joined over the axes; where the slots are whole
+    the rank attends its own heads."""
+
+    cfg = ctx.cfg
+    k_c, v_c = cache["k"], cache["v"]
+    Ll = k_c.shape[1]
+    L = ctx.cache_len or Ll
+    kv = ctx.kv_axes
+    pos = int(ctx.pos)
+    slot = pos % L if cfg.window is not None else pos
+    if not 0 <= slot < L:
+        raise IndexError(f"decode position {pos} is past the cache "
+                         f"length {L}")
+    if tp:
+        k_new = C.all_gather_dim(k_new, tp, 2)
+        v_new = C.all_gather_dim(v_new, tp, 2)
+    first = C.axis_index(kv) * Ll if kv else 0
+    local = _local_slot(slot, first, Ll)
+    if local is not None:
+        k_c[:, local] = k_new[:, 0].to(k_c.dtype)
+        v_c[:, local] = v_new[:, 0].to(v_c.dtype)
+    B = q.shape[0]
+    slots = torch.arange(first, first + Ll, device=q.device)
+    valid = _slot_valid(pos, L, cfg.window, slots)[None, :].expand(B, Ll)
+    if not kv:
+        if tp:
+            KH = k_c.shape[2] // C.axis_size(tp[0])
+            k_c = k_c.narrow(2, C.axis_index(tp) * KH, KH)
+            v_c = v_c.narrow(2, C.axis_index(tp) * KH, KH)
+        return decode_attention(q, k_c, v_c, valid)
+    H = q.shape[2]
+    if tp:
+        q = C.all_gather_dim(q, tp, 2)
+    out = decode_attention_join(*decode_attention_partial(q, k_c, v_c, valid),
+                                kv, q.dtype)
+    if tp:
+        out = out.narrow(2, C.axis_index(tp) * H, H)
+    return out
 
 
 def attention_mixer(
@@ -241,22 +330,8 @@ def attention_mixer(
     x = C.copy_to(x, tp)
 
     if ctx.mode == "decode":
-        q, k_new, v_new = _qkv(p, x, cfg, (ctx.sin, ctx.cos))
-        k_c, v_c = cache["k"], cache["v"]
-        L = k_c.shape[1]
-        pos = int(ctx.pos)
-        slot = pos % L if cfg.window is not None else pos
-        if not 0 <= slot < L:
-            raise IndexError(f"decode position {pos} is past the cache "
-                             f"length {L}")
-        k_c[:, slot] = k_new[:, 0].to(k_c.dtype)
-        v_c[:, slot] = v_new[:, 0].to(v_c.dtype)
-        if cfg.window is not None:
-            valid = _ring_valid(pos, L, cfg.window, x.device)
-        else:
-            valid = torch.arange(L, device=x.device) <= pos
-        valid = valid[None, :].expand(B, L)
-        out = decode_attention(q, k_c, v_c, valid)
+        q, k_new, v_new = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp)
+        out = _decode_attention(q, k_new, v_new, cache, ctx, tp)
         new_cache = cache
     else:
         q, k, v = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp)
@@ -275,7 +350,8 @@ def attention_mixer(
                 pad = Lc - S
                 k_keep = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v_keep = F.pad(v, (0, 0, 0, 0, 0, pad))
-            new_cache = {"k": k_keep, "v": v_keep}
+            new_cache = {"k": _cache_layout(k_keep, tp, ctx.kv_axes),
+                         "v": _cache_layout(v_keep, tp, ctx.kv_axes)}
     out = out.reshape(B, S, H * D)
     y = C.reduce_from(_mm(out, p["wo"], dt), tp)
     return y, new_cache

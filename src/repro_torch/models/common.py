@@ -14,7 +14,10 @@ of the JAX package's chunked online-softmax and its custom VJP (the
 two-pass flash backward over KV chunks, O(Sq * chunk) live memory);
 ``impl="ref"`` runs the kernels' plain version (``attention_reference``,
 plain autograd) on either device.  Decode attention over the KV cache is
-plain PyTorch: no kernel lies behind it.
+plain PyTorch: no kernel lies behind it.  On a cache whose slots are cut
+over a mesh axis (ROADMAP A10e-2) each rank attends its block with
+:func:`decode_attention_partial` and :func:`decode_attention_join` joins
+the blocks' softmax statistics over the axis (split-softmax decode).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.launch.census import vmem_region
+from repro_torch.parallel import collectives as C
 
 __all__ = [
     "ArchConfig",
@@ -35,6 +39,8 @@ __all__ = [
     "apply_rope",
     "chunked_attention",
     "decode_attention",
+    "decode_attention_partial",
+    "decode_attention_join",
     "cross_entropy_loss",
     "dtype_of",
 ]
@@ -381,6 +387,51 @@ def decode_attention(
     l = torch.sum(p, dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30), vf)
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_partial(
+    q: torch.Tensor,        # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S_block, KH, D): one block of the slots
+    v_cache: torch.Tensor,
+    valid: torch.Tensor,    # (B, S_block) bool
+    *,
+    sm_scale: Optional[float] = None,
+):
+    """Single-token attention over one block of the cache's slots,
+    unnormalised: ``(o, m, l)``, each ``(B, KH, H // KH, ...)`` in f32, with
+    ``m`` the block's row max (``-inf`` where no slot is live), ``l`` the
+    sum of ``exp(s - m)`` and ``o`` that sum weighted by the values (zeros
+    for a block with no live slot)."""
+
+    B, _, H, D = q.shape
+    _, S, KH, _ = k_cache.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    qg = (q.to(torch.float32) * scale).reshape(B, KH, H // KH, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32))
+    live = valid[:, None, None, :]
+    s = torch.where(live, s, -torch.inf)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - torch.where(torch.isfinite(m), m,
+                                                     0.0)), 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return o, m, l
+
+
+def decode_attention_join(o, m, l, axes, dtype: torch.dtype) -> torch.Tensor:
+    """The attention of :func:`decode_attention_partial`'s blocks joined
+    over the mesh ``axes`` that cut the slots: one ``pmax`` of ``m``, one
+    ``psum`` of ``(l e^(m - M), o e^(m - M))``; ``(B, 1, H, D)`` in
+    ``dtype``.  With ``axes`` empty, the one block normalised."""
+
+    B, KH, G, D = o.shape
+    M = C.pmax(m, axes)
+    w = torch.where(torch.isfinite(m),
+                    torch.exp(m - torch.where(torch.isfinite(M), M, 0.0)),
+                    0.0)
+    ol = C.psum(torch.cat([o * w, l * w], dim=-1), axes)
+    out = ol[..., :D] / torch.clamp(ol[..., D:], min=1e-30)
+    return out.reshape(B, 1, KH * G, D).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -24,12 +24,16 @@ The JAX package's ``models/lm.py``, every family, on one device:
   layer's cross-attention; at serve time the cross K/V is computed once at
   prefill and carried in ``cache["cross"]``;
 * inside a :func:`~repro_torch.parallel.sharding.placement` (the train
-  step on a mesh, ROADMAP A10e-1) the parameters are this rank's blocks:
-  the embedding and the loss are vocab-parallel over ``model`` (each rank
-  looks up and scores its own vocab range, ``psum``/``pmax`` join them),
-  the loss is the mean over the global microbatch (its sums ``psum``'d
-  over the batch axes), and under ZeRO-3 each layer's parameters and the
-  head are gathered over ``data`` at use (``sharding.at_use``).
+  step on a mesh, ROADMAP A10e-1, and prefill and decode on a mesh,
+  A10e-2) the parameters are this rank's blocks: the embedding, the head
+  and the loss are vocab-parallel over ``model`` (each rank looks up and
+  scores its own vocab range, ``psum``/``pmax`` join them; the head's
+  logits stay cut, :func:`gather_logits` joins them), the loss is the
+  mean over the global microbatch (its sums ``psum``'d over the batch
+  axes), and under ZeRO-3 each layer's parameters and the head are
+  gathered over ``data`` at use (``sharding.at_use``).  The decode cache
+  is this rank's rows and, where ``model`` divides them, its block of the
+  slots (``init_cache(mesh=...)``, the reference's ``cache_shardings``).
 """
 
 from __future__ import annotations
@@ -77,8 +81,10 @@ __all__ = [
     "prefill",
     "decode_step",
     "cache_specs",
+    "cache_axes",
     "init_cache",
     "abstract_cache",
+    "gather_logits",
 ]
 
 _STACKED_KEYS = ("layers", "enc_layers")
@@ -276,16 +282,26 @@ def _embed_tokens(params, tokens, cfg):
 
 
 def _lm_head(params, x, cfg):
+    """Logits of the hidden states ``x``.  In a placement, this ``model``
+    rank's block of the vocab columns (the padded ones lie in the last
+    rank's block: masked by their global index)."""
+
     dt = dtype_of(cfg.compute_dtype)
-    x = rms_norm(x, params["embed"]["out_norm"])
+    x = rms_norm(x, sharding.at_use(params["embed"]["out_norm"], "embed",
+                                    "out_norm"))
     head = (
-        params["embed"]["tok"].T if cfg.tie_embeddings
-        else params["embed"]["head"]
+        sharding.at_use(params["embed"]["tok"], "embed", "tok").T
+        if cfg.tie_embeddings
+        else sharding.at_use(params["embed"]["head"], "embed", "head")
     )
-    logits = x.to(dt) @ head.to(dt)
+    tp = sharding.tp_axes()
+    split = bool(tp) and head.shape[-1] < cfg.padded_vocab
+    logits = C.copy_to(x.to(dt), tp if split else ()) @ head.to(dt)
     if cfg.padded_vocab != cfg.vocab:
         # padded columns never win an argmax or enter a softmax
         col = torch.arange(logits.shape[-1], device=logits.device)
+        if split:
+            col = col + C.axis_index("model") * logits.shape[-1]
         logits = logits.masked_fill(col >= cfg.vocab, -1e30)
     return logits
 
@@ -579,8 +595,28 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
     return specs
 
 
+def cache_axes(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
+    """The cache tree's logical axes, a tuple a leaf with ``"stack"``
+    (the layers) in front (the JAX package's ``cache_axes``)."""
+
+    return {k: _spec_map(lambda s: ("stack",) + tuple(s.axes), v)
+            for k, v in cache_specs(cfg, batch, seq).items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
-               device: Device = None) -> Dict[str, Any]:
+               device: Device = None, mesh=None,
+               rules=None) -> Dict[str, Any]:
+    """A zero cache for ``batch`` rows of ``seq`` positions; on ``mesh``
+    (with the plan's ``rules``) this rank's blocks of it, on the mesh's
+    device, cut as ``launch.serve.cache_specs_on`` cuts it."""
+
+    if mesh is not None:
+        from repro_torch.carry import sharded_zeros
+        from repro_torch.launch.serve import cache_specs_on
+
+        return sharded_zeros(abstract_cache(cfg, batch, seq),
+                             cache_specs_on(cfg, mesh, rules, batch, seq),
+                             mesh)
     device = resolve_device(device)
     return {
         k: _spec_map(lambda s: torch.zeros(
@@ -595,6 +631,19 @@ def abstract_cache(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
     package's ``abstract_cache``)."""
 
     return init_cache(cfg, batch, seq, device="meta")
+
+
+def gather_logits(logits: torch.Tensor, cfg: ArchConfig, mesh, rules,
+                  batch: int) -> torch.Tensor:
+    """The global ``(batch, S, V)`` logits from every rank's block (its
+    rows, and its vocab columns where ``model`` cuts them: the reference's
+    ``("batch", "seq", "vocab")`` layout under ``rules``); every rank of
+    ``mesh`` calls it and gets the whole."""
+
+    spec = sharding.logical_to_spec(
+        rules, ("batch", "seq", "vocab"),
+        shape=(batch, logits.shape[1], cfg.padded_vocab), mesh=mesh)
+    return sharding.join_blocks(logits, spec, mesh)
 
 
 def _stack_into(stack, i: int, tree, n: int):
@@ -617,7 +666,8 @@ def prefill(
     x = _embed_tokens(params, tokens, cfg)
     sin, cos = _rope_tables(cfg, torch.arange(S, device=x.device)[None, :])
     ctx = LayerCtx(cfg=cfg, mode="prefill", sin=sin, cos=cos,
-                   cache_len=cache_len, attention=attention)
+                   cache_len=cache_len, attention=attention,
+                   kv_axes=sharding.cut_axes("kv_seq", cache_len))
     enc_out = None
     if cfg.family == "encdec":
         enc_out = _encoder(params, enc_input, cfg, attention=attention)
@@ -644,16 +694,25 @@ def prefill(
 def decode_step(
     params, cache: Dict[str, Any], token: torch.Tensor, pos: int,
     cfg: ArchConfig, *, attention: str = "auto",
+    cache_len: Optional[int] = None,
 ):
     """One decode step: token (B, 1) + cache -> (logits, cache).
 
     ``pos`` is the absolute position of ``token``.  The cache is updated in
     place and returned (the JAX package donates it to the jitted step).
     ``attention`` is the cross-attention's implementation (encdec); the
-    self-attention over the cache is plain PyTorch."""
+    self-attention over the cache is plain PyTorch.  In a placement the
+    cache is this rank's blocks and ``cache_len`` the whole cache's slots
+    (a block does not tell whether the slots were cut)."""
 
     B = token.shape[0]
     pos = int(pos)
+    kv_axes = ()
+    if sharding.tp_axes():
+        if cache_len is None:
+            raise ValueError("decode on a mesh needs the cache's global "
+                             "slot count (cache_len=)")
+        kv_axes = sharding.cut_axes("kv_seq", cache_len)
     x = _embed_tokens(params, token, cfg)
     sin, cos = _rope_tables(
         cfg, torch.full((1, 1), pos, dtype=torch.int32, device=x.device))
@@ -661,7 +720,8 @@ def decode_step(
         sin = sin.expand((B,) + sin.shape[1:])
         cos = cos.expand((B,) + cos.shape[1:])
     ctx = LayerCtx(cfg=cfg, mode="decode", sin=sin, cos=cos, pos=pos,
-                   attention=attention)
+                   attention=attention, cache_len=cache_len or 0,
+                   kv_axes=kv_axes)
     for i in range(cfg.n_layers):
         layer_cache = tree_map(lambda a: a[i], cache["layers"])
         cross = None

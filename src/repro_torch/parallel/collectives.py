@@ -33,7 +33,9 @@ sees, the JAX package getting them from GSPMD's transpose rules:
   of it backward: a ZeRO-3 parameter at use.
 
 :func:`all_gather_dim` and :func:`psum_scatter_dim` are the same exchanges
-tiled along any dim, outside autograd.
+tiled along any dim, outside autograd; :func:`all_to_all_dim` re-cuts a
+tensor from one dim to another (a decode cache's K/V from a cut by heads
+to a cut by slots, ROADMAP A10e-2).
 
 Under ``torch.func.vmap`` (a batched serving run: k queries through one
 fixpoint) :func:`psum`, :func:`pmax`, :func:`psum_scatter`,
@@ -57,7 +59,8 @@ from torch._C._functorch import is_batchedtensor
 
 __all__ = ["bind", "bound_mesh", "axes_present", "axis_index", "axis_size",
            "psum", "pmax", "psum_scatter", "all_gather", "all_to_all",
-           "ppermute", "all_gather_dim", "psum_scatter_dim", "copy_to",
+           "ppermute", "all_gather_dim", "psum_scatter_dim",
+           "all_to_all_dim", "copy_to",
            "reduce_from", "gather_dim"]
 
 _BOUND: contextvars.ContextVar = contextvars.ContextVar(
@@ -107,8 +110,11 @@ def axis_size(axis: str) -> int:
     return _mesh().shape[axis]
 
 
-def axis_index(axis: str) -> int:
-    return _mesh().coordinate(axis)
+def axis_index(axes) -> int:
+    """This rank's index along ``axes``: one axis name, or several taken
+    together (row-major, the first major)."""
+
+    return _mesh().linear_index(_axes(axes))
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -329,6 +335,24 @@ def psum_scatter_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim:dim + 1] = [n, shape[dim] // n]
     return psum_scatter(x.reshape(shape).movedim(dim, 0).contiguous(), axes)
+
+
+def all_to_all_dim(x: torch.Tensor, axes, split: int,
+                   concat: int) -> torch.Tensor:
+    """``x`` cut into ``n`` blocks along ``split``, block i sent to the
+    group's rank i, and the blocks received joined along ``concat`` in
+    sender order (``lax.all_to_all(x, axes, split, concat, tiled=True)``):
+    a tensor cut over ``axes`` along ``concat`` comes back cut along
+    ``split``.  One ``all_to_all``."""
+
+    n = math.prod(axis_size(a) for a in _axes(axes))
+    shape = list(x.shape)
+    blocks = x.reshape(shape[:split] + [n, shape[split] // n]
+                       + shape[split + 1:]).movedim(split, 0).contiguous()
+    got = all_to_all(blocks, axes).movedim(0, concat)
+    shape[split] //= n
+    shape[concat] *= n
+    return got.reshape(shape)
 
 
 def _psum_f32(x: torch.Tensor, axes) -> torch.Tensor:

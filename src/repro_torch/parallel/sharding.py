@@ -22,7 +22,9 @@ their collectives themselves, reading the ambient :func:`placement`:
   each dim sharded over ``data`` gathered (its gradient reduce-scattered
   back in the backward, :func:`~repro_torch.parallel.collectives.
   gather_dim`);
-* :func:`batch_axes` — the axes a loss averages over.
+* :func:`batch_axes` — the axes a loss averages over;
+* :func:`cut_axes` — the mesh axes the placement's rules give a logical
+  axis of a given length (a decode cache's ``kv_seq``).
 
 Outside a placement every one of these is the identity, as the
 reference's ``shard(...)`` is outside its context.
@@ -41,7 +43,7 @@ import torch
 __all__ = ["ShardingRules", "PartitionSpec", "P", "logical_to_spec",
            "spec_for_param", "spec_axes", "local_shape", "local_block",
            "join_blocks", "placement", "ambient_axis_size", "tp_axes",
-           "batch_axes", "at_use"]
+           "batch_axes", "cut_axes", "at_use"]
 
 
 @dataclass(frozen=True)
@@ -234,6 +236,7 @@ def join_blocks(x: torch.Tensor, spec, mesh) -> torch.Tensor:
 class _Placement:
     mesh: Any
     specs: Any       # the param spec tree (stacked leaves with "stack")
+    rules: ShardingRules
 
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar(
@@ -241,13 +244,15 @@ _CTX: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def placement(mesh, specs: Any) -> Iterator[None]:
+def placement(mesh, specs: Any, rules: ShardingRules) -> Iterator[None]:
     """Run the model's layers on ``mesh``, the parameters this rank's
-    blocks under the spec tree ``specs`` (the counterpart of the
-    reference's ``activation_sharding_context``).  The collectives run
-    under ``collectives.bind(mesh)``, which the caller holds."""
+    blocks under the spec tree ``specs`` and the activations laid out by
+    the plan's ``rules``: the counterpart of the reference's
+    ``activation_sharding_context``.  The collectives run under
+    ``collectives.bind(mesh)``, which the caller holds."""
 
-    token = _CTX.set(_Placement(mesh, specs) if mesh is not None else None)
+    token = _CTX.set(None if mesh is None else
+                     _Placement(mesh, specs, rules))
     try:
         yield
     finally:
@@ -275,6 +280,18 @@ def batch_axes() -> Tuple[str, ...]:
 
     ctx = _CTX.get()
     return () if ctx is None else ctx.mesh.batch_axes
+
+
+def cut_axes(name: str, dim: int) -> Tuple[str, ...]:
+    """The mesh axes the ambient placement's rules cut a dimension of
+    ``dim`` entries with the logical axis ``name`` over (the divisibility
+    filter applied); ``()`` outside a placement."""
+
+    ctx = _CTX.get()
+    if ctx is None:
+        return ()
+    return spec_axes(logical_to_spec(ctx.rules, (name,), shape=(dim,),
+                                     mesh=ctx.mesh)[0])
 
 
 def _gather_tree(tree, specs, lead: int):

@@ -214,10 +214,26 @@ def test_param_count_matches_jax():
 
 
 def test_unported_families_and_meshes_raise():
-    plan = plan_lm(get_config("minitron_8b"), "decode_32k",
-                   MeshSpec((("data", 1),)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        serve.build_decode_step(plan, object(), device="cpu")
+    """On a mesh, the families not ported to one and kv heads that do not
+    divide ``model`` refuse both serve steps, naming ROADMAP A10h, before
+    any collective (a stand-in mesh has no process group to call)."""
+
+    import types
+
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 4},
+                                 device=torch.device("cpu"))
+    axes = (("data", 1), ("model", 4))
+    for arch in ("minicpm3_4b", "mamba2_130m", "hymba_1_5b",
+                 "whisper_medium", "minitron_8b"):
+        cfg = reduced_config(get_config(arch))
+        for shape in ("prefill_32k", "decode_32k"):
+            plan = dataclasses.replace(plan_lm(cfg, shape, MeshSpec(axes)),
+                                       cfg=cfg)
+            with pytest.raises(NotImplementedError, match="A10h"):
+                if shape == "prefill_32k":
+                    serve.build_prefill_step(plan, mesh, 32)
+                else:
+                    serve.build_decode_step(plan, mesh, cache_len=32)
 
 
 def test_lm_params_from_numpy_keeps_bf16_and_checks_shapes():
