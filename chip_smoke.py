@@ -203,47 +203,47 @@ Phases, each of which exits nonzero on failure:
    1e-5 of float64 or equal to BFS; every rank's answers equal.  Printed:
    ms a query batched and one by one, collective calls and MB staged a
    batched iteration, the cold and warm request times, each rank's peak
-   memory, B1's time and launches.  The LM train step on the same ranks
-   last (ROADMAP A10e-1, ``_mesh_train``): phi4-mini-3.8b at published
-   width, depth cut to ``MESH_TRAIN_LAYERS`` (2), random weights from
-   ``--seed``, on a (data 2, model 2) mesh (tensor parallel over
-   ``model``), a batch of 4 x 2048 tokens in 2 microbatches:
-   ``MESH_TRAIN_STEPS`` (2) AdamW steps under the planner's ZeRO-1 plan
-   (``plan_lm`` on ``H100_SXM``), one step with layer 0's row-parallel
-   MLP psum skipped (the planted fault) and one under ZeRO-3 (the plan's
-   ``rules.fsdp``), each from the seed's weights.  Before the ranks start
-   the phase runs the port's one-device step on the same weights and
-   batch (the yardstick), measures the bf16 bound as the train phase does
-   (the plain path against the same model in f32, 1 x 2048 tokens) and
-   holds B2-B4 to their plain versions at a rank's local shape (H 12, KH
-   4, S 2048, D 128, bf16), timed.  Bars: every step's loss and grad norm
-   within ``LM_NOISE_FACTOR`` x the bf16 bound (capped at 0.1) of the
-   one-device step, the fault outside it; every rank's loss equal; the
-   data replicas' gathered parameters bit-equal after each step; B2-B4's
-   launches a rank a step exact, all on the ``wgmma`` route.  Printed: s
+   memory, B1's time and launches.  The LM cells on the same ranks last
+   (ROADMAP A10e-1, A10e-2, A10h-1; ``_mesh_lm``, one cell a model of
+   ``MESH_LM_CELLS``): phi4-mini-3.8b, minicpm3-4b (MLA) and
+   whisper-medium (encoder-decoder) at published width, depth cut to
+   ``MESH_LM_LAYERS`` (2) decoder layers (whisper also 2 encoder layers
+   and its 1500 stub frames a row), random weights from ``--seed``, on a
+   (data 2, model 2) mesh (tensor parallel over ``model``).  Each trains
+   on a batch of 4 x 2048 tokens in 2 microbatches (``_mesh_train``):
+   its AdamW steps under the planner's plan cast to ZeRO-1 (``plan_lm``
+   on ``H100_SXM``; phi4 2 steps, the others 1), one step with its
+   family's planted fault (``_train_fault``: phi4's layer-0 row-parallel
+   MLP psum skipped, MLA's ``copy_to`` at its latents skipped, whisper's
+   ``copy_to`` of the encoder output skipped) and, for phi4, one under
+   ZeRO-3 (the plan's ``rules.fsdp``), each from the seed's weights.
+   Then it serves (``_mesh_serve_lm``) the same rows as prompts, seeded
+   weights in bf16, the planner's ``prefill_32k`` / ``decode_32k``
+   plans, into a cache cut over ``model``: fed decode steps (phi4 24,
+   the others ``TF_STEPS``) fed the one device's greedy tokens, then free
+   greedy steps (8, 4) sampled vocab-parallel, then the planted fault's
+   steps (the decode's split softmax left unjoined over ``model``).
+   Before the ranks start the phase runs each cell on one device (the
+   yardsticks), measures the bf16 bounds as the train and lm phases do
+   (the plain path against the same model in f32: loss and gradients on
+   one row; prefill and ``TF_STEPS`` fed steps) and holds B2 (and in
+   training B3 and B4) to its plain version at each of a rank's local
+   launch shapes (phi4's H 12, KH 4 at D 128 and whisper's H 8 at D 64
+   on ``wgmma``: the encoder, the decoder's self- and cross-attention,
+   decode's cross-attention; minicpm3's H 20 at D 96 on ``mma``), timed.
+   Bars: every step's loss and grad norm (each rank's) and the prefill's
+   and fed steps' logits within ``LM_NOISE_FACTOR`` x the bf16 bound
+   (capped at 0.1) of one device's, the unjoined softmax outside it,
+   phi4's train fault outside it too and every train fault making the
+   ranks' grad norms disagree (the copy_to faults move the grad norm by
+   less than the bar); every rank's loss, grad norm, joined logits and
+   tokens equal; the data replicas' gathered parameters bit-equal after
+   each step; the padded vocab columns -1e30 on the last ``model`` rank
+   and never sampled; B2-B4's launches a rank exact by route.  Printed: s
    a step per rank, tokens/s, calls and MB a rank hands each collective,
-   MB staged, peak memory a rank, the collectives by phase of the step.
-   Then LM serving on the same (data 2, model 2) mesh (ROADMAP A10e-2,
-   ``_mesh_serve_lm``): the same model, seeded weights in bf16, the
-   planner's ``prefill_32k`` / ``decode_32k`` plans, 4 x 2048-token
-   prompts prefilled into a cache of 2080 slots cut over ``model`` (1040
-   a rank), ``MESH_SERVE_LM_FED`` (24) decode steps fed the one device's
-   greedy tokens, then ``MESH_SERVE_LM_FREE`` (8) free greedy steps
-   sampled vocab-parallel.  Before the ranks start the phase serves the
-   same prompts on one device (the yardstick), measures the bf16 bound as
-   the lm phase does (the plain path against the same model in f32,
-   prefill and ``TF_STEPS`` fed steps) and holds B2 to its plain version
-   at a rank's local shape (B 2, H 12, KH 4, S 2048, D 128), timed.  Bars:
-   prefill's and every fed step's logits within ``LM_NOISE_FACTOR`` x the
-   bf16 bound (capped at 0.1) of the one device's, and the planted fault
-   (the decode's split softmax left unjoined over ``model``) outside it;
-   every rank's joined logits and tokens equal; the padded vocab columns
-   -1e30 on the last ``model`` rank and never sampled; B2's launches a
-   rank a prefill one a layer, all ``wgmma``.  Printed: prefill s and
-   decode ms a step per rank, tokens/s, collective calls, MB handed and
-   MB staged per prefill and per decode step, peak memory a rank, the
-   free steps' tokens that agree with one device.  Any rank's failure
-   fails it.
+   MB staged, peak memory a rank, the collectives by phase of a train
+   step, prefill s and decode ms a step per rank, the free steps' tokens
+   that agree with one device.  Any rank's failure fails it.
 11. ``lm``: the flash-attention forward kernel against its plain version
    (out, m and l) on the FLASH_SWEEP shapes of ``tests/test_kernels.py``,
    ragged tails and D = 160, in both layouts, f32 and bf16, bf16 output
@@ -337,7 +337,7 @@ Phases, each of which exits nonzero on failure:
    activations fit the card's free memory (``_train_reckoning``, printed;
    arctic-480b fits not one layer and is not trained), minicpm3-4b,
    hymba-1.5b, mamba2-130m and whisper-medium (decoder and encoder) cut
-   to 4 layers (``FAMILY_TRAIN_DEPTH_CAP``): the whole
+   to 4 layers and mixtral-8x22b to 1 (``FAMILY_TRAIN_DEPTH_CAP``): the whole
    path at 2 layers and one sequence, kernel path against the plain attention
    within ``LM_NOISE_FACTOR`` times the bf16 bound measured in the run
    (expert choices replayed), with one planted backward fault a family
@@ -4878,15 +4878,17 @@ def _bwd_check(q, k, v, do, causal, window, layout, tag, plain_reps=0):
 
 def _grads_of(params, cfg, tokens, attention):
     """(loss, [f32 gradient of every leaf]) of lm.loss_fn with full
-    remat."""
+    remat; ``tokens`` a tensor, or a batch dict (an encoder-decoder's
+    carries its frames)."""
 
     import torch
 
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.models import lm
 
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, _ = lm.loss_fn(leaves, {"tokens": tokens}, cfg,
+    loss, _ = lm.loss_fn(leaves, batch, cfg,
                          remat_policy="full", attention=attention)
     loss.backward()
     grads = [t.grad.float() for t in tree_leaves(leaves)]
@@ -5374,10 +5376,12 @@ FAMILY_TRAIN_STEPS = 3
 # 16.8 at 4), for the mesh phase's generic and serving cells; 4 of
 # mamba2-130m's 24 (50.4 s at 24, 11.3 at 8) and 4 of whisper-medium's 24
 # decoder and 24 encoder layers (34.6 s at 24 + 24, 8.1 at 8 + 8), for its
-# LM train and serve cells (times on an NVIDIA H100 80GB HBM3 at 700.00
-# W).
+# LM train and serve cells; then 1 of mixtral-8x22b's 56 (51.3 s at the
+# reckoning's 2, 28.8 at 1), for its mla and encdec cells (~20 s) (times
+# on an NVIDIA H100 80GB HBM3 at 700.00 W).
 FAMILY_TRAIN_DEPTH_CAP = {"minicpm3_4b": 4, "hymba_1_5b": 4,
-                          "mamba2_130m": 4, "whisper_medium": 4}
+                          "mamba2_130m": 4, "whisper_medium": 4,
+                          "mixtral_8x22b": 1}
 # The depth reckoning plans for the card's memory less this reserve (the
 # CUDA context and loaded kernels, cuBLAS's workspaces, the caching
 # allocator's rounding): a depth that depends on the card, not on what
@@ -6289,32 +6293,31 @@ MESH_FAULT_SUPERSTEPS = 4
 MESH_IMRU_ITERATIONS = 5
 MESH_SCHEDULES = ("flat", "hierarchical", "kary_tree", "scatter")
 MESH_SCHEDULE_RTOL = 1e-6
-# The LM train step on a mesh (ROADMAP A10e-1): phi4-mini at published
-# width, depth cut to MESH_TRAIN_LAYERS, on a (data 2, model 2) mesh; a
-# batch of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens in
-# MESH_TRAIN_MICROBATCHES microbatches; MESH_TRAIN_STEPS AdamW steps under
-# the planner's ZeRO-1 plan, one with a row-parallel psum skipped (the
-# planted fault), one under ZeRO-3.
+# The LM cells on a mesh (ROADMAP A10e-1, A10e-2, A10h-1): each model of
+# MESH_LM_CELLS at published width, depth cut to MESH_LM_LAYERS decoder
+# layers (and as many of whisper's encoder layers; its rows carry its 1500
+# stub frames), seeded weights, on a (data 2, model 2) mesh.  A cell
+# trains on a batch of MESH_LM_BATCH x MESH_LM_SEQ tokens in
+# MESH_TRAIN_MICROBATCHES microbatches: "steps" AdamW steps under ZeRO-1,
+# one step with its family's planted fault and, where "zero3", one step
+# under ZeRO-3, each from the seed's weights.  Then it serves the same
+# rows as prompts into a cache of MESH_LM_SEQ + "fed" + "free" slots (cut
+# over model): "fed" decode steps fed the one device's greedy tokens, then
+# "free" free greedy steps; the planted fault runs
+# MESH_SERVE_LM_FAULT_STEPS fed steps from the prefill's cache.
 MESH_TRAIN_SHAPE = ((2, 2), ("data", "model"))
-MESH_TRAIN_LAYERS = 2
-MESH_TRAIN_BATCH = 4
-MESH_TRAIN_SEQ = 2048
+MESH_LM_LAYERS = 2
+MESH_LM_BATCH = 4
+MESH_LM_SEQ = 2048
 MESH_TRAIN_MICROBATCHES = 2
-MESH_TRAIN_STEPS = 2
 MESH_TRAIN_FAULT_LAYER = 0
-# LM serving on the same mesh (ROADMAP A10e-2): the same model and depth,
-# MESH_SERVE_LM_BATCH x MESH_SERVE_LM_PROMPT prompts into a cache of
-# MESH_SERVE_LM_CACHE slots (cut over model), MESH_SERVE_LM_FED decode
-# steps fed the one device's greedy tokens, then MESH_SERVE_LM_FREE free
-# greedy steps; the planted fault runs MESH_SERVE_LM_FAULT_STEPS fed steps
-# from the prefill's cache.
-MESH_SERVE_LM_BATCH = 4
-MESH_SERVE_LM_PROMPT = 2048
-MESH_SERVE_LM_FED = 24
-MESH_SERVE_LM_FREE = 8
-MESH_SERVE_LM_CACHE = MESH_SERVE_LM_PROMPT + MESH_SERVE_LM_FED \
-    + MESH_SERVE_LM_FREE
 MESH_SERVE_LM_FAULT_STEPS = 2
+MESH_LM_CELLS = {
+    LM_ARCH: {"steps": 2, "zero3": True, "fed": 24, "free": 8},
+    "minicpm3_4b": {"steps": 1, "zero3": False, "fed": TF_STEPS, "free": 4},
+    "whisper_medium": {"steps": 1, "zero3": False, "fed": TF_STEPS,
+                       "free": 4},
+}
 
 
 def _max_program():
@@ -7746,61 +7749,163 @@ def _mesh_rank(rank, world, cfg):
     if on_card:
         torch.cuda.empty_cache()
     lap("serve")
-    out.update(_mesh_train(cfg))
-    if on_card:
-        torch.cuda.empty_cache()
-    lap("train")
-    out.update(_mesh_serve_lm(cfg))
-    lap("serve lm")
+    for arch in MESH_LM_CELLS:
+        out.update(_mesh_lm(cfg, arch))
+        if on_card:
+            torch.cuda.empty_cache()
+        lap(arch)
     out["seconds"] = seconds
     return out
 
 
-def _mesh_train_plans():
-    """(the planner's plan for phi4-mini's train_4k cell on the (data 2,
-    model 2) mesh of H100s, at MESH_TRAIN_LAYERS layers and
-    MESH_TRAIN_MICROBATCHES microbatches; the same overridden to ZeRO-3)."""
+@dataclasses.dataclass(frozen=True)
+class _LmCell:
+    """A mesh LM cell (``MESH_LM_CELLS``): the runs of its train step, each
+    ``(tag, plan, steps, fault)`` from the seed's weights, the planner's
+    prefill and decode plans, and its fed and free decode steps."""
+
+    arch: str
+    runs: tuple
+    prefill: object
+    decode: object
+    fed: int
+    free: int
+
+    @property
+    def cfg(self):
+        return self.prefill.cfg
+
+    @property
+    def cache(self) -> int:
+        return MESH_LM_SEQ + self.fed + self.free
+
+    @property
+    def steps(self) -> int:
+        return self.fed + self.free
+
+
+def _mesh_lm_cell(arch) -> _LmCell:
+    """The cell of ``arch`` on the (data 2, model 2) mesh of H100s at
+    MESH_LM_LAYERS decoder layers (and as many encoder layers): the
+    planner's ``train_4k`` plan (``plan_lm`` on ``H100_SXM``) under ZeRO-1
+    in MESH_TRAIN_MICROBATCHES microbatches; the fault's step in one
+    microbatch (the same loss and gradient as the first step, at one
+    gradient reduction instead of two); where the cell asks, one step under
+    ZeRO-3 (the plan's ``rules.fsdp``); the ``prefill_32k`` and
+    ``decode_32k`` plans."""
 
     from repro_torch.core.hardware import H100_SXM, MeshSpec
     from repro_torch.core.lm_planner import plan_lm
     from repro_torch.models.registry import get_config
 
     shape, axes = MESH_TRAIN_SHAPE
-    plan = plan_lm(get_config(LM_ARCH), "train_4k",
-                   MeshSpec(tuple(zip(axes, shape))), hw=H100_SXM)
-    plan = dataclasses.replace(
-        plan, cfg=dataclasses.replace(plan.cfg, n_layers=MESH_TRAIN_LAYERS),
-        microbatches=MESH_TRAIN_MICROBATCHES)
-    zero3 = dataclasses.replace(
-        plan, zero="zero3", rules=dataclasses.replace(plan.rules, fsdp=True))
-    return plan, zero3
+    spec = MeshSpec(tuple(zip(axes, shape)))
+    full = get_config(arch)
+    cfg = dataclasses.replace(
+        full, n_layers=MESH_LM_LAYERS,
+        enc_layers=MESH_LM_LAYERS if full.enc_layers else 0)
+    plan = plan_lm(full, "train_4k", spec, hw=H100_SXM)
+    zero1 = dataclasses.replace(
+        plan, cfg=cfg, microbatches=MESH_TRAIN_MICROBATCHES, zero="zero1",
+        rules=dataclasses.replace(plan.rules, fsdp=False))
+    want = MESH_LM_CELLS[arch]
+    runs = [("zero1", zero1, want["steps"], False),
+            ("fault", dataclasses.replace(zero1, microbatches=1), 1, True)]
+    if want["zero3"]:
+        runs.append(("zero3", dataclasses.replace(
+            zero1, zero="zero3",
+            rules=dataclasses.replace(zero1.rules, fsdp=True)), 1, False))
+    prefill, decode = (plan_lm(cfg, kind, spec, hw=H100_SXM)
+                       for kind in ("prefill_32k", "decode_32k"))
+    return _LmCell(arch, tuple(runs), prefill, decode, want["fed"],
+                   want["free"])
 
 
-def _mesh_train_inputs(args, d, device):
-    """The mesh train cells' batch (written to ``d``), the bar and the
-    yardstick, made before the ranks start: the bf16 bound (the plain
-    path's loss and gradients at 1 x MESH_TRAIN_SEQ against the same
-    model in f32, as the train phase measures it), the port's one-device
-    step at the cells' weights and batch for MESH_TRAIN_STEPS steps, and
-    B2-B4 held to their plain versions at a rank's local shape and
-    timed."""
+def _mesh_lm_shapes(cfg):
+    """(tag, Sq, Skv, causal) of each flash launch shape of a cell's
+    prefill and train step (whisper: the encoder, the decoder's self- and
+    cross-attention), and whisper's decode step's cross-attention."""
+
+    S = MESH_LM_SEQ
+    if cfg.family != "encdec":
+        return [("self", S, S, True)]
+    return [("encoder", cfg.enc_seq, cfg.enc_seq, False),
+            ("self", S, S, True), ("cross", S, cfg.enc_seq, False),
+            ("decode cross", 1, cfg.enc_seq, False)]
+
+
+def _layers_of(cfg) -> str:
+    return f"{cfg.n_layers} layers" + (
+        f" + {cfg.enc_layers} encoder" if cfg.enc_layers else "")
+
+
+def _mesh_lm_inputs(args, d, device, arch):
+    """A cell's inputs, yardsticks and bars, made before the ranks start:
+    its batch (written to ``d``: the train step's rows, served again as
+    the prompts; whisper's rows carry its stub frames), the train and serve
+    yardsticks (``_mesh_train_inputs``, ``_mesh_serve_lm_inputs``), and
+    B2-B4 held to their plain versions at each of a rank's local launch
+    shapes (``_mesh_lm_shapes``: a rank's heads of the model axis, its
+    rows of a microbatch in training and of the prompts in serving; MLA's
+    k_rope broadcast to every local head), timed."""
 
     import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    cell = _mesh_lm_cell(arch)
+    cfg = cell.cfg
+    B, S = MESH_LM_BATCH, MESH_LM_SEQ
+    rng = np.random.default_rng(args.seed + 7)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["enc_input"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    np.savez(d / f"{arch}_batch.npz", **batch)
+    on_dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    train = _mesh_train_inputs(cell, gen, on_dev, device)
+    serve = _mesh_serve_lm_inputs(cell, args.seed, d, on_dev, device)
+    D = _attention_dim(cfg)
+    H = cfg.n_heads // 2
+    KH = H if cfg.family == "mla" else cfg.n_kv_heads // 2
+    rows = B // MESH_TRAIN_MICROBATCHES // 2
+    kernels = []
+    for tag, Sq, Skv, causal in _mesh_lm_shapes(cfg):
+        at = f"a mesh rank's {cfg.name} {tag} shape"
+        entry = {"tag": tag, "serve": _flash_at(B // 2, H, KH, Sq, Skv, D,
+                                                causal, None, gen, device,
+                                                at + " (serving)")}
+        if Sq > 1:
+            entry["fwd"] = _flash_at(rows, H, KH, Sq, Skv, D, causal, None,
+                                     gen, device, at + " (training)")
+            entry["bwd"] = _bwd_at(rows, H, KH, Sq, Skv, D, causal, None,
+                                   gen, device, at + " (training)")
+        kernels.append(entry)
+        torch.cuda.empty_cache()
+    print(f"mesh: {cfg.name} inputs made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return {"train": train, "serve": serve, "kernels": kernels}
+
+
+def _mesh_train_inputs(cell, gen, batch, device):
+    """A cell's train yardstick and bar: the bf16 bound (the plain path's
+    loss and gradients on one row against the same model in f32, as the
+    train phase measures it) and the port's one-device step from the
+    seed's weights on the cell's batch, for as many steps as the cell's
+    ZeRO-1 run takes."""
+
     import torch
 
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.train import build_train_step, make_optimizer
     from repro_torch.models import lm
 
-    plan, _ = _mesh_train_plans()
+    plan = cell.runs[0][1]
     cfg = plan.cfg
-    tokens = np.random.default_rng(args.seed + 7).integers(
-        0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)).astype(np.int32)
-    np.save(d / "train_tokens.npy", tokens)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=device)
-    one = torch.as_tensor(tokens[:1], device=device)
+    one = {k: v[:1] for k, v in batch.items()}
     loss_r, g_r = _grads_of(params, cfg, one, "ref")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     loss_f, g_f = _grads_of(tree_map(lambda t: t.float(), params), cfg32,
@@ -7809,39 +7914,31 @@ def _mesh_train_inputs(args, d, device):
     loss_floor = abs(loss_r - loss_f) / abs(loss_f)
     del g_r, g_f
     if floor > LM_BF16_BOUND_CAP:
-        raise AssertionError(f"mesh: the bf16 plain path is {floor} off f32")
+        raise AssertionError(f"mesh: {cfg.name}'s bf16 plain path is "
+                             f"{floor} off f32")
     opt = make_optimizer(plan, lr=TRAIN_LR)
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     del params
     step_fn, _, _ = build_train_step(plan, None, optimizer=opt, device=device)
     steps = []
-    for _ in range(MESH_TRAIN_STEPS):
+    for _ in range(cell.runs[0][2]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, {"tokens": tokens})
+        state, metrics = step_fn(state, batch)
         steps.append((float(metrics["loss"]), float(metrics["grad_norm"]),
                       time.perf_counter() - t0))
-    del state, step_fn, opt
-    torch.cuda.empty_cache()
-    H, KH = cfg.n_heads // 2, cfg.n_kv_heads // 2
-    rows = MESH_TRAIN_BATCH // MESH_TRAIN_MICROBATCHES // 2
-    tag = "a mesh train rank's local shape"
-    fwd = _flash_at(rows, H, KH, MESH_TRAIN_SEQ, MESH_TRAIN_SEQ, cfg.hd, True,
-                    None, gen, device, tag)
-    bwd = _bwd_at(rows, H, KH, MESH_TRAIN_SEQ, MESH_TRAIN_SEQ, cfg.hd, True,
-                  None, gen, device, tag)
+    del state, step_fn, opt, metrics
     torch.cuda.empty_cache()
     bar = LM_NOISE_FACTOR * max(loss_floor, floor)
-    print(f"mesh: train yardstick {cfg.name} {cfg.n_layers} layers, "
-          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens in "
+    print(f"mesh: train yardstick {cfg.name} {_layers_of(cfg)}, "
+          f"{MESH_LM_BATCH} x {MESH_LM_SEQ} tokens in "
           f"{MESH_TRAIN_MICROBATCHES} microbatches on one device: (loss, "
           f"grad_norm, s) {[tuple(round(x, 6) for x in r) for r in steps]}; "
           f"bf16 bound: gradients rel L2 {floor:.3e}, loss rel "
-          f"{loss_floor:.3e}; bar {LM_NOISE_FACTOR} x {max(loss_floor, floor):.3e}"
-          f" = {bar:.3e}", flush=True)
-    return {"steps": steps, "bar": bar, "floor": floor,
-            "loss_floor": loss_floor, "fwd": fwd, "bwd": bwd}
+          f"{loss_floor:.3e}; bar {LM_NOISE_FACTOR} x "
+          f"{max(loss_floor, floor):.3e} = {bar:.3e}", flush=True)
+    return {"steps": steps, "bar": bar}
 
 
 def _bits_fingerprint(t) -> tuple:
@@ -7903,13 +8000,47 @@ def _skipped_row_psum(layer):
         yield
 
 
-def _mesh_train(cfg):
-    """The LM train step on a (data 2, model 2) mesh of this phase's ranks
-    (ROADMAP A10e-1): MESH_TRAIN_STEPS steps under the planner's ZeRO-1
-    plan, one step with the planted fault, one under ZeRO-3, each from the
-    seed's weights; per step the loss, grad norm, seconds, flash launches
-    by route, collectives by op and phase, MB staged, peak memory and the
-    data replicas' parameter fingerprints."""
+def _train_fault(cfg):
+    """The planted fault of a cell's train step, by family: its name, the
+    patch that plants it, and the checks that must catch it.  Dense: layer
+    MESH_TRAIN_FAULT_LAYER's row-parallel MLP psum skipped, so each
+    ``model`` rank carries its own part of that MLP's output: outside the
+    bar, and the ranks disagree.  MLA: the ``copy_to`` at ``cq``, ``c_kv``
+    and ``k_rope`` skipped in every layer; whisper: the ``copy_to`` of the
+    encoder output skipped.  These leave the loss as it is and give each
+    ``model`` rank its own share of the gradient below them, which moves
+    the grad norm by less than the bar (1.5e-2 and 1.7e-3 against 2.4e-2
+    and 1.6e-2 on an NVIDIA H100 80GB HBM3 at 700.00 W,
+    ``tools/mesh_lm_cells.py``) but makes the ranks' grad norms
+    disagree."""
+
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel import collectives as C
+
+    if cfg.family == "mla":
+        real = blocks.mla_mixer
+
+        def mixer(*args, **kwargs):
+            with mock.patch.object(C, "copy_to", lambda x, axes: x):
+                return real(*args, **kwargs)
+
+        return ("MLA's copy_to at cq, c_kv and k_rope skipped",
+                mock.patch.object(blocks, "mla_mixer", mixer), ("ranks",))
+    if cfg.family == "encdec":
+        return ("the encoder output's copy_to skipped",
+                mock.patch.object(lm, "_xattn_tp", lambda params, cfg: ()),
+                ("ranks",))
+    return (f"layer {MESH_TRAIN_FAULT_LAYER}'s row-parallel MLP psum skipped",
+            _skipped_row_psum(MESH_TRAIN_FAULT_LAYER), ("bar", "ranks"))
+
+
+def _mesh_train(cfg, cell):
+    """A cell's train step on a (data 2, model 2) mesh of this phase's
+    ranks (ROADMAP A10e-1, A10h-1): each of ``cell.runs`` from the seed's
+    weights on the cell's batch, the fault's under ``_train_fault``; per
+    step the loss, grad norm, seconds, flash launches by route,
+    collectives by op and phase, MB staged, peak memory and the data
+    replicas' parameter fingerprints."""
 
     import numpy as np
     import torch
@@ -7923,18 +8054,10 @@ def _mesh_train(cfg):
     mesh = make_mesh(*MESH_TRAIN_SHAPE, device=cfg["device"],
                      backend=cfg["backend"])
     on_card = mesh.device.type == "cuda"
-    tokens = np.load(Path(cfg["dir"]) / "train_tokens.npy")
-    zero1, zero3 = _mesh_train_plans()
-    out = {"train/model": mesh.coordinate("model"),
-           "train/data": mesh.coordinate("data")}
-    # The fault's step takes the batch in one microbatch: the same loss
-    # and gradient as the yardstick's step 0 (the microbatches' token
-    # counts are equal), at one gradient reduction instead of two.
-    fault = dataclasses.replace(zero1, microbatches=1)
-    for tag, plan, steps, fault in (
-            ("zero1", zero1, MESH_TRAIN_STEPS, None),
-            ("fault", fault, 1, MESH_TRAIN_FAULT_LAYER),
-            ("zero3", zero3, 1, None)):
+    with np.load(Path(cfg["dir"]) / f"{cell.arch}_batch.npz") as f:
+        batch = {k: f[k] for k in f.files}
+    out = {"model": mesh.coordinate("model")}
+    for tag, plan, steps, fault in cell.runs:
         opt = make_optimizer(plan, lr=TRAIN_LR)
         step_fn, specs, batch_fn = build_train_step(plan, mesh, optimizer=opt)
         gen = torch.Generator(device=mesh.device)
@@ -7948,10 +8071,10 @@ def _mesh_train(cfg):
         del params
         if on_card:
             torch.cuda.empty_cache()
-        rows = batch_fn({"tokens": tokens})
-        cell = []
-        with (contextlib.nullcontext() if fault is None
-              else _skipped_row_psum(fault)):
+        rows = batch_fn(batch)
+        run = []
+        with (_train_fault(plan.cfg)[1] if fault
+              else contextlib.nullcontext()):
             for _ in range(steps):
                 K.reset_launch_count()
                 mesh.stats.reset()
@@ -7964,7 +8087,7 @@ def _mesh_train(cfg):
                 gnorm = float(metrics["grad_norm"])
                 if on_card:
                     torch.cuda.synchronize()
-                cell.append({
+                run.append({
                     "loss": loss, "grad_norm": gnorm,
                     "microbatches": plan.microbatches,
                     "s": time.perf_counter() - t0,
@@ -7977,86 +8100,84 @@ def _mesh_train(cfg):
                     if on_card else 0,
                     "replica": _replica_fingerprint(
                         state["params"], specs["params"], mesh)})
-        out[f"train/{tag}"] = cell
-        del state, step_fn, rows
+        out[tag] = run
+        del state, step_fn, rows, metrics
         if on_card:
             torch.cuda.empty_cache()
-    return out
+    return {f"lm_train/{cell.arch}": out}
 
 
-def _check_mesh_train(ranks, want):
-    """The mesh train cells' checks and lines; returns the failures."""
+def _check_mesh_train(ranks, want, cell):
+    """A cell's train checks and lines; returns the failures."""
 
-    failed = []
-    bar = want["bar"]
-    steps = want["steps"]
-    r0 = ranks[0]
+    import torch
+
     from repro_torch.kernels.flash_attention import kernel as K
 
-    cfg = _mesh_train_plans()[0].cfg
-    per_step = _train_want(K, cfg, MESH_TRAIN_MICROBATCHES)
-    tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
-    for tag in ("zero1", "zero3", "fault"):
-        for i, c in enumerate(r0[f"train/{tag}"]):
+    failed = []
+    cfg = cell.cfg
+    bar, steps = want["bar"], want["steps"]
+    key = f"lm_train/{cell.arch}"
+    per_step = _family_train_want(K, cfg, MESH_TRAIN_MICROBATCHES)
+    route = {k: K.route(k, torch.bfloat16, _attention_dim(cfg))
+             for k in ("fwd", "dq", "dkv")}
+    tokens = MESH_LM_BATCH * MESH_LM_SEQ
+    for tag, *_ in cell.runs:
+        for i, c in enumerate(ranks[0][key][tag]):
             ref_loss, ref_gn, ref_s = steps[i]
-            off = max(abs(c["loss"] - ref_loss) / abs(ref_loss),
-                      abs(c["grad_norm"] - ref_gn) / abs(ref_gn))
-            cells = [r[f"train/{tag}"][i] for r in ranks]
-            same_loss = len({x["loss"] for x in cells}) == 1
+            cells = [r[key][tag][i] for r in ranks]
+            off = max(max(abs(x["loss"] - ref_loss) / abs(ref_loss),
+                          abs(x["grad_norm"] - ref_gn) / abs(ref_gn))
+                      for x in cells)
+            same = len({(x["loss"], x["grad_norm"]) for x in cells}) == 1
             groups = {}
             for r, x in zip(ranks, cells):
-                groups.setdefault(r["train/model"], set()).add(
+                groups.setdefault(r[key]["model"], set()).add(
                     tuple(map(tuple, x["replica"])))
             replicas = all(len(g) == 1 for g in groups.values())
             secs = [round(x["s"], 3) for x in cells]
             mb = {k: round(v / 1e6, 1) for k, v in c["sent"].items()}
-            print(f"mesh: train {tag} step {i} ({cfg.name} {cfg.n_layers} "
-                  f"layers, {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens, "
-                  f"{c['microbatches']} microbatch(es), mesh "
+            fault = f" ({_train_fault(cfg)[0]})" if tag == "fault" else ""
+            print(f"mesh: train {tag}{fault} step {i} ({cfg.name} "
+                  f"{_layers_of(cfg)}, {MESH_LM_BATCH} x {MESH_LM_SEQ} "
+                  f"tokens, {c['microbatches']} microbatch(es), mesh "
                   f"{MESH_TRAIN_SHAPE}): loss {c['loss']:.6f} grad_norm "
                   f"{c['grad_norm']:.6f} vs one device {ref_loss:.6f} "
-                  f"{ref_gn:.6f}: rel {off:.3e} (bar {bar:.3e}); s a step "
-                  f"per rank {secs} = {tokens / max(secs):.1f} tokens/s (one "
-                  f"device {ref_s:.3f} s); calls a rank {c['calls']}, MB "
-                  f"handed {mb}, MB staged {c['staged'] / 1e6:.1f}; peak "
-                  f"memory a rank GB "
-                  f"{[round(x['peak'] / 1e9, 2) for x in cells]}; flash "
-                  f"launches a rank {TRAIN_COUNTS} "
-                  f"{[x['launches'] for x in cells]}; every rank's loss "
-                  f"equal {same_loss}, data replicas' parameters bit-equal "
-                  f"{replicas}", flush=True)
+                  f"{ref_gn:.6f}: rel {off:.3e} (the ranks' largest; bar "
+                  f"{bar:.3e}); s a step per rank {secs} = "
+                  f"{tokens / max(secs):.1f} tokens/s (one device "
+                  f"{ref_s:.3f} s); calls a rank {c['calls']}, MB handed "
+                  f"{mb}, MB staged {c['staged'] / 1e6:.1f}; peak memory a "
+                  f"rank GB {[round(x['peak'] / 1e9, 2) for x in cells]}; "
+                  f"flash launches a rank {TRAIN_COUNTS} "
+                  f"{[x['launches'] for x in cells]} (routes {route}); "
+                  f"every rank's loss and grad norm equal {same}, data "
+                  f"replicas' parameters bit-equal {replicas}", flush=True)
             if tag == "fault":
-                if off <= bar:
-                    failed.append("train: the bar passes a skipped "
-                                  "row-parallel psum")
+                name, _, needs = _train_fault(cfg)
+                caught = {"bar": off > bar, "ranks": not same}
+                print(f"mesh: train {cfg.name} fault ({name}) caught by "
+                      f"the bar {caught['bar']}, by the ranks' equality "
+                      f"{caught['ranks']}; must be caught by {list(needs)}",
+                      flush=True)
+                if not all(caught[k] for k in needs):
+                    failed.append(f"{cell.arch} train: {name} passes "
+                                  f"{[k for k in needs if not caught[k]]}")
                 continue
             if off > bar:
-                failed.append(f"train {tag} step {i}: {off} > {bar}")
-            if not (same_loss and replicas):
-                failed.append(f"train {tag} step {i}: ranks disagree")
+                failed.append(f"{cell.arch} train {tag} step {i}: {off} > "
+                              f"{bar}")
+            if not (same and replicas):
+                failed.append(f"{cell.arch} train {tag} step {i}: ranks "
+                              f"disagree")
             if any(x["launches"] != per_step for x in cells):
-                failed.append(f"train {tag} step {i}: flash launches "
-                              f"{[x['launches'] for x in cells]}, want "
-                              f"{per_step}")
-    for p in r0["train/zero1"][0]["phases"].items():
-        print(f"mesh: train zero1 step 0 rank 0 collectives, {p[0]}: "
-              f"{json.dumps(p[1])}")
+                failed.append(f"{cell.arch} train {tag} step {i}: flash "
+                              f"launches {[x['launches'] for x in cells]}, "
+                              f"want {per_step}")
+    for p in ranks[0][key]["zero1"][0]["phases"].items():
+        print(f"mesh: train {cfg.name} zero1 step 0 rank 0 collectives, "
+              f"{p[0]}: {json.dumps(p[1])}")
     return failed
-
-
-def _mesh_serve_lm_plans():
-    """The planner's ``prefill_32k`` and ``decode_32k`` plans for phi4-mini
-    on the (data 2, model 2) mesh of H100s, at MESH_TRAIN_LAYERS layers."""
-
-    from repro_torch.core.hardware import H100_SXM, MeshSpec
-    from repro_torch.core.lm_planner import plan_lm
-    from repro_torch.models.registry import get_config
-
-    shape, axes = MESH_TRAIN_SHAPE
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_TRAIN_LAYERS)
-    return tuple(plan_lm(cfg, kind, MeshSpec(tuple(zip(axes, shape))),
-                         hw=H100_SXM)
-                 for kind in ("prefill_32k", "decode_32k"))
 
 
 def _mesh_serve_lm_params(cfg, seed, device):
@@ -8075,80 +8196,63 @@ def _mesh_serve_lm_params(cfg, seed, device):
     return params
 
 
-def _mesh_serve_lm_inputs(args, d, device):
-    """The mesh serve cell's prompts (written to ``d``), its yardstick and
-    bar, made before the ranks start: the port's one-device prefill and
-    MESH_SERVE_LM_FED + MESH_SERVE_LM_FREE greedy steps on the same
-    weights and prompts (their logits and tokens written to ``d``), the
-    bf16 bound (the plain path against the same model in f32, prefill and
-    TF_STEPS steps fed the one device's tokens, as the lm phase measures
-    it), and B2 held to its plain version at a rank's local shape and
-    timed."""
+def _mesh_serve_lm_inputs(cell, seed, d, batch, device):
+    """A cell's serve yardstick and bar: the port's one-device prefill and
+    ``cell.steps`` greedy steps on the seed's bf16 weights and the cell's
+    prompts (their logits and tokens written to ``d``), and the bf16 bound
+    (the plain path against the same model in f32, prefill and TF_STEPS
+    steps fed the one device's tokens, as the lm phase measures it)."""
 
     import numpy as np
     import torch
 
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.serve import build_decode_step, build_prefill_step
-    from repro_torch.models import lm
 
-    t0 = time.perf_counter()
-    pplan, dplan = _mesh_serve_lm_plans()
-    cfg = pplan.cfg
-    B, S, L = MESH_SERVE_LM_BATCH, MESH_SERVE_LM_PROMPT, MESH_SERVE_LM_CACHE
-    steps = MESH_SERVE_LM_FED + MESH_SERVE_LM_FREE
-    prompts = np.random.default_rng(args.seed + 11).integers(
-        0, cfg.vocab, (B, S)).astype(np.int32)
-    np.save(d / "serve_lm_prompts.npy", prompts)
-    params = _mesh_serve_lm_params(cfg, args.seed, device)
-    batch = {"tokens": torch.from_numpy(prompts).to(device)}
-    prefill_fn, _ = build_prefill_step(pplan, None, L, device)
-    decode_fn, _, _ = build_decode_step(dplan, None, device)
+    cfg, L = cell.cfg, cell.cache
+    params = _mesh_serve_lm_params(cfg, seed, device)
+    prefill_fn, _ = build_prefill_step(cell.prefill, None, L, device)
+    decode_fn, _, _ = build_decode_step(cell.decode, None, device)
     with torch.inference_mode():
-        lm.prefill(params, batch["tokens"][:1, :128], cfg, 160)
-    run = _serve(prefill_fn, decode_fn, params, batch, steps)
-    np.save(d / "serve_lm_logits.npy",
-            run["logits"][:MESH_SERVE_LM_FED + 1].cpu().numpy())
+        prefill_fn(params, {k: v[:1] for k, v in batch.items()})
+    run = _serve(prefill_fn, decode_fn, params, batch, cell.steps)
+    np.save(d / f"{cell.arch}_logits.npy",
+            run["logits"][:cell.fed + 1].cpu().numpy())
     one = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
            "tokens": run["tokens"].cpu().numpy()}
-    np.save(d / "serve_lm_tokens.npy", one["tokens"])
-    ref_prefill_fn, _ = build_prefill_step(pplan, None, L, device,
+    np.save(d / f"{cell.arch}_tokens.npy", one["tokens"])
+
+    def plain(pplan, dplan, params):
+        prefill_fn, _ = build_prefill_step(pplan, None, L, device,
                                            attention="ref")
-    ref = _serve(ref_prefill_fn, decode_fn, params, batch, TF_STEPS,
-                 feed=run["tokens"])["logits"]
+        decode_fn, _, _ = build_decode_step(dplan, None, device,
+                                            attention="ref")
+        return _serve(prefill_fn, decode_fn, params, batch, TF_STEPS,
+                      feed=run["tokens"])["logits"]
 
     def f32(plan):
         return dataclasses.replace(plan, cfg=dataclasses.replace(
             plan.cfg, compute_dtype="float32"))
 
-    params32 = tree_map(lambda t: t.float(), params)
-    del params
-    f32_prefill_fn, _ = build_prefill_step(f32(pplan), None, L, device,
-                                           attention="ref")
-    f32_decode_fn, _, _ = build_decode_step(f32(dplan), None, device)
-    full = _serve(f32_prefill_fn, f32_decode_fn, params32, batch, TF_STEPS,
-                  feed=run["tokens"])["logits"]
-    del params32, run
-    torch.cuda.empty_cache()
+    ref = plain(cell.prefill, cell.decode, params)
+    full = plain(f32(cell.prefill), f32(cell.decode),
+                 tree_map(lambda t: t.float(), params))
+    del params, run
     floor = max(_rel_l2(ref[i], full[i], cfg.vocab)
                 for i in range(TF_STEPS + 1))
-    if floor > LM_BF16_BOUND_CAP:
-        raise AssertionError(f"mesh: the bf16 plain serve path is {floor} "
-                             f"off f32")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    fwd = _flash_at(B // 2, cfg.n_heads // 2, cfg.n_kv_heads // 2, S, S,
-                    cfg.hd, True, None, gen, device,
-                    "a mesh serve rank's local shape")
+    del ref, full
     torch.cuda.empty_cache()
+    if floor > LM_BF16_BOUND_CAP:
+        raise AssertionError(f"mesh: {cfg.name}'s bf16 plain serve path is "
+                             f"{floor} off f32")
     bar = LM_NOISE_FACTOR * floor
-    print(f"mesh: serve yardstick {cfg.name} {cfg.n_layers} layers on one "
-          f"device: prefill {B} x {S} {one['prefill_s']:.4f}s, decode "
-          f"{one['decode_s'] / steps * 1e3:.3f} ms/step; bf16 bound: logits "
-          f"rel L2 {floor:.3e} (prefill and {TF_STEPS} fed steps); bar "
-          f"{LM_NOISE_FACTOR} x {floor:.3e} = {bar:.3e}; made in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return {"bar": bar, "floor": floor, "fwd": fwd, **one}
+    print(f"mesh: serve yardstick {cfg.name} {_layers_of(cfg)} on one "
+          f"device: prefill {MESH_LM_BATCH} x {MESH_LM_SEQ} "
+          f"{one['prefill_s']:.4f}s, decode "
+          f"{one['decode_s'] / cell.steps * 1e3:.3f} ms/step; bf16 bound: "
+          f"logits rel L2 {floor:.3e} (prefill and {TF_STEPS} fed steps); "
+          f"bar {LM_NOISE_FACTOR} x {floor:.3e} = {bar:.3e}", flush=True)
+    return {"bar": bar, **one}
 
 
 @contextlib.contextmanager
@@ -8165,15 +8269,15 @@ def _unjoined_decode():
         yield
 
 
-def _mesh_serve_lm(cfg):
-    """LM serving on a (data 2, model 2) mesh of this phase's ranks
-    (ROADMAP A10e-2): prefill, MESH_SERVE_LM_FED steps fed the one
-    device's tokens and MESH_SERVE_LM_FREE free steps, then the planted
-    fault's steps from the prefill's cache.  Returns the logits' rel L2
-    against one device by step, the fault's, the joined logits' and
-    tokens' fingerprints, the padded columns, the tokens, the times,
-    B2's launches, the collectives of the prefill and of the decode, and
-    the peak memory."""
+def _mesh_serve_lm(cfg, cell):
+    """A cell's serving on a (data 2, model 2) mesh of this phase's ranks
+    (ROADMAP A10e-2, A10h-1): prefill, ``cell.fed`` steps fed the one
+    device's tokens and ``cell.free`` free steps, then the planted fault's
+    steps from the prefill's cache.  Returns the logits' rel L2 against
+    one device by step, the fault's, the joined logits' and tokens'
+    fingerprints, the padded columns, the tokens, the times, B2's
+    launches, the collectives of the prefill and of the decode, and the
+    peak memory."""
 
     import numpy as np
     import torch
@@ -8192,12 +8296,11 @@ def _mesh_serve_lm(cfg):
                      backend=cfg["backend"])
     on_card = mesh.device.type == "cuda"
     d = Path(cfg["dir"])
-    pplan, dplan = _mesh_serve_lm_plans()
-    lcfg, rules = pplan.cfg, pplan.rules
-    B, S, L = MESH_SERVE_LM_BATCH, MESH_SERVE_LM_PROMPT, MESH_SERVE_LM_CACHE
-    fed, steps = MESH_SERVE_LM_FED, MESH_SERVE_LM_FED + MESH_SERVE_LM_FREE
-    prefill_fn, p_specs = build_prefill_step(pplan, mesh, L)
-    decode_fn, d_specs, _ = build_decode_step(dplan, mesh, cache_len=L)
+    lcfg, rules = cell.cfg, cell.prefill.rules
+    B, S, L = MESH_LM_BATCH, MESH_LM_SEQ, cell.cache
+    fed, steps = cell.fed, cell.steps
+    prefill_fn, p_specs = build_prefill_step(cell.prefill, mesh, L)
+    decode_fn, d_specs, _ = build_decode_step(cell.decode, mesh, cache_len=L)
     if d_specs != p_specs:
         raise AssertionError("mesh: the prefill and decode plans lay the "
                              "parameters out differently")
@@ -8205,9 +8308,10 @@ def _mesh_serve_lm(cfg):
                                                mesh.device), p_specs, mesh)
     if on_card:
         torch.cuda.empty_cache()
-    rows = batch_rows({"tokens": np.load(d / "serve_lm_prompts.npy"),
-                       "feed": np.load(d / "serve_lm_tokens.npy")},
-                      mesh, rules)
+    with np.load(d / f"{cell.arch}_batch.npz") as f:
+        batch = {k: f[k] for k in f.files}
+    feed = np.load(d / f"{cell.arch}_tokens.npy")
+    rows = batch_rows({**batch, "feed": feed}, mesh, rules)
     feed = rows.pop("feed")
 
     def sample(logits):
@@ -8240,7 +8344,7 @@ def _mesh_serve_lm(cfg):
                                 B).transpose(0, 1)
 
     full = joined(local)
-    one = torch.from_numpy(np.load(d / "serve_lm_logits.npy")).to(
+    one = torch.from_numpy(np.load(d / f"{cell.arch}_logits.npy")).to(
         mesh.device)
     rel = [_rel_l2(full[i], one[i], lcfg.vocab) for i in range(fed + 1)]
     tokens = join_blocks(run["tokens"], logical_to_spec(
@@ -8257,25 +8361,27 @@ def _mesh_serve_lm(cfg):
     del cache, one, params
     if on_card:
         torch.cuda.empty_cache()
-    return {"serve_lm": {
+    return {f"lm_serve/{cell.arch}": {
         "rel": rel, "fault": fault, "fingerprint": fingerprint,
         "padded": padded, "model": mesh.coordinate("model"),
         "tokens": tokens.cpu().numpy().tolist(), "peak": peak,
         "prefill_calls": box["prefill"], "decode_calls": decode, **times}}
 
 
-def _check_mesh_serve_lm(ranks, want):
-    """The mesh serve cell's checks and lines; returns the failures."""
+def _check_mesh_serve_lm(ranks, want, cell):
+    """A cell's serve checks and lines; returns the failures."""
 
     import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as K
 
     failed = []
-    cfg = _mesh_serve_lm_plans()[0].cfg
-    cells = [r["serve_lm"] for r in ranks]
+    cfg = cell.cfg
+    cells = [r[f"lm_serve/{cell.arch}"] for r in ranks]
     c = cells[0]
-    bar, fed = want["bar"], MESH_SERVE_LM_FED
-    B, S = MESH_SERVE_LM_BATCH, MESH_SERVE_LM_PROMPT
-    steps = fed + MESH_SERVE_LM_FREE
+    bar, fed, steps = want["bar"], cell.fed, cell.steps
+    B, S = MESH_LM_BATCH, MESH_LM_SEQ
     one = np.asarray(want["tokens"])
     tokens = np.asarray(c["tokens"])
     same_fed = tokens[:, 1:fed + 1] == one[:, 1:fed + 1]
@@ -8292,12 +8398,15 @@ def _check_mesh_serve_lm(ranks, want):
     dc, dm, ds = per(c["decode_calls"], steps)
     launches = [(x["prefill_launches"], x["prefill_wgmma"],
                  x["decode_launches"]) for x in cells]
+    n_prefill, n_decode = _b2_launches(cfg)
+    wgmma = n_prefill * (K.route("fwd", torch.bfloat16,
+                                 _attention_dim(cfg)) == "wgmma")
     same = all(x["fingerprint"] == c["fingerprint"] for x in cells)
     padded = {x["model"]: x["padded"] for x in cells}
-    print(f"mesh: serve {cfg.name} {cfg.n_layers} layers, {B} x {S} prompts, "
-          f"cache {MESH_SERVE_LM_CACHE} ({MESH_SERVE_LM_CACHE // 2} slots a "
-          f"model rank), mesh {MESH_TRAIN_SHAPE}: prefill s per rank "
-          f"{prefill_s} = {B * S / max(prefill_s):.1f} tokens/s (one device "
+    print(f"mesh: serve {cfg.name} {_layers_of(cfg)}, {B} x {S} prompts, "
+          f"cache {cell.cache} ({cell.cache // 2} slots a model rank), mesh "
+          f"{MESH_TRAIN_SHAPE}: prefill s per rank {prefill_s} = "
+          f"{B * S / max(prefill_s):.1f} tokens/s (one device "
           f"{want['prefill_s']:.4f} s), decode ms a step per rank "
           f"{decode_ms} = {B * 1e3 / max(decode_ms):.1f} tokens/s (one "
           f"device {want['decode_s'] / steps * 1e3:.3f}); a prefill: calls "
@@ -8306,27 +8415,45 @@ def _check_mesh_serve_lm(ranks, want):
           f"{[round(x['peak'] / 1e9, 2) for x in cells]}; B2 launches a rank "
           f"(prefill, of them wgmma, decode) {launches}", flush=True)
     rels = ", ".join(f"{x:.2e}" for x in c["rel"])
-    print(f"mesh: serve logits vs one device, rel L2, prefill then {fed} fed "
-          f"steps: max {max(c['rel']):.3e} ({rels}); "
-          f"bar {bar:.3e}; the planted fault (split softmax unjoined over "
-          f"model) {', '.join(f'{x:.3e}' for x in c['fault'])}; every "
-          f"rank's joined logits and tokens equal {same}; padded columns a "
-          f"model rank (count, all -1e30) {padded}; greedy tokens equal to "
-          f"one device's: of the fed steps {int(same_fed.sum())} of "
+    print(f"mesh: serve {cfg.name} logits vs one device, rel L2, prefill "
+          f"then {fed} fed steps: max {max(c['rel']):.3e} ({rels}); bar "
+          f"{bar:.3e}; the planted fault (split softmax unjoined over model) "
+          f"{', '.join(f'{x:.3e}' for x in c['fault'])}; every rank's "
+          f"joined logits and tokens equal {same}; padded columns a model "
+          f"rank (count, all -1e30) {padded}; greedy tokens equal to one "
+          f"device's: of the fed steps {int(same_fed.sum())} of "
           f"{same_fed.size}, of the free steps {int(free.sum())} of "
           f"{free.size}", flush=True)
     if max(c["rel"]) > bar:
-        failed.append(f"serve lm: logits {max(c['rel'])} > {bar}")
+        failed.append(f"{cell.arch} serve: logits {max(c['rel'])} > {bar}")
     if min(c["fault"]) <= bar:
-        failed.append("serve lm: the bar passes an unjoined split softmax")
+        failed.append(f"{cell.arch} serve: the bar passes an unjoined split "
+                      f"softmax")
     if not same:
-        failed.append("serve lm: ranks disagree")
+        failed.append(f"{cell.arch} serve: ranks disagree")
     if tokens.max() >= cfg.vocab or not all(p[1] for p in padded.values()) \
             or padded.get(1, (0,))[0] != cfg.padded_vocab - cfg.vocab:
-        failed.append(f"serve lm: padded columns {padded}")
-    if any(x != (cfg.n_layers, cfg.n_layers, 0) for x in launches):
-        failed.append(f"serve lm: B2 launches {launches}")
+        failed.append(f"{cell.arch} serve: padded columns {padded}")
+    if any(x != (n_prefill, wgmma, n_decode * steps) for x in launches):
+        failed.append(f"{cell.arch} serve: B2 launches {launches}")
     return failed
+
+
+def _mesh_lm(cfg, arch):
+    """The mesh LM cell of ``arch`` on this rank: its train step, then its
+    serving (``_mesh_train``, ``_mesh_serve_lm``)."""
+
+    cell = _mesh_lm_cell(arch)
+    return {**_mesh_train(cfg, cell), **_mesh_serve_lm(cfg, cell)}
+
+
+def _check_mesh_lm(ranks, want, arch):
+    """The mesh LM cell of ``arch``'s checks and lines; returns the
+    failures."""
+
+    cell = _mesh_lm_cell(arch)
+    return (_check_mesh_train(ranks, want["train"], cell)
+            + _check_mesh_serve_lm(ranks, want["serve"], cell))
 
 
 def phase_mesh(args, device, report, single=None) -> None:
@@ -8385,8 +8512,10 @@ def phase_mesh(args, device, report, single=None) -> None:
         del g, one, src, dst
         want_generic = _mesh_generic_inputs(args, d)
         want_serve = _mesh_serve_inputs(args, d, single)
-        want_train = _mesh_train_inputs(args, d, device)
-        want_serve_lm = _mesh_serve_lm_inputs(args, d, device)
+        want_lm = {}
+        for arch in MESH_LM_CELLS:
+            want_lm[arch] = _mesh_lm_inputs(args, d, device, arch)
+            torch.cuda.empty_cache()
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"mesh: inputs and oracles in {time.perf_counter() - t0:.1f}s;"
@@ -8473,15 +8602,15 @@ def phase_mesh(args, device, report, single=None) -> None:
     failed += _check_mesh_generic(ranks, want_generic, single or {}, args)
     failed += _check_mesh_ft(ranks, want_generic, args)
     failed += _check_mesh_serve(ranks, want_serve)
-    failed += _check_mesh_train(ranks, want_train)
-    failed += _check_mesh_serve_lm(ranks, want_serve_lm)
+    for arch in MESH_LM_CELLS:
+        failed += _check_mesh_lm(ranks, want_lm[arch], arch)
     if single is not None:
-        single["mesh_train"] = {
-            "launches_per_rank_step": r0["train/zero1"][0]["launches"],
-            "fwd": want_train["fwd"], "bwd": want_train["bwd"]}
-        single["mesh_serve_lm"] = {
-            "launches_per_rank_prefill": r0["serve_lm"]["prefill_launches"],
-            "fwd": want_serve_lm["fwd"]}
+        single["mesh_lm"] = {
+            arch: {"train": r0[f"lm_train/{arch}"]["zero1"][0]["launches"],
+                   "prefill": r0[f"lm_serve/{arch}"]["prefill_launches"],
+                   "decode": r0[f"lm_serve/{arch}"]["decode_launches"],
+                   "kernels": want_lm[arch]["kernels"]}
+            for arch in MESH_LM_CELLS}
     entry = next(e for e in report if e["name"] == "segment_combine") \
         if any(e["name"] == "segment_combine" for e in report) else None
     sites = [v for k, v in r0.items() if k.startswith("site/")]
@@ -8493,33 +8622,34 @@ def phase_mesh(args, device, report, single=None) -> None:
 
 
 def _attach_mesh_lm(report, single) -> None:
-    """B2-B4's launches a rank a step in the mesh train cell, B2's a rank
-    a prefill in the mesh serve cell, and their checks and times at a
-    rank's local shapes, on their report entries."""
+    """B2-B4's launches a rank in each mesh LM cell (a train step, a
+    prefill, a decode step) and their checks and times at a rank's local
+    shapes, on their report entries."""
 
-    served = single.get("mesh_serve_lm")
-    if served is not None:
-        for e in report:
-            if e["name"] == "flash_attention_fwd":
-                e["mesh_serve_launches_per_rank_prefill"] = \
-                    served["launches_per_rank_prefill"]
-                e["mesh_serve_local_shape"] = served["fwd"]
-    got = single.get("mesh_train")
-    if got is None:
-        return
-    fwd, dq, dkv = got["launches_per_rank_step"][:3]
+    cells = single.get("mesh_lm", {})
     for e in report:
-        if e["name"] == "flash_attention_fwd":
-            e["mesh_train_launches_per_rank_step"] = fwd
-            e["mesh_train_local_shape"] = got["fwd"]
-        elif e["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
-            key = e["name"][10:]
-            e["mesh_train_launches_per_rank_step"] = dq if key == "dq" \
-                else dkv
-            e["mesh_train_local_shape"] = {
-                "shape": got["bwd"]["shape"], **got["bwd"][key],
-                "max_abs_err": got["bwd"]["max_abs_err"],
-                "library_ms": got["bwd"]["library_ms"]}
+        if not e["name"].startswith("flash_"):
+            continue
+        key = {"flash_attention_fwd": 0, "flash_bwd_dq": 1,
+               "flash_bwd_dkv": 2}[e["name"]]
+        for arch, got in cells.items():
+            shapes = []
+            for k in got["kernels"]:
+                if key == 0:
+                    shapes.append({"serving": k["serve"], **(
+                        {"training": k["fwd"]} if "fwd" in k else {})})
+                elif "bwd" in k:
+                    b = k["bwd"]
+                    part = b["dq" if key == 1 else "dkv"]
+                    shapes.append({"shape": b["shape"], **part,
+                                   "max_abs_err": b["max_abs_err"],
+                                   "library_ms": b["library_ms"]})
+            e.setdefault("mesh_lm", {})[arch] = {
+                "train_launches_per_rank_step": got["train"][key],
+                **({"prefill_launches_per_rank": got["prefill"],
+                    "decode_launches_per_rank": got["decode"]}
+                   if key == 0 else {}),
+                "local_shapes": shapes}
 
 
 def _freeing(name, run) -> None:

@@ -22,9 +22,10 @@ made explicit:
 * the logits by their rows and vocab columns (``lm.gather_logits`` joins
   them), which :func:`greedy_sample` reads vocab-parallel.
 
-The ``mla``, ``ssm``, ``hybrid`` and ``encdec`` families, and kv heads
-that do not divide ``model``, refuse a mesh before any collective
-(ROADMAP A10h).
+An encoder-decoder's cross K/V cache is cut over ``batch`` only: every
+``model`` rank holds every head, as the reference lays it out.  The
+``ssm`` and ``hybrid`` families (ROADMAP A10h-2), and kv heads that do
+not divide ``model`` (A10h), refuse a mesh before any collective.
 """
 
 from __future__ import annotations
@@ -107,9 +108,12 @@ def build_prefill_step(plan: LMPlan, mesh, cache_len: int,
         @torch.inference_mode()
         def mesh_prefill_fn(params, batch):
             tokens = torch.as_tensor(batch["tokens"], device=mesh.device)
+            enc_input = batch.get("enc_input")
+            if enc_input is not None:
+                enc_input = torch.as_tensor(enc_input, device=mesh.device)
             with C.bind(mesh), sharding.placement(mesh, p_specs, plan.rules):
                 return lm.prefill(params, tokens, cfg, cache_len,
-                                  attention=attention)
+                                  enc_input=enc_input, attention=attention)
 
         return mesh_prefill_fn, p_specs
     dev = resolve_device(device)

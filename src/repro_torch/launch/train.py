@@ -41,9 +41,10 @@ ZeRO-3 leaf's gather at use has reduce-scattered it already), so every
 rank issues the same collectives in the same order whatever autograd's
 own order.  The clip takes the global norm over the shards, AdamW runs
 elementwise on each rank's shard, and a ZeRO-1 parameter is all-gathered
-over ``data`` back to its layout.  The ``mla``, ``ssm``, ``hybrid`` and
-``encdec`` families, and kv heads that do not divide ``model`` (the
-reference's ``_maybe_repeat_kv``), refuse: ROADMAP A10h.
+over ``data`` back to its layout.  The ``dense``, ``moe``, ``mla`` and
+``encdec`` families run on a mesh (A10e-1, A10h-1); the ``ssm`` and
+``hybrid`` families (A10h-2), and kv heads that do not divide ``model``
+(the reference's ``_maybe_repeat_kv``, A10h), refuse.
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ from repro_torch.parallel.sharding import (P, PartitionSpec, local_shape,
 __all__ = ["build_train_step", "make_optimizer", "param_specs",
            "opt_specs_like", "MESH_FAMILIES"]
 
-# The families whose train step runs on a mesh; the others are A10h.
-MESH_FAMILIES = ("dense", "moe")
+# The families whose train step runs on a mesh; the others are A10h-2.
+MESH_FAMILIES = ("dense", "moe", "mla", "encdec")
 
 Device = Optional[Union[str, torch.device]]
 
@@ -259,18 +260,28 @@ def _moment_specs(p_specs, like, mesh, zero: str, fsdp: bool):
 
 def _refuse_unported(cfg, mesh, p_specs, doing: str = "training") -> None:
     """The paths not ported to a mesh raise before any collective
-    (``doing``: "training" or "serving")."""
+    (``doing``: "training" or "serving"): the ``ssm`` and ``hybrid``
+    families, and heads cut over ``model`` that it does not divide (the
+    reference's ``_maybe_repeat_kv``; MLA's heads likewise)."""
 
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{doing} the {cfg.family} family ({cfg.name}) on a mesh is not "
-            f"ported yet (ROADMAP A10h); the mesh step takes "
+            f"ported yet (ROADMAP A10h-2); the mesh step takes "
             f"{MESH_FAMILIES}")
     tp = mesh.shape.get("model", 1)
-    attn = p_specs["layers"]["attn"]
-    cut = any("model" in spec_axes(e) for k in ("wq", "wk", "wv")
+    layers = p_specs["layers"]
+    if cfg.family == "mla":
+        mixers, keys = [layers["attn"]], ("q_up", "k_up", "v_up", "wo")
+        heads = (cfg.n_heads,)
+    else:
+        mixers, keys = [layers["attn"]], ("wq", "wk", "wv")
+        if cfg.family == "encdec":
+            mixers += [layers["xattn"], p_specs["enc_layers"]["attn"]]
+        heads = (cfg.n_heads, cfg.n_kv_heads)
+    cut = any("model" in spec_axes(e) for attn in mixers for k in keys
               for e in attn[k])
-    if cut and (cfg.n_heads % tp or cfg.n_kv_heads % tp):
+    if cut and any(h % tp for h in heads):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} q / {cfg.n_kv_heads} kv heads on a "
             f"{tp}-way model axis: repeating kv heads that do not divide it "

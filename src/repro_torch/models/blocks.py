@@ -44,7 +44,11 @@ parallel, :func:`~repro_torch.parallel.collectives.copy_to` at its input
   ``attention_cache_specs`` lays it out.  Prefill re-cuts its kept K/V
   from heads to slots with one all-to-all (``_cache_layout``); decode
   attends each rank's slots for every head and joins the softmax
-  statistics over ``model`` (``_decode_attention``).
+  statistics over ``model`` (``_decode_attention``);
+* MLA (ROADMAP A10h-1): ``q_up``, ``k_up``, ``v_up`` column-parallel over
+  heads, ``wo`` row-parallel, the latents whole on every rank; its latent
+  cache's slots cut as the dense cache's, and decode joins a split
+  softmax in the latent space (``_mla_decode``).
 
 Outside a placement every one of these is the identity: one device, as
 before.  The JAX package's ``_maybe_repeat_kv`` (kv heads that do not
@@ -390,53 +394,101 @@ def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _mla_decode(p, q_nope, q_rope, c_new, kr_new, cache, ctx: LayerCtx,
+                tp):
+    """MLA's absorbed-matrix decode: write the new token's latent ``c`` and
+    rope key ``kr`` into ``cache`` in place and attend in the latent space
+    (in f32).  ``q_nope``/``q_rope`` at the rank's heads (cut over
+    ``tp``); returns ``(B, 1, H_local, vd)``.
+
+    On a mesh (ROADMAP A10h-1) the latent is whole on every ``model`` rank,
+    so the owner of the written slot writes it from its own copy, with no
+    collective (guarded as ``_decode_attention``: ROADMAP C1).  Where the
+    slots are cut over ``ctx.kv_axes`` the rank's q heads' latent queries
+    are all-gathered over ``tp`` (one collective), every head scores the
+    rank's slots (keys ``[c, kr]``, values ``c``: one kv head), the split
+    softmax is joined over the axes (one ``pmax``, one ``psum``) and the
+    rank keeps its heads; where the slots are whole the rank attends its
+    own heads with no collective, as one device does.  The latent query
+    ``[q_lat, q_rope]`` meets the keys ``[c, kr]`` as one kv head of
+    :func:`decode_attention_partial`, so one device runs the same code."""
+
+    cfg = ctx.cfg
+    dt = _cdt(cfg)
+    nd, rd, vd, KVr = (cfg.nope_head_dim, cfg.rope_head_dim,
+                       cfg.v_head_dim, cfg.kv_lora_rank)
+    c_cache, kr_cache = cache["c"], cache["kr"]
+    Ll = c_cache.shape[1]
+    L = ctx.cache_len or Ll
+    kv = ctx.kv_axes
+    pos = int(ctx.pos)
+    if not 0 <= pos < L:
+        raise IndexError(f"decode position {pos} is past the cache "
+                         f"length {L}")
+    first = C.axis_index(kv) * Ll if kv else 0
+    local = _local_slot(pos, first, Ll)
+    if local is not None:
+        c_cache[:, local] = c_new[:, 0].to(c_cache.dtype)
+        kr_cache[:, local] = kr_new[:, 0, 0].to(kr_cache.dtype)
+    B, _, H, _ = q_nope.shape
+    slots = torch.arange(first, first + Ll, device=q_nope.device)
+    valid = _slot_valid(pos, L, None, slots)[None, :].expand(B, Ll)
+    k_up = p["k_up"].to(dt).reshape(KVr, H, nd)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, k_up)
+    scale = 1.0 / ((nd + rd) ** 0.5)
+    c32 = c_cache.to(torch.float32)
+    q_all = torch.cat([q_lat.to(torch.float32), q_rope.to(torch.float32)],
+                      dim=-1)
+    gather = bool(kv and tp)
+    if gather:
+        q_all = C.all_gather_dim(q_all, tp, 2)
+    keys = torch.cat([c32, kr_cache.to(torch.float32)], dim=-1)
+    ctx_lat = decode_attention_join(*decode_attention_partial(
+        q_all, keys[:, :, None], c32[:, :, None], valid, sm_scale=scale),
+        kv, dt)
+    if gather:
+        ctx_lat = ctx_lat.narrow(2, C.axis_index(tp) * H, H)
+    v_up = p["v_up"].to(dt).reshape(KVr, H, vd)
+    return torch.einsum("bshr,rhv->bshv", ctx_lat, v_up)
+
+
 def mla_mixer(p, x, ctx, cache=None):
     """Prefill attends over full-width keys ``[k_nope, k_rope]`` through
     ``chunked_attention`` (v zero-padded to the q·k head dim and sliced
     back); decode keeps the latent ``c`` and the shared rope key ``kr`` and
-    attends in the latent space (the absorbed-matrix form, in f32)."""
+    attends in the latent space (the absorbed-matrix form, in f32,
+    :func:`_mla_decode`).
+
+    On a mesh (ROADMAP A10h-1) ``q_up``, ``k_up`` and ``v_up`` are column
+    parallel over the rank's heads and ``wo`` row parallel; ``q_down``,
+    ``kv_down`` and the norms are whole, so every rank computes the whole
+    latent ``cq``/``c_kv`` and rope key, and each enters the
+    column-parallel region through ``copy_to`` (its gradient summed over
+    the ranks' heads).  The latent cache's slots are cut over
+    ``kv_seq`` as the dense cache's: prefill keeps this rank's block of
+    them, a local slice."""
 
     cfg = ctx.cfg
     dt = _cdt(cfg)
     B, S, E = x.shape
-    H = cfg.n_heads
     nd, rd, vd, KVr = (cfg.nope_head_dim, cfg.rope_head_dim,
                        cfg.v_head_dim, cfg.kv_lora_rank)
+    H = p["q_up"].shape[-1] // (nd + rd)
+    tp = _tp_cut(H, cfg.n_heads)
 
-    cq = rms_norm(_mm(x, p["q_down"], dt), p["q_norm"])
+    cq = C.copy_to(rms_norm(_mm(x, p["q_down"], dt), p["q_norm"]), tp)
     q = _mm(cq, p["q_up"], dt).reshape(B, S, H, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     kv = _mm(x, p["kv_down"], dt)
-    c_kv = rms_norm(kv[..., :KVr], p["kv_norm"])       # (B,S,KVr) latent
+    c_kv = C.copy_to(rms_norm(kv[..., :KVr], p["kv_norm"]), tp)
     k_rope = kv[..., KVr:].reshape(B, S, 1, rd)
     if ctx.sin is not None:
         q_rope = apply_rope(q_rope, ctx.sin, ctx.cos)
         k_rope = apply_rope(k_rope, ctx.sin, ctx.cos)
+    k_rope = C.copy_to(k_rope, tp)
 
     if ctx.mode == "decode":
-        # Absorbed-matrix decode: score and value contraction happen in the
-        # latent space; per-step cost independent of head count x cache len.
-        c_cache, kr_cache = cache["c"], cache["kr"]
-        Lc = c_cache.shape[1]
-        pos = int(ctx.pos)
-        if not 0 <= pos < Lc:
-            raise IndexError(f"decode position {pos} is past the cache "
-                             f"length {Lc}")
-        c_cache[:, pos] = c_kv[:, 0].to(c_cache.dtype)
-        kr_cache[:, pos] = k_rope[:, 0, 0].to(kr_cache.dtype)
-        valid = torch.arange(Lc, device=x.device) <= pos
-        k_up = p["k_up"].to(dt).reshape(KVr, H, nd)
-        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, k_up)
-        scale = 1.0 / ((nd + rd) ** 0.5)
-        c32 = c_cache.to(torch.float32)
-        s = (torch.einsum("bshr,btr->bhst", q_lat.to(torch.float32), c32)
-             + torch.einsum("bshd,btd->bhst", q_rope.to(torch.float32),
-                            kr_cache.to(torch.float32))) * scale
-        s = torch.where(valid, s, -torch.inf)
-        w = torch.softmax(s, dim=-1)
-        ctx_lat = torch.einsum("bhst,btr->bshr", w, c32).to(dt)
-        v_up = p["v_up"].to(dt).reshape(KVr, H, vd)
-        out = torch.einsum("bshr,rhv->bshv", ctx_lat, v_up)
+        out = _mla_decode(p, q_nope, q_rope, c_kv, k_rope, cache, ctx, tp)
         new_cache = cache
     else:
         k_nope = _mm(c_kv, p["k_up"], dt).reshape(B, S, H, nd)
@@ -452,11 +504,13 @@ def mla_mixer(p, x, ctx, cache=None):
             _check_cache_len(ctx.cache_len, S)
             pad = ctx.cache_len - S
             new_cache = {
-                "c": F.pad(c_kv, (0, 0, 0, pad)),
-                "kr": F.pad(k_rope[:, :, 0, :], (0, 0, 0, pad)),
+                "c": _cache_layout(F.pad(c_kv, (0, 0, 0, pad)), (),
+                                   ctx.kv_axes),
+                "kr": _cache_layout(F.pad(k_rope[:, :, 0, :], (0, 0, 0, pad)),
+                                    (), ctx.kv_axes),
             }
     out = out.reshape(B, S, H * vd)
-    return _mm(out, p["wo"], dt), new_cache
+    return C.reduce_from(_mm(out, p["wo"], dt), tp), new_cache
 
 
 def mla_cache_specs(cfg: ArchConfig, batch: int, seq: int):

@@ -33,7 +33,13 @@ The JAX package's ``models/lm.py``, every family, on one device:
   axes), and under ZeRO-3 each layer's parameters and the head are
   gathered over ``data`` at use (``sharding.at_use``).  The decode cache
   is this rank's rows and, where ``model`` divides them, its block of the
-  slots (``init_cache(mesh=...)``, the reference's ``cache_shardings``).
+  slots (``init_cache(mesh=...)``, the reference's ``cache_shardings``);
+* whisper on a mesh (ROADMAP A10h-1): the encoder's layers are the dense
+  tensor-parallel layers (bidirectional), each decoder layer's
+  cross-attention is column-parallel over heads with ``wo`` row-parallel,
+  and the cross K/V cache holds every head on every ``model`` rank (cut
+  over ``batch`` only, as the reference lays it out): prefill all-gathers
+  each layer's K/V heads once, decode narrows to the rank's own.
 """
 
 from __future__ import annotations
@@ -326,26 +332,52 @@ def _encoder(params, enc_input, cfg, remat_policy="none", attention="auto"):
     return rms_norm(x, params["enc_norm"])
 
 
+def _xattn_tp(params, cfg) -> Tuple[str, ...]:
+    """The ``model`` axes the decoder's cross-attention heads are cut over
+    (``()`` where they are whole), read from layer 0's ``wq`` width."""
+
+    layers = params["layers"]
+    wq = (layers[0] if isinstance(layers, (list, tuple)) else
+          layers)["xattn"]["wq"]
+    return blocks._tp_cut(wq.shape[-1] // cfg.hd, cfg.n_heads)
+
+
 def _cross_kv(p, enc_out, cfg):
+    """The encoder output's K/V at the rank's kv heads (the local width of
+    ``wk``/``wv``)."""
+
     dt = dtype_of(cfg.compute_dtype)
     B, S, _ = enc_out.shape
-    KH, D = cfg.n_kv_heads, cfg.hd
+    D = cfg.hd
+    KH = p["wk"].shape[-1] // D
     k = (enc_out.to(dt) @ p["wk"].to(dt)).reshape(B, S, KH, D)
     v = (enc_out.to(dt) @ p["wv"].to(dt)).reshape(B, S, KH, D)
     return k, v
 
 
 def _cross_attention(p, x, enc_kv, cfg, attention="auto"):
-    """Decoder cross-attention: q from the decoder, K/V from the encoder."""
+    """Decoder cross-attention: q from the decoder, K/V from the encoder.
+
+    On a mesh (ROADMAP A10h-1) q, K and V are column-parallel over the
+    rank's heads and ``wo`` row-parallel; a K/V holding every head (the
+    decode's cross cache, whole over ``model``) is narrowed to the rank's
+    heads, with no collective."""
 
     dt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
-    H, D = cfg.n_heads, cfg.hd
+    D = cfg.hd
+    H, KH = p["wq"].shape[-1] // D, p["wk"].shape[-1] // D
+    tp = blocks._tp_cut(H, cfg.n_heads)
+    x = C.copy_to(x, tp)
     q = (x.to(dt) @ p["wq"].to(dt)).reshape(B, S, H, D)
     k, v = enc_kv
+    if k.shape[2] != KH:
+        k = k.narrow(2, C.axis_index(tp) * KH, KH)
+        v = v.narrow(2, C.axis_index(tp) * KH, KH)
     out = chunked_attention(q, k, v, causal=False, window=None,
                             impl=attention)
-    return out.reshape(B, S, H * D).to(dt) @ p["wo"].to(dt)
+    return C.reduce_from(out.reshape(B, S, H * D).to(dt) @ p["wo"].to(dt),
+                         tp)
 
 
 _CORE = ("ln1", "attn", "ln2", "mlp")
@@ -470,6 +502,10 @@ def hidden_forward(
     enc_out = None
     if cfg.family == "encdec":
         enc_out = _encoder(params, enc_input, cfg, remat_policy, attention)
+        # Every layer's cross K/V reads its heads of the whole encoder
+        # output: one copy_to sums the layers' partial gradients over
+        # ``model`` once.
+        enc_out = C.copy_to(enc_out, _xattn_tp(params, cfg))
 
     def body(h, layer_params):
         cross = None if enc_out is None else _cross_kv(
@@ -656,6 +692,19 @@ def _stack_into(stack, i: int, tree, n: int):
     return stack
 
 
+def _whole_heads(kv, cfg):
+    """The cross cache's ``{"k", "v"}`` from the rank's heads of the
+    encoder's K/V: where ``model`` cuts them, every head (one all-gather
+    of K and V stacked), as the reference's cache layout ``("batch", None,
+    None, None)`` keeps them on every rank."""
+
+    k, v = kv
+    if k.shape[2] < cfg.n_kv_heads:
+        both = C.all_gather_dim(torch.stack([k, v]), sharding.tp_axes(), 3)
+        k, v = both[0], both[1]
+    return {"k": k, "v": v}
+
+
 def prefill(
     params, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int,
     *, enc_input: Optional[torch.Tensor] = None, attention: str = "auto",
@@ -680,7 +729,7 @@ def prefill(
         cross = None
         if enc_out is not None:
             cross = _cross_kv(layer_params["xattn"], enc_out, cfg)
-            cross_kv = _stack_into(cross_kv, i, dict(zip("kv", cross)),
+            cross_kv = _stack_into(cross_kv, i, _whole_heads(cross, cfg),
                                    cfg.n_layers)
         x, c = _apply(layer_params, x, ctx, cross=cross)
         layers = _stack_into(layers, i, c, cfg.n_layers)

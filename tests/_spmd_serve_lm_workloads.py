@@ -20,7 +20,14 @@ from the prefill's last logits:
   over ranks 0-5: 3 divides neither its 4 heads (the planner replicates
   the attention), its ffn nor its vocab, but divides a ``cache_len`` of
   33, so the slots alone are cut (11 a rank) and decode joins the split
-  softmax of whole heads.
+  softmax of whole heads;
+* ``minicpm3`` — reduced minicpm3-4b (MLA) on ``(data 4, model 2)``,
+  ``cache_len`` 32: the latent cache's slots cut over ``model``, decode's
+  split softmax joined in the latent space (A10h-1);
+* ``whisper`` — reduced whisper-medium on ``(data 4, model 2)`` with
+  its published vocab of 51,865 (padded to 51,968: the last ``model``
+  rank's block ends in 103 padded columns), ``cache_len`` 32 and
+  ``enc_input`` frames; the cross K/V cache whole over ``model`` (A10h-1).
 
 The plans are the planner's ``prefill_32k`` / ``decode_32k`` plans for the
 mesh (the arctic cell's ZeRO-3 set on both).  The weights and prompts are
@@ -55,11 +62,25 @@ CELLS = {
                      "steps": 8, "fsdp": False},
     "minitron_heads_whole": {"arch": "minitron_8b", "mesh": "dm3",
                              "cache_len": 33, "steps": 8, "fsdp": False},
+    "minicpm3": {"arch": "minicpm3_4b", "mesh": "dm", "cache_len": 32,
+                 "steps": 8, "fsdp": False},
+    "whisper": {"arch": "whisper_medium", "mesh": "dm", "cache_len": 32,
+                "steps": 8, "fsdp": False, "vocab": 51865},
 }
 PROMPT = (8, 24)
 SEED = 0
 # The cell run twice on every rank (bit-identical).
 AGAIN = "minitron"
+
+
+def cell_config(cell):
+    """The cell's reduced config in the port (its ``vocab`` where the cell
+    sets one)."""
+
+    cfg = port_config(cell["arch"])
+    if "vocab" in cell:
+        cfg = dataclasses.replace(cfg, vocab=cell["vocab"])
+    return cfg
 
 
 def make_inputs(d):
@@ -69,7 +90,7 @@ def make_inputs(d):
     from repro_torch.models import lm
 
     for i, (name, cell) in enumerate(CELLS.items()):
-        cfg = port_config(cell["arch"])
+        cfg = cell_config(cell)
         rng = np.random.default_rng([SEED, 100 + i])
         params = {}
         for k, sub in lm.model_specs(cfg).items():
@@ -79,6 +100,20 @@ def make_inputs(d):
         np.savez(Path(d) / f"{name}_params.npz", **params)
         np.save(Path(d) / f"{name}_tokens.npy",
                 rng.integers(0, cfg.vocab, PROMPT).astype(np.int32))
+        if cfg.family == "encdec":
+            np.save(Path(d) / f"{name}_frames.npy", rng.standard_normal(
+                (PROMPT[0], cfg.enc_seq, cfg.d_model)).astype(np.float32))
+
+
+def load_batch(d, name):
+    """The cell's prompt batch: its tokens, and an encoder-decoder's
+    frames."""
+
+    batch = {"tokens": np.load(Path(d) / f"{name}_tokens.npy")}
+    frames = Path(d) / f"{name}_frames.npy"
+    if frames.exists():
+        batch["enc_input"] = np.load(frames)
+    return batch
 
 
 def load_params(d, name):
@@ -123,9 +158,9 @@ def jax_main(d):
     from repro.models.registry import get_config, reduced_config
     from repro.parallel import logical_to_spec
 
-    def serve(prefill_fn, decode_fn, p_params, d_params, tokens, put_cache,
+    def serve(prefill_fn, decode_fn, p_params, d_params, batch, put_cache,
               steps, L, tag, out):
-        logits, cache, pos = prefill_fn(p_params, {"tokens": tokens})
+        logits, cache, pos = prefill_fn(p_params, batch)
         cache = put_cache(cache)
         for path, a in flat(cache).items():
             out[f"{tag}cache0/{path}"] = np.asarray(a, np.float32)
@@ -144,9 +179,11 @@ def jax_main(d):
 
     for name, cell in CELLS.items():
         cfg = reduced_config(get_config(cell["arch"]))
+        if "vocab" in cell:
+            cfg = dataclasses.replace(cfg, vocab=cell["vocab"])
         pplan, dplan = _plans(plan_lm, MeshSpec, cfg, cell)
         L, steps = cell["cache_len"], cell["steps"]
-        host = jnp.asarray(np.load(Path(d) / f"{name}_tokens.npy"))
+        host = {k: jnp.asarray(v) for k, v in load_batch(d, name).items()}
 
         def params():
             return jax.tree_util.tree_map(jnp.asarray, load_params(d, name))
@@ -162,11 +199,12 @@ def jax_main(d):
                     .reshape(shape), axes)
         prefill_fn, p_sh = build_prefill_step(pplan, mesh, L)
         decode_fn, d_sh, c_sh = build_decode_step(dplan, mesh)
-        tok_sh = NamedSharding(mesh, logical_to_spec(
-            pplan.rules, ("batch", None), shape=host.shape, mesh=mesh))
+        rows = {k: NamedSharding(mesh, logical_to_spec(
+            pplan.rules, ("batch",) + (None,) * (v.ndim - 1), shape=v.shape,
+            mesh=mesh)) for k, v in host.items()}
         cache_sh = c_sh(PROMPT[0], L)
         serve(prefill_fn, decode_fn, jax.device_put(params(), p_sh),
-              jax.device_put(params(), d_sh), jax.device_put(host, tok_sh),
+              jax.device_put(params(), d_sh), jax.device_put(host, rows),
               lambda c: jax.device_put(c, cache_sh), steps, L, "", out)
         for path, sh in flat(cache_sh).items():
             out[f"shape/{path}"] = np.array(sh.shard_shape(
@@ -183,7 +221,7 @@ def port_plans(cell):
     from repro_torch.core.hardware import MeshSpec
     from repro_torch.core.lm_planner import plan_lm
 
-    return _plans(plan_lm, MeshSpec, port_config(cell["arch"]), cell)
+    return _plans(plan_lm, MeshSpec, cell_config(cell), cell)
 
 
 class _Audit:
@@ -196,6 +234,7 @@ class _Audit:
 
     def __init__(self):
         self.checked, self.bad, self.writes = 0, [], 0
+        self.cell, self.sites = None, {}
 
     def patches(self, cfg):
         from unittest import mock
@@ -235,6 +274,8 @@ class _Audit:
 
     def _check(self, site, lo, hi, top):
         self.checked += 1
+        key = f"{self.cell}/{site}"
+        self.sites[key] = self.sites.get(key, 0) + 1
         if lo < 0 or hi > top:
             self.bad.append((site, lo, hi, top))
 
@@ -268,12 +309,13 @@ def run_cell(d, name, mesh, audit=None):
     from repro_torch.parallel.sharding import join_blocks, logical_to_spec
 
     cell = CELLS[name]
-    cfg = port_config(cell["arch"])
+    cfg = cell_config(cell)
     pplan, dplan = port_plans(cell)
     L, steps, B = cell["cache_len"], cell["steps"], PROMPT[0]
     params = lm_params_from_numpy(cfg, load_params(d, name), device="cpu")
     with contextlib.ExitStack() as stack:
         if audit is not None:
+            audit.cell = name
             for p in audit.patches(cfg):
                 stack.enter_context(p)
         prefill_fn, p_specs = serve.build_prefill_step(pplan, mesh, L)
@@ -281,9 +323,7 @@ def run_cell(d, name, mesh, audit=None):
             dplan, mesh, cache_len=L)
         p_blocks = shard_state(params, p_specs, mesh)
         d_blocks = shard_state(params, d_specs, mesh)
-        rows = serve.batch_rows(
-            {"tokens": np.load(Path(d) / f"{name}_tokens.npy")}, mesh,
-            pplan.rules)
+        rows = serve.batch_rows(load_batch(d, name), mesh, pplan.rules)
         specs = c_specs(B, L)
         logits, cache, pos = prefill_fn(p_blocks, rows)
         shapes = {k: tuple(t.shape) for k, t in flat(cache).items()}
@@ -346,7 +386,7 @@ def rank_main(rank, world, d):
     again = run_cell(d, AGAIN, meshes[CELLS[AGAIN]["mesh"]])
     out["again_digest"] = again["digest"]
     out["audit"] = {"checked": audit.checked, "bad": audit.bad,
-                    "writes": audit.writes}
+                    "writes": audit.writes, "sites": audit.sites}
     if rank:
         for name in CELLS:
             for k in ("logits", "tokens", "cache0", "cache1"):

@@ -11,7 +11,12 @@ Three cells (``CELLS``):
   (``rules.fsdp``) and a ``mask`` that leaves the microbatches' and the
   data shards' token counts unequal;
 * ``arctic`` — reduced arctic-480b (MoE with EP over ``model`` and the
-  dense residual) under ZeRO-3, 2 steps (ROADMAP A10f's sharding).
+  dense residual) under ZeRO-3, 2 steps (ROADMAP A10f's sharding);
+* ``minicpm3`` — reduced minicpm3-4b (MLA: ``q_up``/``k_up``/``v_up``
+  over ``model``, the latents whole) under ZeRO-1, 2 steps (A10h-1);
+* ``whisper`` — reduced whisper-medium (the encoder's and the decoder's
+  self- and cross-attention over ``model``) under ZeRO-1, 2 steps, its
+  batch carrying ``enc_input`` frames (A10h-1).
 
 The weights and tokens are numpy arrays made from a seed
 (:func:`make_inputs`, written to a directory as ``.npz``): the JAX
@@ -38,6 +43,10 @@ CELLS = {
                      "steps": 4},
     "arctic": {"arch": "arctic_480b", "fsdp": True, "mask": False,
                "steps": 2},
+    "minicpm3": {"arch": "minicpm3_4b", "fsdp": False, "mask": False,
+                 "steps": 2},
+    "whisper": {"arch": "whisper_medium", "fsdp": False, "mask": False,
+                "steps": 2},
 }
 MICROBATCHES = 2
 LR = 1e-3
@@ -110,6 +119,9 @@ def make_inputs(d):
         np.savez(Path(d) / f"{name}_params.npz", **params)
         batch = {"tokens": rng.integers(0, cfg.vocab, BATCH).astype(
             np.int32)}
+        if cfg.family == "encdec":
+            batch["enc_input"] = rng.standard_normal(
+                (BATCH[0], cfg.enc_seq, cfg.d_model)).astype(np.float32)
         if cell["mask"]:
             batch["mask"] = (np.arange(BATCH[1])[None, :]
                              < np.array(KEEP)[:, None]).astype(np.int32)

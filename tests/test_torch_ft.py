@@ -25,9 +25,15 @@ import pytest
 import torch
 
 try:
-    from hypothesis import given, settings, strategies as st
+    from hypothesis import example, given, settings, strategies as st
 except ImportError:  # minimal images: deterministic fallback shim
     from _hypothesis_compat import given, settings, strategies as st
+
+    def example(**_pinned):
+        """The shim replays its own draws only: a pinned case needs
+        hypothesis."""
+
+        return lambda fn: fn
 
 from repro.checkpoint import CheckpointStore as JaxStore
 from repro.checkpoint import restore_pytree as jax_restore
@@ -527,6 +533,10 @@ def test_stale_aggregate_never_drops_contributions(seed, steps):
                                        rtol=1e-5, atol=1e-6)
 
 
+# Seed 3823 (n = 8) draws a last column that cancels to -1.8e-3 from terms
+# near 1: torch's and numpy's f32 summation orders then differ by 6.7e-5
+# relative, past any fixed rtol (ROADMAP C18).
+@example(seed=3823, n=8)
 @settings(max_examples=30, deadline=None)
 @given(seed=st.integers(0, 2**31 - 1), n=st.integers(1, 8))
 def test_stale_aggregate_all_on_time_is_exact_sum(seed, n):
@@ -535,7 +545,15 @@ def test_stale_aggregate_all_on_time_is_exact_sum(seed, n):
     out, late = stale_aggregate(torch.from_numpy(partials),
                                 torch.ones(n, dtype=torch.bool),
                                 torch.zeros(5))
-    np.testing.assert_allclose(out.numpy(), partials.sum(0), rtol=1e-5)
+    # Every partial arrived, so out is torch's own sum of them plus a zero
+    # carry, which adds exactly: bit-equal.
+    assert torch.equal(out, torch.from_numpy(partials).sum(0))
+    # numpy sums in another order: each of the n - 1 adds rounds once, so
+    # the two differ by at most n * 2^-23 * sum|partials| in a column.
+    bound = n * 2.0**-23 * np.abs(partials).sum(0)
+    for col in range(5):
+        np.testing.assert_allclose(out.numpy()[col], partials.sum(0)[col],
+                                   rtol=1e-5, atol=bound[col])
     assert torch.equal(late, torch.zeros(5))
 
 

@@ -214,9 +214,12 @@ def test_param_count_matches_jax():
 
 
 def test_unported_families_and_meshes_raise():
-    """On a mesh, the families not ported to one and kv heads that do not
-    divide ``model`` refuse both serve steps, naming ROADMAP A10h, before
-    any collective (a stand-in mesh has no process group to call)."""
+    """On a mesh, the families not ported to one (ssm, hybrid) and kv
+    heads that do not divide ``model`` (reduced whisper-medium's and
+    minitron-8b's 2 on a 4-way axis) refuse both serve steps, naming
+    ROADMAP A10h, before any collective (a stand-in mesh has no process
+    group to call); MLA (reduced minicpm3-4b's 4 heads, A10h-1) builds
+    both on the same mesh."""
 
     import types
 
@@ -229,11 +232,19 @@ def test_unported_families_and_meshes_raise():
         for shape in ("prefill_32k", "decode_32k"):
             plan = dataclasses.replace(plan_lm(cfg, shape, MeshSpec(axes)),
                                        cfg=cfg)
-            with pytest.raises(NotImplementedError, match="A10h"):
+
+            def build():
                 if shape == "prefill_32k":
-                    serve.build_prefill_step(plan, mesh, 32)
-                else:
-                    serve.build_decode_step(plan, mesh, cache_len=32)
+                    return serve.build_prefill_step(plan, mesh, 32)
+                return serve.build_decode_step(plan, mesh, cache_len=32)
+
+            if cfg.family == "mla":
+                assert callable(build()[0])
+                continue
+            with pytest.raises(NotImplementedError,
+                               match="kv heads" if cfg.family == "encdec"
+                               else "A10h"):
+                build()
 
 
 def test_lm_params_from_numpy_keeps_bf16_and_checks_shapes():

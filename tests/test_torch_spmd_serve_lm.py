@@ -35,8 +35,9 @@ Bars:
 
 In process: ``cache_specs_on`` against the reference's
 ``logical_to_spec`` of ``lm.cache_axes`` for all ten configs on four
-meshes, the serving plans byte-equal to the reference's, and the
-refusals (A10h) before any collective.
+meshes, the serving plans byte-equal to the reference's, the refusals
+(A10h) before any collective, and the mla and encdec families' steps
+built on a stand-in mesh (A10h-1).
 """
 
 from __future__ import annotations
@@ -96,7 +97,7 @@ def runs(tmp_path_factory):
 
 
 def _vocab(name):
-    return W.port_config(W.CELLS[name]["arch"]).vocab
+    return W.cell_config(W.CELLS[name]).vocab
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -145,6 +146,7 @@ def _in(ranks, name):
 def test_cache_blocks_are_the_reference_shard_shapes(runs, name):
     ranks, jax = runs
     L = W.CELLS[name]["cache_len"]
+    cfg = W.cell_config(W.CELLS[name])
     cells = _in(ranks, name)
     assert len(cells) == np.prod(W.MESHES[W.CELLS[name]["mesh"]][0])
     for c in cells:
@@ -153,6 +155,10 @@ def test_cache_blocks_are_the_reference_shard_shapes(runs, name):
                                if k.startswith("shape/")}
         for path, shape in shapes.items():
             assert shape == tuple(jax[name][f"shape/{path}"]), path
+            if path.startswith("cross/"):
+                # an encoder-decoder's cross K/V: every frame and head
+                assert shape[2:] == (cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+                continue
             # the slots are cut over model exactly where it divides them
             assert shape[2] == (L // tp if L % tp == 0 else L)
 
@@ -202,12 +208,13 @@ def test_two_runs_are_bit_identical(runs):
 @pytest.mark.parametrize("name", CELLS)
 def test_padded_columns_never_win(runs, name):
     """The last ``model`` rank's vocab block holds the padded columns (on
-    reduced configs all of it: 128 real columns padded to 256): they are
-    -1e30 at prefill and at every decode step, and no token sampled lies
-    past the real vocab."""
+    reduced configs all of it: 128 real columns padded to 256; whisper's
+    cell its last 103: 51,865 padded to 51,968): they are -1e30 at
+    prefill and at every decode step, and no token sampled lies past the
+    real vocab."""
 
     ranks, _ = runs
-    cfg = W.port_config(W.CELLS[name]["arch"])
+    cfg = W.cell_config(W.CELLS[name])
     for c in _in(ranks, name):
         pads, tp = c["pads"], c["tp"]
         assert len(pads) == W.CELLS[name]["steps"] + 1
@@ -225,7 +232,7 @@ def _writes(r):
     for name, cell in W.CELLS.items():
         if r[name] is None:
             continue
-        cfg = W.port_config(cell["arch"])
+        cfg = W.cell_config(cell)
         L, S, tp = cell["cache_len"], W.PROMPT[1], r[name]["tp"]
         for pos in range(S, S + cell["steps"]):
             slot = pos % L if cfg.window is not None else pos
@@ -237,7 +244,9 @@ def _writes(r):
 def test_indices_stay_in_range(runs):
     """C1 inside the ranks: the decode's local slot write (the owner
     alone, inside its block), the mask's global slot ids, the
-    vocab-parallel lookup's local ids and the argmax's tokens."""
+    vocab-parallel lookup's local ids and the argmax's tokens; among
+    them MLA decode's latent slot write and mask (``minicpm3``), and the
+    lookup and argmax over whisper's odd vocab (``whisper``)."""
 
     ranks, _ = runs
     for r in ranks:
@@ -245,6 +254,15 @@ def test_indices_stay_in_range(runs):
         assert audit["checked"] >= 150
         assert audit["bad"] == []
         assert audit["writes"] == _writes(r)
+        sites = audit["sites"]
+        cell = W.CELLS["minicpm3"]
+        per_layer = cell["steps"] * W.port_config(cell["arch"]).n_layers
+        assert sites["minicpm3/mask"] == per_layer
+        # positions 24-31 of 32 slots lie in model rank 1's block
+        assert sites.get("minicpm3/write", 0) == \
+            per_layer * (r["minicpm3"]["model"] == 1)
+        for site in ("vocab", "argmax"):
+            assert sites[f"whisper/{site}"] >= W.CELLS["whisper"]["steps"]
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +327,11 @@ def test_cache_specs_equal_the_reference(arch, mesh_name):
 @pytest.mark.parametrize("arch", ("minicpm3_4b", "mamba2_130m", "hymba_1_5b",
                                   "whisper_medium", "kv_heads"))
 def test_unported_paths_refuse_before_any_collective(arch):
-    """On a mesh the families not ported to one, and kv heads that do not
-    divide ``model`` (reduced minitron-8b's 2 on a 4-way axis), refuse
-    both serve steps naming ROADMAP A10h; a stand-in mesh has no process
-    group, so any collective would fail otherwise."""
+    """On a mesh the families not ported to one (ssm, hybrid) and kv heads
+    that do not divide ``model`` (reduced minitron-8b's 2 on a 4-way
+    axis) refuse both serve steps naming ROADMAP A10h; the ported mla and
+    encdec families (A10h-1) build both on the same stand-in mesh.  A
+    stand-in mesh has no process group, so any collective would fail."""
 
     from repro_torch.core.hardware import MeshSpec
     from repro_torch.core.lm_planner import plan_lm
@@ -326,8 +345,18 @@ def test_unported_paths_refuse_before_any_collective(arch):
     for kind in ("prefill_32k", "decode_32k"):
         plan = dataclasses.replace(plan_lm(cfg, kind, MeshSpec(axes)),
                                    cfg=cfg)
-        with pytest.raises(NotImplementedError, match="A10h"):
+
+        def build():
             if kind == "prefill_32k":
-                serve.build_prefill_step(plan, mesh, 32)
-            else:
-                serve.build_decode_step(plan, mesh, cache_len=32)
+                return serve.build_prefill_step(plan, mesh, 32)
+            return serve.build_decode_step(plan, mesh, cache_len=32)
+
+        if cfg.family in ("mla", "encdec"):
+            step = build()
+            assert callable(step[0])
+            specs = step[1]["layers"]["attn"]
+            assert any("model" in str(e) for leaf in specs.values()
+                       for e in leaf)
+            continue
+        with pytest.raises(NotImplementedError, match="A10h"):
+            build()
