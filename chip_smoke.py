@@ -204,25 +204,34 @@ Phases, each of which exits nonzero on failure:
    ms a query batched and one by one, collective calls and MB staged a
    batched iteration, the cold and warm request times, each rank's peak
    memory, B1's time and launches.  The LM cells on the same ranks last
-   (ROADMAP A10e-1, A10e-2, A10h-1; ``_mesh_lm``, one cell a model of
-   ``MESH_LM_CELLS``): phi4-mini-3.8b, minicpm3-4b (MLA) and
-   whisper-medium (encoder-decoder) at published width, depth cut to
-   ``MESH_LM_LAYERS`` (2) decoder layers (whisper also 2 encoder layers
-   and its 1500 stub frames a row), random weights from ``--seed``, on a
+   (ROADMAP A10e-1, A10e-2, A10h-1, A10h-2, A10h-3; ``_mesh_lm``, one cell
+   a model of ``MESH_LM_CELLS``): phi4-mini-3.8b, minicpm3-4b (MLA),
+   whisper-medium (encoder-decoder), mamba2-130m (SSM, its tied table
+   vocab-parallel) and hymba-1.5b (hybrid; its 25 q / 5 kv heads, which
+   2 does not divide, kept whole by the planner, so its attention runs
+   replicated beside the replicated SSM half, as the reference's, A10h-3
+   case (ii); its 1024-slot ring cut over ``model``) at published width, depth
+   cut to ``MESH_LM_LAYERS`` (2) decoder layers (whisper also 2 encoder
+   layers and its 1500 stub frames a row), random weights from
+   ``--seed`` (the SSMs' A_log and dt_bias from Mamba2's decay init), on a
    (data 2, model 2) mesh (tensor parallel over ``model``).  Each trains
    on a batch of 4 x 2048 tokens in 2 microbatches (``_mesh_train``):
    its AdamW steps under the planner's plan cast to ZeRO-1 (``plan_lm``
    on ``H100_SXM``; phi4 2 steps, the others 1), one step with its
    family's planted fault (``_train_fault``: phi4's layer-0 row-parallel
    MLP psum skipped, MLA's ``copy_to`` at its latents skipped, whisper's
-   ``copy_to`` of the encoder output skipped) and, for phi4, one under
+   ``copy_to`` of the encoder output skipped, mamba2's SSD gradients
+   psum'd over ``model``, hymba's SSM half's output psum'd over it) and,
+   for phi4 and mamba2 (its tied table gathered for each use), one under
    ZeRO-3 (the plan's ``rules.fsdp``), each from the seed's weights.
    Then it serves (``_mesh_serve_lm``) the same rows as prompts, seeded
    weights in bf16, the planner's ``prefill_32k`` / ``decode_32k``
-   plans, into a cache cut over ``model``: fed decode steps (phi4 24,
-   the others ``TF_STEPS``) fed the one device's greedy tokens, then free
-   greedy steps (8, 4) sampled vocab-parallel, then the planted fault's
-   steps (the decode's split softmax left unjoined over ``model``).
+   plans, into a cache cut over ``model`` (hymba's a ring of its window):
+   fed decode steps (phi4 24, the others ``TF_STEPS``) fed the one
+   device's greedy tokens, then free greedy steps (8, 4) sampled
+   vocab-parallel, then the planted fault's steps (``_serve_fault``: the
+   decode's split softmax left unjoined over ``model``; mamba2's, with no
+   softmax, the vocab-parallel lookup left unsummed).
    Before the ranks start the phase runs each cell on one device (the
    yardsticks), measures the bf16 bounds as the train and lm phases do
    (the plain path against the same model in f32: loss and gradients on
@@ -230,17 +239,19 @@ Phases, each of which exits nonzero on failure:
    training B3 and B4) to its plain version at each of a rank's local
    launch shapes (phi4's H 12, KH 4 at D 128 and whisper's H 8 at D 64
    on ``wgmma``: the encoder, the decoder's self- and cross-attention,
-   decode's cross-attention; minicpm3's H 20 at D 96 on ``mma``), timed.
+   decode's cross-attention; minicpm3's H 20 at D 96 on ``mma``; hymba's
+   whole heads, H 25, KH 5 at D 64, window 1024, on ``wgmma``), timed.
    Bars: every step's loss and grad norm (each rank's) and the prefill's
    and fed steps' logits within ``LM_NOISE_FACTOR`` x the bf16 bound
-   (capped at 0.1) of one device's, the unjoined softmax outside it,
-   phi4's train fault outside it too and every train fault making the
-   ranks' grad norms disagree (the copy_to faults move the grad norm by
-   less than the bar); every rank's loss, grad norm, joined logits and
-   tokens equal; the data replicas' gathered parameters bit-equal after
-   each step; the padded vocab columns -1e30 on the last ``model`` rank
-   and never sampled; B2-B4's launches a rank exact by route.  Printed: s
-   a step per rank, tokens/s, calls and MB a rank hands each collective,
+   (capped at 0.1) of one device's, the serving fault outside it,
+   phi4's, mamba2's and hymba's train faults outside it too, and phi4's,
+   minicpm3's and whisper's making the ranks' grad norms disagree (the
+   copy_to faults move the grad norm by less than the bar); every rank's
+   loss, grad norm, joined logits and tokens equal; the data replicas'
+   gathered parameters bit-equal after each step; the padded vocab
+   columns -1e30 on the last ``model`` rank and never sampled; B2-B4's
+   launches a rank exact by route.  Printed: s a step per rank, tokens/s,
+   calls and MB a rank hands each collective,
    MB staged, peak memory a rank, the collectives by phase of a train
    step, prefill s and decode ms a step per rank, the free steps' tokens
    that agree with one device.  Any rank's failure fails it.
@@ -6293,18 +6304,19 @@ MESH_FAULT_SUPERSTEPS = 4
 MESH_IMRU_ITERATIONS = 5
 MESH_SCHEDULES = ("flat", "hierarchical", "kary_tree", "scatter")
 MESH_SCHEDULE_RTOL = 1e-6
-# The LM cells on a mesh (ROADMAP A10e-1, A10e-2, A10h-1): each model of
-# MESH_LM_CELLS at published width, depth cut to MESH_LM_LAYERS decoder
-# layers (and as many of whisper's encoder layers; its rows carry its 1500
-# stub frames), seeded weights, on a (data 2, model 2) mesh.  A cell
-# trains on a batch of MESH_LM_BATCH x MESH_LM_SEQ tokens in
-# MESH_TRAIN_MICROBATCHES microbatches: "steps" AdamW steps under ZeRO-1,
-# one step with its family's planted fault and, where "zero3", one step
-# under ZeRO-3, each from the seed's weights.  Then it serves the same
-# rows as prompts into a cache of MESH_LM_SEQ + "fed" + "free" slots (cut
-# over model): "fed" decode steps fed the one device's greedy tokens, then
-# "free" free greedy steps; the planted fault runs
-# MESH_SERVE_LM_FAULT_STEPS fed steps from the prefill's cache.
+# The LM cells on a mesh (ROADMAP A10e-1, A10e-2, A10h-1, A10h-2,
+# A10h-3): each model of MESH_LM_CELLS at published width, depth cut to
+# MESH_LM_LAYERS decoder layers (and as many of whisper's encoder layers;
+# its rows carry its 1500 stub frames), seeded weights (the SSM's decay
+# init, _family_params), on a (data 2, model 2) mesh.  A cell trains on a
+# batch of MESH_LM_BATCH x MESH_LM_SEQ tokens in MESH_TRAIN_MICROBATCHES
+# microbatches: "steps" AdamW steps under ZeRO-1, one step with its
+# family's planted fault and, where "zero3", one step under ZeRO-3, each
+# from the seed's weights.  Then it serves the same rows as prompts into a
+# cache of MESH_LM_SEQ + "fed" + "free" slots, or a ring of the window's
+# where that is shorter (cut over model): "fed" decode steps fed the one
+# device's greedy tokens, then "free" free greedy steps; the planted fault
+# runs MESH_SERVE_LM_FAULT_STEPS fed steps from the prefill's cache.
 MESH_TRAIN_SHAPE = ((2, 2), ("data", "model"))
 MESH_LM_LAYERS = 2
 MESH_LM_BATCH = 4
@@ -6317,6 +6329,8 @@ MESH_LM_CELLS = {
     "minicpm3_4b": {"steps": 1, "zero3": False, "fed": TF_STEPS, "free": 4},
     "whisper_medium": {"steps": 1, "zero3": False, "fed": TF_STEPS,
                        "free": 4},
+    "mamba2_130m": {"steps": 1, "zero3": True, "fed": TF_STEPS, "free": 4},
+    "hymba_1_5b": {"steps": 1, "zero3": False, "fed": TF_STEPS, "free": 4},
 }
 
 
@@ -7777,7 +7791,8 @@ class _LmCell:
 
     @property
     def cache(self) -> int:
-        return MESH_LM_SEQ + self.fed + self.free
+        L = MESH_LM_SEQ + self.fed + self.free
+        return L if self.cfg.window is None else min(L, self.cfg.window)
 
     @property
     def steps(self) -> int:
@@ -7804,11 +7819,11 @@ def _mesh_lm_cell(arch) -> _LmCell:
     cfg = dataclasses.replace(
         full, n_layers=MESH_LM_LAYERS,
         enc_layers=MESH_LM_LAYERS if full.enc_layers else 0)
+    want = MESH_LM_CELLS[arch]
     plan = plan_lm(full, "train_4k", spec, hw=H100_SXM)
     zero1 = dataclasses.replace(
         plan, cfg=cfg, microbatches=MESH_TRAIN_MICROBATCHES, zero="zero1",
         rules=dataclasses.replace(plan.rules, fsdp=False))
-    want = MESH_LM_CELLS[arch]
     runs = [("zero1", zero1, want["steps"], False),
             ("fault", dataclasses.replace(zero1, microbatches=1), 1, True)]
     if want["zero3"]:
@@ -7822,16 +7837,38 @@ def _mesh_lm_cell(arch) -> _LmCell:
 
 
 def _mesh_lm_shapes(cfg):
-    """(tag, Sq, Skv, causal) of each flash launch shape of a cell's
-    prefill and train step (whisper: the encoder, the decoder's self- and
-    cross-attention), and whisper's decode step's cross-attention."""
+    """(tag, Sq, Skv, causal, window) of each flash launch shape of a
+    cell's prefill and train step (whisper: the encoder, the decoder's
+    self- and cross-attention; none for the attention-free SSM), and
+    whisper's decode step's cross-attention."""
 
     S = MESH_LM_SEQ
+    if cfg.attention_free:
+        return []
     if cfg.family != "encdec":
-        return [("self", S, S, True)]
-    return [("encoder", cfg.enc_seq, cfg.enc_seq, False),
-            ("self", S, S, True), ("cross", S, cfg.enc_seq, False),
-            ("decode cross", 1, cfg.enc_seq, False)]
+        return [("self", S, S, True, cfg.window)]
+    return [("encoder", cfg.enc_seq, cfg.enc_seq, False, None),
+            ("self", S, S, True, None),
+            ("cross", S, cfg.enc_seq, False, None),
+            ("decode cross", 1, cfg.enc_seq, False, None)]
+
+
+def _mesh_lm_heads(cell):
+    """(H, KH) of a rank's flash launches in a cell on the (data 2, model
+    2) mesh: its q and kv heads where model divides both (MLA's k_rope
+    broadcast to every local head); its q heads, a kv head each, where
+    model divides the q heads only (A10h-3, case (i)); every head where
+    the plan keeps qkv whole, the attention replicated (the planner's
+    choice where model does not divide the q heads, case (ii))."""
+
+    cfg, tp = cell.cfg, MESH_TRAIN_SHAPE[0][1]
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    whole = cell.prefill.rules.get("qkv") is None
+    if cfg.family == "mla":
+        return (H, H) if whole else (H // tp, H // tp)
+    if whole:
+        return H, KH
+    return (H // tp, H // tp) if KH % tp else (H // tp, KH // tp)
 
 
 def _layers_of(cfg) -> str:
@@ -7868,19 +7905,18 @@ def _mesh_lm_inputs(args, d, device, arch):
     train = _mesh_train_inputs(cell, gen, on_dev, device)
     serve = _mesh_serve_lm_inputs(cell, args.seed, d, on_dev, device)
     D = _attention_dim(cfg)
-    H = cfg.n_heads // 2
-    KH = H if cfg.family == "mla" else cfg.n_kv_heads // 2
+    H, KH = _mesh_lm_heads(cell)
     rows = B // MESH_TRAIN_MICROBATCHES // 2
     kernels = []
-    for tag, Sq, Skv, causal in _mesh_lm_shapes(cfg):
+    for tag, Sq, Skv, causal, window in _mesh_lm_shapes(cfg):
         at = f"a mesh rank's {cfg.name} {tag} shape"
         entry = {"tag": tag, "serve": _flash_at(B // 2, H, KH, Sq, Skv, D,
-                                                causal, None, gen, device,
+                                                causal, window, gen, device,
                                                 at + " (serving)")}
         if Sq > 1:
-            entry["fwd"] = _flash_at(rows, H, KH, Sq, Skv, D, causal, None,
-                                     gen, device, at + " (training)")
-            entry["bwd"] = _bwd_at(rows, H, KH, Sq, Skv, D, causal, None,
+            entry["fwd"] = _flash_at(rows, H, KH, Sq, Skv, D, causal,
+                                     window, gen, device, at + " (training)")
+            entry["bwd"] = _bwd_at(rows, H, KH, Sq, Skv, D, causal, window,
                                    gen, device, at + " (training)")
         kernels.append(entry)
         torch.cuda.empty_cache()
@@ -7900,11 +7936,10 @@ def _mesh_train_inputs(cell, gen, batch, device):
 
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.train import build_train_step, make_optimizer
-    from repro_torch.models import lm
 
     plan = cell.runs[0][1]
     cfg = plan.cfg
-    params = lm.init_params(cfg, gen, device=device)
+    params = _family_params(cfg, gen, device)
     one = {k: v[:1] for k, v in batch.items()}
     loss_r, g_r = _grads_of(params, cfg, one, "ref")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -8012,11 +8047,37 @@ def _train_fault(cfg):
     the grad norm by less than the bar (1.5e-2 and 1.7e-3 against 2.4e-2
     and 1.6e-2 on an NVIDIA H100 80GB HBM3 at 700.00 W,
     ``tools/mesh_lm_cells.py``) but makes the ranks' grad norms
-    disagree."""
+    disagree.  SSM: the SSD mixer's parameters entered through
+    ``copy_to``, so their gradients, whole on every ``model`` rank, are
+    summed over it (doubled); hybrid: the SSM half's output, whole on
+    every rank, summed over ``model`` as if it were a row-parallel
+    layer's (doubled in ``0.5 (a + s)``).  Both leave every rank
+    agreeing, so the one-device bar alone must catch them."""
 
     from repro_torch.models import blocks, lm
     from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding
 
+    if cfg.family == "ssm":
+        real_ssm = blocks.ssm_mixer
+
+        def summed(p, x, ctx, cache=None):
+            tp = sharding.tp_axes()
+            return real_ssm({k: C.copy_to(v, tp) for k, v in p.items()}, x,
+                            ctx, cache)
+
+        return ("the SSD mixer's whole gradients psum'd over model",
+                mock.patch.object(blocks, "ssm_mixer", summed), ("bar",))
+    if cfg.family == "hybrid":
+        real_half = blocks.ssm_mixer
+
+        def psummed(p, x, ctx, cache=None):
+            y, new_cache = real_half(p, x, ctx, cache)
+            return C.reduce_from(y, sharding.tp_axes()), new_cache
+
+        return ("the SSM half's whole output psum'd over model in the "
+                "hybrid's sum", mock.patch.object(blocks, "ssm_mixer",
+                                                  psummed), ("bar",))
     if cfg.family == "mla":
         real = blocks.mla_mixer
 
@@ -8062,7 +8123,7 @@ def _mesh_train(cfg, cell):
         step_fn, specs, batch_fn = build_train_step(plan, mesh, optimizer=opt)
         gen = torch.Generator(device=mesh.device)
         gen.manual_seed(cfg["seed"])
-        params = lm.init_params(plan.cfg, gen, device=mesh.device)
+        params = _family_params(plan.cfg, gen, mesh.device)
         state = {"params": shard_state(params, specs["params"], mesh),
                  "opt": sharded_zeros(opt.init(lm.abstract_params(plan.cfg)),
                                       specs["opt"], mesh),
@@ -8119,8 +8180,9 @@ def _check_mesh_train(ranks, want, cell):
     bar, steps = want["bar"], want["steps"]
     key = f"lm_train/{cell.arch}"
     per_step = _family_train_want(K, cfg, MESH_TRAIN_MICROBATCHES)
-    route = {k: K.route(k, torch.bfloat16, _attention_dim(cfg))
-             for k in ("fwd", "dq", "dkv")}
+    route = {} if cfg.attention_free else {
+        k: K.route(k, torch.bfloat16, _attention_dim(cfg))
+        for k in ("fwd", "dq", "dkv")}
     tokens = MESH_LM_BATCH * MESH_LM_SEQ
     for tag, *_ in cell.runs:
         for i, c in enumerate(ranks[0][key][tag]):
@@ -8190,7 +8252,7 @@ def _mesh_serve_lm_params(cfg, seed, device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    master = lm.init_params(cfg, gen, device=device)
+    master = _family_params(cfg, gen, device)
     params = lm.serving_params(cfg, master)
     del master
     return params
@@ -8267,6 +8329,37 @@ def _unjoined_decode():
                            lambda o, m, l, axes, dtype: real(o, m, l, (),
                                                              dtype)):
         yield
+
+
+@contextlib.contextmanager
+def _unsummed_lookup():
+    """The planted fault: the vocab-parallel lookup's ``psum`` skipped, so
+    each ``model`` rank embeds only the tokens of its own vocab block
+    (zeros for the rest)."""
+
+    from repro_torch.models import lm
+    from repro_torch.parallel import collectives as C
+
+    real = lm._embed_tokens
+
+    def embed(*args):
+        with mock.patch.object(C, "reduce_from", lambda x, axes: x):
+            return real(*args)
+
+    with mock.patch.object(lm, "_embed_tokens", embed):
+        yield
+
+
+def _serve_fault(cfg):
+    """(name, context) of a cell's planted serving fault: the split
+    softmax left unjoined over ``model``, or, for the attention-free SSM,
+    whose decode joins no softmax, the tied table's vocab-parallel lookup
+    left unsummed."""
+
+    if cfg.attention_free:
+        return ("the vocab-parallel lookup's psum skipped",
+                _unsummed_lookup())
+    return "split softmax unjoined over model", _unjoined_decode()
 
 
 def _mesh_serve_lm(cfg, cell):
@@ -8352,7 +8445,7 @@ def _mesh_serve_lm(cfg, cell):
     fingerprint = [_bits_fingerprint(full), _bits_fingerprint(tokens)]
     del full, local, run
     fault = []
-    with _unjoined_decode(), torch.inference_mode():
+    with _serve_fault(lcfg)[1], torch.inference_mode():
         cache = box.pop("cache")
         for i in range(MESH_SERVE_LM_FAULT_STEPS):
             logits, cache = decode_fn(params, cache, feed[:, i:i + 1], S + i)
@@ -8399,8 +8492,8 @@ def _check_mesh_serve_lm(ranks, want, cell):
     launches = [(x["prefill_launches"], x["prefill_wgmma"],
                  x["decode_launches"]) for x in cells]
     n_prefill, n_decode = _b2_launches(cfg)
-    wgmma = n_prefill * (K.route("fwd", torch.bfloat16,
-                                 _attention_dim(cfg)) == "wgmma")
+    wgmma = n_prefill and n_prefill * (K.route(
+        "fwd", torch.bfloat16, _attention_dim(cfg)) == "wgmma")
     same = all(x["fingerprint"] == c["fingerprint"] for x in cells)
     padded = {x["model"]: x["padded"] for x in cells}
     print(f"mesh: serve {cfg.name} {_layers_of(cfg)}, {B} x {S} prompts, "
@@ -8417,7 +8510,7 @@ def _check_mesh_serve_lm(ranks, want, cell):
     rels = ", ".join(f"{x:.2e}" for x in c["rel"])
     print(f"mesh: serve {cfg.name} logits vs one device, rel L2, prefill "
           f"then {fed} fed steps: max {max(c['rel']):.3e} ({rels}); bar "
-          f"{bar:.3e}; the planted fault (split softmax unjoined over model) "
+          f"{bar:.3e}; the planted fault ({_serve_fault(cfg)[0]}) "
           f"{', '.join(f'{x:.3e}' for x in c['fault'])}; every rank's "
           f"joined logits and tokens equal {same}; padded columns a model "
           f"rank (count, all -1e30) {padded}; greedy tokens equal to one "
@@ -8427,8 +8520,8 @@ def _check_mesh_serve_lm(ranks, want, cell):
     if max(c["rel"]) > bar:
         failed.append(f"{cell.arch} serve: logits {max(c['rel'])} > {bar}")
     if min(c["fault"]) <= bar:
-        failed.append(f"{cell.arch} serve: the bar passes an unjoined split "
-                      f"softmax")
+        failed.append(f"{cell.arch} serve: the bar passes "
+                      f"{_serve_fault(cfg)[0]}")
     if not same:
         failed.append(f"{cell.arch} serve: ranks disagree")
     if tokens.max() >= cfg.vocab or not all(p[1] for p in padded.values()) \

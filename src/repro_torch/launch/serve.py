@@ -23,9 +23,16 @@ made explicit:
   them), which :func:`greedy_sample` reads vocab-parallel.
 
 An encoder-decoder's cross K/V cache is cut over ``batch`` only: every
-``model`` rank holds every head, as the reference lays it out.  The
-``ssm`` and ``hybrid`` families (ROADMAP A10h-2), and kv heads that do
-not divide ``model`` (A10h), refuse a mesh before any collective.
+``model`` rank holds every head, as the reference lays it out.  So is an
+SSM's ``conv`` window and state (ROADMAP A10h-2: the ``ssm`` family and
+the hybrid's SSM half, whose mixer runs whole on every ``model`` rank);
+the hybrid's attention half keeps its ring cache with the slots cut over
+``model``.  kv heads that ``model`` does not divide, where it divides
+the q heads (A10h-3, case (i)), are gathered whole and repeated to the
+rank's q heads, as the reference serves them; the cache holds the raw kv
+heads.  q heads that it does not divide the planner keeps whole, the
+attention replicated as the reference's; a plan that cuts them mid-head
+refuses a mesh before any collective (A10h-4).
 """
 
 from __future__ import annotations

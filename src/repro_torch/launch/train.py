@@ -41,10 +41,18 @@ ZeRO-3 leaf's gather at use has reduce-scattered it already), so every
 rank issues the same collectives in the same order whatever autograd's
 own order.  The clip takes the global norm over the shards, AdamW runs
 elementwise on each rank's shard, and a ZeRO-1 parameter is all-gathered
-over ``data`` back to its layout.  The ``dense``, ``moe``, ``mla`` and
-``encdec`` families run on a mesh (A10e-1, A10h-1); the ``ssm`` and
-``hybrid`` families (A10h-2), and kv heads that do not divide ``model``
-(the reference's ``_maybe_repeat_kv``, A10h), refuse.
+over ``data`` back to its layout.  Every family runs on a mesh
+(:data:`MESH_FAMILIES`; A10e-1, A10h-1, A10h-2).  The SSD mixer's
+leaves have no ``model`` in their specs (the reference keeps
+``ssm_heads``, ``ssm_state`` and ``conv_dim`` replicated), so their
+gradients, whole on every ``model`` rank, are reduced over the batch axes
+only, as the norms' are.  kv heads that ``model`` does not divide, where
+it divides the q heads, are repeated to the rank's q heads as the
+reference's ``_maybe_repeat_kv`` does (A10h-3, case (i):
+``blocks._repeat_layout``).  q heads that it does not divide (case (ii))
+the planner keeps whole, the attention replicated as the reference's; a
+plan that cuts any attention's q heads over such an axis, mid-head,
+refuses (A10h-4, :func:`_refuse_unported`).
 """
 
 from __future__ import annotations
@@ -69,8 +77,10 @@ from repro_torch.parallel.sharding import (P, PartitionSpec, local_shape,
 __all__ = ["build_train_step", "make_optimizer", "param_specs",
            "opt_specs_like", "MESH_FAMILIES"]
 
-# The families whose train step runs on a mesh; the others are A10h-2.
-MESH_FAMILIES = ("dense", "moe", "mla", "encdec")
+# The families whose train step, prefill and decode run on a mesh: dense
+# and moe (A10e-1, A10e-2), mla and encdec (A10h-1), ssm and hybrid
+# (A10h-2: the SSD mixer whole on every model rank).
+MESH_FAMILIES = ("dense", "moe", "mla", "encdec", "ssm", "hybrid")
 
 Device = Optional[Union[str, torch.device]]
 
@@ -260,33 +270,31 @@ def _moment_specs(p_specs, like, mesh, zero: str, fsdp: bool):
 
 def _refuse_unported(cfg, mesh, p_specs, doing: str = "training") -> None:
     """The paths not ported to a mesh raise before any collective
-    (``doing``: "training" or "serving"): the ``ssm`` and ``hybrid``
-    families, and heads cut over ``model`` that it does not divide (the
-    reference's ``_maybe_repeat_kv``; MLA's heads likewise)."""
+    (``doing``: "training" or "serving"): a family outside
+    :data:`MESH_FAMILIES`, and any attention's q heads (GQA, MLA's,
+    the encoder's, the cross-attention's) cut over a ``model`` axis that
+    does not divide them, which would cut them mid-head (ROADMAP A10h-4).
+    The planner keeps such heads whole, the attention replicated, as the
+    reference's; only a hand-set ``qkv`` rule reaches the refusal.  kv
+    heads that ``model`` does not divide are taken where it divides the q
+    heads (A10h-3, case (i))."""
 
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{doing} the {cfg.family} family ({cfg.name}) on a mesh is not "
-            f"ported yet (ROADMAP A10h-2); the mesh step takes "
-            f"{MESH_FAMILIES}")
+            f"ported; the mesh step takes {MESH_FAMILIES}")
     tp = mesh.shape.get("model", 1)
-    layers = p_specs["layers"]
-    if cfg.family == "mla":
-        mixers, keys = [layers["attn"]], ("q_up", "k_up", "v_up", "wo")
-        heads = (cfg.n_heads,)
-    else:
-        mixers, keys = [layers["attn"]], ("wq", "wk", "wv")
-        if cfg.family == "encdec":
-            mixers += [layers["xattn"], p_specs["enc_layers"]["attn"]]
-        heads = (cfg.n_heads, cfg.n_kv_heads)
-    cut = any("model" in spec_axes(e) for attn in mixers for k in keys
-              for e in attn[k])
-    if cut and any(h % tp for h in heads):
+    if not cfg.n_heads % tp:
+        return
+    mixers = [p_specs["layers"].get(m) for m in ("attn", "xattn")]
+    mixers.append(p_specs.get("enc_layers", {}).get("attn"))
+    cut = any("model" in spec_axes(e) for attn in mixers if attn
+              for k in ("wq", "q_up", "wo") if k in attn for e in attn[k])
+    if cut:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} q / {cfg.n_kv_heads} kv heads on a "
-            f"{tp}-way model axis: repeating kv heads that do not divide it "
-            f"(the reference's _maybe_repeat_kv) is not ported (ROADMAP "
-            f"A10h)")
+            f"{doing} {cfg.name}: {cfg.n_heads} q heads cut over a {tp}-way "
+            f"model axis that does not divide them (mid-head) are not "
+            f"ported (ROADMAP A10h-4); the planner keeps them whole")
 
 
 @dataclass(frozen=True)

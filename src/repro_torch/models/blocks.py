@@ -32,8 +32,9 @@ parallel, :func:`~repro_torch.parallel.collectives.copy_to` at its input
 * GQA attention: q, k, v heads column-parallel (the rank's heads are
   contiguous, and GQA's grouping is contiguous too, so rank r's q heads
   read exactly rank r's kv heads), ``wo`` row-parallel; ``q_norm`` and
-  ``k_norm`` pass through ``copy_to``, since each rank normalises only its
-  heads; where the plan keeps ``qkv`` whole the attention is replicated;
+  ``k_norm`` pass through ``copy_to``, since each rank's gradient of them
+  is its heads' share; where the plan keeps
+  ``qkv`` whole the attention is replicated;
 * the MoE: the router replicated (through ``copy_to``: a rank's gates see
   only its experts' outputs), each rank runs its X/tp experts (EP) or its
   ffn columns of every expert (``expert_ffn`` over ``model``), and the
@@ -45,14 +46,27 @@ parallel, :func:`~repro_torch.parallel.collectives.copy_to` at its input
   from heads to slots with one all-to-all (``_cache_layout``); decode
   attends each rank's slots for every head and joins the softmax
   statistics over ``model`` (``_decode_attention``);
+* kv heads that ``model`` does not divide (ROADMAP A10h-3,
+  :func:`_repeat_layout`): where it divides the q heads only (case (i)),
+  the kv projections' columns are all-gathered and the whole kv heads
+  repeated to the rank's q heads (the reference's ``_maybe_repeat_kv``).
+  Where it does not divide the q heads (case (ii)) the planner keeps
+  ``qkv`` whole and the attention is replicated, as the reference's; a
+  plan that cuts them mid-head anyway is refused (A10h-4);
 * MLA (ROADMAP A10h-1): ``q_up``, ``k_up``, ``v_up`` column-parallel over
   heads, ``wo`` row-parallel, the latents whole on every rank; its latent
   cache's slots cut as the dense cache's, and decode joins a split
-  softmax in the latent space (``_mla_decode``).
+  softmax in the latent space (``_mla_decode``);
+* the SSD mixer (ROADMAP A10h-2): whole on every ``model`` rank, as the
+  reference's rules keep ``ssm_heads``, ``ssm_state`` and ``conv_dim``
+  replicated, with no collective; its gradients are whole on each rank
+  (the train step does not sum them over ``model``), and its cache is cut
+  over ``batch`` only.  The hybrid layer's attention half is tensor
+  parallel and its SSM half replicated, so their average is whole on
+  every rank.
 
 Outside a placement every one of these is the identity: one device, as
-before.  The JAX package's ``_maybe_repeat_kv`` (kv heads that do not
-divide ``model``) is not ported: the mesh step refuses it (ROADMAP A10h).
+before.
 """
 
 from __future__ import annotations
@@ -137,6 +151,58 @@ def _tp_cut(local: int, whole: int) -> Tuple[str, ...]:
     return sharding.tp_axes() if local < whole else ()
 
 
+def _repeat_layout(p, cfg: ArchConfig) -> Tuple[Tuple[str, ...], bool]:
+    """``(tp, repeat)``: the ``model`` axes GQA attention's heads are cut
+    over (``()`` where whole: the attention replicated), and whether
+    ``model`` divides the q heads but not the kv heads (ROADMAP A10h-3,
+    case (i)): each rank then projects its own q heads, all-gathers the kv
+    projections' columns and repeats the whole kv heads to its q heads
+    (the reference's ``_maybe_repeat_kv``).  A cut of the q heads that
+    ``model`` does not divide would fall mid-head: the mesh steps refuse
+    it before any collective (A10h-4), and the planner never makes one."""
+
+    tp = _tp_cut(p["wq"].shape[-1], cfg.n_heads * cfg.hd)
+    if not tp:
+        return tp, False
+    n = sharding.ambient_axis_size(tp[0])
+    if cfg.n_heads % n:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} q heads cut over a {n}-way model "
+            f"axis that does not divide them (ROADMAP A10h-4)")
+    return tp, cfg.n_kv_heads % n != 0
+
+
+def _gather_columns(ts, tp):
+    """The whole outputs of column-cut projections, each of ``ts`` a
+    rank's block ``(..., w)`` of its columns: one all-gather of them side
+    by side, whose backward is one reduce-scatter (each rank's columns get
+    the gradient summed over the ranks that read them)."""
+
+    widths = [t.shape[-1] for t in ts]
+    g = C.gather_dim(torch.cat(ts, dim=-1)[None], tp, 0)
+    out, at = [], 0
+    for w in widths:
+        part = g[..., at:at + w].movedim(0, -2)
+        out.append(part.reshape(part.shape[:-2] + (-1,)))
+        at += w
+    return out
+
+
+def _repeat_kv(t: torch.Tensor, cfg: ArchConfig, tp) -> torch.Tensor:
+    """Whole kv heads ``(B, S, KH, D)`` as the rank's ``H / tp`` q heads
+    read them, one kv head a q head: the reference's repeat to ``H`` heads
+    cut by heads, repeating only the kv heads the rank's q heads read (an
+    expand, whose backward sums the repeats in a fixed order)."""
+
+    B, S, _, D = t.shape
+    g = cfg.n_heads // cfg.n_kv_heads
+    n = cfg.n_heads // C.axis_size(tp[0])
+    a = C.axis_index(tp) * n
+    lo, hi = a // g, (a + n - 1) // g + 1
+    t = t[:, :, lo:hi, None].expand(B, S, hi - lo, g, D)
+    return t.reshape(B, S, (hi - lo) * g, D).narrow(2, a - lo * g, n)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
@@ -195,17 +261,22 @@ def attention_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _qkv(p, x, cfg, rope_tabs, tp=()):
-    """q, k, v at the rank's local head counts (the weights' local
-    widths); ``tp``: the ``model`` axes the heads are cut over."""
+def _qkv(p, x, cfg, rope_tabs, tp=(), repeat=False):
+    """q, k, v at the rank's heads (``tp``: the ``model`` axes the columns
+    are cut over), or, under ``repeat`` (:func:`_repeat_layout`), q at the
+    rank's heads and k, v whole: their projections' columns gathered
+    before any reshape into heads, since a rank's kv columns may hold
+    part of a head."""
 
     dt = _cdt(cfg)
     B, S, _ = x.shape
     D = cfg.hd
-    H, KH = p["wq"].shape[-1] // D, p["wk"].shape[-1] // D
-    q = _mm(x, p["wq"], dt).reshape(B, S, H, D)
-    k = _mm(x, p["wk"], dt).reshape(B, S, KH, D)
-    v = _mm(x, p["wv"], dt).reshape(B, S, KH, D)
+    q = _mm(x, p["wq"], dt)
+    k = _mm(x, p["wk"], dt)
+    v = _mm(x, p["wv"], dt)
+    if repeat:
+        k, v = _gather_columns([k, v], tp)
+    q, k, v = (t.reshape(B, S, -1, D) for t in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, C.copy_to(p["q_norm"], tp))
         k = rms_norm(k, C.copy_to(p["k_norm"], tp))
@@ -266,18 +337,22 @@ def _cache_layout(t: torch.Tensor, tp, kv) -> torch.Tensor:
     return t
 
 
-def _decode_attention(q, k_new, v_new, cache, ctx: LayerCtx, tp):
+def _decode_attention(q, k_new, v_new, cache, ctx: LayerCtx, tp,
+                      repeat=False):
     """Write the new token's K/V into ``cache`` in place and attend over
-    it.  ``q``, ``k_new``, ``v_new`` at the rank's heads (cut over ``tp``);
-    returns the attention at the same heads.
+    it.  ``q``, ``k_new``, ``v_new`` as :func:`_qkv` gives them (cut over
+    ``tp``; k and v whole under ``repeat``); returns the attention at q's
+    heads.
 
     On a mesh (ROADMAP A10e-2) the cache holds every kv head, so the new
-    token's K/V are all-gathered over ``tp``.  Where its slots are cut over
-    ``ctx.kv_axes`` only the rank that owns the written slot writes it, at
-    its local slot (guarded, never clamped: ROADMAP C1), every head's q
-    attends the rank's slots, masked by their global ids, and the blocks'
-    softmax statistics are joined over the axes; where the slots are whole
-    the rank attends its own heads."""
+    token's K/V are all-gathered over ``tp`` where they are the rank's
+    heads (``repeat`` gathered them whole already).  Where its slots are
+    cut over ``ctx.kv_axes`` only the rank that owns the written slot
+    writes it, at its local slot (guarded, never clamped: ROADMAP C1),
+    every head's q attends the rank's slots, masked by their global ids,
+    and the blocks' softmax statistics are joined over the axes; where the
+    slots are whole the rank attends its own q heads (their kv heads
+    narrowed, or repeated under ``repeat``)."""
 
     cfg = ctx.cfg
     k_c, v_c = cache["k"], cache["v"]
@@ -289,7 +364,7 @@ def _decode_attention(q, k_new, v_new, cache, ctx: LayerCtx, tp):
     if not 0 <= slot < L:
         raise IndexError(f"decode position {pos} is past the cache "
                          f"length {L}")
-    if tp:
+    if tp and not repeat:
         k_new = C.all_gather_dim(k_new, tp, 2)
         v_new = C.all_gather_dim(v_new, tp, 2)
     first = C.axis_index(kv) * Ll if kv else 0
@@ -301,7 +376,9 @@ def _decode_attention(q, k_new, v_new, cache, ctx: LayerCtx, tp):
     slots = torch.arange(first, first + Ll, device=q.device)
     valid = _slot_valid(pos, L, cfg.window, slots)[None, :].expand(B, Ll)
     if not kv:
-        if tp:
+        if repeat:
+            k_c, v_c = _repeat_kv(k_c, cfg, tp), _repeat_kv(v_c, cfg, tp)
+        elif tp:
             KH = k_c.shape[2] // C.axis_size(tp[0])
             k_c = k_c.narrow(2, C.axis_index(tp) * KH, KH)
             v_c = v_c.narrow(2, C.axis_index(tp) * KH, KH)
@@ -324,22 +401,28 @@ def attention_mixer(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Decode writes the new token's k/v into ``cache`` in place (the JAX
     package donates the cache and updates it with a dynamic slice) and
-    returns the same dict."""
+    returns the same dict.
+
+    On a mesh where ``model`` divides the q heads but not the kv heads
+    (ROADMAP A10h-3, :func:`_repeat_layout`) the kv heads are gathered
+    whole and repeated to the rank's q heads; the cache holds the raw kv
+    heads, as the reference's."""
 
     cfg = ctx.cfg
     dt = _cdt(cfg)
     B, S, _ = x.shape
-    H, D = p["wq"].shape[-1] // cfg.hd, cfg.hd
-    tp = _tp_cut(H, cfg.n_heads)
+    tp, repeat = _repeat_layout(p, cfg)
     x = C.copy_to(x, tp)
 
     if ctx.mode == "decode":
-        q, k_new, v_new = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp)
-        out = _decode_attention(q, k_new, v_new, cache, ctx, tp)
+        q, k_new, v_new = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp, repeat)
+        out = _decode_attention(q, k_new, v_new, cache, ctx, tp, repeat)
         new_cache = cache
     else:
-        q, k, v = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp)
-        out = chunked_attention(q, k, v, causal=ctx.causal,
+        q, k, v = _qkv(p, x, cfg, (ctx.sin, ctx.cos), tp, repeat)
+        k_att, v_att = (k, v) if not repeat else (
+            _repeat_kv(k, cfg, tp), _repeat_kv(v, cfg, tp))
+        out = chunked_attention(q, k_att, v_att, causal=ctx.causal,
                                 window=cfg.window, impl=ctx.attention)
         new_cache = None
         if ctx.mode == "prefill":
@@ -354,9 +437,10 @@ def attention_mixer(
                 pad = Lc - S
                 k_keep = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v_keep = F.pad(v, (0, 0, 0, 0, 0, pad))
-            new_cache = {"k": _cache_layout(k_keep, tp, ctx.kv_axes),
-                         "v": _cache_layout(v_keep, tp, ctx.kv_axes)}
-    out = out.reshape(B, S, H * D)
+            heads = () if repeat else tp
+            new_cache = {"k": _cache_layout(k_keep, heads, ctx.kv_axes),
+                         "v": _cache_layout(v_keep, heads, ctx.kv_axes)}
+    out = out.reshape(B, S, -1)
     y = C.reduce_from(_mm(out, p["wo"], dt), tp)
     return y, new_cache
 

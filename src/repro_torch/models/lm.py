@@ -39,7 +39,11 @@ The JAX package's ``models/lm.py``, every family, on one device:
   cross-attention is column-parallel over heads with ``wo`` row-parallel,
   and the cross K/V cache holds every head on every ``model`` rank (cut
   over ``batch`` only, as the reference lays it out): prefill all-gathers
-  each layer's K/V heads once, decode narrows to the rank's own.
+  each layer's K/V heads once, decode narrows to the rank's own;
+* a tied table (mamba2-130m, ROADMAP A10h-2) is the vocab-parallel
+  lookup and the vocab-parallel head at once: autograd sums both parts of
+  its gradient into the one leaf, and under ZeRO-3 it is gathered once
+  for each use (the lookup, then the head or the loss).
 """
 
 from __future__ import annotations
@@ -344,15 +348,18 @@ def _xattn_tp(params, cfg) -> Tuple[str, ...]:
 
 def _cross_kv(p, enc_out, cfg):
     """The encoder output's K/V at the rank's kv heads (the local width of
-    ``wk``/``wv``)."""
+    ``wk``/``wv``), or every kv head where ``model`` does not divide them
+    (ROADMAP A10h-3, case (i): the projections' columns all-gathered)."""
 
     dt = dtype_of(cfg.compute_dtype)
     B, S, _ = enc_out.shape
     D = cfg.hd
-    KH = p["wk"].shape[-1] // D
-    k = (enc_out.to(dt) @ p["wk"].to(dt)).reshape(B, S, KH, D)
-    v = (enc_out.to(dt) @ p["wv"].to(dt)).reshape(B, S, KH, D)
-    return k, v
+    k = enc_out.to(dt) @ p["wk"].to(dt)
+    v = enc_out.to(dt) @ p["wv"].to(dt)
+    tp = blocks._tp_cut(k.shape[-1], cfg.n_kv_heads * D)
+    if tp and cfg.n_kv_heads % sharding.ambient_axis_size(tp[0]):
+        k, v = blocks._gather_columns([k, v], tp)
+    return k.reshape(B, S, -1, D), v.reshape(B, S, -1, D)
 
 
 def _cross_attention(p, x, enc_kv, cfg, attention="auto"):
@@ -360,20 +367,27 @@ def _cross_attention(p, x, enc_kv, cfg, attention="auto"):
 
     On a mesh (ROADMAP A10h-1) q, K and V are column-parallel over the
     rank's heads and ``wo`` row-parallel; a K/V holding every head (the
-    decode's cross cache, whole over ``model``) is narrowed to the rank's
-    heads, with no collective."""
+    decode's cross cache, whole over ``model``, or kv heads that ``model``
+    does not divide) is narrowed to the rank's heads, or repeated to its
+    q heads (A10h-3, case (i)), with no collective.  The q heads must
+    divide ``model`` (A10h-4; the mesh steps refuse the rest)."""
 
     dt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     D = cfg.hd
-    H, KH = p["wq"].shape[-1] // D, p["wk"].shape[-1] // D
+    H = p["wq"].shape[-1] // D
     tp = blocks._tp_cut(H, cfg.n_heads)
     x = C.copy_to(x, tp)
     q = (x.to(dt) @ p["wq"].to(dt)).reshape(B, S, H, D)
     k, v = enc_kv
-    if k.shape[2] != KH:
-        k = k.narrow(2, C.axis_index(tp) * KH, KH)
-        v = v.narrow(2, C.axis_index(tp) * KH, KH)
+    KH = cfg.n_kv_heads
+    if tp and k.shape[2] == KH:
+        if KH % C.axis_size(tp[0]):
+            k, v = (blocks._repeat_kv(t, cfg, tp) for t in (k, v))
+        else:
+            n = KH // C.axis_size(tp[0])
+            k = k.narrow(2, C.axis_index(tp) * n, n)
+            v = v.narrow(2, C.axis_index(tp) * n, n)
     out = chunked_attention(q, k, v, causal=False, window=None,
                             impl=attention)
     return C.reduce_from(out.reshape(B, S, H * D).to(dt) @ p["wo"].to(dt),

@@ -2,7 +2,7 @@
 shared inputs, the JAX package's 8-device program and the port's rank
 program of ``test_torch_spmd_serve_lm.py``.
 
-Four cells (``CELLS``), each a prompt of ``PROMPT`` tokens, greedy decode
+The cells (``CELLS``), each a prompt of ``PROMPT`` tokens, greedy decode
 from the prefill's last logits:
 
 * ``minitron`` — reduced minitron-8b on ``(data 4, model 2)``,
@@ -27,7 +27,29 @@ from the prefill's last logits:
 * ``whisper`` — reduced whisper-medium on ``(data 4, model 2)`` with
   its published vocab of 51,865 (padded to 51,968: the last ``model``
   rank's block ends in 103 padded columns), ``cache_len`` 32 and
-  ``enc_input`` frames; the cross K/V cache whole over ``model`` (A10h-1).
+  ``enc_input`` frames; the cross K/V cache whole over ``model`` (A10h-1);
+* ``mamba2`` — reduced mamba2-130m on ``(data 4, model 2)`` with its
+  published vocab of 50,280 (padded to 50,432, so the prompt's tokens
+  fall in both ``model`` ranks' blocks of the tied table): the SSD mixer
+  whole on every ``model`` rank, its ``conv`` window and state cut over
+  ``batch`` only and carried through 8 decode steps, the tied table as
+  the vocab-parallel lookup and head (A10h-2);
+* ``hymba_ring`` — reduced hymba-1.5b with 5 q / 1 kv heads (hymba's
+  published 25 / 5 ratio, ``config``) and its published vocab of 32,001
+  (padded to 32,256: 255 padded columns on the last ``model`` rank) on
+  ``(data 4, model 2)``: 2 divides neither head count, so the planner
+  keeps ``qkv`` whole and every rank attends every head, as the
+  reference (A10h-3, case (ii)); a 16-slot ring, shorter than the
+  prompt, cut over ``model``, which 12 decode steps wrap, decode joining
+  the split softmax of the whole heads; the SSM half's cache whole over
+  ``model`` (A10h-2);
+* ``minitron_kv`` — reduced minitron-8b as it is (4 q / 2 kv heads) on
+  ``(data 2, model 4)``: 4 divides the q heads, not the kv heads, which
+  are gathered whole and repeated to the rank's q head (A10h-3, case
+  (i)); its padded vocab fills the last two ``model`` ranks' blocks;
+* ``minitron_kv_whole`` — the same with ``cache_len`` 33, which 4 does
+  not divide: the slots whole, so decode repeats the whole cache's kv
+  heads to the rank's q head.
 
 The plans are the planner's ``prefill_32k`` / ``decode_32k`` plans for the
 mesh (the arctic cell's ZeRO-3 set on both).  The weights and prompts are
@@ -50,7 +72,8 @@ from _spmd_train_workloads import _init_leaf, digest, flat, nest, port_config
 
 MESHES = {"dm": ((4, 2), ("data", "model")),
           "pdm": ((2, 2, 2), ("pod", "data", "model")),
-          "dm3": ((2, 3), ("data", "model"))}
+          "dm3": ((2, 3), ("data", "model")),
+          "dm4": ((2, 4), ("data", "model"))}
 CELLS = {
     "minitron": {"arch": "minitron_8b", "mesh": "dm", "cache_len": 32,
                  "steps": 8, "fsdp": False},
@@ -66,6 +89,15 @@ CELLS = {
                  "steps": 8, "fsdp": False},
     "whisper": {"arch": "whisper_medium", "mesh": "dm", "cache_len": 32,
                 "steps": 8, "fsdp": False, "vocab": 51865},
+    "mamba2": {"arch": "mamba2_130m", "mesh": "dm", "cache_len": 32,
+               "steps": 8, "fsdp": False, "vocab": 50280},
+    "hymba_ring": {"arch": "hymba_1_5b", "mesh": "dm", "cache_len": 16,
+                   "steps": 12, "fsdp": False, "vocab": 32001,
+                   "config": {"n_heads": 5, "n_kv_heads": 1}},
+    "minitron_kv": {"arch": "minitron_8b", "mesh": "dm4", "cache_len": 32,
+                    "steps": 8, "fsdp": False},
+    "minitron_kv_whole": {"arch": "minitron_8b", "mesh": "dm4",
+                          "cache_len": 33, "steps": 8, "fsdp": False},
 }
 PROMPT = (8, 24)
 SEED = 0
@@ -74,10 +106,12 @@ AGAIN = "minitron"
 
 
 def cell_config(cell):
-    """The cell's reduced config in the port (its ``vocab`` where the cell
-    sets one)."""
+    """The cell's reduced config in the port (its ``vocab`` and its
+    ``config`` overrides where the cell sets them, as the JAX program
+    does)."""
 
-    cfg = port_config(cell["arch"])
+    cfg = dataclasses.replace(port_config(cell["arch"]),
+                              **cell.get("config", {}))
     if "vocab" in cell:
         cfg = dataclasses.replace(cfg, vocab=cell["vocab"])
     return cfg
@@ -178,7 +212,8 @@ def jax_main(d):
             out[f"{tag}cache1/{path}"] = np.asarray(a, np.float32)
 
     for name, cell in CELLS.items():
-        cfg = reduced_config(get_config(cell["arch"]))
+        cfg = dataclasses.replace(reduced_config(get_config(cell["arch"])),
+                                  **cell.get("config", {}))
         if "vocab" in cell:
             cfg = dataclasses.replace(cfg, vocab=cell["vocab"])
         pplan, dplan = _plans(plan_lm, MeshSpec, cfg, cell)

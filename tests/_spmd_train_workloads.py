@@ -2,7 +2,7 @@
 shared inputs, the JAX package's 8-device program and the port's rank
 program of ``test_torch_spmd_train.py``.
 
-Three cells (``CELLS``):
+The cells (``CELLS``):
 
 * ``zero1`` — the reference's own cell (``spmd_program.py``'s LM train
   step): reduced minitron-8b, ``plan_lm`` on ``TPU_V5E`` (ZeRO-1), 2
@@ -16,7 +16,25 @@ Three cells (``CELLS``):
   over ``model``, the latents whole) under ZeRO-1, 2 steps (A10h-1);
 * ``whisper`` — reduced whisper-medium (the encoder's and the decoder's
   self- and cross-attention over ``model``) under ZeRO-1, 2 steps, its
-  batch carrying ``enc_input`` frames (A10h-1).
+  batch carrying ``enc_input`` frames (A10h-1);
+* ``mamba2`` — reduced mamba2-130m (8 SSM heads, the SSD mixer whole on
+  every ``model`` rank, the tied table as the vocab-parallel lookup, head
+  and loss) with its published vocab of 50,280 (``config``; padded to
+  50,432, so tokens and gradient land in both ``model`` ranks' blocks of
+  the tied table) under ZeRO-3, so the tied table is gathered for each
+  use, 2 steps (A10h-2);
+* ``hymba`` — reduced hymba-1.5b with hymba's published 25 / 5 head
+  ratio as 5 q / 1 kv heads (``config``, given to both packages): 2
+  divides neither, so the planner keeps ``qkv`` whole and the attention
+  half runs replicated beside the replicated SSM half, as the
+  reference's (A10h-3, case (ii)); window 16; ZeRO-1, 2 steps (A10h-2);
+* ``hymba_tp`` — reduced hymba-1.5b as it is (4 q / 2 kv heads): the
+  attention half tensor parallel over ``model`` beside the replicated SSM
+  half, so ``h``'s gradient is the attention's all-reduced part plus the
+  SSM's whole part; ZeRO-1, 2 steps (A10h-2);
+* ``minitron_kv1`` — reduced minitron-8b with 1 kv head (``config``): 2
+  divides its 4 q heads, not its kv head, which is gathered whole and
+  repeated to the rank's q heads (A10h-3, case (i)); ZeRO-1, 2 steps.
 
 The weights and tokens are numpy arrays made from a seed
 (:func:`make_inputs`, written to a directory as ``.npz``): the JAX
@@ -47,6 +65,14 @@ CELLS = {
                  "steps": 2},
     "whisper": {"arch": "whisper_medium", "fsdp": False, "mask": False,
                 "steps": 2},
+    "mamba2": {"arch": "mamba2_130m", "fsdp": True, "mask": False,
+               "steps": 2, "config": {"vocab": 50280}},
+    "hymba": {"arch": "hymba_1_5b", "fsdp": False, "mask": False,
+              "steps": 2, "config": {"n_heads": 5, "n_kv_heads": 1}},
+    "hymba_tp": {"arch": "hymba_1_5b", "fsdp": False, "mask": False,
+                 "steps": 2},
+    "minitron_kv1": {"arch": "minitron_8b", "fsdp": False, "mask": False,
+                     "steps": 2, "config": {"n_kv_heads": 1}},
 }
 MICROBATCHES = 2
 LR = 1e-3
@@ -102,6 +128,25 @@ def port_config(arch):
     return reduced_config(get_config(arch))
 
 
+def cell_config(cell):
+    """The cell's reduced config in the port, with the cell's ``config``
+    overrides (the same ones the JAX program gives its own)."""
+
+    return dataclasses.replace(port_config(cell["arch"]),
+                               **cell.get("config", {}))
+
+
+def _cell_plan(plan, cell):
+    """The planner's plan (either package's) as the cell sets it: ZeRO-3
+    where ``fsdp``."""
+
+    if cell["fsdp"]:
+        plan = dataclasses.replace(
+            plan, zero="zero3",
+            rules=dataclasses.replace(plan.rules, fsdp=True))
+    return plan
+
+
 def make_inputs(d):
     """Write each cell's weights (``{cell}_params.npz``) and batch
     (``{cell}_batch.npz``) to ``d``, from ``SEED``."""
@@ -109,7 +154,7 @@ def make_inputs(d):
     from repro_torch.models import lm
 
     for i, (name, cell) in enumerate(CELLS.items()):
-        cfg = port_config(cell["arch"])
+        cfg = cell_config(cell)
         rng = np.random.default_rng([SEED, i])
         params = {}
         for k, sub in lm.model_specs(cfg).items():
@@ -171,14 +216,13 @@ def jax_main(d):
 
     mesh = make_compat_mesh(*MESH)
     for name, cell in CELLS.items():
-        cfg = reduced_config(get_config(cell["arch"]))
+        cfg = dataclasses.replace(reduced_config(get_config(cell["arch"])),
+                                  **cell.get("config", {}))
         plan = plan_lm(cfg, "train_4k", MeshSpec(tuple(zip(MESH[1],
                                                             MESH[0]))))
-        plan = dataclasses.replace(plan, cfg=cfg, microbatches=MICROBATCHES)
-        if cell["fsdp"]:
-            plan = dataclasses.replace(
-                plan, zero="zero3",
-                rules=dataclasses.replace(plan.rules, fsdp=True))
+        plan = _cell_plan(dataclasses.replace(plan, cfg=cfg,
+                                              microbatches=MICROBATCHES),
+                          cell)
         opt = adamw(lr=LR)
         def host_params():
             return jax.tree_util.tree_map(jnp.asarray,
@@ -220,14 +264,10 @@ def port_plan(cell):
     from repro_torch.core.hardware import MeshSpec
     from repro_torch.core.lm_planner import plan_lm
 
-    cfg = port_config(cell["arch"])
+    cfg = cell_config(cell)
     plan = plan_lm(cfg, "train_4k", MeshSpec(tuple(zip(MESH[1], MESH[0]))))
-    plan = dataclasses.replace(plan, cfg=cfg, microbatches=MICROBATCHES)
-    if cell["fsdp"]:
-        plan = dataclasses.replace(
-            plan, zero="zero3",
-            rules=dataclasses.replace(plan.rules, fsdp=True))
-    return plan
+    return _cell_plan(dataclasses.replace(plan, cfg=cfg,
+                                          microbatches=MICROBATCHES), cell)
 
 
 def port_state(d, name, optimizer, device="cpu"):
@@ -237,7 +277,7 @@ def port_state(d, name, optimizer, device="cpu"):
 
     from repro_torch.carry import lm_params_from_numpy
 
-    params = lm_params_from_numpy(port_config(CELLS[name]["arch"]),
+    params = lm_params_from_numpy(cell_config(CELLS[name]),
                                   nest(load(d, name, "params")),
                                   device=device)
     return {"params": params, "opt": optimizer.init(params),
@@ -254,11 +294,13 @@ def digest(arrays) -> str:
 class _Audit:
     """Records every index the rank's layers hand to torch at the two
     sites that compute one from a global id: the vocab-parallel lookup
-    and loss (``lm._vocab_local``) and the MoE dispatch's buffer rows
-    (``blocks._local_slots``)."""
+    and loss (``lm._vocab_local``; a tied table's too) and the MoE
+    dispatch's buffer rows (``blocks._local_slots``), counted by cell and
+    site."""
 
     def __init__(self):
         self.checked, self.bad = 0, []
+        self.cell, self.sites = None, {}
 
     def patches(self):
         from unittest import mock
@@ -282,6 +324,8 @@ class _Audit:
 
     def _check(self, site, idx, hi):
         self.checked += 1
+        key = f"{self.cell}/{site}"
+        self.sites[key] = self.sites.get(key, 0) + 1
         lo_, hi_ = int(idx.min()), int(idx.max())
         if lo_ < 0 or hi_ > hi:
             self.bad.append((site, lo_, hi_, hi))
@@ -346,6 +390,7 @@ def run_cell(d, name, mesh, audit=None):
     losses, norms, phases = [], [], []
     with contextlib.ExitStack() as stack:
         if audit is not None:
+            audit.cell = name
             for p in audit.patches():
                 stack.enter_context(p)
         for _ in range(cell["steps"]):
@@ -409,7 +454,8 @@ def rank_main(rank, world, d):
         again = run_cell(d, AGAIN, mesh)
     out["again_digest"] = again["digest"]
     out["again_losses"] = again["losses"]
-    out["audit"] = {"checked": audit.checked, "bad": audit.bad}
+    out["audit"] = {"checked": audit.checked, "bad": audit.bad,
+                    "sites": audit.sites}
     if rank:
         for name in CELLS:
             del out[name]["final"]

@@ -214,37 +214,53 @@ def test_param_count_matches_jax():
 
 
 def test_unported_families_and_meshes_raise():
-    """On a mesh, the families not ported to one (ssm, hybrid) and kv
-    heads that do not divide ``model`` (reduced whisper-medium's and
-    minitron-8b's 2 on a 4-way axis) refuse both serve steps, naming
-    ROADMAP A10h, before any collective (a stand-in mesh has no process
-    group to call); MLA (reduced minicpm3-4b's 4 heads, A10h-1) builds
-    both on the same mesh."""
+    """On a ``(data 1, model 4)`` mesh every family builds both serve
+    steps: reduced minicpm3-4b (MLA, 4 heads), mamba2-130m and hymba-1.5b
+    (A10h-2), and reduced whisper-medium and minitron-8b, whose 2 kv heads
+    4 does not divide (A10h-3, repeated to the rank's q head).  q heads
+    cut mid-head over a ``model`` that does not divide them (the same
+    minicpm3, hymba and whisper with 5 heads, the ``qkv`` rule kept on
+    ``model`` where the planner would replicate them) refuse both, naming
+    ROADMAP A10h-4, before any collective (a stand-in mesh has no process
+    group to call)."""
 
     import types
 
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 4},
                                  device=torch.device("cpu"))
     axes = (("data", 1), ("model", 4))
+    five = {"mla": {"n_heads": 5}, "encdec": {"n_heads": 5, "n_kv_heads": 1},
+            "hybrid": {"n_heads": 5, "n_kv_heads": 1}}
+    built = refused = 0
     for arch in ("minicpm3_4b", "mamba2_130m", "hymba_1_5b",
                  "whisper_medium", "minitron_8b"):
         cfg = reduced_config(get_config(arch))
-        for shape in ("prefill_32k", "decode_32k"):
-            plan = dataclasses.replace(plan_lm(cfg, shape, MeshSpec(axes)),
-                                       cfg=cfg)
+        cases = [(cfg, True)]
+        if cfg.family in five:
+            cases.append((dataclasses.replace(cfg, **five[cfg.family]),
+                          False))
+        for c, ported in cases:
+            for shape in ("prefill_32k", "decode_32k"):
+                plan = dataclasses.replace(
+                    plan_lm(c, shape, MeshSpec(axes)), cfg=c)
+                if not ported:
+                    # the planner replicates heads model does not divide
+                    plan = dataclasses.replace(
+                        plan, rules=plan.rules.with_rule("qkv", "model"))
 
-            def build():
-                if shape == "prefill_32k":
-                    return serve.build_prefill_step(plan, mesh, 32)
-                return serve.build_decode_step(plan, mesh, cache_len=32)
+                def build():
+                    if shape == "prefill_32k":
+                        return serve.build_prefill_step(plan, mesh, 32)
+                    return serve.build_decode_step(plan, mesh, cache_len=32)
 
-            if cfg.family == "mla":
-                assert callable(build()[0])
-                continue
-            with pytest.raises(NotImplementedError,
-                               match="kv heads" if cfg.family == "encdec"
-                               else "A10h"):
-                build()
+                if ported:
+                    assert callable(build()[0])
+                    built += 1
+                    continue
+                with pytest.raises(NotImplementedError, match="A10h-4"):
+                    build()
+                refused += 1
+    assert (built, refused) == (10, 6)
 
 
 def test_lm_params_from_numpy_keeps_bf16_and_checks_shapes():

@@ -12,7 +12,14 @@ minitron-8b on ``(data 4, model 2)`` (``cache_len`` 32, the slots cut over
 and decode wraps), reduced arctic-480b under ZeRO-3 with ``cache_len`` 33
 (kept whole by the divisibility filter), the minitron cell on ``(pod 2,
 data 2, model 2)``, and on ``(data 2, model 3)`` over 6 ranks, where only
-the slots are cut (whole heads, ffn and vocab).
+the slots are cut (whole heads, ffn and vocab); reduced minicpm3-4b (MLA)
+and whisper-medium (A10h-1); reduced mamba2-130m at its published vocab
+(the SSD whole on every ``model`` rank, its cache cut over rows only) and
+hymba-1.5b with 5 q / 1 kv heads, whose attention the planner replicates
+(every head attended on every rank), and a 16-slot ring cut over
+``model`` (A10h-2, A10h-3 case (ii)); and
+reduced minitron-8b on ``(data 2, model 4)``, whose 2 kv heads 4 does not
+divide, with its slots cut and whole (A10h-3 case (i)).
 
 Bars:
 
@@ -27,7 +34,7 @@ Bars:
 * every rank's joined results bit-equal, the ranks that share rows
   (``model`` replicas) bit-equal in their tokens and, where the slots are
   whole, their cache blocks; two runs bit-identical;
-* the padded vocab columns of the last ``model`` rank's block are
+* the padded vocab columns of the last ``model`` ranks' blocks are
   ``-1e30`` at every step and never sampled;
 * inside the ranks (ROADMAP C1): the decode's slot write made by the
   owner alone, inside its block; the mask's global slot ids, the
@@ -35,9 +42,9 @@ Bars:
 
 In process: ``cache_specs_on`` against the reference's
 ``logical_to_spec`` of ``lm.cache_axes`` for all ten configs on four
-meshes, the serving plans byte-equal to the reference's, the refusals
-(A10h) before any collective, and the mla and encdec families' steps
-built on a stand-in mesh (A10h-1).
+meshes, the serving plans byte-equal to the reference's, every family's
+steps built on a stand-in mesh, and the refusals that remain (A10h-4)
+before any collective.
 """
 
 from __future__ import annotations
@@ -159,6 +166,10 @@ def test_cache_blocks_are_the_reference_shard_shapes(runs, name):
                 # an encoder-decoder's cross K/V: every frame and head
                 assert shape[2:] == (cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
                 continue
+            if path.split("/")[-1] in ("conv", "ssm"):
+                # an SSM's window and state: cut over the rows only
+                assert shape[2:] == ranks[0][name]["cache1"][path].shape[2:]
+                continue
             # the slots are cut over model exactly where it divides them
             assert shape[2] == (L // tp if L % tp == 0 else L)
 
@@ -189,7 +200,9 @@ def test_every_rank_agrees(runs, name):
         groups.setdefault(c["rows"], []).append(c)
     for rows, group in groups.items():
         tp = group[0]["tp"]
-        whole = W.CELLS[name]["cache_len"] % tp != 0
+        # an SSM's cache has no slots: whole over model, as uncut slots are
+        whole = W.CELLS[name]["cache_len"] % tp != 0 or \
+            W.cell_config(W.CELLS[name]).family == "ssm"
         assert len(group) == tp
         local = group[0]["local_tokens"]
         n = local.shape[0]
@@ -207,32 +220,37 @@ def test_two_runs_are_bit_identical(runs):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_padded_columns_never_win(runs, name):
-    """The last ``model`` rank's vocab block holds the padded columns (on
-    reduced configs all of it: 128 real columns padded to 256; whisper's
-    cell its last 103: 51,865 padded to 51,968): they are -1e30 at
-    prefill and at every decode step, and no token sampled lies past the
-    real vocab."""
+    """The padded columns lie in the last ``model`` ranks' vocab blocks
+    (on reduced configs 128 real columns padded to 256: all of the last
+    rank's block on a 2-way axis, the last two ranks' on a 4-way one;
+    whisper's cell the last 103: 51,865 padded to 51,968; hymba's the last
+    255: 32,001 padded to 32,256): they are -1e30 at prefill and at every
+    decode step, and no token sampled lies past the real vocab."""
 
     ranks, _ = runs
     cfg = W.cell_config(W.CELLS[name])
+    V = cfg.padded_vocab
     for c in _in(ranks, name):
         pads, tp = c["pads"], c["tp"]
         assert len(pads) == W.CELLS[name]["steps"] + 1
-        last = cfg.padded_vocab % tp or c["model"] == tp - 1
-        n = cfg.padded_vocab - cfg.vocab if last else 0
-        assert all(p == (n, True) for p in pads), pads
+        n = V // tp if V % tp == 0 else V
+        first = c["model"] * n if n < V else 0
+        pad = max(0, first + n - max(first, cfg.vocab))
+        assert all(p == (pad, True) for p in pads), pads
     assert ranks[0][name]["tokens"].max() < cfg.vocab
 
 
-def _writes(r):
-    """The slot writes rank ``r`` makes over the audited cells: where the
-    slots are cut only the owner of ``pos % L`` (or ``pos``) writes."""
+def _writes(r, names=CELLS):
+    """The slot writes rank ``r`` makes over the audited cells ``names``:
+    where the slots are cut only the owner of ``pos % L`` (or ``pos``)
+    writes; an SSM's cache has no slots."""
 
     total = 0
-    for name, cell in W.CELLS.items():
-        if r[name] is None:
-            continue
+    for name in names:
+        cell = W.CELLS[name]
         cfg = W.cell_config(cell)
+        if r[name] is None or cfg.family == "ssm":
+            continue
         L, S, tp = cell["cache_len"], W.PROMPT[1], r[name]["tp"]
         for pos in range(S, S + cell["steps"]):
             slot = pos % L if cfg.window is not None else pos
@@ -245,8 +263,11 @@ def test_indices_stay_in_range(runs):
     """C1 inside the ranks: the decode's local slot write (the owner
     alone, inside its block), the mask's global slot ids, the
     vocab-parallel lookup's local ids and the argmax's tokens; among
-    them MLA decode's latent slot write and mask (``minicpm3``), and the
-    lookup and argmax over whisper's odd vocab (``whisper``)."""
+    them MLA decode's latent slot write and mask (``minicpm3``), the
+    lookup and argmax over whisper's, hymba's and mamba2's published
+    vocabs (mamba2's table tied to its head), hymba's ring
+    writes on a cache cut over ``model`` (positions 24-31 in ``model``
+    rank 1's slots 8-15, then 32-35 in rank 0's 0-3)."""
 
     ranks, _ = runs
     for r in ranks:
@@ -262,7 +283,16 @@ def test_indices_stay_in_range(runs):
         assert sites.get("minicpm3/write", 0) == \
             per_layer * (r["minicpm3"]["model"] == 1)
         for site in ("vocab", "argmax"):
-            assert sites[f"whisper/{site}"] >= W.CELLS["whisper"]["steps"]
+            for name in ("whisper", "hymba_ring", "mamba2"):
+                assert sites[f"{name}/{site}"] >= W.CELLS[name]["steps"]
+        cell = W.CELLS["hymba_ring"]
+        per_layer = cell["steps"] * W.cell_config(cell).n_layers
+        assert sites["hymba_ring/mask"] == per_layer
+        assert sites["hymba_ring/write"] == _writes(r, ["hymba_ring"]) \
+            == W.cell_config(cell).n_layers * (
+                8 if r["hymba_ring"]["model"] == 1 else 4)
+        # the attention-free SSM writes no slot and masks none
+        assert not {"mamba2/write", "mamba2/mask"} & set(sites)
 
 
 # ---------------------------------------------------------------------------
@@ -327,11 +357,16 @@ def test_cache_specs_equal_the_reference(arch, mesh_name):
 @pytest.mark.parametrize("arch", ("minicpm3_4b", "mamba2_130m", "hymba_1_5b",
                                   "whisper_medium", "kv_heads"))
 def test_unported_paths_refuse_before_any_collective(arch):
-    """On a mesh the families not ported to one (ssm, hybrid) and kv heads
-    that do not divide ``model`` (reduced minitron-8b's 2 on a 4-way
-    axis) refuse both serve steps naming ROADMAP A10h; the ported mla and
-    encdec families (A10h-1) build both on the same stand-in mesh.  A
-    stand-in mesh has no process group, so any collective would fail."""
+    """On a stand-in mesh every family builds both serve steps: mla and
+    encdec with their heads cut over ``model`` (A10h-1), ssm and hybrid
+    (A10h-2), and kv heads that ``model`` does not divide (reduced
+    minitron-8b's 2 on a 4-way axis, A10h-3).  What stays unported, q
+    heads cut mid-head over a ``model`` axis that does not divide them
+    (reduced minicpm3-4b, hymba-1.5b and whisper-medium with 5 heads on a
+    2-way axis, the ``qkv`` rule kept on ``model``), refuses both, naming
+    ROADMAP A10h-4; under the planner's own rules those heads are
+    replicated and build.  A stand-in mesh has no process
+    group, so any collective would fail: the refusal comes before any."""
 
     from repro_torch.core.hardware import MeshSpec
     from repro_torch.core.lm_planner import plan_lm
@@ -342,21 +377,30 @@ def test_unported_paths_refuse_before_any_collective(arch):
     axes = (("data", 2), ("model", tp))
     mesh = types.SimpleNamespace(shape=dict(axes),
                                  device=torch.device("cpu"))
+    five = {"mla": {"n_heads": 5},
+            "encdec": {"n_heads": 5, "n_kv_heads": 1},
+            "hybrid": {"n_heads": 5, "n_kv_heads": 1}}.get(cfg.family)
     for kind in ("prefill_32k", "decode_32k"):
-        plan = dataclasses.replace(plan_lm(cfg, kind, MeshSpec(axes)),
-                                   cfg=cfg)
-
-        def build():
+        def build(c, qkv=False):
+            plan = dataclasses.replace(plan_lm(c, kind, MeshSpec(axes)),
+                                       cfg=c)
+            if qkv:
+                # the planner replicates heads that model does not divide
+                plan = dataclasses.replace(
+                    plan, rules=plan.rules.with_rule("qkv", "model"))
             if kind == "prefill_32k":
                 return serve.build_prefill_step(plan, mesh, 32)
             return serve.build_decode_step(plan, mesh, cache_len=32)
 
-        if cfg.family in ("mla", "encdec"):
-            step = build()
-            assert callable(step[0])
-            specs = step[1]["layers"]["attn"]
-            assert any("model" in str(e) for leaf in specs.values()
-                       for e in leaf)
-            continue
-        with pytest.raises(NotImplementedError, match="A10h"):
-            build()
+        step = build(cfg)
+        assert callable(step[0])
+        specs = step[1]["layers"]
+        mixer = specs["ssm" if cfg.family == "ssm" else "attn"]
+        cut = any("model" in str(e) for leaf in mixer.values() for e in leaf)
+        # the SSD mixer whole on every model rank; attention cut over it
+        assert cut == (cfg.family != "ssm")
+        if five is not None:
+            c5 = dataclasses.replace(cfg, **five)
+            assert callable(build(c5)[0])
+            with pytest.raises(NotImplementedError, match="A10h-4"):
+                build(c5, qkv=True)

@@ -10,8 +10,14 @@ package's program on 8 virtual devices in a subprocess, launches 8
 one-device step in process.  The cells: the reference's own (reduced
 minitron-8b, the planner's ZeRO-1 plan, 2 microbatches, 4 AdamW steps),
 the same model under ZeRO-3 with a mask that leaves the microbatches' and
-the data shards' token counts unequal, and reduced arctic-480b (MoE, EP
-over ``model``, the dense residual) under ZeRO-3.
+the data shards' token counts unequal, reduced arctic-480b (MoE, EP
+over ``model``, the dense residual) under ZeRO-3, reduced minicpm3-4b and
+whisper-medium (A10h-1), reduced mamba2-130m at its published vocab
+under ZeRO-3 (the SSD whole on every ``model`` rank, the tied table
+gathered for each use), hymba-1.5b with 5 q / 1 kv heads, whose attention
+the planner replicates (A10h-2, A10h-3 case (ii)), and as it is, its
+attention tensor parallel (A10h-2), and reduced minitron-8b with 1 kv
+head (case (i)).
 
 Bars:
 
@@ -36,12 +42,14 @@ Bars:
   to torch inside the ranks in range (C1);
 * under ZeRO-1 a microbatch's gradients reach the shards by
   reduce-scatters only; under ZeRO-3 by the gathers' backward, a
-  parameter gathered once a use (the head once a microbatch).
+  parameter gathered once a use (the head once a microbatch, a tied
+  table once for the lookup and once for the loss).
 
 In process: the port's ``logical_to_spec`` / ``spec_for_param`` /
 ``_zero1_spec`` against the reference's on every leaf of all ten configs
 on four meshes, with ``fsdp`` on and off (a stand-in with a ``.shape``
-dict for the reference's mesh), exactly equal; and ``batch_fn``'s rows.
+dict for the reference's mesh), exactly equal; ``batch_fn``'s rows; and
+the SSD mixer's leaves reduced over the batch axes only.
 """
 
 from __future__ import annotations
@@ -185,12 +193,18 @@ def test_two_runs_are_bit_identical(runs):
 
 def test_indices_stay_in_range(runs):
     """C1 inside the ranks: the vocab-parallel lookup's and loss's local
-    ids and the EP dispatch's buffer rows."""
+    ids and the EP dispatch's buffer rows.  Each cell's vocab ids are
+    audited three times a microbatch (the lookup, the loss and the loss's
+    recompute), mamba2's tied table among them."""
 
     ranks, _, _ = runs
     for r in ranks:
         assert r["audit"]["checked"] >= 40
         assert r["audit"]["bad"] == []
+        sites = r["audit"]["sites"]
+        for name in ("mamba2", "hymba", "hymba_tp", "minitron_kv1"):
+            assert sites[f"{name}/vocab"] == \
+                3 * W.MICROBATCHES * W.CELLS[name]["steps"]
 
 
 def test_zero1_reduces_gradients_by_reduce_scatter(runs):
@@ -211,20 +225,92 @@ def test_zero3_gathers_each_parameter_once_a_use(runs):
     final norm once a microbatch; the gathers' backward reduce-scatters
     every gradient, so nothing is left to reduce after it."""
 
-    ranks, _, _ = runs
-    cfg = W.port_config(W.CELLS["zero3_masked"]["arch"])
-    from repro_torch.models import lm
+    _assert_zero3_gathers(runs, "zero3_masked")
 
-    per_layer = len(W.flat(lm.model_specs(cfg)["layers"]))
+
+def test_zero3_gathers_a_tied_table_once_a_use(runs):
+    """mamba2's tied table under ZeRO-3 (A10h-2): gathered once for the
+    lookup and once for the loss's head a microbatch (with the final
+    norm, the 3 beside the layers'), each gather's backward a
+    reduce-scatter into the one leaf."""
+
+    _assert_zero3_gathers(runs, "mamba2")
+
+
+def _assert_zero3_gathers(runs, name):
+    """Each layer leaf ZeRO-3 cuts over ``data`` (those with an ``embed``
+    dim: every one of minitron's, mamba2's norm, ``in_proj`` and
+    ``out_proj``) gathered twice a microbatch, the embedding's three
+    uses once; the leaves it leaves whole (mamba2's conv, ``A_log``,
+    ``D``, ``dt_bias`` and gated norm) all-reduced after the backward,
+    one ``psum`` each."""
+
+    from repro_torch.launch import train
+    from repro_torch.parallel.sharding import spec_axes
+
+    ranks, _, _ = runs
+    plan = W.port_plan(W.CELLS[name])
+    cfg = plan.cfg
+    assert plan.rules.fsdp
+    mesh = types.SimpleNamespace(shape=dict(zip(W.MESH[1], W.MESH[0])))
+    specs = W.flat(train.param_specs(cfg, mesh, plan.rules))
+    cut = {k: any("data" in spec_axes(e) for e in spec)
+           for k, spec in specs.items()}
+    per_layer = sum(v for k, v in cut.items() if k.startswith("layers/"))
+    whole = sum(not v for v in cut.values())
     gathers = 2 * per_layer * cfg.n_layers + 3
     for r in ranks:
-        for phases in r["zero3_masked"]["phases"]:
+        for phases in r[name]["phases"]:
             for i in range(W.MICROBATCHES):
                 calls = phases[f"microbatch {i}"]["calls"]
                 assert calls["all_gather"] == gathers
                 assert calls["psum_scatter"] == gathers - per_layer * \
                     cfg.n_layers
-                assert phases[f"reduce {i}"]["calls"] == {}
+                assert phases[f"reduce {i}"]["calls"] == (
+                    {"psum": whole} if whole else {})
+
+
+@pytest.mark.parametrize("name", ("mamba2", "hymba", "hymba_tp"))
+def test_ssm_gradients_are_not_summed_over_model(name):
+    """The SSD mixer's leaves (A10h-2) carry no ``model`` in their specs,
+    so the step reduces their gradients, whole on every ``model`` rank,
+    over the batch axes only and counts them once in the global norm, as
+    the norms'; the hybrid's attention leaves are cut over ``model`` and
+    enter the norm's ``psum`` over it where ``model`` divides the heads
+    (``hymba_tp``), and are whole, as the SSD's, where the planner
+    replicates them (``hymba``: 5 q heads on a 2-way axis)."""
+
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import spec_axes
+
+    plan = W.port_plan(W.CELLS[name])
+    cfg = plan.cfg
+    mesh = types.SimpleNamespace(
+        shape=dict(zip(W.MESH[1], W.MESH[0])), axis_names=W.MESH[1],
+        batch_axes=("data",))
+    p_specs = train.param_specs(cfg, mesh, plan.rules)
+    a_specs = train._moment_specs(p_specs, lm.abstract_params(cfg), mesh,
+                                  plan.zero, plan.rules.fsdp)
+    shapes = W.flat(lm.abstract_params(cfg))
+    p_flat, a_flat = W.flat(p_specs), W.flat(a_specs)
+    ssm = [k for k in p_flat if k.startswith("layers/ssm/")]
+    attn = [k for k in p_flat if k.startswith("layers/attn/")]
+    assert len(ssm) == 8 and bool(attn) == (cfg.family == "hybrid")
+    tp_attn = bool(attn) and \
+        cfg.n_heads % dict(zip(W.MESH[1], W.MESH[0]))["model"] == 0
+    assert tp_attn == (name == "hymba_tp")
+    for path in ssm + attn:
+        leaf = train._leaf_plan(p_flat[path], a_flat[path],
+                                tuple(shapes[path].shape), mesh)
+        cut = any("model" in spec_axes(e) for e in p_flat[path])
+        assert cut == (path in attn and tp_attn), path
+        assert "model" not in leaf.psum_axes + leaf.scatter_axes, path
+        assert ("model" in leaf.norm_axes) == cut, path
+        # over data: in the step, or by a ZeRO-3 gather's backward
+        held = {a for e in p_flat[path] for a in spec_axes(e)}
+        assert "data" in set(leaf.psum_axes + leaf.scatter_axes) | held, \
+            path
 
 
 def test_ranks_out_of_lockstep_fail_instead_of_hanging(tmp_path):

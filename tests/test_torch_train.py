@@ -373,9 +373,8 @@ def test_data_stream_is_pure_and_resumes(task):
 
 def test_mesh_raises(tmp_path):
     """On a one-rank mesh the step is the unmeshed step bit for bit; the
-    families not ported to a mesh (ssm, hybrid) refuse it, naming ROADMAP
-    A10h, before any collective; the mla and encdec families (A10h-1)
-    build it, with no collective."""
+    mla and encdec families (A10h-1) and the ssm and hybrid families
+    (A10h-2) build it, with no collective."""
 
     import torch.distributed as dist
 
@@ -414,14 +413,10 @@ def test_mesh_raises(tmp_path):
             plan = dataclasses.replace(
                 plan_lm(cfg, "train_4k", MeshSpec((("data", 1),))), cfg=cfg)
             calls = dict(mesh.stats.calls)
-            if cfg.family in ("mla", "encdec"):
-                step, specs, batch_fn = train.build_train_step(
-                    plan, mesh, device="cpu")
-                assert callable(step) and callable(batch_fn)
-                assert set(specs) == {"params", "opt", "step"}
-            else:
-                with pytest.raises(NotImplementedError, match="A10h"):
-                    train.build_train_step(plan, mesh, device="cpu")
+            step, specs, batch_fn = train.build_train_step(
+                plan, mesh, device="cpu")
+            assert callable(step) and callable(batch_fn)
+            assert set(specs) == {"params", "opt", "step"}
             assert dict(mesh.stats.calls) == calls
     finally:
         dist.destroy_process_group()

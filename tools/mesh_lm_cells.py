@@ -5,8 +5,9 @@ a (data 2, model 2) mesh over ``gloo`` staged through host memory, all on
     python3 tools/mesh_lm_cells.py [ARCH ...]
 
 ARCH is any of ``chip_smoke.MESH_LM_CELLS`` (phi4_mini_3_8b, minicpm3_4b,
-whisper_medium); all of them when none is named.  It builds the kernels,
-makes each cell's batch, bars and one-device yardsticks with
+whisper_medium, mamba2_130m, hymba_1_5b); all of them when none is named
+(``mamba2_130m hymba_1_5b``: the ssm and hybrid cells alone).  It builds
+the kernels, makes each cell's batch, bars and one-device yardsticks with
 ``chip_smoke._mesh_lm_inputs`` (B2-B4 held to their plain versions at a
 rank's local shapes and timed), runs ``chip_smoke._mesh_lm`` on every rank
 (the train step, its planted fault, serving and its planted fault) and
